@@ -1,0 +1,258 @@
+"""FlashSketch kernels for Hopper (port of ``repro/kernels/flashsketch.py``).
+
+The JAX package's fused-κ Pallas kernels become two CUDA kernels written
+by hand for ``sm_90a`` (sources in ``csrc/``, built by ``build.py``):
+
+  * ``flashsketch_fwd``        — ``Y = S·A``   (replaces ``flashsketch_pallas``)
+  * ``flashsketch_transpose``  — ``X = Sᵀ·Y``  (replaces
+    ``flashsketch_transpose_pallas``)
+
+Each wrapper streams its operand through the plan's precision policy
+(``_stream``), then launches its kernel for a CUDA tensor — or raises —
+and runs the kernel's plain PyTorch version (``kernels/ref.py`` on the
+streamed operand, upcast to fp32) for a CPU tensor.  Each launch adds one
+to the wrapper's entry of ``LAUNCHES``, so a run can show that it went
+through the kernels.
+
+How the kernels tile the work (``tn`` columns per block, thread groups,
+the chunk of hashed columns held in shared memory) is a launch choice made
+here; the plan geometry is not.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import precision as precision_mod
+from repro_torch.core.blockperm import (BlockPermPlan, dense_block,
+                                        dense_global_block)
+from repro_torch.kernels import build
+from repro_torch.kernels import ref as kref
+
+# Launch counts of the two CUDA kernels, by wrapper name: one per launch.
+LAUNCHES: Dict[str, int] = {"flashsketch_fwd": 0, "flashsketch_transpose": 0}
+
+# Streamed-type codes of csrc/hash.cuh (fs::StreamType).
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1,
+                torch.float8_e4m3fn: 2, torch.float8_e5m2: 3}
+
+# Shared memory a block may use on the H100 (227 KB).
+MAX_SMEM_BYTES = 232_448
+# Packed (row, sign) words a block hashes into shared memory at a time.
+_FWD_ENTRIES = 4096
+_TRANSPOSE_ENTRIES = 2048
+# Shared memory the transpose may give its staged tile of Y.
+_TRANSPOSE_TILE_BYTES = 160 * 1024
+# Threads a transpose block gives to one column (strided over rows u).
+_TRANSPOSE_GROUPS = 8
+MAX_THREADS = 1024
+
+
+def reset_launch_counts() -> None:
+    """Set every entry of ``LAUNCHES`` to 0."""
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# Neighbour tables: π_ℓ(g) = A_ℓ·g + B_ℓ (mod M) for ℓ = 1..κ, and the
+# inverse maps for the transpose.
+# ---------------------------------------------------------------------------
+
+def _wiring_tables(plan: BlockPermPlan) -> Tuple[np.ndarray, np.ndarray]:
+    A_tab = np.empty(plan.kappa, np.int32)
+    B_tab = np.empty(plan.kappa, np.int32)
+    a_l, b_l = 1, 0
+    for ell in range(plan.kappa):
+        # f^{ell+1} = f ∘ f^{ell}:  a_{l+1} = a·a_l, b_{l+1} = a·b_l + b.
+        a_l = (plan.a * a_l) % plan.M
+        b_l = (plan.a * b_l + plan.b) % plan.M
+        A_tab[ell], B_tab[ell] = a_l, b_l
+    return A_tab, B_tab
+
+
+def _inverse_wiring_tables(plan: BlockPermPlan) -> Tuple[np.ndarray, np.ndarray]:
+    A_tab, B_tab = _wiring_tables(plan)
+    Ai = np.empty_like(A_tab)
+    Bi = np.empty_like(B_tab)
+    for ell in range(plan.kappa):
+        a_inv = pow(int(A_tab[ell]), -1, plan.M) if plan.M > 1 else 0
+        Ai[ell] = a_inv % plan.M
+        Bi[ell] = (-a_inv * int(B_tab[ell])) % plan.M
+    return Ai, Bi
+
+
+def _fwd_neighbor_table(plan: BlockPermPlan) -> np.ndarray:
+    """(κ, M) table: h = π_{ℓ+1}(g)."""
+    A_tab, B_tab = _wiring_tables(plan)
+    g = np.arange(plan.M, dtype=np.int64)
+    return np.stack(
+        [(A_tab[l] * g + B_tab[l]) % plan.M for l in range(plan.kappa)]
+    ).astype(np.int32)
+
+
+def _inv_neighbor_table(plan: BlockPermPlan) -> np.ndarray:
+    """(κ, M) table: g = π_{ℓ+1}^{-1}(h)."""
+    Ai, Bi = _inverse_wiring_tables(plan)
+    h = np.arange(plan.M, dtype=np.int64)
+    return np.stack(
+        [(int(Ai[l]) * h + int(Bi[l])) % plan.M for l in range(plan.kappa)]
+    ).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=64)
+def _device_table(plan: BlockPermPlan, inverse: bool,
+                  device: torch.device) -> torch.Tensor:
+    """The (κ, M) int32 neighbour table on the card, built once per plan."""
+    tab = _inv_neighbor_table(plan) if inverse else _fwd_neighbor_table(plan)
+    return torch.from_numpy(tab).to(device)
+
+
+def stacked_phi(plan: BlockPermPlan, g: int, neighbors) -> torch.Tensor:
+    """The fused tile [Φ_{g,h₁} | … | Φ_{g,h_κ}] ∈ (Br, κ·Bc), entries ±1/0:
+    what the TPU kernel holds in VMEM, and what the CUDA kernels hold in
+    compact (row, sign) form.  For tests against ``dense_block``."""
+    tile = dense_global_block if plan.is_global else dense_block
+    return torch.cat([tile(plan, g, int(h)) for h in neighbors], dim=1)
+
+
+def _stream(plan: BlockPermPlan, operand: torch.Tensor) -> torch.Tensor:
+    """Quantize the operand into the plan's streaming dtype: the streaming
+    cast (``core.precision.quantize_stream``), keyed on ``plan.seed`` for
+    the stochastic-rounding policies."""
+    return precision_mod.quantize_stream(operand, plan.precision,
+                                         seed=plan.seed)
+
+
+# ---------------------------------------------------------------------------
+# Launch geometry.
+# ---------------------------------------------------------------------------
+
+FWD_DEFAULT_TN = 64
+TRANSPOSE_DEFAULT_TN = 32
+
+
+def fwd_launch(plan: BlockPermPlan, tn: int) -> Tuple[int, int, int]:
+    """(thread groups, hashed columns per chunk, shared bytes) of the
+    forward kernel at tile width ``tn``."""
+    groups = max(1, min(plan.s, MAX_THREADS // tn))
+    uc = max(1, _FWD_ENTRIES // plan.s)
+    return groups, uc, 4 * (plan.Br * tn + uc * plan.s)
+
+
+def transpose_launch(plan: BlockPermPlan,
+                     tn: int) -> Tuple[int, int, int, bool]:
+    """(thread groups, hashed columns per chunk, shared bytes, staged) of the
+    transpose kernel at tile width ``tn``: ``staged`` when the block's
+    (κ·Br, tn) tile of Y fits shared memory beside the tables."""
+    groups = max(1, min(_TRANSPOSE_GROUPS, MAX_THREADS // tn))
+    uc = max(1, _TRANSPOSE_ENTRIES // (plan.kappa * plan.s))
+    tables = (4 * (uc * plan.kappa * plan.s + 2 * plan.kappa) + 15) // 16 * 16
+    tile = plan.kappa * plan.Br * tn * plan.stream_itemsize
+    staged = tile <= _TRANSPOSE_TILE_BYTES
+    return groups, uc, tables + (tile if staged else 0), staged
+
+
+def _check_launch(plan: BlockPermPlan, operand: torch.Tensor, tn: int,
+                  smem: int, rows: int, name: str) -> None:
+    if plan.is_global:
+        raise NotImplementedError(
+            f"{name}: the global families ({plan.family!r}) have no CUDA "
+            f"kernel yet (ROADMAP queue 2, families); their plain version "
+            f"runs on CPU tensors")
+    if operand.shape[0] != rows or operand.dim() != 2:
+        raise ValueError(f"{name}: operand must be ({rows}, n), got "
+                         f"{tuple(operand.shape)}")
+    if tn < 32 or tn % 32 or tn > MAX_THREADS:
+        raise ValueError(f"{name}: tn must be a multiple of 32 in "
+                         f"[32, {MAX_THREADS}], got {tn}")
+    if smem > MAX_SMEM_BYTES:
+        raise NotImplementedError(
+            f"{name}: {smem} B of shared memory at tn={tn} exceeds the "
+            f"{MAX_SMEM_BYTES} B a block may use (Br={plan.Br}); such plans "
+            f"wait for the v1 kernels (ROADMAP queue 2, pallas_v1)")
+    if -(-operand.shape[1] // tn) > 65535:
+        raise ValueError(f"{name}: n={operand.shape[1]} needs more than "
+                         f"65535 column tiles at tn={tn}")
+
+
+def _launch(source: str, symbol: str, plan: BlockPermPlan, x: torch.Tensor,
+            out: torch.Tensor, tab: torch.Tensor, tn: int,
+            *geometry: int) -> None:
+    """Call ``symbol`` of the library built from ``source``; ``geometry``
+    are the C function's int arguments after ``tn``, in its order."""
+    lib = build.load(source)
+    fn = getattr(lib, symbol)
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [
+        ctypes.c_longlong, ctypes.c_uint, ctypes.c_float] + \
+        [ctypes.c_int] * (1 + len(geometry)) + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(x.data_ptr(), out.data_ptr(), tab.data_ptr(),
+             _DTYPE_CODES[x.dtype], plan.M, plan.Br, plan.Bc, plan.kappa,
+             plan.s, x.shape[1], plan.seed & 0xFFFFFFFF, plan.scale, tn,
+             *geometry, torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        lib.fs_error_string.restype = ctypes.c_char_p
+        lib.fs_error_string.argtypes = [ctypes.c_int]
+        raise RuntimeError(f"{symbol} launch failed: "
+                           f"{lib.fs_error_string(err).decode()} ({err})")
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers.
+# ---------------------------------------------------------------------------
+
+def flashsketch_fwd(plan: BlockPermPlan, A: torch.Tensor, *,
+                    tn: int = FWD_DEFAULT_TN) -> torch.Tensor:
+    """Y = S A.  A must be (d_pad, n); returns (k_pad, n) fp32 on A's
+    device.  CUDA tensors run the CUDA kernel, CPU tensors its plain
+    version; ragged n is handled in the kernel."""
+    if A.shape[0] != plan.d_pad:
+        raise ValueError(f"A must have d_pad={plan.d_pad} rows, got "
+                         f"{A.shape[0]}")
+    x = _stream(plan, A)
+    if A.device.type == "cpu":
+        return kref.flashsketch_ref(plan, x.to(torch.float32))
+    if A.device.type != "cuda":
+        raise ValueError(f"no FlashSketch kernel for device {A.device}")
+    groups, uc, smem = fwd_launch(plan, tn)
+    _check_launch(plan, x, tn, smem, plan.d_pad, "flashsketch_fwd")
+    x = x.contiguous()
+    Y = torch.empty((plan.k_pad, x.shape[1]), dtype=torch.float32,
+                    device=x.device)
+    _launch("flashsketch_fwd.cu", "fs_fwd", plan, x, Y,
+            _device_table(plan, False, x.device), tn, groups, uc, smem)
+    LAUNCHES["flashsketch_fwd"] += 1
+    return Y
+
+
+def flashsketch_transpose(plan: BlockPermPlan, Y: torch.Tensor, *,
+                          tn: int = TRANSPOSE_DEFAULT_TN) -> torch.Tensor:
+    """X = Sᵀ Y.  Y must be (k_pad, n); returns (d_pad, n) fp32 on Y's
+    device.  CUDA tensors run the CUDA kernel, CPU tensors its plain
+    version; ragged n is handled in the kernel."""
+    if Y.shape[0] != plan.k_pad:
+        raise ValueError(f"Y must have k_pad={plan.k_pad} rows, got "
+                         f"{Y.shape[0]}")
+    y = _stream(plan, Y)
+    if Y.device.type == "cpu":
+        # the plain version strips the padding rows; ask it for all d_pad
+        full = dataclasses.replace(plan, d=plan.d_pad)
+        return kref.flashsketch_transpose_ref(full, y.to(torch.float32))
+    if Y.device.type != "cuda":
+        raise ValueError(f"no FlashSketch kernel for device {Y.device}")
+    groups, uc, smem, staged = transpose_launch(plan, tn)
+    _check_launch(plan, y, tn, smem, plan.k_pad, "flashsketch_transpose")
+    y = y.contiguous()
+    X = torch.empty((plan.d_pad, y.shape[1]), dtype=torch.float32,
+                    device=y.device)
+    _launch("flashsketch_transpose.cu", "fs_transpose", plan, y, X,
+            _device_table(plan, True, y.device), tn, groups, uc, int(staged),
+            smem)
+    LAUNCHES["flashsketch_transpose"] += 1
+    return X
