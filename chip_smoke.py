@@ -9,8 +9,12 @@ Phases, any failure exits non-zero and prints no result:
      ``src/repro_torch/kernels/csrc`` (timed), TF32 off;
   2. each CUDA kernel against its plain PyTorch version on the card, for
      all six precision policies, at a ragged-n plan with d < d_pad, at
-     κ ∈ {1, 2, 4} × s ∈ {1, 2, 4}, and at the main plan; plus the exact
-     checks S·I == S and ⟨S x, y⟩ == ⟨x, Sᵀ y⟩;
+     κ ∈ {1, 2, 4} × s ∈ {1, 2, 4}, and at the main plan (the GraSS chunk
+     for the GraSS kernels, whose gathers run in both operand layouts, with
+     one plan whose Bc is not a power of two); plus the exact checks
+     S·I == S, ⟨S x, y⟩ == ⟨x, Sᵀ y⟩, each gather == its kernel on the
+     zero-padded materialized gather, and an identity row_index == the
+     non-gather kernel;
   3. the main path at the paper's size (d = 65 536, n = 1 024): the
      ``default``, ``fast`` and ``precise`` solver presets on a cond-1e4
      least-squares problem in float64, each solved twice (the first solve
@@ -20,9 +24,21 @@ Phases, any failure exits non-zero and prints no result:
      time); one autograd backward through
      ``sketch_apply`` and one ``sketch_apply_t``; the launch counts of
      both kernels over this phase;
-  4. timing at the main shape (CUDA events, warm-up, median): each
-     kernel, its plain version, its bound and one PyTorch library call
-     computing the same product (``torch.sparse.mm`` of S in CSR form).
+  4. timing (CUDA events, warm-up, median): each kernel, its plain
+     version, its bound and one PyTorch library call computing the same
+     product (``torch.sparse.mm`` of S in CSR form, after an
+     ``index_select`` for the gathers): the forward and transpose at the
+     main shape; the gather-fused forward and both FLASHBLOCKROW kernels
+     at the GraSS chunk (d_src = 109 386, d = 4 096, n = 64, k = 1 024) and
+     at a bandwidth-sized shape (d_src = 262 144, d = 65 536, n = 1 024,
+     k = 4 096), the gathers in both operand layouts;
+  5. GraSS data attribution at the paper's width (784 → 128 → 64 → 10,
+     109 386 parameters; sparse dim 4 096, k ∈ {1024, 2048, 4096}, κ = 4,
+     s = 2, chunks of 64; 5 000 train and 500 test examples, m = 50 LDS
+     retrains at α = 0.5): LDS > 0 at every k; fused features equal to
+     unfused ones for ``blockperm`` and ``blockrow``; one gather launch per
+     chunk; a NaN-poisoned example quarantined; one warm ``build_cache``
+     under ``torch.profiler``; the launch counts of this phase.
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the
 last is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -52,7 +68,22 @@ KERNEL_INFO = {
     "flashsketch_transpose": dict(
         source="src/repro_torch/kernels/csrc/flashsketch_transpose.cu",
         replaces="src/repro/kernels/flashsketch.py:619"),
+    "flashsketch_fwd_gather": dict(
+        source="src/repro_torch/kernels/csrc/flashsketch_fwd.cu",
+        replaces="src/repro/kernels/flashsketch.py:642"),
+    "blockrow_fwd": dict(
+        source="src/repro_torch/kernels/csrc/flashsketch_blockrow.cu",
+        replaces="src/repro/kernels/flashsketch.py:711"),
+    "blockrow_fwd_gather": dict(
+        source="src/repro_torch/kernels/csrc/flashsketch_blockrow.cu",
+        replaces="src/repro/kernels/flashsketch.py:682"),
 }
+# the kernels of the main path (phase 3) and of the GraSS path (phase 5)
+MAIN_KERNELS = ("flashsketch_fwd", "flashsketch_transpose")
+GRASS_KERNELS = ("flashsketch_fwd_gather", "blockrow_fwd",
+                 "blockrow_fwd_gather")
+# GraSS (paper App. E): 109 386-parameter MLP, sparse dim 4 096, κ = 4, s = 2
+GRASS_D_SRC, GRASS_D, GRASS_CHUNK, GRASS_K = 109_386, 4096, 64, 1024
 
 
 class SmokeFailure(Exception):
@@ -84,6 +115,17 @@ def cuda_ms(fn, warmup: int = 3, reps: int = 15) -> float:
 # Phase 2: kernels against their plain versions.
 # ---------------------------------------------------------------------------
 
+def _err(got, want, plan, what):
+    """Max abs error of a kernel against its plain version; raises past
+    the plan's exactness_atol x max|plain|."""
+    check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+          f"{what}: shape/finite")
+    err = float((got - want).abs().max())
+    check(err <= plan.precision.exactness_atol * float(want.abs().max()),
+          f"{what}: err {err}")
+    return err
+
+
 def compare_kernels(fsk, ref, plan, n, gen):
     """Max abs error of both kernels against their plain versions at one
     plan, all policies; raises past the policy's tolerance."""
@@ -92,24 +134,53 @@ def compare_kernels(fsk, ref, plan, n, gen):
     Y = torch.randn(plan.k_pad, n, generator=gen, device="cuda") * 3
     for pol in POLICIES:
         p = plan.with_dtype(pol)
-        tol = p.precision.exactness_atol
-        got = fsk.flashsketch_fwd(p, A)
         want = ref.flashsketch_ref(p, fsk._stream(p, A).float())
-        err = float((got - want).abs().max())
-        check(got.shape == want.shape and bool(torch.isfinite(got).all()),
-              f"fwd {pol} {plan.describe()}: shape/finite")
-        check(err <= tol * float(want.abs().max()),
-              f"fwd {pol} {plan.describe()}: err {err}")
-        errs[("flashsketch_fwd", pol)] = err
+        errs[("flashsketch_fwd", pol)] = _err(
+            fsk.flashsketch_fwd(p, A), want, p, f"fwd {pol} {plan.describe()}")
         full = dataclasses.replace(p, d=p.d_pad)    # all d_pad rows
-        got = fsk.flashsketch_transpose(p, Y)
         want = ref.flashsketch_transpose_ref(full, fsk._stream(p, Y).float())
-        err = float((got - want).abs().max())
-        check(got.shape == want.shape and bool(torch.isfinite(got).all()),
-              f"transpose {pol} {plan.describe()}: shape/finite")
-        check(err <= tol * float(want.abs().max()),
-              f"transpose {pol} {plan.describe()}: err {err}")
-        errs[("flashsketch_transpose", pol)] = err
+        errs[("flashsketch_transpose", pol)] = _err(
+            fsk.flashsketch_transpose(p, Y), want, p,
+            f"transpose {pol} {plan.describe()}")
+    return errs
+
+
+def compare_grass_kernels(rt, plan, n, d_src, gen):
+    """The gather-fused forward and both FLASHBLOCKROW kernels against
+    their plain versions at one plan, all policies, the gathers in both
+    operand layouts (a row-major (d_src, n) source and the (d_src, n) view
+    of a row-major (n, d_src) one); plus the exact checks: each gather
+    equals its non-gather kernel on the zero-padded materialized gather
+    bit for bit.  Returns the max abs errors by (kernel, policy)."""
+    fsk, ref, lowering = rt["fsk"], rt["ref"], rt["lowering"]
+    errs = {}
+    layouts = {"rows": torch.randn(d_src, n, generator=gen, device="cuda") * 3,
+               "view": torch.randn(n, d_src, generator=gen,
+                                   device="cuda").T * 3}
+    B = torch.randn(plan.d_pad, n, generator=gen, device="cuda") * 3
+    ri = torch.randperm(d_src, generator=gen,
+                        device="cuda")[:plan.d].sort().values
+    rmap = lowering.row_map_for(plan, ri, "cuda")
+    for pol in POLICIES:
+        p = plan.with_dtype(pol)
+        key = f"{pol} {plan.describe()} n={n}"
+        want = ref.blockrow_ref(p, fsk._stream(p, B).float())
+        e = _err(fsk.blockrow_fwd(p, B), want, p, f"blockrow_fwd {key}")
+        errs[("blockrow_fwd", pol)] = e
+        for layout, A in layouts.items():
+            G = ref.gather_rows(p, fsk._stream(p, A), rmap)
+            Gp = ref.pad_input(p, A[ri])            # zero-padded A[ri]
+            for name, plain, flat in (
+                    ("flashsketch_fwd_gather", ref.flashsketch_ref,
+                     fsk.flashsketch_fwd),
+                    ("blockrow_fwd_gather", ref.blockrow_ref,
+                     fsk.blockrow_fwd)):
+                got = getattr(fsk, name)(p, A, rmap)
+                e = _err(got, plain(p, G), p, f"{name} {layout} {key}")
+                errs[(name, pol)] = max(errs.get((name, pol), 0.0), e)
+                check(torch.equal(got, flat(p, Gp)),
+                      f"{name} {layout} {key}: not bit-equal to "
+                      f"{flat.__name__} on the materialized gather")
     return errs
 
 
@@ -148,7 +219,47 @@ def phase_kernels(rt, main_plan, n_main):
           f"adjoint: {lhs} vs {rhs}")
     print(f"  exact: sketch_apply(plan, I) == S (torch.equal); "
           f"<Sx,y>={lhs:.9g} <x,S^T y>={rhs:.9g}")
-    return {name: main_errs[(name, "float32")] for name in KERNEL_INFO}
+    return {name: main_errs[(name, "float32")] for name in MAIN_KERNELS}
+
+
+def phase_grass_kernels(rt):
+    fsk, ref, make_plan = rt["fsk"], rt["ref"], rt["blockperm"].make_plan
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    # the GraSS path's kernels: ragged n with d < d_pad, κ × s ∈ {1,2,4}²,
+    # a non-power-of-two Bc (blockrow's hash_mod is a true modulo), and the
+    # GraSS chunk itself
+    plans = [(make_plan(1000, 96, kappa=4, s=2, seed=1), 37, 3000)]
+    plans += [(make_plan(4096, 256, kappa=k, s=s, seed=10 * k + s), 100, 9000)
+              for k in (1, 2, 4) for s in (1, 2, 4)]
+    odd = make_plan(3000, 64, kappa=2, s=2, seed=7)
+    check(odd.Bc & (odd.Bc - 1) != 0, f"Bc={odd.Bc} is a power of two")
+    plans.append((odd, 33, 5000))
+    worst = {}
+    for plan, n, d_src in plans:
+        for key, err in compare_grass_kernels(rt, plan, n, d_src,
+                                              gen).items():
+            worst[key] = max(worst.get(key, 0.0), err)
+    grass_plan = make_plan(GRASS_D, GRASS_K, kappa=4, s=2, seed=0)
+    grass_errs = compare_grass_kernels(rt, grass_plan, GRASS_CHUNK,
+                                       GRASS_D_SRC, gen)
+    for (name, pol), err in sorted(grass_errs.items()):
+        print(f"  GraSS chunk {name:22s} {pol:12s} max_abs_err {err:.3e} "
+              f"(small plans worst {worst[(name, pol)]:.3e})")
+    print(f"  exact: every gather == its kernel on the zero-padded "
+          f"materialized gather (torch.equal), both layouts, all policies, "
+          f"{len(plans) + 1} plans, Bc={odd.Bc} among them")
+    # an identity row_index is the non-gather kernel
+    p, n = plans[0][0], 37
+    A = torch.randn(p.d, n, generator=gen, device="cuda")
+    rmap = rt["lowering"].row_map_for(p, torch.arange(p.d), "cuda")
+    Ap = ref.pad_input(p, A)
+    check(torch.equal(fsk.flashsketch_fwd_gather(p, A, rmap),
+                      fsk.flashsketch_fwd(p, Ap)), "identity gather (fwd)")
+    check(torch.equal(fsk.blockrow_fwd_gather(p, A, rmap),
+                      fsk.blockrow_fwd(p, Ap)), "identity gather (blockrow)")
+    print("  exact: identity row_index == the non-gather kernel, both "
+          "families")
+    return {name: grass_errs[(name, "float32")] for name in GRASS_KERNELS}
 
 
 # ---------------------------------------------------------------------------
@@ -248,7 +359,7 @@ def phase_main_path(rt, main_plan, d, n, cond):
     launches = dict(fsk.LAUNCHES)
     print(f"  backward of ||S A||^2: max err vs plain 2 S^T(SA) {gerr:.3e}")
     print(f"  launch counts over phase 3: {launches}")
-    for name in KERNEL_INFO:
+    for name in MAIN_KERNELS:
         check(launches[name] > 0, f"{name} never launched on the main path")
     return launches, per_solve
 
@@ -257,9 +368,17 @@ def phase_main_path(rt, main_plan, d, n, cond):
 # Phase 4: timing.
 # ---------------------------------------------------------------------------
 
+def _csr(idx, vals, shape):
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)   # beta-state notices
+        S = torch.sparse_coo_tensor(idx, vals, shape).coalesce()
+        return S.to_sparse_csr()
+
+
 def sparse_sketch(rt, plan, transpose=False):
-    """S (or Sᵀ) of the plan as a CSR tensor on the card: the yardstick
-    ``torch.sparse.mm`` multiplies with; the port never calls it."""
+    """S (or Sᵀ) of the plan, its first ``plan.d`` columns, as a CSR tensor
+    on the card: the yardstick ``torch.sparse.mm`` multiplies with; the
+    port never calls it."""
     blockperm, wiring = rt["blockperm"], rt["wiring"]
     dev = "cuda"
     g = torch.arange(plan.M, device=dev)[:, None, None]
@@ -274,13 +393,39 @@ def sparse_sketch(rt, plan, transpose=False):
         cols.append((h * plan.Bc + u).expand_as(r).reshape(-1))
         vals.append((sgn * plan.scale).reshape(-1))
     idx = torch.stack([torch.cat(rows), torch.cat(cols)])
-    shape = (plan.k_pad, plan.d_pad)
+    keep = idx[1] < plan.d
+    idx, shape = idx[:, keep], (plan.k_pad, plan.d)
     if transpose:
         idx, shape = idx.flip(0), shape[::-1]
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", UserWarning)   # beta-state notices
-        S = torch.sparse_coo_tensor(idx, torch.cat(vals), shape).coalesce()
-        return S.to_sparse_csr()
+    return _csr(idx, torch.cat(vals)[keep], shape)
+
+
+def blockrow_entries(rt, plan):
+    """(rows, cols, signs) of every nonzero of FLASHBLOCKROW's S_row, in
+    [k_pad] × [d_pad], collisions included (they add)."""
+    hashing, ref = rt["hashing"], rt["ref"]
+    dev = "cuda"
+    g = torch.arange(plan.M, device=dev)[:, None, None]
+    r = torch.arange(plan.Br, device=dev)[None, :, None]
+    t = torch.arange(plan.s, device=dev)[None, None, :]
+    tab = ref.blockrow_wiring(plan, dev)
+    rows, cols, signs = [], [], []
+    for ell in range(plan.kappa):
+        h = tab[ell][:, None, None]
+        hsh = hashing.hash_words(plan.seed, ref.BLOCKROW_PHI_TAG, g, h, r, t)
+        rows.append((g * plan.Br + r).expand_as(hsh).reshape(-1))
+        cols.append((h * plan.Bc + hashing.hash_mod(hsh, plan.Bc)).reshape(-1))
+        signs.append(hashing.hash_to_unit_sign(hsh).reshape(-1))
+    return torch.cat(rows), torch.cat(cols), torch.cat(signs)
+
+
+def sparse_blockrow(rt, plan, d):
+    """S_row restricted to its first ``d`` columns, in CSR, scaled."""
+    rows, cols, signs = blockrow_entries(rt, plan)
+    keep = cols < d
+    scale = rt["fsk"].blockrow_scale(plan)
+    return _csr(torch.stack([rows[keep], cols[keep]]), signs[keep] * scale,
+                (plan.k_pad, d))
 
 
 def phase_timing(rt, plan, n, launches, errs):
@@ -314,32 +459,246 @@ def phase_timing(rt, plan, n, launches, errs):
         lib_err[name] = float((w["library"]() - w["kernel"]()).abs().max())
     rows = []
     for name, w in work.items():
-        # plain, kernel, kernel, plain: compare inside one call, in turns
-        p1 = cuda_ms(w["plain"])
-        k1 = cuda_ms(w["kernel"])
-        k2 = cuda_ms(w["kernel"])
-        p2 = cuda_ms(w["plain"])
-        lib = cuda_ms(w["library"])
-        t_bytes = w["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = w["ops"] / FP32_OPS_PER_S * 1e3
-        bound = max(t_bytes, t_ops)
-        row = dict(name=name, route="cuda", **KERNEL_INFO[name],
-                   launches=launches[name], max_abs_err=errs[name],
-                   ms=min(k1, k2), plain_ms=min(p1, p2), bound_ms=bound,
-                   bound_by="bytes" if t_bytes >= t_ops else "operations",
-                   library_ms=lib)
+        row = time_row(name, w, launches[name], errs[name])
         rows.append(row)
-        print(f"  {name:22s} kernel {k1:.4f}/{k2:.4f} ms  plain "
-              f"{p1:.4f}/{p2:.4f} ms  bound {bound:.4f} ms "
-              f"({row['bound_by']})  library torch.sparse.mm {lib:.4f} ms "
-              f"(|lib - kernel| {lib_err[name]:.2e})  "
-              f"share of bound {bound / row['ms']:.3f}")
+        print(f"  {name:22s} kernel {row['ms']:.4f} ms  plain "
+              f"{row['plain_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']})  library torch.sparse.mm "
+              f"{row['library_ms']:.4f} ms (|lib - kernel| "
+              f"{lib_err[name]:.2e})  share of bound "
+              f"{row['bound_ms'] / row['ms']:.3f}")
     bf = plan.with_dtype("bfloat16")
     k_bf = cuda_ms(lambda: fsk.flashsketch_fwd(bf, A))
     print(f"  flashsketch_fwd bf16 stream (cast included) {k_bf:.4f} ms")
     for k in before:      # timing launches are not main-path launches
         fsk.LAUNCHES[k] = before[k]
     return rows
+
+
+def time_row(name, w, launches, err):
+    """Time one kernel, its plain version and its library call (plain,
+    kernel, kernel, plain, then library: compared inside one call, in
+    turns); the bound from the bytes and operations of this shape."""
+    p1 = cuda_ms(w["plain"])
+    k1 = cuda_ms(w["kernel"])
+    k2 = cuda_ms(w["kernel"])
+    p2 = cuda_ms(w["plain"])
+    lib = cuda_ms(w["library"])
+    t_bytes = w["bytes"] / HBM_BYTES_PER_S * 1e3
+    t_ops = w["ops"] / FP32_OPS_PER_S * 1e3
+    bound = max(t_bytes, t_ops)
+    return dict(name=name, route="cuda", **KERNEL_INFO[name],
+                launches=launches, max_abs_err=err, ms=min(k1, k2),
+                plain_ms=min(p1, p2), bound_ms=bound,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=lib)
+
+
+def grass_work(rt, plan, d_src, n, layout, gen):
+    """The three GraSS kernels at one shape and source layout: callables
+    for the kernel, its plain version and the library call, with the
+    bytes and operations of the bound (each gathered row read once, Y
+    written once; for FLASHBLOCKROW only the rows some nonzero names)."""
+    fsk, ref, lowering = rt["fsk"], rt["ref"], rt["lowering"]
+    src = (torch.randn(d_src, n, generator=gen, device="cuda")
+           if layout == "rows" else
+           torch.randn(n, d_src, generator=gen, device="cuda").T)
+    ri = torch.randperm(d_src, generator=gen, device="cuda")[:plan.d]
+    ri = ri.sort().values
+    rmap = lowering.row_map_for(plan, ri, "cuda")
+    A = src[ri]                      # (d, n) for the non-gather blockrow
+    A = A if layout == "rows" else A.T.contiguous().T
+    A = ref.pad_input(plan, A)
+    S = sparse_sketch(rt, plan)
+    S_row = sparse_blockrow(rt, plan, plan.d)
+    S_row_pad = sparse_blockrow(rt, plan, plan.d_pad)
+    _, cols, _ = blockrow_entries(rt, plan)
+    named = int(torch.unique(cols).numel())
+    named_d = int(torch.unique(cols[cols < plan.d]).numel())
+    item, out = plan.stream_itemsize, plan.k_pad * n * 4
+    ops = plan.kappa * plan.s * plan.k_pad * n
+    return {
+        "flashsketch_fwd_gather": dict(
+            kernel=lambda: fsk.flashsketch_fwd_gather(plan, src, rmap),
+            plain=lambda: ref.flashsketch_ref(
+                plan, ref.gather_rows(plan, src, rmap)),
+            library=lambda: torch.sparse.mm(S, src.index_select(0, ri)),
+            bytes=plan.d * n * item + out,
+            ops=plan.kappa * plan.s * plan.d * n),
+        "blockrow_fwd": dict(
+            kernel=lambda: fsk.blockrow_fwd(plan, A),
+            plain=lambda: ref.blockrow_ref(plan, A),
+            library=lambda: torch.sparse.mm(S_row_pad, A),
+            bytes=named * n * item + out, ops=ops),
+        "blockrow_fwd_gather": dict(
+            kernel=lambda: fsk.blockrow_fwd_gather(plan, src, rmap),
+            plain=lambda: ref.blockrow_ref(
+                plan, ref.gather_rows(plan, src, rmap)),
+            library=lambda: torch.sparse.mm(S_row, src.index_select(0, ri)),
+            bytes=named_d * n * item + out, ops=ops),
+    }
+
+
+def phase_grass_timing(rt, errs):
+    """Phase 4 for the GraSS kernels: the GraSS chunk in both source
+    layouts (the (D, c) view is the one featurize passes, and the one the
+    kernels line reports) and the bandwidth-sized shape."""
+    fsk, make_plan = rt["fsk"], rt["blockperm"].make_plan
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    shapes = [("GraSS chunk", GRASS_D_SRC, GRASS_D, GRASS_CHUNK, GRASS_K),
+              ("bandwidth", 262_144, 65_536, 1024, 4096)]
+    before = dict(fsk.LAUNCHES)
+    rows = {}
+    print("phase 4 (GraSS kernels): fp32 stream, κ=4, s=2; layout 'view' "
+          "is the (D, c) view of row-major (c, D) gradients that featurize "
+          "passes, 'rows' a row-major (D, c) source")
+    for label, d_src, d, n, k in shapes:
+        plan = make_plan(d, k, kappa=4, s=2, seed=0)
+        for layout in ("view", "rows"):
+            work = grass_work(rt, plan, d_src, n, layout, gen)
+            for name, w in work.items():
+                row = time_row(name, w, 0, errs[name])
+                print(f"  {label:11s} {layout:4s} {name:22s} kernel "
+                      f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  "
+                      f"bound {row['bound_ms']:.5f} ms ({row['bound_by']})  "
+                      f"library {row['library_ms']:.4f} ms  share of bound "
+                      f"{row['bound_ms'] / row['ms']:.4f}  "
+                      f"[{plan.describe()}, d_src={d_src}, n={n}]")
+                if label == "GraSS chunk" and layout == "view":
+                    rows[name] = row
+    for k in before:      # timing launches are not main-path launches
+        fsk.LAUNCHES[k] = before[k]
+    return [rows[name] for name in GRASS_KERNELS]
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: GraSS data attribution at the paper's width.
+# ---------------------------------------------------------------------------
+
+def profile_build_cache(pipe, x, y, warm_wall):
+    """Device time by kernel over one more warm ``build_cache``, and the
+    share of the unprofiled one's wall time the device was busy."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        pipe.build_cache(x, y)
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy_ms == 0:
+        print("  profile of build_cache: the profiler recorded no device "
+              "time (busy share not measured)")
+        return
+    print(f"  profile of build_cache (blockperm, k={pipe.sketch.k}): device "
+          f"busy {busy_ms:.3f} ms of the unprofiled call's "
+          f"{warm_wall * 1e3:.3f} ms wall (busy share "
+          f"{busy_ms / (warm_wall * 1e3):.3f}); kernels by device time:")
+    for e in kernels[:10]:
+        print(f"    {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x "
+              f"{e.key[:90]}")
+
+
+def phase_grass(rt, n_train=5000, n_test=500):
+    """GraSS end to end on the card: the 109 386-parameter MLP, sparse dim
+    4 096, k ∈ GRASS.k_values, κ = 4, s = 2, chunks of 64, LDS over
+    GRASS.n_subsets retrains at α = GRASS.subset_frac."""
+    fsk, G, M, L = rt["fsk"], rt["grass"], rt["mlp"], rt["lds"]
+    cfg = rt["grass_cfg"]
+    mcfg = M.MLPConfig()
+    print(f"phase 5: GraSS at {mcfg.d_in}->{'->'.join(map(str, mcfg.hidden))}"
+          f"->{mcfg.n_classes}, n_train={n_train}, n_test={n_test}, "
+          f"m={cfg.n_subsets}, alpha={cfg.subset_frac}")
+    t = time.perf_counter()
+    x, y = M.make_synthetic_mnist(n_train + n_test, mcfg.d_in,
+                                  mcfg.n_classes, seed=0)
+    x, y = x.cuda(), y.cuda()
+    x_tr, y_tr, x_te, y_te = x[:n_train], y[:n_train], x[n_train:], y[n_train:]
+    base = M.train_mlp(mcfg, x_tr, y_tr)
+    n_params = sum(p.numel() for p in base.parameters())
+    check(n_params == 109_386, f"MLP has {n_params} parameters")
+    with torch.no_grad():
+        acc = float((base(x_te).argmax(-1) == y_te).float().mean())
+    masks = L.sample_subsets(n_train, cfg.n_subsets, cfg.subset_frac, 0)
+    true_out = torch.empty(cfg.n_subsets, n_test)
+    for j in range(cfg.n_subsets):
+        pj = M.train_mlp(mcfg, x_tr, y_tr,
+                         generator=torch.Generator().manual_seed(1000 + j),
+                         mask=masks[j])
+        with torch.no_grad():
+            true_out[j] = M.margin_output(dict(pj.named_parameters()),
+                                          x_te, y_te).cpu()
+    true_out = true_out.double().numpy()
+    torch.cuda.synchronize()
+    print(f"  base model ({n_params} parameters, test accuracy {acc:.3f}) "
+          f"and {cfg.n_subsets} retrains: {time.perf_counter() - t:.1f} s")
+
+    chunks = sum(-(-min(256, n_train - i) // 64)
+                 for i in range(0, n_train, 256))
+    fsk.reset_launch_counts()
+    caches = {}
+    for k in cfg.k_values:
+        for fam in (("blockperm", "blockrow") if k == GRASS_K
+                    else ("blockperm",)):
+            for fused in ((True, False) if k == GRASS_K else (True,)):
+                pipe = G.GrassPipeline(G.GrassPipelineConfig(
+                    sparse_dim=cfg.grad_dim_sketch_from, sketch_dim=k,
+                    sketch_family=fam, sketch_kwargs=(("kappa", 4), ("s", 2)),
+                    chunk=GRASS_CHUNK, fused=fused), base, device="cuda")
+                check(pipe.d_total == n_params, "d_total")
+                pipe.build_cache(x_tr, y_tr)        # warm-up
+                before = dict(fsk.LAUNCHES)
+                cache, secs = pipe.build_cache(x_tr, y_tr)
+                delta = {n: fsk.LAUNCHES[n] - before[n] for n in before}
+                tau = pipe.attribute(cache, x_te, y_te)
+                lds = L.lds_score(true_out, tau, masks)
+                caches[(k, fam, fused)] = cache
+                print(f"  {fam:9s} k={k} fused={fused!s:5s} LDS {lds:.4f} "
+                      f"per_sample_us {1e6 * secs / n_train:.3f} "
+                      f"(build_cache {secs:.4f} s) launches per build_cache "
+                      f"{ {n: v for n, v in delta.items() if v} } "
+                      f"{pipe.sketch_lowering().describe()}")
+                check(cache.shape == (n_train, pipe.sketch.k) and
+                      bool(torch.isfinite(cache).all()), "cache shape/finite")
+                check(lds > 0, f"{fam} k={k}: LDS {lds} <= 0")
+                if fused:
+                    gname = {"blockperm": "flashsketch_fwd_gather",
+                             "blockrow": "blockrow_fwd_gather"}[fam]
+                    check(delta[gname] == chunks,
+                          f"{gname}: {delta[gname]} launches for {chunks} "
+                          f"chunks")
+                if fused and fam == "blockperm" and k == GRASS_K:
+                    profile_build_cache(pipe, x_tr, y_tr, secs)
+                if fused and k == GRASS_K:
+                    # one NaN-poisoned example is quarantined
+                    xb = x_tr[:GRASS_CHUNK].clone()
+                    xb[5, 0] = float("nan")
+                    feats = pipe.featurize(xb, y_tr[:GRASS_CHUNK])
+                    clean = cache[:GRASS_CHUNK]
+                    check(pipe.quarantined == 1, "quarantine count")
+                    check(bool((feats[5] == 0).all()), "quarantined row")
+                    others = torch.cat([feats[:5], feats[6:]])
+                    check(torch.equal(others, torch.cat([clean[:5],
+                                                         clean[6:]])),
+                          "the other rows of the poisoned chunk moved")
+                    print(f"  {fam:9s} NaN in example 5: quarantined "
+                          f"{pipe.quarantined}, its row all zeros, the other "
+                          f"{GRASS_CHUNK - 1} rows unchanged")
+        if k == GRASS_K:
+            for fam in ("blockperm", "blockrow"):
+                check(torch.equal(caches[(k, fam, True)],
+                                  caches[(k, fam, False)]),
+                      f"{fam}: fused features != unfused")
+            print("  fused features == unfused (torch.equal), blockperm "
+                  "and blockrow")
+    torch.cuda.synchronize()
+    launches = dict(fsk.LAUNCHES)
+    print(f"  launch counts over phase 5: {launches}")
+    for name in GRASS_KERNELS:
+        check(launches[name] > 0, f"{name} never launched on the GraSS path")
+    return launches
 
 
 def main() -> int:
@@ -350,18 +709,21 @@ def main() -> int:
     sys.path.insert(0, os.path.join(root, "src"))
     try:
         from repro_torch import solvers
-        from repro_torch.configs.flashsketch_paper import (CONFIG,
+        from repro_torch.attribution import grass, lds, mlp
+        from repro_torch.configs.flashsketch_paper import (CONFIG, GRASS,
                                                            SOLVER_PRESETS,
                                                            solver_sketch_rows)
-        from repro_torch.core import blockperm, wiring
-        from repro_torch.kernels import build, ops, ref
+        from repro_torch.core import blockperm, hashing, wiring
+        from repro_torch.kernels import build, lowering, ops, ref
         from repro_torch.kernels import flashsketch as fsk
     except ImportError as exc:
         print(f"chip_smoke: the port is not beside this script ({exc})",
               file=sys.stderr)
         return 3
     rt = dict(solvers=solvers, presets=SOLVER_PRESETS, blockperm=blockperm,
-              wiring=wiring, ops=ops, ref=ref, fsk=fsk)
+              wiring=wiring, hashing=hashing, ops=ops, ref=ref, fsk=fsk,
+              lowering=lowering, grass=grass, mlp=mlp, lds=lds,
+              grass_cfg=GRASS)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -385,8 +747,14 @@ def main() -> int:
     print(f"main plan: {main_plan.describe()}")
     try:
         errs = phase_kernels(rt, main_plan, n)
+        errs.update(phase_grass_kernels(rt))
         launches, _ = phase_main_path(rt, main_plan, d, n, cond=1e4)
         rows = phase_timing(rt, main_plan, n, launches, errs)
+        rows += phase_grass_timing(rt, errs)
+        grass_launches = phase_grass(rt)
+        for row in rows:
+            if row["name"] in GRASS_KERNELS:
+                row["launches"] = grass_launches[row["name"]]
         torch.cuda.synchronize()
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)

@@ -1,2 +1,2 @@
-"""Configurations (port of ``repro.configs``; this slice carries the
-paper's sketch configuration and the solver presets)."""
+"""Configurations (port of ``repro.configs``: the paper's sketch
+configuration, the solver presets and the GraSS configuration)."""

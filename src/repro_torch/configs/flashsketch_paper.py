@@ -3,6 +3,7 @@
 
 Sketch shapes from §7 / App. F: d ∈ {16384, 65536, 131072, 262144},
 n ∈ {512, 1024}, k ∈ {64 ... 4096}, κ ∈ {1, 2, 4, 8}, s ∈ {1, 2, 4}.
+GraSS MLP: 3-layer ReLU MLP, 109,386 params, sketch 4k -> k ∈ {1024, 2048, 4096}.
 """
 import dataclasses
 from typing import Tuple
@@ -89,3 +90,21 @@ def solver_sketch_rows(n: int, sampling_factor: float = 4.0) -> int:
     Single source of the sizing rule — the solvers and the presets
     both use it (per sketch, when multisketching)."""
     return max(int(sampling_factor * n), n + 8)
+
+
+@dataclasses.dataclass(frozen=True)
+class GrassConfig:
+    """GraSS end-to-end pipeline config (paper App. E).  ``mlp_hidden`` is
+    the reference's record; the pipeline's model is ``MLPConfig``'s default
+    (784 → 128 → 64 → 10, the paper's 109,386 parameters)."""
+    mlp_hidden: Tuple[int, ...] = (256, 256)
+    mlp_in: int = 784                   # MNIST-like
+    mlp_out: int = 10
+    grad_dim_sketch_from: int = 4096    # "sketch down from dimension 4k"
+    k_values: Tuple[int, ...] = (1024, 2048, 4096)
+    n_subsets: int = 50                 # m=50 LDS retraining subsets
+    subset_frac: float = 0.5            # alpha=0.5
+    sparsify_keep: float = 0.25         # gradient sparsification fraction
+
+
+GRASS = GrassConfig()

@@ -31,6 +31,12 @@ __device__ __forceinline__ uint32_t combine(uint32_t h, uint32_t v) {
   return mix32(h ^ (vm + kGamma + (h << 6) + (h >> 2)));
 }
 
+// hash_mod of core/hashing.py: a mask for a power-of-two modulus, a true
+// modulo otherwise.
+__device__ __forceinline__ uint32_t hash_mod(uint32_t x, uint32_t m) {
+  return (m & (m - 1)) == 0 ? (x & (m - 1)) : (x % m);
+}
+
 // hash_words(seed, g, h): the prefix shared by every nonzero of block (g, h).
 __device__ __forceinline__ uint32_t block_prefix(uint32_t seed, uint32_t g,
                                                  uint32_t h) {
@@ -43,9 +49,25 @@ __device__ __forceinline__ uint32_t block_prefix(uint32_t seed, uint32_t g,
 __device__ __forceinline__ uint32_t entry(uint32_t prefix, uint32_t u,
                                           uint32_t i, uint32_t chunk) {
   const uint32_t hs = combine(combine(prefix, u), i);
-  const uint32_t m = (chunk & (chunk - 1)) == 0 ? (hs & (chunk - 1))
-                                                : (hs % chunk);
-  return ((i * chunk + m) << 1) | (hs >> 31);
+  return ((i * chunk + hash_mod(hs, chunk)) << 1) | (hs >> 31);
+}
+
+// FLASHBLOCKROW: hash_words(seed, 0x5EED, g, h), the prefix shared by every
+// nonzero of block (g, h) (repro/kernels/ref.py:_phi_rows_all_blocks).
+constexpr uint32_t kBlockRowTag = 0x5EEDu;
+
+__device__ __forceinline__ uint32_t blockrow_prefix(uint32_t seed, uint32_t g,
+                                                    uint32_t h) {
+  return combine(combine(combine(mix32(seed + kGamma), kBlockRowTag), g), h);
+}
+
+// Nonzero t of row r of FLASHBLOCKROW block (g, h), packed as
+// (col << 1) | sign_bit with col = hash mod Bc and sign bit 31 of the hash.
+__device__ __forceinline__ uint32_t blockrow_entry(uint32_t prefix,
+                                                   uint32_t r, uint32_t t,
+                                                   uint32_t Bc) {
+  const uint32_t hs = combine(combine(prefix, r), t);
+  return (hash_mod(hs, Bc) << 1) | (hs >> 31);
 }
 
 // The streamed element upcast to fp32 (exact for every streamed type).

@@ -1,18 +1,26 @@
 """FlashSketch kernels for Hopper (port of ``repro/kernels/flashsketch.py``).
 
-The JAX package's fused-κ Pallas kernels become two CUDA kernels written
-by hand for ``sm_90a`` (sources in ``csrc/``, built by ``build.py``):
+The JAX package's fused-κ Pallas kernels become CUDA kernels written by
+hand for ``sm_90a`` (sources in ``csrc/``, built by ``build.py``):
 
   * ``flashsketch_fwd``        — ``Y = S·A``   (replaces ``flashsketch_pallas``)
   * ``flashsketch_transpose``  — ``X = Sᵀ·Y``  (replaces
     ``flashsketch_transpose_pallas``)
+  * ``flashsketch_fwd_gather`` — ``Y = S·A[row_map]`` in one launch
+    (replaces ``flashsketch_pallas_gather``)
+  * ``blockrow_fwd``           — FLASHBLOCKROW ``Y = S_row·A`` (replaces
+    ``blockrow_pallas``)
+  * ``blockrow_fwd_gather``    — ``Y = S_row·A[row_map]`` (replaces
+    ``blockrow_pallas_gather``)
 
 Each wrapper streams its operand through the plan's precision policy
-(``_stream``), then launches its kernel for a CUDA tensor — or raises —
-and runs the kernel's plain PyTorch version (``kernels/ref.py`` on the
-streamed operand, upcast to fp32) for a CPU tensor.  Each launch adds one
-to the wrapper's entry of ``LAUNCHES``, so a run can show that it went
-through the kernels.
+(``_stream``, on the operand as given: the gathers cast the whole source
+and read only the mapped rows, as the reference does), then launches its
+kernel for a CUDA tensor — or raises — and runs the kernel's plain
+PyTorch version (``kernels/ref.py`` on the streamed operand, upcast to
+fp32, on the materialized gather for the gathers) for a CPU tensor.  Each
+launch adds one to the wrapper's entry of ``LAUNCHES``, so a run can show
+that it went through the kernels.
 
 How the kernels tile the work (``tn`` columns per block, thread groups,
 the chunk of hashed columns held in shared memory) is a launch choice made
@@ -23,7 +31,8 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Dict, Tuple
+import math
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,8 +43,10 @@ from repro_torch.core.blockperm import (BlockPermPlan, dense_block,
 from repro_torch.kernels import build
 from repro_torch.kernels import ref as kref
 
-# Launch counts of the two CUDA kernels, by wrapper name: one per launch.
-LAUNCHES: Dict[str, int] = {"flashsketch_fwd": 0, "flashsketch_transpose": 0}
+# Launch counts of the CUDA kernels, by wrapper name: one per launch.
+LAUNCHES: Dict[str, int] = {"flashsketch_fwd": 0, "flashsketch_transpose": 0,
+                            "flashsketch_fwd_gather": 0, "blockrow_fwd": 0,
+                            "blockrow_fwd_gather": 0}
 
 # Streamed-type codes of csrc/hash.cuh (fs::StreamType).
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1,
@@ -105,12 +116,21 @@ def _inv_neighbor_table(plan: BlockPermPlan) -> np.ndarray:
     ).astype(np.int32)
 
 
+def _blockrow_table(plan: BlockPermPlan) -> np.ndarray:
+    """(κ, M) iid FLASHBLOCKROW wiring (``ref.blockrow_wiring``)."""
+    return kref.blockrow_wiring(plan).numpy().astype(np.int32)
+
+
+_TABLES = {"fwd": _fwd_neighbor_table, "inverse": _inv_neighbor_table,
+           "blockrow": _blockrow_table}
+
+
 @functools.lru_cache(maxsize=64)
-def _device_table(plan: BlockPermPlan, inverse: bool,
+def _device_table(plan: BlockPermPlan, kind: str,
                   device: torch.device) -> torch.Tensor:
-    """The (κ, M) int32 neighbour table on the card, built once per plan."""
-    tab = _inv_neighbor_table(plan) if inverse else _fwd_neighbor_table(plan)
-    return torch.from_numpy(tab).to(device)
+    """The (κ, M) int32 table of ``kind`` (``"fwd"``, ``"inverse"`` or
+    ``"blockrow"``) on the card, built once per plan."""
+    return torch.from_numpy(_TABLES[kind](plan)).to(device)
 
 
 def stacked_phi(plan: BlockPermPlan, g: int, neighbors) -> torch.Tensor:
@@ -137,12 +157,24 @@ FWD_DEFAULT_TN = 64
 TRANSPOSE_DEFAULT_TN = 32
 
 
-def fwd_launch(plan: BlockPermPlan, tn: int) -> Tuple[int, int, int]:
+BLOCKROW_DEFAULT_TN = 64
+
+
+def fwd_launch(plan: BlockPermPlan, tn: int,
+               gather: bool = False) -> Tuple[int, int, int]:
     """(thread groups, hashed columns per chunk, shared bytes) of the
-    forward kernel at tile width ``tn``."""
+    forward kernel at tile width ``tn``; the gather also stages one source
+    row per hashed column."""
     groups = max(1, min(plan.s, MAX_THREADS // tn))
     uc = max(1, _FWD_ENTRIES // plan.s)
-    return groups, uc, 4 * (plan.Br * tn + uc * plan.s)
+    return groups, uc, 4 * (plan.Br * tn + uc * (plan.s + int(gather)))
+
+
+def blockrow_launch(plan: BlockPermPlan, tn: int) -> Tuple[int, int]:
+    """(thread groups, shared bytes) of the FLASHBLOCKROW kernel at tile
+    width ``tn``: one word per nonzero of the output block, κ·Br·s."""
+    groups = max(1, min(plan.Br, MAX_THREADS // tn))
+    return groups, 4 * plan.kappa * plan.Br * plan.s
 
 
 def transpose_launch(plan: BlockPermPlan,
@@ -159,15 +191,20 @@ def transpose_launch(plan: BlockPermPlan,
 
 
 def _check_launch(plan: BlockPermPlan, operand: torch.Tensor, tn: int,
-                  smem: int, rows: int, name: str) -> None:
+                  smem: int, rows: Optional[int], name: str) -> None:
+    """Raise on what the kernel does not take; ``rows=None`` (the gathers)
+    accepts any source height."""
     if plan.is_global:
         raise NotImplementedError(
             f"{name}: the global families ({plan.family!r}) have no CUDA "
-            f"kernel yet (ROADMAP queue 2, families); their plain version "
+            f"kernel yet (ROADMAP queue 1, item 7); their plain version "
             f"runs on CPU tensors")
-    if operand.shape[0] != rows or operand.dim() != 2:
-        raise ValueError(f"{name}: operand must be ({rows}, n), got "
-                         f"{tuple(operand.shape)}")
+    if operand.dim() != 2 or (rows is not None and operand.shape[0] != rows):
+        raise ValueError(f"{name}: operand must be ({rows or 'd_src'}, n), "
+                         f"got {tuple(operand.shape)}")
+    if operand.shape[0] >= 2**30:
+        raise ValueError(f"{name}: {operand.shape[0]} rows; the kernels "
+                         f"index rows below 2**30")
     if tn < 32 or tn % 32 or tn > MAX_THREADS:
         raise ValueError(f"{name}: tn must be a multiple of 32 in "
                          f"[32, {MAX_THREADS}], got {tn}")
@@ -181,26 +218,37 @@ def _check_launch(plan: BlockPermPlan, operand: torch.Tensor, tn: int,
                          f"65535 column tiles at tn={tn}")
 
 
-def _launch(source: str, symbol: str, plan: BlockPermPlan, x: torch.Tensor,
-            out: torch.Tensor, tab: torch.Tensor, tn: int,
-            *geometry: int) -> None:
-    """Call ``symbol`` of the library built from ``source``; ``geometry``
-    are the C function's int arguments after ``tn``, in its order."""
+def _call(source: str, symbol: str, device: torch.device, *args) -> None:
+    """Call ``symbol`` of the library built from ``source`` with ``args``,
+    (ctypes type, value) pairs in the C function's order, on the current
+    stream of ``device``; raise with CUDA's message if the launch failed."""
     lib = build.load(source)
     fn = getattr(lib, symbol)
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [
-        ctypes.c_longlong, ctypes.c_uint, ctypes.c_float] + \
-        [ctypes.c_int] * (1 + len(geometry)) + [ctypes.c_void_p]
+    fn.argtypes = [t for t, _ in args] + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    err = fn(x.data_ptr(), out.data_ptr(), tab.data_ptr(),
-             _DTYPE_CODES[x.dtype], plan.M, plan.Br, plan.Bc, plan.kappa,
-             plan.s, x.shape[1], plan.seed & 0xFFFFFFFF, plan.scale, tn,
-             *geometry, torch.cuda.current_stream(x.device).cuda_stream)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = fn(*[v for _, v in args], stream)
     if err != 0:
         lib.fs_error_string.restype = ctypes.c_char_p
         lib.fs_error_string.argtypes = [ctypes.c_int]
         raise RuntimeError(f"{symbol} launch failed: "
                            f"{lib.fs_error_string(err).decode()} ({err})")
+
+
+_P, _I, _LL, _U, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                       ctypes.c_uint, ctypes.c_float)
+
+
+def _launch(source: str, symbol: str, plan: BlockPermPlan, x: torch.Tensor,
+            out: torch.Tensor, tab: torch.Tensor, tn: int,
+            *geometry: int) -> None:
+    """The forward's and transpose's C interface: pointers, dtype, plan
+    geometry, n, seed, scale, then ``tn`` and ``geometry`` as ints."""
+    _call(source, symbol, x.device, (_P, x.data_ptr()), (_P, out.data_ptr()),
+          (_P, tab.data_ptr()), (_I, _DTYPE_CODES[x.dtype]), (_I, plan.M),
+          (_I, plan.Br), (_I, plan.Bc), (_I, plan.kappa), (_I, plan.s),
+          (_LL, x.shape[1]), (_U, plan.seed & 0xFFFFFFFF), (_F, plan.scale),
+          *[(_I, v) for v in (tn, *geometry)])
 
 
 # ---------------------------------------------------------------------------
@@ -226,7 +274,7 @@ def flashsketch_fwd(plan: BlockPermPlan, A: torch.Tensor, *,
     Y = torch.empty((plan.k_pad, x.shape[1]), dtype=torch.float32,
                     device=x.device)
     _launch("flashsketch_fwd.cu", "fs_fwd", plan, x, Y,
-            _device_table(plan, False, x.device), tn, groups, uc, smem)
+            _device_table(plan, "fwd", x.device), tn, groups, uc, smem)
     LAUNCHES["flashsketch_fwd"] += 1
     return Y
 
@@ -252,7 +300,117 @@ def flashsketch_transpose(plan: BlockPermPlan, Y: torch.Tensor, *,
     X = torch.empty((plan.d_pad, y.shape[1]), dtype=torch.float32,
                     device=y.device)
     _launch("flashsketch_transpose.cu", "fs_transpose", plan, y, X,
-            _device_table(plan, True, y.device), tn, groups, uc, int(staged),
-            smem)
+            _device_table(plan, "inverse", y.device), tn, groups, uc,
+            int(staged), smem)
     LAUNCHES["flashsketch_transpose"] += 1
     return X
+
+
+def blockrow_scale(plan: BlockPermPlan) -> float:
+    """FLASHBLOCKROW's scale, 1/√(κs) · √(d_pad/k_pad) (Alg. 2)."""
+    return plan.scale * math.sqrt(plan.d_pad / plan.k_pad)
+
+
+def _check_row_map(plan: BlockPermPlan, A: torch.Tensor,
+                   row_map: torch.Tensor, name: str) -> None:
+    if tuple(row_map.shape) != (plan.d_pad,):
+        raise ValueError(f"{name}: row_map must be ({plan.d_pad},), got "
+                         f"{tuple(row_map.shape)}")
+    if row_map.device != A.device:
+        raise ValueError(f"{name}: row_map on {row_map.device}, A on "
+                         f"{A.device}")
+
+
+def _pointer_args(x: torch.Tensor, Y: torch.Tensor, tab: torch.Tensor,
+                  row_map: Optional[torch.Tensor]):
+    """The four pointers that open the gather and blockrow C interfaces."""
+    return ((_P, x.data_ptr()), (_P, Y.data_ptr()), (_P, tab.data_ptr()),
+            (_P, 0 if row_map is None else row_map.data_ptr()))
+
+
+def _plan_args(plan: BlockPermPlan, x: torch.Tensor):
+    """dtype, plan geometry, n, strides (elements), d, the source height
+    and seed, in the order of the gather and blockrow C interfaces."""
+    return ((_I, _DTYPE_CODES[x.dtype]), (_I, plan.M), (_I, plan.Br),
+            (_I, plan.Bc), (_I, plan.kappa), (_I, plan.s),
+            (_LL, x.shape[1]), (_LL, x.stride(0)), (_LL, x.stride(1)),
+            (_I, plan.d), (_I, x.shape[0]), (_U, plan.seed & 0xFFFFFFFF))
+
+
+def flashsketch_fwd_gather(plan: BlockPermPlan, A: torch.Tensor,
+                           row_map: torch.Tensor, *,
+                           tn: int = FWD_DEFAULT_TN) -> torch.Tensor:
+    """Y = S · A[row_map] in one launch, without writing A[row_map].
+
+    A is the ``(d_src, n)`` source, in any strides (the ``(D, c)`` view of
+    row-major ``(c, D)`` gradients is read without a copy); ``row_map`` the
+    ``(d_pad,)`` int32 source row of each padded masked row, of which the
+    first ``plan.d`` are read (``lowering.row_map_for``); a row outside
+    ``[0, d_src)`` stops the kernel with a device-side trap, as PyTorch's
+    own indexing asserts on the card.  Returns ``(k_pad, n)`` fp32; on the
+    card equal bit for bit to ``flashsketch_fwd`` on the zero-padded
+    ``A[row_map[:d]]``.
+    """
+    _check_row_map(plan, A, row_map, "flashsketch_fwd_gather")
+    x = _stream(plan, A)
+    if A.device.type == "cpu":
+        return kref.flashsketch_ref(plan, kref.gather_rows(plan, x, row_map))
+    if A.device.type != "cuda":
+        raise ValueError(f"no FlashSketch kernel for device {A.device}")
+    groups, uc, smem = fwd_launch(plan, tn, gather=True)
+    _check_launch(plan, x, tn, smem, None, "flashsketch_fwd_gather")
+    Y = torch.empty((plan.k_pad, x.shape[1]), dtype=torch.float32,
+                    device=x.device)
+    rmap = row_map.to(torch.int32).contiguous()
+    _call("flashsketch_fwd.cu", "fs_fwd_gather", x.device,
+          *_pointer_args(x, Y, _device_table(plan, "fwd", x.device), rmap),
+          *_plan_args(plan, x), (_F, plan.scale),
+          *[(_I, v) for v in (tn, groups, uc, smem)])
+    LAUNCHES["flashsketch_fwd_gather"] += 1
+    return Y
+
+
+def _blockrow(plan: BlockPermPlan, A: torch.Tensor,
+              row_map: Optional[torch.Tensor], tn: int,
+              name: str) -> torch.Tensor:
+    x = _stream(plan, A)
+    if A.device.type == "cpu":
+        if row_map is not None:
+            x = kref.gather_rows(plan, x, row_map)
+        return kref.blockrow_ref(plan, x.to(torch.float32))
+    if A.device.type != "cuda":
+        raise ValueError(f"no FLASHBLOCKROW kernel for device {A.device}")
+    groups, smem = blockrow_launch(plan, tn)
+    _check_launch(plan, x, tn, smem, None if row_map is not None
+                  else plan.d_pad, name)
+    Y = torch.empty((plan.k_pad, x.shape[1]), dtype=torch.float32,
+                    device=x.device)
+    rmap = None if row_map is None else row_map.to(torch.int32).contiguous()
+    _call("flashsketch_blockrow.cu", "fs_blockrow", x.device,
+          *_pointer_args(x, Y, _device_table(plan, "blockrow", x.device),
+                         rmap),
+          (_I, int(row_map is not None)), *_plan_args(plan, x),
+          (_F, blockrow_scale(plan)), (_I, tn), (_I, groups), (_I, smem))
+    LAUNCHES[name] += 1
+    return Y
+
+
+def blockrow_fwd(plan: BlockPermPlan, A: torch.Tensor, *,
+                 tn: int = BLOCKROW_DEFAULT_TN) -> torch.Tensor:
+    """FLASHBLOCKROW Y = S_row A.  A must be (d_pad, n), in any strides;
+    returns (k_pad, n) fp32.  CUDA tensors run the CUDA kernel, CPU tensors
+    its plain version; ragged n is handled in the kernel."""
+    if A.shape[0] != plan.d_pad:
+        raise ValueError(f"A must have d_pad={plan.d_pad} rows, got "
+                         f"{A.shape[0]}")
+    return _blockrow(plan, A, None, tn, "blockrow_fwd")
+
+
+def blockrow_fwd_gather(plan: BlockPermPlan, A: torch.Tensor,
+                        row_map: torch.Tensor, *,
+                        tn: int = BLOCKROW_DEFAULT_TN) -> torch.Tensor:
+    """FLASHBLOCKROW over gathered rows, Y = S_row · A[row_map], in one
+    launch; arguments as ``flashsketch_fwd_gather``.  On the card equal bit
+    for bit to ``blockrow_fwd`` on the zero-padded ``A[row_map[:d]]``."""
+    _check_row_map(plan, A, row_map, "blockrow_fwd_gather")
+    return _blockrow(plan, A, row_map, tn, "blockrow_fwd_gather")

@@ -10,18 +10,24 @@ Every launch decision of one sketch apply lives in one frozen record:
   * ``explain(plan, ...)`` prints the decision trace and the process-wide
     health counters.
 
+``op``: ``"fwd"`` (``Y = S A``), ``"transpose"`` (``X = Sᵀ Y``) or
+``"blockrow"`` (FLASHBLOCKROW ``Y = S_row A``).  ``gather`` fuses a
+per-row gather ``A[row_index]`` into the ``fwd`` / ``blockrow`` kernel's
+loads; ``batch`` records a stack folded into the column axis.
+
 ``impl``: ``"auto"`` runs the CUDA kernel for CUDA tensors and the plain
 PyTorch version for CPU tensors; ``"cuda"`` insists on the kernel;
-``"torch"`` runs the plain version on the operand's device.  Requests the
-JAX engine serves and this slice does not yet (the v1 kernels, fused
-gather, batch folding, sharding, the blockrow op) raise
-``NotImplementedError`` naming the ``ROADMAP.md`` queue where they wait.
+``"torch"`` runs the plain version on the operand's device, and with a
+gather materializes ``A[row_index]`` first (``gather_fused=False``).
+Requests the JAX engine serves and this port does not yet (the v1
+kernels, sharding) raise ``NotImplementedError`` naming the ``ROADMAP.md``
+queue where they wait.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -31,18 +37,15 @@ from repro_torch.health import report as health_report
 from repro_torch.kernels import flashsketch as fsk
 from repro_torch.kernels import ref as kref
 
-OPS = ("fwd", "transpose")
+OPS = ("fwd", "transpose", "blockrow")
+GATHER_OPS = ("fwd", "blockrow")
 IMPLS = ("auto", "cuda", "torch")
 
 # Requests that wait for a later slice, and the ROADMAP queue that holds them.
 _QUEUED = {
     "pallas_v1": "the v1 kernels (ROADMAP queue 2, item 7)",
-    "gather": "the fused gather of the GraSS slice (ROADMAP queue 1, item 6; "
-              "queue 2, item 3)",
-    "batch": "batch folding of the GraSS slice (ROADMAP queue 1, item 6)",
     "shard": "the distributed slice (ROADMAP queue 1, item 10; queue 2, "
              "item 6)",
-    "blockrow": "FLASHBLOCKROW (ROADMAP queue 1, item 7; queue 2, items 4-5)",
 }
 
 
@@ -56,14 +59,19 @@ class LaunchSpec:
     """A caller's launch request, before any resolution.
 
     Attributes:
-      op: ``"fwd"`` (``Y = S A``) or ``"transpose"`` (``X = Sᵀ Y``).
+      op: ``"fwd"`` (``Y = S A``), ``"transpose"`` (``X = Sᵀ Y``) or
+        ``"blockrow"`` (FLASHBLOCKROW ``Y = S_row A``).
       n: column count of the operand.
       impl: ``"auto" | "cuda" | "torch"`` (see the module docstring).
       tn: column-tile width of the CUDA kernel, or ``None`` for its default.
       dtype: streaming-precision policy override; ``None`` keeps the plan's.
       device: device type of the operand, ``"cuda"`` or ``"cpu"``.
-      gather, batch, shard: requests of later slices; anything but the
-        defaults raises ``NotImplementedError``.
+      gather: fuse the ``row_index`` gather into the kernel's loads
+        (``fwd`` / ``blockrow`` only).
+      batch: a stack of ``batch`` matrices folded into the column axis
+        (recorded; the tile does not depend on it yet).
+      shard: a request of a later slice; anything but ``"none"`` raises
+        ``NotImplementedError``.
     """
 
     op: str = "fwd"
@@ -82,10 +90,13 @@ class Lowering:
     """Every decision of one sketch launch, frozen.
 
     ``plan`` is the effective plan (dtype override applied); ``impl`` the
-    implementation that runs (``"cuda"`` or ``"torch"``); ``tn``,
-    ``groups`` and ``smem_bytes`` the CUDA launch geometry (``None`` for
-    the plain version); ``pad_rows`` the zero rows added to the operand.
-    Columns are never padded: the kernels mask the ragged edge.
+    implementation that runs (``"cuda"`` or ``"torch"``); ``gather`` the
+    request and ``gather_fused`` what runs (``False``: ``A[row_index]`` is
+    materialized first); ``tn``, ``groups`` and ``smem_bytes`` the CUDA
+    launch geometry (``None`` for the plain version); ``pad_rows`` the zero
+    rows added to the operand (none with a fused gather: the kernel zeroes
+    the padding rows itself).  Columns are never padded: the kernels mask
+    the ragged edge.
     """
 
     plan: BlockPermPlan
@@ -101,11 +112,19 @@ class Lowering:
     groups: Optional[int]
     smem_bytes: Optional[int]
     pad_rows: int
+    gather: bool = False
+    gather_fused: bool = False
+    batch: int = 1
 
     def describe(self) -> str:
         bits = [self.op, f"impl={self.impl}"]
         if self.impl != self.impl_requested:
             bits[-1] += f"(req {self.impl_requested})"
+        if self.gather:
+            bits.append("gather=" + ("fused" if self.gather_fused
+                                     else "materialized"))
+        if self.batch > 1:
+            bits.append(f"batch={self.batch}")
         bits += [f"device={self.device}", f"tn={self.tn}:{self.tn_source}",
                  f"dtype={self.dtype}", f"n={self.n}"]
         if self.smem_bytes is not None:
@@ -113,19 +132,22 @@ class Lowering:
         return "Lowering(" + ", ".join(bits) + ")"
 
 
-def _validate(spec: LaunchSpec) -> None:
-    if spec.op == "blockrow":
-        raise _queued("blockrow")
+def _validate(plan: BlockPermPlan, spec: LaunchSpec) -> None:
     if spec.op not in OPS:
         raise ValueError(f"op must be one of {OPS}, got {spec.op!r}")
     if spec.impl == "pallas_v1":
         raise _queued("pallas_v1")
     if spec.impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {spec.impl!r}")
-    if spec.gather:
-        raise _queued("gather")
-    if spec.batch != 1:
-        raise _queued("batch")
+    if spec.gather and spec.op not in GATHER_OPS:
+        raise ValueError(f"gather-fused loads exist for {GATHER_OPS} only, "
+                         f"got op={spec.op!r}")
+    if plan.is_global and spec.op == "blockrow":
+        raise ValueError(
+            f"FLASHBLOCKROW is a blockperm-wiring construction; family "
+            f"{plan.family!r} has no blockrow formulation")
+    if spec.batch < 1:
+        raise ValueError(f"batch must be >= 1, got {spec.batch}")
     if spec.shard != "none":
         raise _queued("shard")
     if spec.n < 1:
@@ -146,7 +168,7 @@ def _lower(plan: BlockPermPlan, spec: LaunchSpec,
         if trace is not None:
             trace.append(line)
 
-    _validate(spec)
+    _validate(plan, spec)
     eff = plan
     if spec.dtype is not None and spec.dtype != plan.dtype:
         eff = plan.with_dtype(spec.dtype)
@@ -160,36 +182,59 @@ def _lower(plan: BlockPermPlan, spec: LaunchSpec,
     else:
         t(f"impl: {impl!r} requested")
 
-    pad_rows = eff.d_pad - eff.d if spec.op == "fwd" else 0
+    gather_fused = spec.gather and impl == "cuda"
+    if spec.gather:
+        t("gather: " + ("fused in-kernel (rows read through row_map)"
+                        if gather_fused else
+                        "materialized A[row_index] (plain version)"))
+    pad_rows = (eff.d_pad - eff.d
+                if spec.op != "transpose" and not gather_fused else 0)
     if impl == "torch":
         t("torch: plain version (no tiling, no shared memory)")
         tn = groups = smem = grid_cols = None
         tn_source = "n/a"
     else:
-        launch = fsk.fwd_launch if spec.op == "fwd" else fsk.transpose_launch
         if spec.tn is not None:
             tn, tn_source = spec.tn, "explicit"
         else:
-            tn = (fsk.FWD_DEFAULT_TN if spec.op == "fwd"
-                  else fsk.TRANSPOSE_DEFAULT_TN)
-            tn_source = "default"
-            while tn > 32 and launch(eff, tn)[2] > fsk.MAX_SMEM_BYTES:
-                t(f"tn={tn} rejected: {launch(eff, tn)[2]} B of shared "
-                  f"memory > {fsk.MAX_SMEM_BYTES} B")
+            tn, tn_source = _DEFAULT_TN[spec.op], "default"
+            while tn > 32 and (smem := _geometry(
+                    eff, spec.op, gather_fused, tn)[1]) > fsk.MAX_SMEM_BYTES:
+                t(f"tn={tn} rejected: {smem} B of shared memory > "
+                  f"{fsk.MAX_SMEM_BYTES} B")
                 tn //= 2
                 tn_source = "default:smem_shrunk"
-        geometry = launch(eff, tn)
-        groups, smem = geometry[0], geometry[2]
+        groups, smem = _geometry(eff, spec.op, gather_fused, tn)
         grid_cols = -(-spec.n // tn)
         t(f"tn: {tn} ({tn_source}); {groups} thread groups, {smem} B shared "
           f"memory, grid ({eff.M}, {grid_cols})")
+    if spec.batch > 1:
+        t(f"batch: {spec.batch} matrices folded into the column axis")
     t(f"pad: rows +{pad_rows}, cols +0 (the ragged column edge is masked "
       f"in the kernel)")
     return Lowering(
         plan=eff, op=spec.op, impl=impl, impl_requested=spec.impl,
         device=spec.device, tn=tn, tn_source=tn_source, dtype=eff.dtype,
         n=spec.n, grid_cols=grid_cols, groups=groups, smem_bytes=smem,
-        pad_rows=pad_rows)
+        pad_rows=pad_rows, gather=spec.gather, gather_fused=gather_fused,
+        batch=spec.batch)
+
+
+_DEFAULT_TN = {"fwd": fsk.FWD_DEFAULT_TN,
+               "transpose": fsk.TRANSPOSE_DEFAULT_TN,
+               "blockrow": fsk.BLOCKROW_DEFAULT_TN}
+
+def _geometry(plan: BlockPermPlan, op: str, gather_fused: bool,
+              tn: int) -> Tuple[int, int]:
+    """(thread groups, shared bytes) of the kernel that runs at tile
+    width ``tn``."""
+    if op == "transpose":
+        groups, _, smem, _ = fsk.transpose_launch(plan, tn)
+    elif op == "blockrow":
+        groups, smem = fsk.blockrow_launch(plan, tn)
+    else:
+        groups, _, smem = fsk.fwd_launch(plan, tn, gather=gather_fused)
+    return groups, smem
 
 
 @functools.lru_cache(maxsize=1024)
@@ -210,32 +255,71 @@ def explain(plan: BlockPermPlan, spec: Optional[LaunchSpec] = None,
     trace: List[str] = []
     lw = _lower(plan, spec, trace)
     head = (f"lower(op={spec.op!r}, n={spec.n}, impl={spec.impl!r}, "
-            f"tn={spec.tn}, dtype={spec.dtype!r}, device={spec.device!r})")
+            f"tn={spec.tn}, dtype={spec.dtype!r}, device={spec.device!r}, "
+            f"gather={spec.gather}, batch={spec.batch})")
     lines = [head] + ["  " + ln for ln in trace] + ["=> " + lw.describe()]
     lines.append("health: " + health_report.summarize_counters())
     return "\n".join(lines)
 
 
+def row_map_for(plan: BlockPermPlan, row_index,
+                device: torch.device | str | None = None) -> torch.Tensor:
+    """(d_pad,) int32 source-row map.  Padding entries point at row 0, a
+    placeholder valid source; the gather kernels skip the rows ≥
+    ``plan.d`` themselves, so A is never copied just to host a zero row and
+    padding still contributes exact zeros."""
+    ri = torch.as_tensor(row_index, device=device).reshape(-1).to(torch.int32)
+    pad = plan.d_pad - ri.shape[0]
+    if pad == 0:
+        return ri
+    return torch.cat([ri, ri.new_zeros(pad)])
+
+
 _ORACLES = {"fwd": kref.flashsketch_ref,
-            "transpose": kref.flashsketch_transpose_ref}
+            "transpose": kref.flashsketch_transpose_ref,
+            "blockrow": kref.blockrow_ref}
+
+_GATHER_KERNELS = {"fwd": fsk.flashsketch_fwd_gather,
+                   "blockrow": fsk.blockrow_fwd_gather}
 
 
-def execute(lw: Lowering, operand: torch.Tensor) -> torch.Tensor:
-    """Run a ``Lowering`` on its operand: ``(d, n)`` for ``fwd``, ``(k, n)``
-    (or fewer rows, zero-padded) for ``transpose``.  Returns ``(k, n)``
-    fp32 for the forward and ``(d, n)`` for the transpose, on the
-    operand's device."""
+def execute(lw: Lowering, operand: torch.Tensor,
+            row_index=None) -> torch.Tensor:
+    """Run a ``Lowering`` on its operand: ``(d, n)`` for ``fwd`` /
+    ``blockrow`` (``(d_src, n)`` with a gather), ``(k, n)`` (or fewer rows,
+    zero-padded) for ``transpose``.  ``row_index`` is the ``(plan.d,)``
+    int rows of a gather lowering: required then, forbidden otherwise.
+    Returns ``(k, n)`` fp32 for the forwards and ``(d, n)`` for the
+    transpose, on the operand's device."""
     if operand.device.type != lw.device:
         raise ValueError(f"lowering for a {lw.device} operand got one on "
                          f"{operand.device}")
     plan = lw.plan
     n = operand.shape[1]
+    if lw.gather:
+        if row_index is None:
+            raise ValueError("gather lowering requires row_index")
+        d_keep = len(row_index)
+        if d_keep != plan.d:
+            raise ValueError(
+                f"row_index has {d_keep} entries but plan.d == {plan.d}; "
+                f"build the plan for the masked dim (make_plan(d_keep, k, "
+                f"...))")
+        if lw.gather_fused:
+            rmap = row_map_for(plan, row_index, operand.device)
+            return _GATHER_KERNELS[lw.op](plan, operand, rmap,
+                                          tn=lw.tn)[: plan.k, :n]
+        # the explicit materialize-then-plain path
+        operand = operand[torch.as_tensor(row_index, device=operand.device,
+                                          dtype=torch.int64)]
+    elif row_index is not None:
+        raise ValueError("row_index passed to a non-gather lowering")
     if lw.impl == "torch":
         x = precision_mod.emulate_stream(operand, plan.precision,
                                          seed=plan.seed)
         return _ORACLES[lw.op](plan, x)
-    if lw.op == "fwd":
-        return fsk.flashsketch_fwd(plan, kref.pad_input(plan, operand),
-                                   tn=lw.tn)[: plan.k, :n]
-    Y = kref.pad_rows(operand, plan.k_pad)
-    return fsk.flashsketch_transpose(plan, Y, tn=lw.tn)[: plan.d, :n]
+    if lw.op == "transpose":
+        Y = kref.pad_rows(operand, plan.k_pad)
+        return fsk.flashsketch_transpose(plan, Y, tn=lw.tn)[: plan.d, :n]
+    kernel = fsk.flashsketch_fwd if lw.op == "fwd" else fsk.blockrow_fwd
+    return kernel(plan, kref.pad_input(plan, operand), tn=lw.tn)[: plan.k, :n]

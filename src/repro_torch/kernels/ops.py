@@ -7,6 +7,14 @@ given.  Each is a ``torch.autograd.Function`` whose backward is the other
 one's kernel: the gradient of ``Y = S A`` with respect to ``A`` is
 ``Sᵀ dY``, and of ``X = Sᵀ Y`` with respect to ``Y`` is ``S dX``.
 
+Gather-fused path (the GraSS sparsify→sketch fusion): ``sketch_apply``,
+``blockrow_apply``, ``sketch_apply_batched`` and ``sketch_vectors`` take
+``row_index=``, a ``(plan.d,)`` int array of source rows, and compute
+``S @ A[row_index, :]`` in one kernel launch with no ``A[row_index]``
+intermediate.  The indexed apply's backward scatters ``Sᵀ dY`` back into
+the masked rows (``sketch_apply_t(row_index=, d_src=)``).  The batched
+entry points fold a stack into the column axis of one launch.
+
 ``sketch_qr`` and ``triangular_factor`` build the sketch-and-precondition
 factor.  The factorizations are small dense problems, left to
 ``torch.linalg`` as the JAX package leaves them to XLA.
@@ -24,11 +32,12 @@ from repro_torch.kernels import lowering
 
 
 def _run(plan: BlockPermPlan, op: str, X: torch.Tensor, impl: str,
-         tn: Optional[int], dtype: Optional[str]) -> torch.Tensor:
+         tn: Optional[int], dtype: Optional[str],
+         row_index=None) -> torch.Tensor:
     lw = lowering.lower(plan, lowering.LaunchSpec(
         op=op, n=X.shape[1], impl=impl, tn=tn, dtype=dtype,
-        device=X.device.type))
-    return lowering.execute(lw, X)
+        device=X.device.type, gather=row_index is not None))
+    return lowering.execute(lw, X, row_index=row_index)
 
 
 class _SketchApply(torch.autograd.Function):
@@ -64,29 +73,52 @@ class _SketchApplyT(torch.autograd.Function):
         return dY[: ctx.rows].to(ctx.in_dtype), None, None, None, None
 
 
+class _SketchApplyIndexed(torch.autograd.Function):
+    """``Y = S A[row_index]`` in one launch; backward scatters ``Sᵀ dY``
+    into rows ``row_index`` of a zero ``(d_src, n)`` cotangent."""
+
+    @staticmethod
+    def forward(ctx, A, row_index, plan, impl, tn, dtype):
+        ctx.args = (plan, impl, tn, dtype)
+        ctx.in_dtype = A.dtype
+        ctx.row_index = row_index
+        ctx.d_src = A.shape[0]
+        return _run(plan, "fwd", A, impl, tn, dtype, row_index)
+
+    @staticmethod
+    def backward(ctx, dY):
+        plan, impl, tn, dtype = ctx.args
+        dA = sketch_apply_t(plan, dY, impl, tn, dtype,
+                            row_index=ctx.row_index, d_src=ctx.d_src)
+        return dA.to(ctx.in_dtype), None, None, None, None, None
+
+
 def sketch_apply(plan: BlockPermPlan, A: torch.Tensor, impl: str = "auto",
                  tn: Optional[int] = None, dtype: Optional[str] = None, *,
                  row_index=None) -> torch.Tensor:
-    """Apply the sketch: ``Y = S A``.
+    """Apply the sketch: ``Y = S A`` (or ``S A[row_index, :]``, fused).
 
     Args:
-      plan: frozen ``BlockPermPlan``.
+      plan: frozen ``BlockPermPlan`` (for the masked dim with a gather:
+        ``plan.d == len(row_index)``).
       A: ``(d, n)`` float tensor (padding to ``d_pad`` is internal),
-        streamed in the plan's (or ``dtype``'s) streaming precision.
+        streamed in the plan's (or ``dtype``'s) streaming precision; with
+        ``row_index`` the ``(d_src, n)`` source, in any strides.
       impl: ``"auto"`` (the CUDA kernel for CUDA tensors, the plain
-        version for CPU tensors), ``"cuda"`` or ``"torch"``.
+        version for CPU tensors), ``"cuda"`` or ``"torch"`` (which
+        materializes the gather).
       tn: column-tile width of the CUDA kernel; ``None`` for its default.
       dtype: streaming-precision override; ``None`` keeps the plan's.
-      row_index: the fused gather of the GraSS slice; not ported yet.
+      row_index: optional ``(plan.d,)`` int rows of A; the gather is fused
+        into the kernel's loads (no ``A[row_index]`` intermediate).
 
     Returns:
-      ``(k, n)`` fp32 tensor on A's device, differentiable in ``A``.
+      ``(k, n)`` fp32 tensor on A's device, differentiable in ``A`` (the
+      gradient of the indexed apply lands back at the masked rows).
     """
-    if row_index is not None:
-        raise NotImplementedError(
-            "sketch_apply(row_index=) is the fused gather of the GraSS "
-            "slice (ROADMAP queue 1, item 6), not ported yet")
-    return _SketchApply.apply(A, plan, impl, tn, dtype)
+    if row_index is None:
+        return _SketchApply.apply(A, plan, impl, tn, dtype)
+    return _SketchApplyIndexed.apply(A, row_index, plan, impl, tn, dtype)
 
 
 def sketch_apply_t(plan: BlockPermPlan, Y: torch.Tensor, impl: str = "auto",
@@ -99,16 +131,102 @@ def sketch_apply_t(plan: BlockPermPlan, Y: torch.Tensor, impl: str = "auto",
       Y: ``(k, n)`` float tensor (fewer rows are zero-padded to ``k_pad``),
         streamed in the effective streaming precision.
       impl / tn / dtype: as in ``sketch_apply``.
-      row_index / d_src: the scatter of the GraSS slice; not ported yet.
+      row_index / d_src: the dual of the gather path: the ``(d, n)``
+        result is scattered (``index_add``) into rows ``row_index`` of a
+        zero ``(d_src, n)`` tensor.
 
     Returns:
-      ``(d, n)`` fp32 tensor on Y's device, differentiable in ``Y``.
+      ``(d, n)`` fp32 tensor on Y's device, or ``(d_src, n)`` with the
+      scatter; differentiable in ``Y``.
     """
-    if row_index is not None or d_src is not None:
-        raise NotImplementedError(
-            "sketch_apply_t(row_index=, d_src=) is the scatter of the GraSS "
-            "slice (ROADMAP queue 1, item 6), not ported yet")
-    return _SketchApplyT.apply(Y, plan, impl, tn, dtype)
+    if row_index is not None and d_src is None:
+        raise ValueError("row_index requires d_src (the scatter target dim)")
+    X = _SketchApplyT.apply(Y, plan, impl, tn, dtype)
+    if row_index is None:
+        return X
+    idx = torch.as_tensor(row_index, device=X.device, dtype=torch.int64)
+    return X.new_zeros((d_src, X.shape[1])).index_add(0, idx, X)
+
+
+def blockrow_apply(plan: BlockPermPlan, A: torch.Tensor, impl: str = "auto",
+                   tn: Optional[int] = None, dtype: Optional[str] = None, *,
+                   row_index=None) -> torch.Tensor:
+    """FLASHBLOCKROW forward: ``Y = S_blockrow A`` (paper App. C).
+
+    The gather-only appendix variant (iid block wiring, s nonzeros per
+    row): reads A about once, with weaker embedding guarantees.  It has no
+    gradient, as in the reference: the result never carries a graph.
+
+    Args:
+      plan: frozen ``BlockPermPlan`` (the wiring is drawn iid per seed).
+      A: ``(d, n)`` float tensor (``(d_src, n)`` with ``row_index``).
+      impl / tn / dtype: as in ``sketch_apply``.
+      row_index: optional ``(plan.d,)`` int rows; computes
+        ``S_blockrow @ A[row_index, :]`` with the gather fused in-kernel.
+
+    Returns:
+      ``(k, n)`` fp32 tensor on A's device.
+    """
+    with torch.no_grad():
+        return _run(plan, "blockrow", A, impl, tn, dtype, row_index)
+
+
+def _batched_tn(plan: BlockPermPlan, n: int, impl: str, tn: Optional[int],
+                dtype: Optional[str], n_batch: int, gather: bool,
+                device: torch.device) -> Optional[int]:
+    """The tile of one batch-aware lowering, shared by the two batch entry
+    points so both resolve the identical launch."""
+    if tn is not None:
+        return tn
+    return lowering.lower(plan, lowering.LaunchSpec(
+        op="fwd", n=n, impl=impl, dtype=dtype, device=device.type,
+        gather=gather, batch=n_batch)).tn
+
+
+def sketch_vectors(plan: BlockPermPlan, x: torch.Tensor, impl: str = "auto",
+                   tn: Optional[int] = None, dtype: Optional[str] = None, *,
+                   row_index=None) -> torch.Tensor:
+    """Sketch a batch of vectors laid out along the LAST axis.
+
+    ``x`` is ``(..., d)`` (``(..., d_src)`` with ``row_index``: e.g. a
+    stack of raw per-example gradients whose sparsification is fused into
+    the sketch).  The batch is folded into the column axis of one
+    ``sketch_apply`` launch, on the ``(d, batch)`` view of ``x`` (no
+    copy).  Returns ``(..., k)`` with ``y[..., :] = S x[..., :]``.
+    """
+    flat = x.reshape(-1, x.shape[-1])                          # (n, d)
+    tn = _batched_tn(plan, 1, impl, tn, dtype, flat.shape[0],
+                     row_index is not None, x.device)
+    Y = sketch_apply(plan, flat.T, impl, tn, dtype, row_index=row_index)
+    return Y.T.reshape(*x.shape[:-1], plan.k)
+
+
+def sketch_apply_batched(plan: BlockPermPlan, A: torch.Tensor,
+                         impl: str = "auto", tn: Optional[int] = None,
+                         dtype: Optional[str] = None, *,
+                         row_index=None) -> torch.Tensor:
+    """Apply S to a stack of matrices ``(..., d, n)`` in ONE launch.
+
+    The batch axes are folded into the column axis (S acts on the row axis
+    only): a ``(B, d, n)`` stack is one launch on a ``(d, B·n)`` operand.
+    ``row_index`` (shared by every batch element) fuses the gather as in
+    ``sketch_apply``.  Returns ``(..., k, n)`` with ``out[b] = S @ A[b]``,
+    differentiable in A.
+    """
+    if A.dim() < 2:
+        raise ValueError(f"A must be at least 2-D (d, n), got shape "
+                         f"{tuple(A.shape)}")
+    batch = A.shape[:-2]
+    d, n = A.shape[-2:]
+    n_batch = 1
+    for b in batch:
+        n_batch *= b
+    tn = _batched_tn(plan, n, impl, tn, dtype, n_batch,
+                     row_index is not None, A.device)
+    flat = A.reshape(-1, d, n).movedim(0, 1).reshape(d, -1)    # (d, B·n)
+    Y = sketch_apply(plan, flat, impl, tn, dtype, row_index=row_index)
+    Y = Y.reshape(plan.k, -1, n).movedim(1, 0)                 # (B, k, n)
+    return Y.reshape(*batch, plan.k, n)
 
 
 def sketch_qr(plan: BlockPermPlan, A: torch.Tensor, impl: str = "auto",

@@ -8,6 +8,8 @@ Shapes follow the paper: ``A ∈ R^{d×n}``, ``S ∈ R^{k×d}``,
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.core import hashing, wiring
@@ -20,6 +22,16 @@ def pad_input(plan: BlockPermPlan, A: torch.Tensor) -> torch.Tensor:
     if d == plan.d_pad:
         return A
     return torch.nn.functional.pad(A, (0, 0, 0, plan.d_pad - d))
+
+
+def gather_rows(plan: BlockPermPlan, A: torch.Tensor,
+                row_map: torch.Tensor) -> torch.Tensor:
+    """The materialized gather ``A[row_map]`` in fp32, (d_pad, n), with the
+    padding rows (index ≥ ``plan.d``) zeroed: what the gather kernels read
+    without ever writing it."""
+    G = A.to(torch.float32)[row_map.to(device=A.device, dtype=torch.int64)]
+    G[plan.d:] = 0.0
+    return G
 
 
 def pad_rows(Y: torch.Tensor, rows: int) -> torch.Tensor:
@@ -111,3 +123,59 @@ def flashsketch_transpose_ref(plan: BlockPermPlan,
         X_blocks = X_blocks.index_add(0, h_of_g, contrib)
     X = X_blocks.reshape(plan.d_pad, n) * plan.scale
     return X[: plan.d]
+
+
+# ---------------------------------------------------------------------------
+# FLASHBLOCKROW (paper App. C): iid block wiring (collisions possible) and s
+# nonzeros per *row*, scaled by an extra √(d_pad/k_pad) (Alg. 2).
+# ---------------------------------------------------------------------------
+
+BLOCKROW_WIRING_TAG = 0xB10C
+BLOCKROW_PHI_TAG = 0x5EED
+
+
+def blockrow_wiring(plan: BlockPermPlan,
+                    device: torch.device | str = "cpu") -> torch.Tensor:
+    """(κ, M) int64 iid input-block choices of FLASHBLOCKROW."""
+    g = torch.arange(plan.M, dtype=torch.int64, device=device)[None, :]
+    ell = torch.arange(plan.kappa, dtype=torch.int64, device=device)[:, None]
+    hsh = hashing.hash_words(plan.seed, BLOCKROW_WIRING_TAG, ell, g)
+    return hashing.hash_mod(hsh, plan.M)
+
+
+def _phi_rows_all_blocks(plan: BlockPermPlan,
+                         h_of_g: torch.Tensor) -> torch.Tensor:
+    """Per-row pattern for all output blocks: (M, Br, Bc), s ±1 entries per
+    row (column ``hash_mod(h, Bc)``, sign bit 31), unscaled."""
+    dev = h_of_g.device
+    g = torch.arange(plan.M, dtype=torch.int64, device=dev)[:, None]
+    r = torch.arange(plan.Br, dtype=torch.int64, device=dev)[None, :]
+    c_iota = torch.arange(plan.Bc, dtype=torch.int64, device=dev)
+    phi = torch.zeros((plan.M, plan.Br, plan.Bc), dtype=torch.float32,
+                      device=dev)
+    for t in range(plan.s):
+        hsh = hashing.hash_words(plan.seed, BLOCKROW_PHI_TAG, g,
+                                 h_of_g[:, None], r, t)           # (M, Br)
+        cols = hashing.hash_mod(hsh, plan.Bc)
+        signs = hashing.hash_to_unit_sign(hsh)
+        onehot = (c_iota[None, None, :] == cols[:, :, None]).to(torch.float32)
+        phi = phi + onehot * signs[:, :, None]
+    return phi
+
+
+def blockrow_ref(plan: BlockPermPlan, A: torch.Tensor) -> torch.Tensor:
+    """FLASHBLOCKROW forward: Y = S_row A with the Alg. 2 scaling.
+    A: (d, n) -> Y: (k, n) fp32."""
+    n = A.shape[1]
+    Ap = pad_input(plan, A).to(torch.float32)
+    A_blocks = Ap.reshape(plan.M, plan.Bc, n)
+    hh = blockrow_wiring(plan, A.device)
+    Y_blocks = torch.zeros((plan.M, plan.Br, n), dtype=torch.float32,
+                           device=A.device)
+    for ell in range(plan.kappa):
+        h_of_g = hh[ell]
+        phi = _phi_rows_all_blocks(plan, h_of_g)                  # (M, Br, Bc)
+        Y_blocks = Y_blocks + torch.bmm(phi, A_blocks[h_of_g])
+    scale = plan.scale * math.sqrt(plan.d_pad / plan.k_pad)
+    Y = Y_blocks.reshape(plan.k_pad, n) * scale
+    return Y[: plan.k]

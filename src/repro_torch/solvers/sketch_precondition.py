@@ -50,15 +50,21 @@ class SolveResult:
     lowering: Optional[object] = None
 
 
-def as_device_tensor(x, device) -> torch.Tensor:
-    """``x`` (a tensor or array) as a tensor on ``device``.  A CUDA device
-    without a card raises instead of running anywhere else."""
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``.  A CUDA device without a card
+    raises instead of running anywhere else."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "device='cuda' but no CUDA device is available; pass "
             "device='cpu' to run the plain PyTorch path")
-    return torch.as_tensor(x).to(device)
+    return device
+
+
+def as_device_tensor(x, device) -> torch.Tensor:
+    """``x`` (a tensor or array) as a tensor on ``device`` (see
+    ``resolve_device``)."""
+    return torch.as_tensor(x).to(resolve_device(device))
 
 
 def _right_precond_ops(A: Optional[torch.Tensor], R: Optional[torch.Tensor],

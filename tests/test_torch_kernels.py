@@ -159,10 +159,10 @@ def test_lowering_resolves_per_device():
 
 @pytest.mark.parametrize("spec,exc", [
     (dict(impl="pallas_v1"), NotImplementedError),
-    (dict(gather=True), NotImplementedError),
-    (dict(batch=4), NotImplementedError),
+    (dict(gather=True, op="transpose"), ValueError),  # no gathered transpose
+    (dict(batch=0), ValueError),
     (dict(shard="row"), NotImplementedError),
-    (dict(op="blockrow"), NotImplementedError),
+    (dict(op="blockrow", impl="pallas_v1"), NotImplementedError),
     (dict(impl="xla"), ValueError),
     (dict(op="gram"), ValueError),
     (dict(impl="cuda"), ValueError),         # a CUDA kernel for a CPU tensor
@@ -174,11 +174,14 @@ def test_lowering_rejects(spec, exc):
 
 
 def test_unported_entry_options_raise():
+    """The gather options are ported now; what they refuse is a row_index
+    of the wrong length and a scatter without its target height, as the
+    reference refuses them."""
     pt = tb.make_plan(256, 64)
-    with pytest.raises(NotImplementedError):
-        tops.sketch_apply(pt, torch.zeros(256, 2), row_index=torch.arange(8))
-    with pytest.raises(NotImplementedError):
-        tops.sketch_apply_t(pt, torch.zeros(64, 2), d_src=300)
+    with pytest.raises(ValueError, match="row_index has 8 entries"):
+        tops.sketch_apply(pt, torch.zeros(300, 2), row_index=torch.arange(8))
+    with pytest.raises(ValueError, match="d_src"):
+        tops.sketch_apply_t(pt, torch.zeros(64, 2), row_index=torch.arange(256))
 
 
 def test_explain_traces_and_counts():
@@ -235,7 +238,8 @@ def test_cuda_kernels_match_plain(policy, cuda):
         assert float((got - want).abs().max()) <= atol * float(
             want.abs().max())
         assert {k: tfsk.LAUNCHES[k] - before[k] for k in before} == {
-            "flashsketch_fwd": 1, "flashsketch_transpose": 1}
+            **dict.fromkeys(before, 0), "flashsketch_fwd": 1,
+            "flashsketch_transpose": 1}
 
 
 @pytest.mark.gpu
@@ -246,3 +250,164 @@ def test_cuda_sketch_of_identity_is_exact(cuda):
     with pytest.raises(NotImplementedError):
         tops.sketch_apply(tb.make_plan(512, 64, family="countsketch", s=1),
                           torch.eye(512, device=cuda))
+
+
+# ---------------------------------------------------------------------------
+# the GraSS slice: fused gather, FLASHBLOCKROW, batch folding
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def gathered():
+    """d=190 < d_pad=192 (Bc=48, not a power of two), gathered from
+    d_src=500 rows; n=13 is ragged for tn=16."""
+    rng = np.random.default_rng(11)
+    pj, pt = _plans(190, 48, kappa=4, s=2, seed=2)
+    idx = np.sort(rng.choice(500, 190, replace=False)).astype(np.int32)
+    A = rng.normal(size=(500, 13)).astype(np.float32) * 4
+    return pj, pt, A, idx
+
+
+@pytest.mark.parametrize("d,k,kw", [(190, 48, dict(kappa=4, s=2)),
+                                    (1000, 96, dict(kappa=3, s=4)),
+                                    (4096, 1024, dict(kappa=4, s=2))])
+def test_blockrow_wiring_and_pattern_bit_equal(d, k, kw):
+    pj, pt = _plans(d, k, seed=9, **kw)
+    tab_j = np.asarray(jref.blockrow_wiring(pj))
+    tab_t = tref.blockrow_wiring(pt)
+    np.testing.assert_array_equal(tab_t.numpy(), tab_j)
+    np.testing.assert_array_equal(tfsk._blockrow_table(pt), tab_j)
+    for ell in range(pt.kappa):
+        np.testing.assert_array_equal(
+            tref._phi_rows_all_blocks(pt, tab_t[ell]).numpy(),
+            np.asarray(jref._phi_rows_all_blocks(pj, jnp.asarray(tab_j[ell]))))
+    if d <= 1000:     # the dense S_row, scale included: S_row · I
+        np.testing.assert_array_equal(
+            tref.blockrow_ref(pt, torch.eye(d)).numpy(),
+            np.asarray(jref.blockrow_ref(pj, jnp.eye(d))))
+
+
+@pytest.mark.parametrize("policy", POLICIES)
+def test_gather_and_blockrow_match_pallas(policy, gathered):
+    """sketch_apply(row_index=), blockrow_apply with and without the
+    gather, against the Pallas kernels in interpret mode; the wrappers'
+    CPU paths give the same in both source layouts."""
+    pj, pt, A, idx = gathered
+    pj, pt = pj.with_dtype(policy), pt.with_dtype(policy)
+    atol = jp.resolve(policy).exactness_atol
+    Aj, At, ij = jnp.asarray(A), torch.from_numpy(A), jnp.asarray(idx)
+    rmap = tlow.row_map_for(pt, idx)
+    view = torch.from_numpy(np.ascontiguousarray(A.T)).T     # (500, 13) view
+    want = jops.sketch_apply(pj, Aj, "pallas", 16, row_index=ij)
+    _close(tops.sketch_apply(pt, At, row_index=idx), want, atol)
+    for src in (At, view):
+        _close(tfsk.flashsketch_fwd_gather(pt, src, rmap)[:pt.k], want, atol)
+    want = jops.blockrow_apply(pj, Aj, "pallas", 16, row_index=ij)
+    _close(tops.blockrow_apply(pt, At, row_index=idx), want, atol)
+    for src in (At, view):
+        _close(tfsk.blockrow_fwd_gather(pt, src, rmap)[:pt.k], want, atol)
+    want = jops.blockrow_apply(pj, Aj[ij], "pallas", 16)
+    _close(tops.blockrow_apply(pt, At[idx]), want, atol)
+    _close(tfsk.blockrow_fwd(pt, tref.pad_input(pt, At[idx])), want, atol)
+
+
+@pytest.mark.parametrize("policy", POLICIES)
+def test_batched_and_vectors_match_pallas(policy, gathered):
+    pj, pt, A, idx = gathered
+    pj, pt = pj.with_dtype(policy), pt.with_dtype(policy)
+    atol = jp.resolve(policy).exactness_atol
+    stack = np.stack([A[:, :5], A[:, 5:10], 2 * A[:, 3:8]])   # (3, 500, 5)
+    S, ij = jnp.asarray(stack), jnp.asarray(idx)
+    _close(tops.sketch_apply_batched(pt, torch.from_numpy(stack),
+                                     row_index=idx),
+           jops.sketch_apply_batched(pj, S, "pallas", 16, row_index=ij), atol)
+    sub = stack[:, idx]                                         # (3, 190, 5)
+    _close(tops.sketch_apply_batched(pt, torch.from_numpy(sub)),
+           jops.sketch_apply_batched(pj, jnp.asarray(sub), "pallas", 16), atol)
+    vecs = A.T[:7]                                              # (7, 500)
+    _close(tops.sketch_vectors(pt, torch.from_numpy(vecs), row_index=idx),
+           jops.sketch_vectors(pj, jnp.asarray(vecs), "pallas", 16,
+                               row_index=ij), atol)
+    _close(tops.sketch_vectors(pt, torch.from_numpy(vecs[:, idx])),
+           jops.sketch_vectors(pj, jnp.asarray(vecs[:, idx]), "pallas", 16),
+           atol)
+
+
+def test_gather_vjp_is_the_scattered_transpose(gathered):
+    _, pt, A, idx = gathered
+    S = tb.materialize_sketch_matrix(pt)[:, :pt.d].double()
+    W = torch.from_numpy(np.random.default_rng(3).normal(size=(pt.k, 13)))
+    Ad = torch.from_numpy(A).double().requires_grad_(True)
+    (tops.sketch_apply(pt, Ad, row_index=idx) * W).sum().backward()
+    assert Ad.grad.dtype == torch.float64 and Ad.grad.shape == (500, 13)
+    scattered = tops.sketch_apply_t(pt, W, row_index=idx, d_src=500)
+    np.testing.assert_allclose(Ad.grad.numpy(), scattered.numpy(),
+                               atol=1e-5, rtol=1e-5)
+    want = np.zeros((500, 13))
+    want[idx] = (S.T @ W).numpy()
+    np.testing.assert_allclose(Ad.grad.numpy(), want, atol=1e-5, rtol=1e-5)
+
+
+def test_gather_lowering_records_and_errors(gathered):
+    _, pt, A, idx = gathered
+    cuda = tlow.lower(pt, tlow.LaunchSpec(n=64, device="cuda", gather=True,
+                                          batch=4))
+    assert (cuda.gather, cuda.gather_fused, cuda.pad_rows, cuda.batch) == (
+        True, True, 0, 4)
+    assert cuda.smem_bytes == tfsk.fwd_launch(pt, cuda.tn, gather=True)[2]
+    assert "gather=fused" in cuda.describe()
+    cpu = tlow.lower(pt, tlow.LaunchSpec(n=64, gather=True))
+    assert (cpu.impl, cpu.gather_fused, cpu.pad_rows) == ("torch", False, 2)
+    br = tlow.lower(pt, tlow.LaunchSpec(op="blockrow", n=64, device="cuda"))
+    assert br.smem_bytes == tfsk.blockrow_launch(pt, br.tn)[1]
+    rmap = tlow.row_map_for(pt, idx)
+    assert rmap.dtype == torch.int32 and rmap.shape == (pt.d_pad,)
+    assert torch.equal(rmap[:190], torch.from_numpy(idx))
+    assert not rmap[190:].any()
+    At = torch.from_numpy(A)
+    with pytest.raises(ValueError, match="requires row_index"):
+        tlow.execute(cpu, At)
+    with pytest.raises(ValueError, match="row_index has"):
+        tlow.execute(cpu, At, row_index=idx[:10])
+    with pytest.raises(ValueError, match="non-gather"):
+        tlow.execute(tlow.lower(pt, tlow.LaunchSpec(n=13)), At[:190],
+                     row_index=idx)
+    with pytest.raises(ValueError, match="row_map"):
+        tfsk.flashsketch_fwd_gather(pt, At, rmap[:100])
+    outside = rmap.clone()
+    outside[5] = 500                       # past the 500 source rows
+    for gather in (tfsk.flashsketch_fwd_gather, tfsk.blockrow_fwd_gather):
+        with pytest.raises(IndexError):
+            gather(pt, At, outside)
+    with pytest.raises(ValueError, match="no blockrow"):
+        tlow.lower(tb.make_plan(256, 64, family="countsketch", s=1),
+                   tlow.LaunchSpec(op="blockrow"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy", POLICIES)
+def test_cuda_grass_kernels_match_plain(policy, cuda):
+    """On the card: the gathers equal their kernels on the zero-padded
+    materialized gather bit for bit, in both source layouts, and all three
+    kernels are within the policy's tolerance of their plain versions."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for d, k, kw, n, d_src in [(1000, 96, dict(kappa=4, s=2), 37, 3000),
+                               (3000, 64, dict(kappa=2, s=2), 33, 5000),
+                               (4096, 1024, dict(kappa=4, s=2), 64, 109386)]:
+        p = tb.make_plan(d, k, dtype=policy, **kw)
+        atol = p.precision.exactness_atol
+        ri = torch.randperm(d_src, generator=gen, device=cuda)[:d].sort()[0]
+        rmap = tlow.row_map_for(p, ri, cuda)
+        for src in (torch.randn(d_src, n, generator=gen, device=cuda),
+                    torch.randn(n, d_src, generator=gen, device=cuda).T):
+            Gp = tref.pad_input(p, src[ri])
+            G = tref.gather_rows(p, tfsk._stream(p, src), rmap)
+            for gather, flat, plain in (
+                    (tfsk.flashsketch_fwd_gather, tfsk.flashsketch_fwd,
+                     tref.flashsketch_ref),
+                    (tfsk.blockrow_fwd_gather, tfsk.blockrow_fwd,
+                     tref.blockrow_ref)):
+                got = gather(p, src, rmap)
+                assert torch.equal(got, flat(p, Gp))
+                want = plain(p, G)
+                assert float((got - want).abs().max()) <= atol * float(
+                    want.abs().max())

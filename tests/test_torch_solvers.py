@@ -149,8 +149,8 @@ def test_family_and_precision_knobs_match_reference(problem):
 # ---------------------------------------------------------------------------
 
 def test_port_imports_neither_jax_nor_reference():
-    """Every module of repro_torch, and chip_smoke.py, imports with the
-    top-level names ``jax`` and ``repro`` blocked."""
+    """Every module of repro_torch, chip_smoke.py and the port's benches
+    import with the top-level names ``jax`` and ``repro`` blocked."""
     script = textwrap.dedent(f"""
         import importlib, importlib.util, pkgutil, sys
         BLOCKED = ("jax", "jaxlib", "repro")
@@ -168,9 +168,10 @@ def test_port_imports_neither_jax_nor_reference():
             repro_torch.__path__, "repro_torch.")]
         for name in names:
             importlib.import_module(name)
-        spec = importlib.util.spec_from_file_location(
-            "chip_smoke", {os.path.join(ROOT, "chip_smoke.py")!r})
-        spec.loader.exec_module(importlib.util.module_from_spec(spec))
+        for script in ("chip_smoke.py", "benchmarks/torch_grass_bench.py"):
+            spec = importlib.util.spec_from_file_location(
+                "script", {ROOT!r} + "/" + script)
+            spec.loader.exec_module(importlib.util.module_from_spec(spec))
         bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
         assert not bad, bad
         print(len(names))
@@ -179,7 +180,7 @@ def test_port_imports_neither_jax_nor_reference():
                          text=True, timeout=120, cwd=ROOT,
                          env={**os.environ, "PYTHONPATH": ""})
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 18
+    assert int(out.stdout.split()[-1]) >= 23
 
 
 @pytest.mark.parametrize("entry", ["sketch_precondition_lstsq",
