@@ -38,7 +38,28 @@ Phases, any failure exits non-zero and prints no result:
      retrains at α = 0.5): LDS > 0 at every k; fused features equal to
      unfused ones for ``blockperm`` and ``blockrow``; one gather launch per
      chunk; a NaN-poisoned example quarantined; one warm ``build_cache``
-     under ``torch.profiler``; the launch counts of this phase.
+     under ``torch.profiler``; the launch counts of this phase;
+  6. every sketch family at the paper's main shape (``paper_main`` of
+     ``benchmarks/torch_pareto_bench.py``: d = 65 536, n = 1 024,
+     k = 4 096, gaussian data, cond 1e4): ``score_family`` of all eleven
+     families, one trial (OSE error on U = orth(A), preconditioned-LSQR
+     iterations, warm apply µs), the front; a BlockPerm apply at
+     Br = 2 048, whose lowering must downgrade to ``cuda_v1``; a backward
+     under ``impl="cuda_v1"``; FLASHBLOCKROW under ``impl="cuda_v1"``;
+     CountSketch's fused gather (== its apply on the materialized gather)
+     and backward; the launch counts of this phase, which must show every
+     v1 and global kernel.
+
+Phase 2 also holds the three v1 kernels (ragged n with d < d_pad, κ × s ∈
+{1,2,4}², the Br = 2 048 plan the lowering downgrades, the main plan) and
+the global forward, transpose and gather (CountSketch and graph plans,
+ragged n, the CountSketch plan of the main shape) to their plain versions
+under all six policies, and at the main shape the plans phase 6 runs
+through them: graph (s = 4, one row chunk per block) and localized (κ = 1,
+also through the fused forward and transpose); with the exact checks S·I == S for v1 and the
+global forward, the adjoint pairs, and global gather == global forward on
+the zero-padded materialized gather; phase 4 times them (v1 at the main
+plan, the global kernels at the CountSketch plan of the main shape).
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the
 last is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -77,11 +98,35 @@ KERNEL_INFO = {
     "blockrow_fwd_gather": dict(
         source="src/repro_torch/kernels/csrc/flashsketch_blockrow.cu",
         replaces="src/repro/kernels/flashsketch.py:682"),
+    "flashsketch_fwd_v1": dict(
+        source="src/repro_torch/kernels/csrc/flashsketch_v1.cu",
+        replaces="src/repro/kernels/flashsketch.py:883"),
+    "flashsketch_transpose_v1": dict(
+        source="src/repro_torch/kernels/csrc/flashsketch_v1.cu",
+        replaces="src/repro/kernels/flashsketch.py:905"),
+    "blockrow_fwd_v1": dict(
+        source="src/repro_torch/kernels/csrc/flashsketch_v1.cu",
+        replaces="src/repro/kernels/flashsketch.py:927"),
+    # the global families' branch (_phi_global_tile) of kernels 1-3
+    "flashsketch_fwd_global": dict(
+        source="src/repro_torch/kernels/csrc/flashsketch_fwd.cu",
+        replaces="src/repro/kernels/flashsketch.py:594"),
+    "flashsketch_transpose_global": dict(
+        source="src/repro_torch/kernels/csrc/flashsketch_transpose.cu",
+        replaces="src/repro/kernels/flashsketch.py:619"),
+    "flashsketch_fwd_gather_global": dict(
+        source="src/repro_torch/kernels/csrc/flashsketch_fwd.cu",
+        replaces="src/repro/kernels/flashsketch.py:642"),
 }
 # the kernels of the main path (phase 3) and of the GraSS path (phase 5)
 MAIN_KERNELS = ("flashsketch_fwd", "flashsketch_transpose")
 GRASS_KERNELS = ("flashsketch_fwd_gather", "blockrow_fwd",
                  "blockrow_fwd_gather")
+# the kernels of the family tournament's path (phase 6)
+V1_KERNELS = ("flashsketch_fwd_v1", "flashsketch_transpose_v1",
+              "blockrow_fwd_v1")
+GLOBAL_KERNELS = ("flashsketch_fwd_global", "flashsketch_transpose_global",
+                  "flashsketch_fwd_gather_global")
 # GraSS (paper App. E): 109 386-parameter MLP, sparse dim 4 096, κ = 4, s = 2
 GRASS_D_SRC, GRASS_D, GRASS_CHUNK, GRASS_K = 109_386, 4096, 64, 1024
 
@@ -260,6 +305,136 @@ def phase_grass_kernels(rt):
     print("  exact: identity row_index == the non-gather kernel, both "
           "families")
     return {name: grass_errs[(name, "float32")] for name in GRASS_KERNELS}
+
+
+def compare_family_kernels(rt, plan, n, gen):
+    """The v1 kernels (every plan) and the global forward, transpose and
+    gather (global plans) against their plain versions at one plan, all
+    policies; the global gather in both source layouts, and equal bit for
+    bit to the global forward on the zero-padded materialized gather.
+    Returns the max abs errors by (kernel, policy)."""
+    fsk, ref, lowering = rt["fsk"], rt["ref"], rt["lowering"]
+    errs = {}
+    A = torch.randn(plan.d_pad, n, generator=gen, device="cuda") * 3
+    Y = torch.randn(plan.k_pad, n, generator=gen, device="cuda") * 3
+    full = dataclasses.replace(plan, d=plan.d_pad)    # all d_pad rows
+    if plan.is_global:
+        d_src = 3 * plan.d
+        layouts = {
+            "rows": torch.randn(d_src, n, generator=gen, device="cuda") * 3,
+            "view": torch.randn(n, d_src, generator=gen,
+                                device="cuda").T * 3}
+        ri = torch.randperm(d_src, generator=gen,
+                            device="cuda")[:plan.d].sort().values
+        rmap = lowering.row_map_for(plan, ri, "cuda")
+    for pol in POLICIES:
+        p = plan.with_dtype(pol)
+        key = f"{pol} {plan.describe()} n={n}"
+        x = fsk._stream(p, A).float()
+        y = fsk._stream(p, Y).float()
+        got = {"flashsketch_fwd_v1": (fsk.flashsketch_fwd_v1(p, A),
+                                      ref.flashsketch_v1_ref(p, x)),
+               "flashsketch_transpose_v1": (
+                   fsk.flashsketch_transpose_v1(p, Y),
+                   ref.flashsketch_transpose_v1_ref(full, y))}
+        if plan.is_global:
+            got["flashsketch_fwd_global"] = (fsk.flashsketch_fwd(p, A),
+                                             ref.flashsketch_ref(p, x))
+            got["flashsketch_transpose_global"] = (
+                fsk.flashsketch_transpose(p, Y),
+                ref.flashsketch_transpose_ref(full, y))
+        else:
+            got["blockrow_fwd_v1"] = (fsk.blockrow_fwd_v1(p, A),
+                                      ref.blockrow_v1_ref(p, x))
+        for name, (kernel, plain) in got.items():
+            errs[(name, pol)] = _err(kernel, plain, p, f"{name} {key}")
+        if not plan.is_global:
+            continue
+        for layout, src in layouts.items():
+            name = "flashsketch_fwd_gather_global"
+            out = fsk.flashsketch_fwd_gather(p, src, rmap)
+            e = _err(out, ref.flashsketch_ref(
+                p, ref.gather_rows(p, fsk._stream(p, src), rmap)), p,
+                f"{name} {layout} {key}")
+            errs[(name, pol)] = max(errs.get((name, pol), 0.0), e)
+            check(torch.equal(out, fsk.flashsketch_fwd(
+                p, ref.pad_input(p, src[ri]))),
+                f"{name} {layout} {key}: not bit-equal to the global "
+                f"forward on the materialized gather")
+    return errs
+
+
+def phase_family_kernels(rt, main_plan, n_main):
+    """Phase 2 for the v1 kernels and the global families."""
+    fsk, blockperm, ops = rt["fsk"], rt["blockperm"], rt["ops"]
+    make_plan = blockperm.make_plan
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    # v1: ragged n with d < d_pad, κ × s ∈ {1,2,4}², the plan the lowering
+    # downgrades (Br = 2 048, the fused tile does not fit shared memory)
+    plans = [(make_plan(1000, 96, kappa=4, s=2, seed=1), 37)]
+    plans += [(make_plan(4096, 256, kappa=k, s=s, seed=10 * k + s), 100)
+              for k in (1, 2, 4) for s in (1, 2, 4)]
+    plans.append((make_plan(65536, 4096, kappa=4, s=2, block_rows=2048), 64))
+    # global: CountSketch (s = 1, Bc = 125) and graph (s = 4; two row
+    # chunks meet each output block, and the default M = 1 plan), ragged n
+    plans += [(make_plan(1000, 256, family="countsketch", s=1,
+                         block_rows=32, seed=2), 37),
+              (make_plan(1000, 128, family="graph", s=4, block_rows=64,
+                         seed=4), 37),
+              (make_plan(700, 64, family="graph", s=4, seed=4), 33)]
+    worst = {}
+    for plan, n in plans:
+        for key, err in compare_family_kernels(rt, plan, n, gen).items():
+            worst[key] = max(worst.get(key, 0.0), err)
+    # the main shape: the solver's plan, CountSketch (s = 1), and the
+    # tournament's graph (s = 4, one row chunk per block, i_lo > 0) and
+    # localized (κ = 1) plans, as phase 6 builds them; localized also
+    # through the fused forward and transpose, which phase 6 runs for it
+    d, k = main_plan.d, main_plan.k_req
+    tour = {fam: rt["variants"].make_sketch(
+        fam, d, k, seed=0, **rt["pareto"].FAMILY_KWARGS[fam]).plan
+        for fam in ("graph", "localized")}
+    main_plans = {"main": main_plan,
+                  "countsketch": make_plan(d, k, family="countsketch", s=1,
+                                           seed=0), **tour}
+    main_errs = {}
+    for label, plan in main_plans.items():
+        errs = compare_family_kernels(rt, plan, n_main, gen)
+        if label == "localized":
+            errs.update(compare_kernels(fsk, rt["ref"], plan, n_main, gen))
+        print(f"  main shape, {label} plan {plan.describe()}, n={n_main}:")
+        for (name, pol), err in sorted(errs.items()):
+            small = (f" (small plans worst {worst[name, pol]:.3e})"
+                     if (name, pol) in worst else "")
+            print(f"    {name:30s} {pol:12s} max_abs_err {err:.3e}{small}")
+            main_errs[(name, pol)] = max(main_errs.get((name, pol), 0.0), err)
+    # exact: each entry of S·I is one ±scale term, for v1 and the global
+    # forward; adjoint pairs to fp32 rounding
+    for plan in (make_plan(512, 64, kappa=4, s=2, seed=3),
+                 make_plan(512, 64, family="countsketch", s=1, seed=3),
+                 plans[-2][0]):
+        eye = torch.eye(plan.d_pad, device="cuda")
+        S = blockperm.materialize_sketch_matrix(plan, "cuda")
+        check(torch.equal(fsk.flashsketch_fwd_v1(plan, eye), S),
+              f"v1 S·I != S at {plan.describe()}")
+        if plan.is_global:
+            check(torch.equal(fsk.flashsketch_fwd(plan, eye), S),
+                  f"global S·I != S at {plan.describe()}")
+        x = torch.randn(plan.d, 3, generator=gen, device="cuda")
+        y = torch.randn(plan.k, 3, generator=gen, device="cuda")
+        for impl in ("cuda_v1", "auto"):
+            lhs = float((ops.sketch_apply(plan, x, impl).double()
+                         * y.double()).sum())
+            rhs = float((x.double() * ops.sketch_apply_t(
+                plan, y, impl).double()).sum())
+            check(abs(lhs - rhs) <= 1e-5 * max(abs(lhs), 1.0),
+                  f"adjoint {impl} {plan.describe()}: {lhs} vs {rhs}")
+    print(f"  exact: v1 and global S·I == S (torch.equal); <Sx,y> == "
+          f"<x,S^T y> for v1 and the global pair; global gather == global "
+          f"forward on the zero-padded materialized gather, both layouts, "
+          f"all policies, {len(plans) + 2} plans")
+    return {name: main_errs[(name, "float32")]
+            for name in V1_KERNELS + GLOBAL_KERNELS}
 
 
 # ---------------------------------------------------------------------------
@@ -571,6 +746,188 @@ def phase_grass_timing(rt, errs):
     return [rows[name] for name in GRASS_KERNELS]
 
 
+def global_sketch(rt, plan, transpose=False):
+    """S (or Sᵀ) of a global plan, its first ``plan.d`` columns, in CSR on
+    the card: the library yardstick, never called by the port."""
+    u = torch.arange(plan.d, device="cuda")
+    rows, cols, vals = [], [], []
+    for i in range(plan.s):
+        r, sgn = rt["blockperm"].global_rows_signs(plan, u, i)
+        rows.append(r)
+        cols.append(u)
+        vals.append(sgn * plan.scale)
+    idx = torch.stack([torch.cat(rows), torch.cat(cols)])
+    shape = (plan.k_pad, plan.d)
+    if transpose:
+        idx, shape = idx.flip(0), shape[::-1]
+    return _csr(idx, torch.cat(vals), shape)
+
+
+def phase_family_timing(rt, main_plan, n, errs):
+    """Phase 4 for the v1 kernels (the main plan) and the global kernels
+    (the CountSketch plan of the main shape; the gather from a row-major
+    source of 4·d rows)."""
+    fsk, ref, lowering = rt["fsk"], rt["ref"], rt["lowering"]
+    make_plan = rt["blockperm"].make_plan
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    p = main_plan
+    A = torch.randn(p.d_pad, n, generator=gen, device="cuda")
+    Y = torch.randn(p.k_pad, n, generator=gen, device="cuda")
+    full = dataclasses.replace(p, d=p.d_pad)
+    S, St = sparse_sketch(rt, p), sparse_sketch(rt, p, transpose=True)
+    S_row = sparse_blockrow(rt, p, p.d_pad)
+    _, cols, _ = blockrow_entries(rt, p)
+    named = int(torch.unique(cols).numel())
+    io = p.d_pad * n * 4 + p.k_pad * n * 4
+    ops = p.nnz_per_col * p.d_pad * n
+    work = {
+        "flashsketch_fwd_v1": dict(
+            kernel=lambda: fsk.flashsketch_fwd_v1(p, A),
+            plain=lambda: ref.flashsketch_v1_ref(p, A),
+            library=lambda: torch.sparse.mm(S, A), bytes=io, ops=ops),
+        "flashsketch_transpose_v1": dict(
+            kernel=lambda: fsk.flashsketch_transpose_v1(p, Y),
+            plain=lambda: ref.flashsketch_transpose_v1_ref(full, Y),
+            library=lambda: torch.sparse.mm(St, Y), bytes=io, ops=ops),
+        "blockrow_fwd_v1": dict(
+            kernel=lambda: fsk.blockrow_fwd_v1(p, A),
+            plain=lambda: ref.blockrow_v1_ref(p, A),
+            library=lambda: torch.sparse.mm(S_row, A),
+            bytes=named * n * 4 + p.k_pad * n * 4,
+            ops=p.kappa * p.s * p.k_pad * n),
+    }
+    g = make_plan(p.d, p.k_req, family="countsketch", s=1, seed=0)
+    d_src = 4 * g.d
+    src = torch.randn(d_src, n, generator=gen, device="cuda")
+    ri = torch.randperm(d_src, generator=gen, device="cuda")[:g.d]
+    ri = ri.sort().values
+    rmap = lowering.row_map_for(g, ri, "cuda")
+    gfull = dataclasses.replace(g, d=g.d_pad)
+    G, Gt = global_sketch(rt, g), global_sketch(rt, g, transpose=True)
+    gio = g.d_pad * n * 4 + g.k_pad * n * 4
+    gops = g.s * g.d_pad * n
+    work.update({
+        "flashsketch_fwd_global": dict(
+            kernel=lambda: fsk.flashsketch_fwd(g, A),
+            plain=lambda: ref.flashsketch_ref(g, A),
+            library=lambda: torch.sparse.mm(G, A), bytes=gio, ops=gops),
+        "flashsketch_transpose_global": dict(
+            kernel=lambda: fsk.flashsketch_transpose(g, Y),
+            plain=lambda: ref.flashsketch_transpose_ref(gfull, Y),
+            library=lambda: torch.sparse.mm(Gt, Y), bytes=gio, ops=gops),
+        "flashsketch_fwd_gather_global": dict(
+            kernel=lambda: fsk.flashsketch_fwd_gather(g, src, rmap),
+            plain=lambda: ref.flashsketch_ref(
+                g, ref.gather_rows(g, src, rmap)),
+            library=lambda: torch.sparse.mm(G, src.index_select(0, ri)),
+            bytes=g.d * n * 4 + g.k_pad * n * 4, ops=g.s * g.d * n),
+    })
+    print(f"phase 4 (v1 and global kernels): fp32 stream; v1 at "
+          f"{p.describe()}, global at {g.describe()} (gather from "
+          f"d_src={d_src} row-major), n={n}")
+    before = dict(fsk.LAUNCHES)
+    rows = []
+    for name, w in work.items():
+        lib_err = float((w["library"]() - w["kernel"]()).abs().max())
+        row = time_row(name, w, 0, errs[name])
+        rows.append(row)
+        print(f"  {name:30s} kernel {row['ms']:.4f} ms  plain "
+              f"{row['plain_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']})  library torch.sparse.mm "
+              f"{row['library_ms']:.4f} ms (|lib - kernel| {lib_err:.2e})  "
+              f"share of bound {row['bound_ms'] / row['ms']:.4f}")
+    for k in before:      # timing launches are not main-path launches
+        fsk.LAUNCHES[k] = before[k]
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: every sketch family at the paper's main shape.
+# ---------------------------------------------------------------------------
+
+def phase_families(rt, main_plan):
+    """The family tournament at ``paper_main`` (d = 65 536, n = 1 024,
+    k = 4 096, gaussian data, cond 1e4), one trial per family, then the
+    v1 and global entry points a user reaches: the downgraded apply of a
+    Br = 2 048 BlockPerm sketch, a backward under ``impl="cuda_v1"``, a
+    FLASHBLOCKROW apply under ``impl="cuda_v1"``, and CountSketch's fused
+    gather and backward.  Returns the launch counts of the phase."""
+    fsk, ref, ops, variants = rt["fsk"], rt["ref"], rt["ops"], rt["variants"]
+    pareto = rt["pareto"]
+    reg = pareto.PAPER_MAIN
+    print(f"phase 6: family tournament at {reg['name']} (d={reg['d']}, "
+          f"n={reg['n']}, k={reg['k']}, {reg['dataset']}, cond "
+          f"{reg['cond']:g}), one trial per family")
+    t = time.perf_counter()
+    data = pareto.regime_data(reg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"  data (numpy make_dataset / make_ls_problem, QR of A on the "
+          f"card): {time.perf_counter() - t:.1f} s")
+    fsk.reset_launch_counts()
+    rows = []
+    for fam, kw in sorted(pareto.FAMILY_KWARGS.items()):
+        t = time.perf_counter()
+        row = pareto.score_family(fam, kw, reg, data, seed=0, trials=1,
+                                  timing_iters=5, max_iters=200)
+        rows.append(row)
+        check(math.isfinite(row["ose_err"]) and row["ose_err"] > 0
+              and row["measured_us"] > 0, f"{fam}: score {row}")
+        print(f"  {fam:16s} ose_err {row['ose_err']:.4f} lsqr_iters "
+              f"{row['lsqr_iters']:3d} (converged {row['lsqr_converged']}, "
+              f"relres {row['lsqr_relres']:.2e}) measured_us "
+              f"{row['measured_us']:.1f}  [{time.perf_counter() - t:.1f} s]"
+              f" {row['lowering'] or ''}")
+    best = {r["family"]: r for r in rows}
+    check(best["blockperm"]["lsqr_converged"], "blockperm LSQR did not "
+          "converge at paper_main")
+    print(f"  front (3 axes): {pareto.pareto_front(rows, pareto.AXES)}; "
+          f"front (ose_err x measured_us): "
+          f"{pareto.pareto_front(rows, pareto.GATE_AXES)}; non-kin "
+          f"families dominating blockperm there: "
+          f"{pareto.gate_dominators('blockperm', rows)}")
+
+    A = data["A_data"]
+    big = variants.BlockPermSketch(reg["d"], reg["k"], kappa=4,
+                                   block_rows=2048)
+    lw = big.lowering_for(reg["n"], device="cuda")
+    print(f"  BlockPermSketch(d={reg['d']}, k={reg['k']}, kappa=4, "
+          f"block_rows=2048): {lw.describe()}")
+    check(lw.impl == "cuda_v1" and "cuda_v1" in (lw.downgrade or ""),
+          "the Br=2048 apply did not downgrade to cuda_v1")
+    Yb = big.apply(A)
+    _err(Yb, ref.flashsketch_v1_ref(big.plan, A), big.plan,
+         "downgraded apply")
+    A32 = A.clone().requires_grad_(True)
+    Y = ops.sketch_apply(main_plan, A32, "cuda_v1")
+    (Y ** 2).sum().backward()
+    gerr = _err(A32.grad, ref.flashsketch_transpose_v1_ref(
+        main_plan, 2 * Y.detach()), main_plan, "cuda_v1 backward")
+    Yr = ops.blockrow_apply(main_plan, A, "cuda_v1")
+    _err(Yr, ref.blockrow_v1_ref(main_plan, A), main_plan,
+         "blockrow cuda_v1")
+    cs = variants.make_sketch("countsketch", reg["d"], reg["k"], seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    src = torch.randn(2 * reg["d"], reg["n"], generator=gen, device="cuda")
+    idx = torch.randperm(2 * reg["d"], generator=gen,
+                         device="cuda")[:reg["d"]]
+    check(torch.equal(cs.apply_gather(src, idx), cs.apply(src[idx])),
+          "CountSketch fused gather != apply of the materialized gather")
+    A32 = A.clone().requires_grad_(True)
+    W = torch.randn(cs.k, reg["n"], generator=gen, device="cuda")
+    (cs.apply(A32) * W).sum().backward()
+    _err(A32.grad, ref.flashsketch_transpose_ref(cs.plan, W), cs.plan,
+         "CountSketch backward")
+    torch.cuda.synchronize()
+    launches = dict(fsk.LAUNCHES)
+    print(f"  downgraded apply, cuda_v1 backward (max err {gerr:.3e}), "
+          f"blockrow cuda_v1, CountSketch gather == apply (torch.equal) "
+          f"and backward: checked")
+    print(f"  launch counts over phase 6: {launches}")
+    for name in V1_KERNELS + GLOBAL_KERNELS:
+        check(launches[name] > 0, f"{name} never launched in phase 6")
+    return launches
+
+
 # ---------------------------------------------------------------------------
 # Phase 5: GraSS data attribution at the paper's width.
 # ---------------------------------------------------------------------------
@@ -707,13 +1064,15 @@ def main() -> int:
         return 2
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, os.path.join(root, "src"))
+    sys.path.insert(0, root)
     try:
+        from benchmarks import torch_pareto_bench as pareto
         from repro_torch import solvers
         from repro_torch.attribution import grass, lds, mlp
         from repro_torch.configs.flashsketch_paper import (CONFIG, GRASS,
                                                            SOLVER_PRESETS,
                                                            solver_sketch_rows)
-        from repro_torch.core import blockperm, hashing, wiring
+        from repro_torch.core import blockperm, hashing, variants, wiring
         from repro_torch.kernels import build, lowering, ops, ref
         from repro_torch.kernels import flashsketch as fsk
     except ImportError as exc:
@@ -723,7 +1082,7 @@ def main() -> int:
     rt = dict(solvers=solvers, presets=SOLVER_PRESETS, blockperm=blockperm,
               wiring=wiring, hashing=hashing, ops=ops, ref=ref, fsk=fsk,
               lowering=lowering, grass=grass, mlp=mlp, lds=lds,
-              grass_cfg=GRASS)
+              grass_cfg=GRASS, variants=variants, pareto=pareto)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -748,13 +1107,18 @@ def main() -> int:
     try:
         errs = phase_kernels(rt, main_plan, n)
         errs.update(phase_grass_kernels(rt))
+        errs.update(phase_family_kernels(rt, main_plan, n))
         launches, _ = phase_main_path(rt, main_plan, d, n, cond=1e4)
         rows = phase_timing(rt, main_plan, n, launches, errs)
         rows += phase_grass_timing(rt, errs)
+        rows += phase_family_timing(rt, main_plan, n, errs)
         grass_launches = phase_grass(rt)
+        family_launches = phase_families(rt, main_plan)
         for row in rows:
             if row["name"] in GRASS_KERNELS:
                 row["launches"] = grass_launches[row["name"]]
+            if row["name"] in V1_KERNELS + GLOBAL_KERNELS:
+                row["launches"] = family_launches[row["name"]]
         torch.cuda.synchronize()
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)

@@ -52,19 +52,20 @@ class GrassPipelineConfig:
 
 
 def sparsify_mask(d_total: int, d_keep: int, seed: int,
-                  device: torch.device | str = "cpu") -> torch.Tensor:
+                  device: torch.device | str = "cuda") -> torch.Tensor:
     """GraSS gradient sparsification: a fixed random coordinate subset.
 
     The ``d_keep`` coordinates with the smallest hash scores
     ``hash_words(seed, 0x6A55, u)``, ties toward the lower index (a stable
     sort of the int64 scores: ``torch.topk`` does not promise the order of
     ties), returned sorted as int64.  Equal to the reference's ``lax.top_k``
-    on the complemented scores.
+    on the complemented scores.  Returned on ``device`` (the card by
+    default; without one it raises).
     """
     u = torch.arange(d_total, dtype=torch.int64)
     scores = hashing.hash_words(seed, SPARSIFY_TAG, u)
     keep = torch.sort(scores, stable=True).indices[:d_keep]
-    return torch.sort(keep).values.to(device)
+    return torch.sort(keep).values.to(resolve_device(device))
 
 
 class GrassPipeline:

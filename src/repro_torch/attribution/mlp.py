@@ -20,6 +20,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.solvers.sketch_precondition import resolve_device
+
 
 @dataclasses.dataclass(frozen=True)
 class MLPConfig:
@@ -56,9 +58,10 @@ def param_order(model: nn.Module) -> Tuple[str, ...]:
 
 
 def init_mlp(cfg: MLPConfig, generator: Optional[torch.Generator] = None,
-             device: torch.device | str = "cpu") -> MLP:
+             device: torch.device | str = "cuda") -> MLP:
     """Gaussian weights scaled by 1/√fan_in, zero biases, drawn on the CPU
-    from ``generator`` (``cfg.seed`` if none) and moved to ``device``."""
+    from ``generator`` (``cfg.seed`` if none) and moved to ``device`` (the
+    card by default; without one it raises, see ``resolve_device``)."""
     gen = generator if generator is not None else \
         torch.Generator().manual_seed(cfg.seed)
     model = MLP((cfg.d_in, *cfg.hidden, cfg.n_classes))
@@ -66,7 +69,7 @@ def init_mlp(cfg: MLPConfig, generator: Optional[torch.Generator] = None,
         for i, (a, b) in enumerate(zip(model.dims[:-1], model.dims[1:])):
             getattr(model, f"w{i}").copy_(
                 torch.randn(a, b, generator=gen) / np.sqrt(a))
-    return model.to(device)
+    return model.to(resolve_device(device))
 
 
 def mlp_apply(params: Mapping[str, torch.Tensor],
@@ -120,9 +123,10 @@ def train_mlp(cfg: MLPConfig, x: torch.Tensor, y: torch.Tensor,
 
 
 def params_from_reference(params_np: Mapping[str, np.ndarray],
-                          device: torch.device | str = "cpu") -> MLP:
+                          device: torch.device | str = "cuda") -> MLP:
     """The port's MLP holding the reference's parameter dict
-    (``w0, b0, …`` as numpy arrays), so both compute the same function."""
+    (``w0, b0, …`` as numpy arrays), so both compute the same function, on
+    ``device`` (the card by default; without one it raises)."""
     n = len(params_np) // 2
     dims = [int(np.shape(params_np["w0"])[0])] + [
         int(np.shape(params_np[f"w{i}"])[1]) for i in range(n)]
@@ -130,7 +134,7 @@ def params_from_reference(params_np: Mapping[str, np.ndarray],
     with torch.no_grad():
         for name, p in model.named_parameters():
             p.copy_(torch.from_numpy(np.array(params_np[name], np.float32)))
-    return model.to(device)
+    return model.to(resolve_device(device))
 
 
 def make_synthetic_mnist(n: int, d: int = 784, n_classes: int = 10,

@@ -1,3 +1,3 @@
-"""Core BLOCKPERM-SJLT library: hashing, wiring, precision, plans and the
-sketch families (port of ``repro.core``)."""
+"""Core BLOCKPERM-SJLT library: hashing, wiring, precision, plans, the
+sketch families and coherence (port of ``repro.core``)."""
 from repro_torch.core.blockperm import BlockPermPlan, make_plan  # noqa: F401

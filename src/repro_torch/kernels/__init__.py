@@ -2,8 +2,10 @@
 (port of ``repro.kernels``).
 
   flashsketch.py — the kernel wrappers (forward, transpose, gather-fused
-                   forward, FLASHBLOCKROW and its gather), their launch
-                   counters, wiring tables and the streaming cast
+                   forward, FLASHBLOCKROW and its gather, the global
+                   families behind the first three, the three v1
+                   kernels), their launch counters and geometry, wiring
+                   tables and the streaming cast
   csrc/          — the CUDA C++ sources for sm_90a
   build.py       — nvcc build at first use into kernels/_build/, ctypes load
   lowering.py    — lower(plan, spec) / execute / explain: every launch

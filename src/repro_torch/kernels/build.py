@@ -23,7 +23,7 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("flashsketch_fwd.cu", "flashsketch_transpose.cu",
-           "flashsketch_blockrow.cu")
+           "flashsketch_blockrow.cu", "flashsketch_v1.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -4,9 +4,11 @@
 // Replaces: src/repro/kernels/flashsketch.py:594 flashsketch_pallas, whose
 // body is _fused_fwd_kernel (:231) with Φ from _phi_tile (:145), and
 // flashsketch.py:642 flashsketch_pallas_gather, whose body is
-// _fused_gather_kernel (:280).  Plain versions:
-// repro_torch/kernels/ref.py:flashsketch_ref on the streamed operand, and on
-// its materialized gather (ref.gather_rows).
+// _fused_gather_kernel (:280); for the global families (CountSketch, sparse
+// graph) both with Φ from _phi_global_tile (:165) and the all-blocks table
+// _global_table (:118), here global_fwd_kernel (see its note).  Plain
+// versions: repro_torch/kernels/ref.py:flashsketch_ref on the streamed
+// operand, and on its materialized gather (ref.gather_rows).
 //
 // What it computes: for output block g, Y[g·Br + r, c] = scale ·
 // Σ_ℓ Σ_u Σ_i [row(g, h_ℓ, u, i) = r] · sign(g, h_ℓ, u, i) · A[h_ℓ·Bc + u, c]
@@ -14,6 +16,9 @@
 // float, bf16, fp8 e4m3 or fp8 e5m2 (already quantized by the wrapper), is
 // upcast to fp32 and summed in fp32.  Φ entries are ±1, so every product is
 // exact and only the order of the sums differs from the TPU kernel.
+//
+// Global families: nonzero i of global column u lands at the global row
+// i·(k_pad/s) + hash(seed, 0x610B, u, i) mod (k_pad/s), scale = 1/√s.
 //
 // Bound on the H100: the kernel must read A once and write Y once,
 // (d_pad·n·itemsize + k_pad·n·4) bytes at 3.35 TB/s; at the main plan
@@ -175,6 +180,117 @@ int launch(const void* A, void* Y, const void* tab, const void* row_map,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Global families (CountSketch, sparse graph; template flag kGather as
+// above).  Output block g holds the rows [g·Br, (g+1)·Br) of one or more
+// row chunks i (chunk = k_pad/s, n_i = max(1, Br/chunk) of them, from
+// i_lo = g·Br/chunk); nonzero i of every column u lands in block g with
+// probability Br/chunk.  So the block does not walk its κ = M input blocks
+// as the blockperm kernel does: it hashes the (u, i) of every column, `uc`
+// columns at a time, and compacts the nonzeros that land in block g into
+// a list in shared memory, in (u, i) order (a deterministic block-wide
+// scan), holding the row of A to read (-1 for a padding row of the
+// gather) and the packed (local row, sign).  Thread group q (groups is a
+// power of two) then adds the entries of the rows r ≡ q (mod groups) into
+// the fp32 (Br, tn)
+// accumulator, each word owned by one thread, in list order: no atomics,
+// a fixed order.  Each row of A is read s times in all (once per nonzero),
+// not M times; the hashing, d_pad·n_i per block, is what the blocks
+// repeat, so the lowering gives this kernel a wide column tile.
+template <typename T, bool kGather>
+__global__ void __launch_bounds__(1024)
+global_fwd_kernel(
+    const T* __restrict__ A, float* __restrict__ Y,
+    const int* __restrict__ row_map, int Br, int s, long long n,
+    long long rs, long long cs, int d, int d_pad, int d_src, int k_pad,
+    uint32_t seed, float scale, int uc, int n_i) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tn = blockDim.x;
+  const int groups = blockDim.y;
+  float* acc = reinterpret_cast<float*>(smem);                 // (Br, tn)
+  int2* list = reinterpret_cast<int2*>(acc + Br * tn);         // (uc·n_i)
+  int* scratch = reinterpret_cast<int*>(list + uc * n_i);      // nwarps + 1
+
+  const int g = blockIdx.x;
+  const int cl = threadIdx.x;
+  const int q = threadIdx.y;
+  const long long c = static_cast<long long>(blockIdx.y) * tn + cl;
+  const bool valid = c < n;
+  const int tid = q * tn + cl;
+  const int nthreads = tn * groups;
+  const uint32_t chunk = static_cast<uint32_t>(k_pad / s);
+  const int i_lo = static_cast<int>((static_cast<long long>(g) * Br) / chunk);
+  const long long row0 = static_cast<long long>(g) * Br;
+  const uint32_t prefix = fs::global_prefix(seed);
+  const T* col = A + (valid ? c * cs : 0);
+
+  for (int idx = tid; idx < Br * tn; idx += nthreads) acc[idx] = 0.f;
+
+  for (int u0 = 0; u0 < d_pad; u0 += uc) {
+    const int nu = min(uc, d_pad - u0);
+    __syncthreads();  // the previous chunk's list is consumed
+    const int cnt = fs::global_block_entries(
+        prefix, u0, nu, i_lo, n_i, chunk, row0, Br, scratch, tid, nthreads,
+        [&](int slot, int uu, uint32_t w) {
+          int src = u0 + uu;
+          if constexpr (kGather) {
+            src = -1;                   // padding: skip the load, add a zero
+            if (u0 + uu < d) {
+              src = row_map[u0 + uu];
+              if (src < 0 || src >= d_src) __trap();   // a row outside A
+            }
+          }
+          list[slot] = make_int2(src, static_cast<int>(w));
+        });
+    if (!valid) continue;
+    for (int e0 = 0; e0 < cnt; e0 += kUnroll) {
+      float a[kUnroll];
+      int r[kUnroll];
+#pragma unroll
+      for (int t = 0; t < kUnroll; ++t) {
+        a[t] = 0.f;
+        r[t] = -1;
+        if (e0 + t < cnt) {
+          const int2 en = list[e0 + t];
+          if (((en.y >> 1) & (groups - 1)) == q) {
+            r[t] = en.y;
+            if (en.x >= 0)
+              a[t] = fs::to_f32(col[static_cast<long long>(en.x) * rs]);
+          }
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < kUnroll; ++t) {
+        if (r[t] < 0) continue;
+        acc[(r[t] >> 1) * tn + cl] += (r[t] & 1) ? -a[t] : a[t];
+      }
+    }
+  }
+  __syncthreads();
+  if (!valid) return;
+  float* dst = Y + row0 * n + c;
+  for (int rr = q; rr < Br; rr += groups)
+    dst[static_cast<long long>(rr) * n] = acc[rr * tn + cl] * scale;
+}
+
+template <typename T, bool kGather>
+int launch_global(const void* A, void* Y, const void* row_map, int M, int Br,
+                  int s, long long n, long long rs, long long cs, int d,
+                  int d_pad, int d_src, int k_pad, unsigned int seed,
+                  float scale, int tn, int groups, int uc, int n_i, int smem,
+                  void* stream) {
+  auto kern = global_fwd_kernel<T, kGather>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(M, static_cast<unsigned int>((n + tn - 1) / tn));
+  const dim3 block(tn, groups);
+  kern<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(A), static_cast<float*>(Y),
+      static_cast<const int*>(row_map), Br, s, n, rs, cs, d, d_pad, d_src,
+      k_pad, seed, scale, uc, n_i);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -204,6 +320,29 @@ int fs_fwd_gather(const void* A, void* Y, const void* tab, const void* row_map,
 #define FS_LAUNCH(T)                                                         \
   launch<T, true>(A, Y, tab, row_map, M, Br, Bc, kappa, s, n, rs, cs, d,     \
                   d_src, seed, scale, tn, groups, uc, smem, stream)
+  FS_DISPATCH(dtype, FS_LAUNCH)
+#undef FS_LAUNCH
+}
+
+// Global families: Y (k_pad, n) fp32 = S · A, or S · A[row_map] with
+// gather != 0.  A is (d_pad, n), or (d_src, n) for the gather, with row
+// stride `rs` and column stride `cs` (elements); row_map (d_pad,) int32 on
+// the device, of which the first d are read (a row outside [0, d_src)
+// traps).  `uc` columns are hashed per chunk, n_i = max(1, Br·s/k_pad) row
+// chunks meet each output block.  Launches on `stream` and returns
+// cudaGetLastError() (0 on success).
+int fs_fwd_global(const void* A, void* Y, const void* row_map, int gather,
+                  int dtype, int M, int Br, int s, long long n, long long rs,
+                  long long cs, int d, int d_pad, int d_src, int k_pad,
+                  unsigned int seed, float scale, int tn, int groups, int uc,
+                  int n_i, int smem, void* stream) {
+#define FS_LAUNCH(T)                                                        \
+  (gather ? launch_global<T, true>(A, Y, row_map, M, Br, s, n, rs, cs, d,   \
+                                   d_pad, d_src, k_pad, seed, scale, tn,    \
+                                   groups, uc, n_i, smem, stream)           \
+          : launch_global<T, false>(A, Y, row_map, M, Br, s, n, rs, cs, d,  \
+                                    d_pad, d_src, k_pad, seed, scale, tn,   \
+                                    groups, uc, n_i, smem, stream))
   FS_DISPATCH(dtype, FS_LAUNCH)
 #undef FS_LAUNCH
 }

@@ -2,7 +2,9 @@
 //
 // Replaces: src/repro/kernels/flashsketch.py:619 flashsketch_transpose_pallas,
 // whose body is _fused_transpose_kernel (:256) with the inverse wiring table
-// _inv_neighbor_table (:100).  Plain version:
+// _inv_neighbor_table (:100); for the global families (CountSketch, sparse
+// graph) with Φ from _phi_global_tile (:165), here global_transpose_kernel
+// (see its note).  Plain version:
 // repro_torch/kernels/ref.py:flashsketch_transpose_ref on the streamed operand.
 //
 // What it computes: for input block h, X[h·Bc + u, c] = scale ·
@@ -122,6 +124,83 @@ int launch(const void* Yin, void* X, const void* itab, int M, int Br, int Bc,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Global families (CountSketch, sparse graph): no loop over the M output
+// blocks.  Column u of S has s nonzeros, at the global rows
+// i·chunk + hash mod chunk (chunk = k_pad/s), so X[u, c] = scale ·
+// Σ_i sign_i(u) · Y[row_i(u), c], summed over i in order, as
+// ref._global_transpose_ref sums it.  One block per (chunk of `uc` rows u,
+// column tile j) hashes the s words of each of its rows once into shared
+// memory; threadIdx.x owns one column, threadIdx.y strides over the rows
+// u, each written exactly once.  Y (k_pad·n) stays in L2.
+//
+// kPerLevel is the v1 transpose of a global plan
+// (ref.flashsketch_transpose_v1_ref): the rows of column u lie in
+// increasing output blocks ℓ = row / B_r; the rows of one block are summed,
+// and the scaled sum is added, level by level.
+template <typename T, bool kPerLevel>
+__global__ void __launch_bounds__(1024)
+global_transpose_kernel(
+    const T* __restrict__ Yin, float* __restrict__ X, int Br, int s,
+    long long n, int d_pad, int k_pad, uint32_t seed, float scale, int uc) {
+  extern __shared__ __align__(16) uint32_t ents[];   // (uc, s)
+  const int tn = blockDim.x;
+  const int groups = blockDim.y;
+  const int u0 = blockIdx.x * uc;
+  const int nu = min(uc, d_pad - u0);
+  const long long c = static_cast<long long>(blockIdx.y) * tn + threadIdx.x;
+  const int tid = threadIdx.y * tn + threadIdx.x;
+  const int nthreads = tn * groups;
+  const uint32_t chunk = static_cast<uint32_t>(k_pad / s);
+  const uint32_t prefix = fs::global_prefix(seed);
+
+  for (int e = tid; e < nu * s; e += nthreads) {
+    const int uu = e / s;
+    ents[e] = fs::global_entry(prefix, static_cast<uint32_t>(u0 + uu),
+                               static_cast<uint32_t>(e - uu * s), chunk);
+  }
+  __syncthreads();
+  if (c >= n) return;
+  for (int uu = threadIdx.y; uu < nu; uu += groups) {
+    const uint32_t* row = ents + uu * s;
+    float acc = 0.f, part = 0.f;
+    int cur = static_cast<int>((row[0] >> 1) / Br);
+    for (int i = 0; i < s; ++i) {
+      const uint32_t en = row[i];
+      if constexpr (kPerLevel) {
+        const int blk = static_cast<int>((en >> 1) / Br);
+        if (blk != cur) {
+          acc += scale * part;
+          part = 0.f;
+          cur = blk;
+        }
+      }
+      const float y = fs::to_f32(Yin[static_cast<long long>(en >> 1) * n + c]);
+      part += (en & 1u) ? -y : y;
+    }
+    X[static_cast<long long>(u0 + uu) * n + c] =
+        kPerLevel ? acc + scale * part : part * scale;
+  }
+}
+
+template <typename T>
+int launch_global(const void* Yin, void* X, int Br, int s, long long n,
+                  int d_pad, int k_pad, unsigned int seed, float scale,
+                  int per_level, int tn, int groups, int uc, int smem,
+                  void* stream) {
+  auto kern = per_level ? global_transpose_kernel<T, true>
+                        : global_transpose_kernel<T, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned int>((d_pad + uc - 1) / uc),
+                  static_cast<unsigned int>((n + tn - 1) / tn));
+  const dim3 block(tn, groups);
+  kern<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(Yin), static_cast<float*>(X), Br, s, n, d_pad,
+      k_pad, seed, scale, uc);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -136,6 +215,21 @@ int fs_transpose(const void* Yin, void* X, const void* itab, int dtype, int M,
 #define FS_LAUNCH(T)                                                       \
   launch<T>(Yin, X, itab, M, Br, Bc, kappa, s, n, seed, scale, tn, groups, \
             uc, staged, smem, stream)
+  FS_DISPATCH(dtype, FS_LAUNCH)
+#undef FS_LAUNCH
+}
+
+// Global families: X (d_pad, n) fp32 = Sᵀ · Y (k_pad, n), both row-major
+// and contiguous, `uc` rows u per block; per_level != 0 sums as the v1
+// transpose does (the fp32 stream only).  Launches on `stream` and returns
+// cudaGetLastError() (0 on success).
+int fs_transpose_global(const void* Yin, void* X, int dtype, int Br, int s,
+                        long long n, int d_pad, int k_pad, unsigned int seed,
+                        float scale, int per_level, int tn, int groups, int uc,
+                        int smem, void* stream) {
+#define FS_LAUNCH(T)                                                        \
+  launch_global<T>(Yin, X, Br, s, n, d_pad, k_pad, seed, scale, per_level,  \
+                   tn, groups, uc, smem, stream)
   FS_DISPATCH(dtype, FS_LAUNCH)
 #undef FS_LAUNCH
 }

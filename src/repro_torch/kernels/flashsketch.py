@@ -12,11 +12,24 @@ hand for ``sm_90a`` (sources in ``csrc/``, built by ``build.py``):
     ``blockrow_pallas``)
   * ``blockrow_fwd_gather``    — ``Y = S_row·A[row_map]`` (replaces
     ``blockrow_pallas_gather``)
+  * ``flashsketch_fwd_v1``, ``flashsketch_transpose_v1``, ``blockrow_fwd_v1``
+    — the κ-revisiting v1 kernels, fp32 only (replace
+    ``flashsketch_pallas_v1``, ``flashsketch_transpose_pallas_v1`` and
+    ``blockrow_pallas_v1``)
+
+The global families (CountSketch, sparse graph: κ = M plans) run kernels of
+their own behind the same wrappers: the forward and its gather hash every
+column and keep the nonzeros of their output block, the transpose gathers
+the s rows of each column (``csrc/flashsketch_fwd.cu``,
+``csrc/flashsketch_transpose.cu``); they count as ``*_global`` launches.
+The v1 transpose of a global plan is that transpose kernel, summed per
+level.
 
 Each wrapper streams its operand through the plan's precision policy
 (``_stream``, on the operand as given: the gathers cast the whole source
-and read only the mapped rows, as the reference does), then launches its
-kernel for a CUDA tensor — or raises — and runs the kernel's plain
+and read only the mapped rows, as the reference does; the v1 wrappers then
+upcast it to fp32, the reference's stream contract for v1), then launches
+its kernel for a CUDA tensor — or raises — and runs the kernel's plain
 PyTorch version (``kernels/ref.py`` on the streamed operand, upcast to
 fp32, on the materialized gather for the gathers) for a CPU tensor.  Each
 launch adds one to the wrapper's entry of ``LAUNCHES``, so a run can show
@@ -44,9 +57,12 @@ from repro_torch.kernels import build
 from repro_torch.kernels import ref as kref
 
 # Launch counts of the CUDA kernels, by wrapper name: one per launch.
-LAUNCHES: Dict[str, int] = {"flashsketch_fwd": 0, "flashsketch_transpose": 0,
-                            "flashsketch_fwd_gather": 0, "blockrow_fwd": 0,
-                            "blockrow_fwd_gather": 0}
+LAUNCHES: Dict[str, int] = {
+    "flashsketch_fwd": 0, "flashsketch_transpose": 0,
+    "flashsketch_fwd_gather": 0, "blockrow_fwd": 0, "blockrow_fwd_gather": 0,
+    "flashsketch_fwd_v1": 0, "flashsketch_transpose_v1": 0,
+    "blockrow_fwd_v1": 0, "flashsketch_fwd_global": 0,
+    "flashsketch_transpose_global": 0, "flashsketch_fwd_gather_global": 0}
 
 # Streamed-type codes of csrc/hash.cuh (fs::StreamType).
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1,
@@ -61,7 +77,14 @@ _TRANSPOSE_ENTRIES = 2048
 _TRANSPOSE_TILE_BYTES = 160 * 1024
 # Threads a transpose block gives to one column (strided over rows u).
 _TRANSPOSE_GROUPS = 8
+# Global forward: (row, sign) list entries a block builds per chunk; global
+# transposes: rows u per block.
+_GLOBAL_ENTRIES = 4096
+_GLOBAL_TRANSPOSE_ROWS = 256
 MAX_THREADS = 1024
+# The narrowest column tile (one warp); the lowering's downgrade ladder
+# asks whether a fused kernel fits shared memory there.
+MIN_TN = 32
 
 
 def reset_launch_counts() -> None:
@@ -155,16 +178,57 @@ def _stream(plan: BlockPermPlan, operand: torch.Tensor) -> torch.Tensor:
 
 FWD_DEFAULT_TN = 64
 TRANSPOSE_DEFAULT_TN = 32
-
-
 BLOCKROW_DEFAULT_TN = 64
+V1_DEFAULT_TN = {"fwd": 64, "transpose": 32, "blockrow": 64}
+
+
+def default_tn(plan: BlockPermPlan, op: str, n: int,
+               v1: bool = False) -> int:
+    """The column tile a launch of ``op`` over ``n`` columns takes unless
+    asked otherwise.  The global forward hashes every column once per
+    column tile, so it takes all n columns in one tile, up to
+    ``MAX_THREADS`` (the lowering narrows it where shared memory runs
+    out)."""
+    if v1:
+        return V1_DEFAULT_TN[op]
+    if plan.is_global and op == "fwd":
+        return min(MAX_THREADS, max(32, -(-n // 32) * 32))
+    return {"fwd": FWD_DEFAULT_TN, "transpose": TRANSPOSE_DEFAULT_TN,
+            "blockrow": BLOCKROW_DEFAULT_TN}[op]
+
+
+def _pow2_floor(x: int) -> int:
+    return 1 << (max(1, x).bit_length() - 1)
+
+
+def row_chunks_per_block(plan: BlockPermPlan) -> int:
+    """Row chunks (k_pad/s rows each) that meet one output block of a
+    global plan: max(1, Br·s/k_pad)."""
+    return max(1, plan.Br // plan.chunk)
+
+
+def _global_fwd_geometry(plan: BlockPermPlan, tn: int,
+                         acc: bool) -> Tuple[int, int, int]:
+    """(thread groups, hashed columns per chunk, shared bytes) of a global
+    forward: the (Br, tn) fp32 accumulator (``acc``), the compacted list
+    and the scan's scratch; groups is a power of two."""
+    groups = _pow2_floor(min(plan.Br, MAX_THREADS // tn))
+    n_i = row_chunks_per_block(plan)
+    uc = max(1, _GLOBAL_ENTRIES // n_i)
+    if not acc:
+        uc = min(uc, plan.Bc)
+    nwarps = tn * groups // 32
+    return groups, uc, (4 * plan.Br * tn * int(acc) + 8 * uc * n_i
+                        + 4 * (nwarps + 1))
 
 
 def fwd_launch(plan: BlockPermPlan, tn: int,
                gather: bool = False) -> Tuple[int, int, int]:
     """(thread groups, hashed columns per chunk, shared bytes) of the
     forward kernel at tile width ``tn``; the gather also stages one source
-    row per hashed column."""
+    row per hashed column (a global plan's list holds it anyway)."""
+    if plan.is_global:
+        return _global_fwd_geometry(plan, tn, acc=True)
     groups = max(1, min(plan.s, MAX_THREADS // tn))
     uc = max(1, _FWD_ENTRIES // plan.s)
     return groups, uc, 4 * (plan.Br * tn + uc * (plan.s + int(gather)))
@@ -183,6 +247,9 @@ def transpose_launch(plan: BlockPermPlan,
     transpose kernel at tile width ``tn``: ``staged`` when the block's
     (κ·Br, tn) tile of Y fits shared memory beside the tables."""
     groups = max(1, min(_TRANSPOSE_GROUPS, MAX_THREADS // tn))
+    if plan.is_global:        # the s words of each of uc rows u
+        return groups, _GLOBAL_TRANSPOSE_ROWS, \
+            4 * _GLOBAL_TRANSPOSE_ROWS * plan.s, False
     uc = max(1, _TRANSPOSE_ENTRIES // (plan.kappa * plan.s))
     tables = (4 * (uc * plan.kappa * plan.s + 2 * plan.kappa) + 15) // 16 * 16
     tile = plan.kappa * plan.Br * tn * plan.stream_itemsize
@@ -190,15 +257,74 @@ def transpose_launch(plan: BlockPermPlan,
     return groups, uc, tables + (tile if staged else 0), staged
 
 
+def fwd_v1_launch(plan: BlockPermPlan,
+                  tn: int) -> Tuple[int, int, int, int]:
+    """(thread groups, hashed columns per chunk, row chunks per block,
+    shared bytes) of the v1 forward: groups own the rows r ≡ q (mod
+    groups), a power of two; no accumulator tile."""
+    if plan.is_global:
+        groups, uc, smem = _global_fwd_geometry(plan, tn, acc=False)
+        return groups, uc, row_chunks_per_block(plan), smem
+    groups = _pow2_floor(min(plan.Br, MAX_THREADS // tn))
+    uc = max(1, _FWD_ENTRIES // plan.s)
+    return groups, uc, 1, 4 * uc * plan.s
+
+
+def transpose_v1_launch(plan: BlockPermPlan,
+                        tn: int) -> Tuple[int, int, int]:
+    """(thread groups, columns per chunk or rows per block, shared bytes)
+    of the v1 transpose: the hashed words only, Y is read where it lies."""
+    groups, uc, smem, _ = transpose_launch(plan, tn)
+    if plan.is_global:
+        return groups, uc, smem
+    return groups, uc, 4 * (uc * plan.kappa * plan.s + 2 * plan.kappa)
+
+
+def blockrow_v1_launch(plan: BlockPermPlan, tn: int) -> Tuple[int, int]:
+    """(thread groups, shared bytes) of the v1 FLASHBLOCKROW kernel: each
+    thread hashes its own nonzeros; shared memory holds the κ wiring
+    entries and hash prefixes."""
+    return max(1, min(plan.Br, MAX_THREADS // tn)), 8 * plan.kappa
+
+
+def launch_geometry(plan: BlockPermPlan, op: str, gather: bool, tn: int,
+                    v1: bool = False) -> Tuple[int, int]:
+    """(thread groups, shared bytes) of the kernel of ``op`` at tile width
+    ``tn``: the fused one (with its gather), or the v1 one."""
+    if v1:
+        if op == "transpose":
+            groups, _, smem = transpose_v1_launch(plan, tn)
+        elif op == "blockrow":
+            groups, smem = blockrow_v1_launch(plan, tn)
+        else:
+            groups, _, _, smem = fwd_v1_launch(plan, tn)
+    elif op == "transpose":
+        groups, _, smem, _ = transpose_launch(plan, tn)
+    elif op == "blockrow":
+        groups, smem = blockrow_launch(plan, tn)
+    else:
+        groups, _, smem = fwd_launch(plan, tn, gather)
+    return groups, smem
+
+
+def fitted_tn(plan: BlockPermPlan, op: str, n: int, gather: bool = False,
+              rejected: Optional[list] = None) -> int:
+    """``default_tn`` narrowed, by halves in multiples of 32, while the
+    fused kernel's shared memory exceeds ``MAX_SMEM_BYTES``; the rejected
+    (tn, bytes) go to ``rejected``."""
+    tn = default_tn(plan, op, n)
+    while tn > MIN_TN and (smem := launch_geometry(
+            plan, op, gather, tn)[1]) > MAX_SMEM_BYTES:
+        if rejected is not None:
+            rejected.append((tn, smem))
+        tn = max(MIN_TN, tn // 2 // 32 * 32)
+    return tn
+
+
 def _check_launch(plan: BlockPermPlan, operand: torch.Tensor, tn: int,
                   smem: int, rows: Optional[int], name: str) -> None:
     """Raise on what the kernel does not take; ``rows=None`` (the gathers)
     accepts any source height."""
-    if plan.is_global:
-        raise NotImplementedError(
-            f"{name}: the global families ({plan.family!r}) have no CUDA "
-            f"kernel yet (ROADMAP queue 1, item 7); their plain version "
-            f"runs on CPU tensors")
     if operand.dim() != 2 or (rows is not None and operand.shape[0] != rows):
         raise ValueError(f"{name}: operand must be ({rows or 'd_src'}, n), "
                          f"got {tuple(operand.shape)}")
@@ -211,8 +337,8 @@ def _check_launch(plan: BlockPermPlan, operand: torch.Tensor, tn: int,
     if smem > MAX_SMEM_BYTES:
         raise NotImplementedError(
             f"{name}: {smem} B of shared memory at tn={tn} exceeds the "
-            f"{MAX_SMEM_BYTES} B a block may use (Br={plan.Br}); such plans "
-            f"wait for the v1 kernels (ROADMAP queue 2, pallas_v1)")
+            f"{MAX_SMEM_BYTES} B a block may use (Br={plan.Br}); the "
+            f"lowering sends such plans to the v1 kernels (impl='cuda_v1')")
     if -(-operand.shape[1] // tn) > 65535:
         raise ValueError(f"{name}: n={operand.shape[1]} needs more than "
                          f"65535 column tiles at tn={tn}")
@@ -255,11 +381,42 @@ def _launch(source: str, symbol: str, plan: BlockPermPlan, x: torch.Tensor,
 # Kernel wrappers.
 # ---------------------------------------------------------------------------
 
+def _launch_global_fwd(plan: BlockPermPlan, x: torch.Tensor, Y: torch.Tensor,
+                       row_map: Optional[torch.Tensor], tn: int, groups: int,
+                       uc: int, smem: int) -> None:
+    """The global forward's C interface (``fs_fwd_global``); a ``row_map``
+    makes it the gather."""
+    _call("flashsketch_fwd.cu", "fs_fwd_global", x.device,
+          (_P, x.data_ptr()), (_P, Y.data_ptr()),
+          (_P, 0 if row_map is None else row_map.data_ptr()),
+          (_I, int(row_map is not None)), (_I, _DTYPE_CODES[x.dtype]),
+          (_I, plan.M), (_I, plan.Br), (_I, plan.s), (_LL, x.shape[1]),
+          (_LL, x.stride(0)), (_LL, x.stride(1)), (_I, plan.d),
+          (_I, plan.d_pad), (_I, x.shape[0]), (_I, plan.k_pad),
+          (_U, plan.seed & 0xFFFFFFFF), (_F, plan.scale),
+          *[(_I, v) for v in (tn, groups, uc, row_chunks_per_block(plan),
+                              smem)])
+
+
+def _launch_global_transpose(plan: BlockPermPlan, y: torch.Tensor,
+                             X: torch.Tensor, per_level: bool, tn: int,
+                             groups: int, uc: int, smem: int) -> None:
+    """The global transpose's C interface (``fs_transpose_global``);
+    ``per_level`` sums as the v1 transpose does."""
+    _call("flashsketch_transpose.cu", "fs_transpose_global", y.device,
+          (_P, y.data_ptr()), (_P, X.data_ptr()),
+          (_I, _DTYPE_CODES[y.dtype]), (_I, plan.Br), (_I, plan.s),
+          (_LL, y.shape[1]), (_I, plan.d_pad), (_I, plan.k_pad),
+          (_U, plan.seed & 0xFFFFFFFF), (_F, plan.scale),
+          *[(_I, v) for v in (int(per_level), tn, groups, uc, smem)])
+
+
 def flashsketch_fwd(plan: BlockPermPlan, A: torch.Tensor, *,
-                    tn: int = FWD_DEFAULT_TN) -> torch.Tensor:
+                    tn: Optional[int] = None) -> torch.Tensor:
     """Y = S A.  A must be (d_pad, n); returns (k_pad, n) fp32 on A's
-    device.  CUDA tensors run the CUDA kernel, CPU tensors its plain
-    version; ragged n is handled in the kernel."""
+    device.  CUDA tensors run the CUDA kernel (the global kernel for a
+    global plan), CPU tensors its plain version; ragged n is handled in
+    the kernel.  ``tn=None`` takes ``fitted_tn``."""
     if A.shape[0] != plan.d_pad:
         raise ValueError(f"A must have d_pad={plan.d_pad} rows, got "
                          f"{A.shape[0]}")
@@ -268,11 +425,16 @@ def flashsketch_fwd(plan: BlockPermPlan, A: torch.Tensor, *,
         return kref.flashsketch_ref(plan, x.to(torch.float32))
     if A.device.type != "cuda":
         raise ValueError(f"no FlashSketch kernel for device {A.device}")
+    tn = tn or fitted_tn(plan, "fwd", x.shape[1])
     groups, uc, smem = fwd_launch(plan, tn)
     _check_launch(plan, x, tn, smem, plan.d_pad, "flashsketch_fwd")
     x = x.contiguous()
     Y = torch.empty((plan.k_pad, x.shape[1]), dtype=torch.float32,
                     device=x.device)
+    if plan.is_global:
+        _launch_global_fwd(plan, x, Y, None, tn, groups, uc, smem)
+        LAUNCHES["flashsketch_fwd_global"] += 1
+        return Y
     _launch("flashsketch_fwd.cu", "fs_fwd", plan, x, Y,
             _device_table(plan, "fwd", x.device), tn, groups, uc, smem)
     LAUNCHES["flashsketch_fwd"] += 1
@@ -280,10 +442,11 @@ def flashsketch_fwd(plan: BlockPermPlan, A: torch.Tensor, *,
 
 
 def flashsketch_transpose(plan: BlockPermPlan, Y: torch.Tensor, *,
-                          tn: int = TRANSPOSE_DEFAULT_TN) -> torch.Tensor:
+                          tn: Optional[int] = None) -> torch.Tensor:
     """X = Sᵀ Y.  Y must be (k_pad, n); returns (d_pad, n) fp32 on Y's
-    device.  CUDA tensors run the CUDA kernel, CPU tensors its plain
-    version; ragged n is handled in the kernel."""
+    device.  CUDA tensors run the CUDA kernel (the global kernel for a
+    global plan), CPU tensors its plain version; ragged n is handled in
+    the kernel."""
     if Y.shape[0] != plan.k_pad:
         raise ValueError(f"Y must have k_pad={plan.k_pad} rows, got "
                          f"{Y.shape[0]}")
@@ -294,11 +457,16 @@ def flashsketch_transpose(plan: BlockPermPlan, Y: torch.Tensor, *,
         return kref.flashsketch_transpose_ref(full, y.to(torch.float32))
     if Y.device.type != "cuda":
         raise ValueError(f"no FlashSketch kernel for device {Y.device}")
+    tn = tn or fitted_tn(plan, "transpose", y.shape[1])
     groups, uc, smem, staged = transpose_launch(plan, tn)
     _check_launch(plan, y, tn, smem, plan.k_pad, "flashsketch_transpose")
     y = y.contiguous()
     X = torch.empty((plan.d_pad, y.shape[1]), dtype=torch.float32,
                     device=y.device)
+    if plan.is_global:
+        _launch_global_transpose(plan, y, X, False, tn, groups, uc, smem)
+        LAUNCHES["flashsketch_transpose_global"] += 1
+        return X
     _launch("flashsketch_transpose.cu", "fs_transpose", plan, y, X,
             _device_table(plan, "inverse", y.device), tn, groups, uc,
             int(staged), smem)
@@ -339,7 +507,7 @@ def _plan_args(plan: BlockPermPlan, x: torch.Tensor):
 
 def flashsketch_fwd_gather(plan: BlockPermPlan, A: torch.Tensor,
                            row_map: torch.Tensor, *,
-                           tn: int = FWD_DEFAULT_TN) -> torch.Tensor:
+                           tn: Optional[int] = None) -> torch.Tensor:
     """Y = S · A[row_map] in one launch, without writing A[row_map].
 
     A is the ``(d_src, n)`` source, in any strides (the ``(D, c)`` view of
@@ -357,11 +525,16 @@ def flashsketch_fwd_gather(plan: BlockPermPlan, A: torch.Tensor,
         return kref.flashsketch_ref(plan, kref.gather_rows(plan, x, row_map))
     if A.device.type != "cuda":
         raise ValueError(f"no FlashSketch kernel for device {A.device}")
+    tn = tn or fitted_tn(plan, "fwd", x.shape[1], gather=True)
     groups, uc, smem = fwd_launch(plan, tn, gather=True)
     _check_launch(plan, x, tn, smem, None, "flashsketch_fwd_gather")
     Y = torch.empty((plan.k_pad, x.shape[1]), dtype=torch.float32,
                     device=x.device)
     rmap = row_map.to(torch.int32).contiguous()
+    if plan.is_global:
+        _launch_global_fwd(plan, x, Y, rmap, tn, groups, uc, smem)
+        LAUNCHES["flashsketch_fwd_gather_global"] += 1
+        return Y
     _call("flashsketch_fwd.cu", "fs_fwd_gather", x.device,
           *_pointer_args(x, Y, _device_table(plan, "fwd", x.device), rmap),
           *_plan_args(plan, x), (_F, plan.scale),
@@ -414,3 +587,107 @@ def blockrow_fwd_gather(plan: BlockPermPlan, A: torch.Tensor,
     for bit to ``blockrow_fwd`` on the zero-padded ``A[row_map[:d]]``."""
     _check_row_map(plan, A, row_map, "blockrow_fwd_gather")
     return _blockrow(plan, A, row_map, tn, "blockrow_fwd_gather")
+
+
+# ---------------------------------------------------------------------------
+# v1 kernels: κ revisits of the fp32 output, fp32 operands.
+# ---------------------------------------------------------------------------
+
+def _stream_f32(plan: BlockPermPlan, operand: torch.Tensor) -> torch.Tensor:
+    """The v1 stream contract: the operand rounded through the plan's
+    streaming precision, then upcast to fp32."""
+    return _stream(plan, operand).to(torch.float32)
+
+
+def _v1_device(x: torch.Tensor, name: str) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: no v1 kernel for device {x.device}")
+
+
+def flashsketch_fwd_v1(plan: BlockPermPlan, A: torch.Tensor, *,
+                       tn: Optional[int] = None) -> torch.Tensor:
+    """Y = S A through the v1 kernel (global plans included).  A must be
+    (d_pad, n); returns (k_pad, n) fp32.  CUDA tensors run the kernel, CPU
+    tensors its plain version ``ref.flashsketch_v1_ref``."""
+    if A.shape[0] != plan.d_pad:
+        raise ValueError(f"A must have d_pad={plan.d_pad} rows, got "
+                         f"{A.shape[0]}")
+    x = _stream_f32(plan, A)
+    if A.device.type == "cpu":
+        return kref.flashsketch_v1_ref(plan, x)
+    _v1_device(x, "flashsketch_fwd_v1")
+    tn = tn or default_tn(plan, "fwd", x.shape[1], v1=True)
+    groups, uc, n_i, smem = fwd_v1_launch(plan, tn)
+    _check_launch(plan, x, tn, smem, plan.d_pad, "flashsketch_fwd_v1")
+    x = x.contiguous()
+    Y = torch.empty((plan.k_pad, x.shape[1]), dtype=torch.float32,
+                    device=x.device)
+    tab = None if plan.is_global else _device_table(plan, "fwd", x.device)
+    _call("flashsketch_v1.cu", "fs_fwd_v1", x.device, (_P, x.data_ptr()),
+          (_P, Y.data_ptr()), (_P, 0 if tab is None else tab.data_ptr()),
+          (_I, int(plan.is_global)), (_I, plan.M), (_I, plan.Br),
+          (_I, plan.Bc), (_I, plan.kappa), (_I, plan.s), (_LL, x.shape[1]),
+          (_I, plan.k_pad), (_U, plan.seed & 0xFFFFFFFF), (_F, plan.scale),
+          *[(_I, v) for v in (tn, groups, uc, n_i, smem)])
+    LAUNCHES["flashsketch_fwd_v1"] += 1
+    return Y
+
+
+def flashsketch_transpose_v1(plan: BlockPermPlan, Y: torch.Tensor, *,
+                             tn: Optional[int] = None) -> torch.Tensor:
+    """X = Sᵀ Y through the v1 kernel (global plans included).  Y must be
+    (k_pad, n); returns (d_pad, n) fp32.  CUDA tensors run the kernel, CPU
+    tensors its plain version ``ref.flashsketch_transpose_v1_ref``."""
+    if Y.shape[0] != plan.k_pad:
+        raise ValueError(f"Y must have k_pad={plan.k_pad} rows, got "
+                         f"{Y.shape[0]}")
+    y = _stream_f32(plan, Y)
+    if Y.device.type == "cpu":
+        full = dataclasses.replace(plan, d=plan.d_pad)
+        return kref.flashsketch_transpose_v1_ref(full, y)
+    _v1_device(y, "flashsketch_transpose_v1")
+    tn = tn or default_tn(plan, "transpose", y.shape[1], v1=True)
+    groups, uc, smem = transpose_v1_launch(plan, tn)
+    _check_launch(plan, y, tn, smem, plan.k_pad, "flashsketch_transpose_v1")
+    y = y.contiguous()
+    X = torch.empty((plan.d_pad, y.shape[1]), dtype=torch.float32,
+                    device=y.device)
+    if plan.is_global:       # the global transpose, summed per level
+        _launch_global_transpose(plan, y, X, True, tn, groups, uc, smem)
+    else:
+        _call("flashsketch_v1.cu", "fs_transpose_v1", y.device,
+              (_P, y.data_ptr()), (_P, X.data_ptr()),
+              (_P, _device_table(plan, "inverse", y.device).data_ptr()),
+              (_I, plan.M), (_I, plan.Br), (_I, plan.Bc), (_I, plan.kappa),
+              (_I, plan.s), (_LL, y.shape[1]), (_U, plan.seed & 0xFFFFFFFF),
+              (_F, plan.scale), *[(_I, v) for v in (tn, groups, uc, smem)])
+    LAUNCHES["flashsketch_transpose_v1"] += 1
+    return X
+
+
+def blockrow_fwd_v1(plan: BlockPermPlan, A: torch.Tensor, *,
+                    tn: Optional[int] = None) -> torch.Tensor:
+    """FLASHBLOCKROW Y = S_row A through the v1 kernel.  A must be
+    (d_pad, n); returns (k_pad, n) fp32.  CUDA tensors run the kernel, CPU
+    tensors its plain version ``ref.blockrow_v1_ref``."""
+    if A.shape[0] != plan.d_pad:
+        raise ValueError(f"A must have d_pad={plan.d_pad} rows, got "
+                         f"{A.shape[0]}")
+    x = _stream_f32(plan, A)
+    if A.device.type == "cpu":
+        return kref.blockrow_v1_ref(plan, x)
+    _v1_device(x, "blockrow_fwd_v1")
+    tn = tn or default_tn(plan, "blockrow", x.shape[1], v1=True)
+    groups, smem = blockrow_v1_launch(plan, tn)
+    _check_launch(plan, x, tn, smem, plan.d_pad, "blockrow_fwd_v1")
+    x = x.contiguous()
+    Y = torch.empty((plan.k_pad, x.shape[1]), dtype=torch.float32,
+                    device=x.device)
+    _call("flashsketch_v1.cu", "fs_blockrow_v1", x.device, (_P, x.data_ptr()),
+          (_P, Y.data_ptr()),
+          (_P, _device_table(plan, "blockrow", x.device).data_ptr()),
+          (_I, plan.M), (_I, plan.Br), (_I, plan.Bc), (_I, plan.kappa),
+          (_I, plan.s), (_LL, x.shape[1]), (_U, plan.seed & 0xFFFFFFFF),
+          (_F, blockrow_scale(plan)), *[(_I, v) for v in (tn, groups, smem)])
+    LAUNCHES["blockrow_fwd_v1"] += 1
+    return Y

@@ -16,12 +16,26 @@ per-row gather ``A[row_index]`` into the ``fwd`` / ``blockrow`` kernel's
 loads; ``batch`` records a stack folded into the column axis.
 
 ``impl``: ``"auto"`` runs the CUDA kernel for CUDA tensors and the plain
-PyTorch version for CPU tensors; ``"cuda"`` insists on the kernel;
-``"torch"`` runs the plain version on the operand's device, and with a
-gather materializes ``A[row_index]`` first (``gather_fused=False``).
-Requests the JAX engine serves and this port does not yet (the v1
-kernels, sharding) raise ``NotImplementedError`` naming the ``ROADMAP.md``
-queue where they wait.
+PyTorch version for CPU tensors; ``"cuda"`` insists on the fused kernel;
+``"cuda_v1"`` (the port's name for the reference's ``pallas_v1``) on the
+κ-revisiting v1 kernel, fp32 only, which has no fused gather (the gather
+is materialized first); ``"torch"`` runs the plain version on the
+operand's device, and with a gather materializes ``A[row_index]`` first
+(``gather_fused=False``).
+
+The downgrade ladder, each step recorded in ``Lowering.downgrade`` and the
+health counter ``lowering.downgrade``, decided from the geometry before any
+launch, as the reference decides it from its VMEM budget (which plans it
+catches is the card's own):
+
+  1. ``cuda`` + gather, the gather kernel's shared memory over the block's
+     limit at the narrowest tile (tn = 32) → materialize the gather and
+     continue as the plain op;
+  2. ``cuda``, the fused ``fwd`` / ``transpose`` / ``blockrow`` kernel over
+     the limit at tn = 32 → ``cuda_v1``.
+
+Sharding waits for the distributed slice and raises
+``NotImplementedError`` naming the ``ROADMAP.md`` queue where it waits.
 """
 from __future__ import annotations
 
@@ -39,11 +53,11 @@ from repro_torch.kernels import ref as kref
 
 OPS = ("fwd", "transpose", "blockrow")
 GATHER_OPS = ("fwd", "blockrow")
-IMPLS = ("auto", "cuda", "torch")
+IMPLS = ("auto", "cuda", "cuda_v1", "torch")
+CUDA_IMPLS = ("cuda", "cuda_v1")
 
 # Requests that wait for a later slice, and the ROADMAP queue that holds them.
 _QUEUED = {
-    "pallas_v1": "the v1 kernels (ROADMAP queue 2, item 7)",
     "shard": "the distributed slice (ROADMAP queue 1, item 10; queue 2, "
              "item 6)",
 }
@@ -62,7 +76,8 @@ class LaunchSpec:
       op: ``"fwd"`` (``Y = S A``), ``"transpose"`` (``X = Sᵀ Y``) or
         ``"blockrow"`` (FLASHBLOCKROW ``Y = S_row A``).
       n: column count of the operand.
-      impl: ``"auto" | "cuda" | "torch"`` (see the module docstring).
+      impl: ``"auto" | "cuda" | "cuda_v1" | "torch"`` (see the module
+        docstring).
       tn: column-tile width of the CUDA kernel, or ``None`` for its default.
       dtype: streaming-precision policy override; ``None`` keeps the plan's.
       device: device type of the operand, ``"cuda"`` or ``"cpu"``.
@@ -90,7 +105,9 @@ class Lowering:
     """Every decision of one sketch launch, frozen.
 
     ``plan`` is the effective plan (dtype override applied); ``impl`` the
-    implementation that runs (``"cuda"`` or ``"torch"``); ``gather`` the
+    implementation that runs (``"cuda"``, ``"cuda_v1"`` or ``"torch"``) and
+    ``downgrade`` the reason it is not the one asked for (``None`` when the
+    request ran as asked); ``gather`` the
     request and ``gather_fused`` what runs (``False``: ``A[row_index]`` is
     materialized first); ``tn``, ``groups`` and ``smem_bytes`` the CUDA
     launch geometry (``None`` for the plain version); ``pad_rows`` the zero
@@ -115,6 +132,7 @@ class Lowering:
     gather: bool = False
     gather_fused: bool = False
     batch: int = 1
+    downgrade: Optional[str] = None
 
     def describe(self) -> str:
         bits = [self.op, f"impl={self.impl}"]
@@ -129,14 +147,14 @@ class Lowering:
                  f"dtype={self.dtype}", f"n={self.n}"]
         if self.smem_bytes is not None:
             bits.append(f"groups={self.groups}, smem={self.smem_bytes}B")
+        if self.downgrade:
+            bits.append(f"downgrade[{self.downgrade}]")
         return "Lowering(" + ", ".join(bits) + ")"
 
 
 def _validate(plan: BlockPermPlan, spec: LaunchSpec) -> None:
     if spec.op not in OPS:
         raise ValueError(f"op must be one of {OPS}, got {spec.op!r}")
-    if spec.impl == "pallas_v1":
-        raise _queued("pallas_v1")
     if spec.impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {spec.impl!r}")
     if spec.gather and spec.op not in GATHER_OPS:
@@ -157,9 +175,10 @@ def _validate(plan: BlockPermPlan, spec: LaunchSpec) -> None:
     if spec.device not in ("cuda", "cpu"):
         raise ValueError(f"device must be 'cuda' or 'cpu', got "
                          f"{spec.device!r}")
-    if spec.impl == "cuda" and spec.device != "cuda":
-        raise ValueError("impl='cuda' runs the CUDA kernel and needs a CUDA "
-                         "tensor; use impl='auto' or 'torch' on the CPU")
+    if spec.impl in CUDA_IMPLS and spec.device != "cuda":
+        raise ValueError(f"impl={spec.impl!r} runs a CUDA kernel and needs a "
+                         f"CUDA tensor; use impl='auto' or 'torch' on the "
+                         f"CPU")
 
 
 def _lower(plan: BlockPermPlan, spec: LaunchSpec,
@@ -182,11 +201,37 @@ def _lower(plan: BlockPermPlan, spec: LaunchSpec,
     else:
         t(f"impl: {impl!r} requested")
 
-    gather_fused = spec.gather and impl == "cuda"
+    downgrades: List[str] = []
+    gather_fused = False
     if spec.gather:
-        t("gather: " + ("fused in-kernel (rows read through row_map)"
-                        if gather_fused else
-                        "materialized A[row_index] (plain version)"))
+        if impl == "cuda_v1":
+            downgrades.append(
+                "gather: cuda_v1 has no fused gather formulation — the row "
+                "gather is materialized, then the v1 kernel runs on "
+                "A[row_index]")
+            t(f"gather: materialized ({downgrades[-1]})")
+        elif impl == "cuda" and (smem := fsk.launch_geometry(
+                eff, spec.op, True, fsk.MIN_TN)[1]) > fsk.MAX_SMEM_BYTES:
+            downgrades.append(
+                f"shared memory: the {spec.op!r} gather kernel needs {smem} B "
+                f"at tn={fsk.MIN_TN} > {fsk.MAX_SMEM_BYTES} B — gather "
+                f"materialized, then the regular dispatch runs on "
+                f"A[row_index]")
+            t(f"gather: materialized ({downgrades[-1]})")
+        elif impl == "cuda":
+            gather_fused = True
+            t("gather: fused in-kernel (rows read through row_map)")
+        else:
+            t("gather: materialized A[row_index] (plain version)")
+    if impl == "cuda" and (smem := fsk.launch_geometry(
+            eff, spec.op, gather_fused, fsk.MIN_TN)[1]) > fsk.MAX_SMEM_BYTES:
+        downgrades.append(
+            f"shared memory: the fused {spec.op!r} kernel needs {smem} B at "
+            f"tn={fsk.MIN_TN} > {fsk.MAX_SMEM_BYTES} B — cuda_v1, the v1 "
+            f"revisiting kernel")
+        t(f"impl: 'cuda' -> 'cuda_v1' ({downgrades[-1]})")
+        impl = "cuda_v1"
+    downgrade = "; ".join(downgrades) or None
     pad_rows = (eff.d_pad - eff.d
                 if spec.op != "transpose" and not gather_fused else 0)
     if impl == "torch":
@@ -194,47 +239,38 @@ def _lower(plan: BlockPermPlan, spec: LaunchSpec,
         tn = groups = smem = grid_cols = None
         tn_source = "n/a"
     else:
+        v1 = impl == "cuda_v1"
         if spec.tn is not None:
             tn, tn_source = spec.tn, "explicit"
+        elif v1:
+            tn = fsk.default_tn(eff, spec.op, spec.n * spec.batch, v1=True)
+            tn_source = "v1_default"
         else:
-            tn, tn_source = _DEFAULT_TN[spec.op], "default"
-            while tn > 32 and (smem := _geometry(
-                    eff, spec.op, gather_fused, tn)[1]) > fsk.MAX_SMEM_BYTES:
-                t(f"tn={tn} rejected: {smem} B of shared memory > "
+            rejected: List[Tuple[int, int]] = []
+            tn = fsk.fitted_tn(eff, spec.op, spec.n * spec.batch,
+                               gather_fused, rejected)
+            tn_source = "default:smem_shrunk" if rejected else "default"
+            for bad, smem in rejected:
+                t(f"tn={bad} rejected: {smem} B of shared memory > "
                   f"{fsk.MAX_SMEM_BYTES} B")
-                tn //= 2
-                tn_source = "default:smem_shrunk"
-        groups, smem = _geometry(eff, spec.op, gather_fused, tn)
+        groups, smem = fsk.launch_geometry(eff, spec.op, gather_fused, tn, v1)
         grid_cols = -(-spec.n // tn)
         t(f"tn: {tn} ({tn_source}); {groups} thread groups, {smem} B shared "
-          f"memory, grid ({eff.M}, {grid_cols})")
+          f"memory, {grid_cols} column tiles")
     if spec.batch > 1:
         t(f"batch: {spec.batch} matrices folded into the column axis")
     t(f"pad: rows +{pad_rows}, cols +0 (the ragged column edge is masked "
       f"in the kernel)")
+    if downgrade:
+        # a request that could not run as asked is a health event
+        health_report.record("lowering.downgrade", detail=downgrade)
     return Lowering(
         plan=eff, op=spec.op, impl=impl, impl_requested=spec.impl,
         device=spec.device, tn=tn, tn_source=tn_source, dtype=eff.dtype,
         n=spec.n, grid_cols=grid_cols, groups=groups, smem_bytes=smem,
         pad_rows=pad_rows, gather=spec.gather, gather_fused=gather_fused,
-        batch=spec.batch)
+        batch=spec.batch, downgrade=downgrade)
 
-
-_DEFAULT_TN = {"fwd": fsk.FWD_DEFAULT_TN,
-               "transpose": fsk.TRANSPOSE_DEFAULT_TN,
-               "blockrow": fsk.BLOCKROW_DEFAULT_TN}
-
-def _geometry(plan: BlockPermPlan, op: str, gather_fused: bool,
-              tn: int) -> Tuple[int, int]:
-    """(thread groups, shared bytes) of the kernel that runs at tile
-    width ``tn``."""
-    if op == "transpose":
-        groups, _, smem, _ = fsk.transpose_launch(plan, tn)
-    elif op == "blockrow":
-        groups, smem = fsk.blockrow_launch(plan, tn)
-    else:
-        groups, _, smem = fsk.fwd_launch(plan, tn, gather=gather_fused)
-    return groups, smem
 
 
 @functools.lru_cache(maxsize=1024)
@@ -318,8 +354,14 @@ def execute(lw: Lowering, operand: torch.Tensor,
         x = precision_mod.emulate_stream(operand, plan.precision,
                                          seed=plan.seed)
         return _ORACLES[lw.op](plan, x)
+    v1 = lw.impl == "cuda_v1"
     if lw.op == "transpose":
         Y = kref.pad_rows(operand, plan.k_pad)
-        return fsk.flashsketch_transpose(plan, Y, tn=lw.tn)[: plan.d, :n]
-    kernel = fsk.flashsketch_fwd if lw.op == "fwd" else fsk.blockrow_fwd
+        kernel = (fsk.flashsketch_transpose_v1 if v1
+                  else fsk.flashsketch_transpose)
+        return kernel(plan, Y, tn=lw.tn)[: plan.d, :n]
+    kernel = {("fwd", False): fsk.flashsketch_fwd,
+              ("fwd", True): fsk.flashsketch_fwd_v1,
+              ("blockrow", False): fsk.blockrow_fwd,
+              ("blockrow", True): fsk.blockrow_fwd_v1}[lw.op, v1]
     return kernel(plan, kref.pad_input(plan, operand), tn=lw.tn)[: plan.k, :n]

@@ -5,7 +5,9 @@
 ``lowering.execute``; they run on the device of the tensor they are
 given.  Each is a ``torch.autograd.Function`` whose backward is the other
 one's kernel: the gradient of ``Y = S A`` with respect to ``A`` is
-``Sᵀ dY``, and of ``X = Sᵀ Y`` with respect to ``Y`` is ``S dX``.
+``Sᵀ dY``, and of ``X = Sᵀ Y`` with respect to ``Y`` is ``S dX``.  The
+backward keeps the requested ``impl``, as the reference's VJP does, so the
+backward of a ``cuda_v1`` forward is the v1 transpose and the reverse.
 
 Gather-fused path (the GraSS sparsify→sketch fusion): ``sketch_apply``,
 ``blockrow_apply``, ``sketch_apply_batched`` and ``sketch_vectors`` take
@@ -105,7 +107,8 @@ def sketch_apply(plan: BlockPermPlan, A: torch.Tensor, impl: str = "auto",
         streamed in the plan's (or ``dtype``'s) streaming precision; with
         ``row_index`` the ``(d_src, n)`` source, in any strides.
       impl: ``"auto"`` (the CUDA kernel for CUDA tensors, the plain
-        version for CPU tensors), ``"cuda"`` or ``"torch"`` (which
+        version for CPU tensors), ``"cuda"``, ``"cuda_v1"`` (the v1
+        kernel; it materializes the gather) or ``"torch"`` (which
         materializes the gather).
       tn: column-tile width of the CUDA kernel; ``None`` for its default.
       dtype: streaming-precision override; ``None`` keeps the plan's.

@@ -5,6 +5,11 @@ These are the semantics the CUDA kernels are held to, and the execution
 path for tensors on the CPU.  They run on the device of their operand.
 Shapes follow the paper: ``A ∈ R^{d×n}``, ``S ∈ R^{k×d}``,
 ``Y = S A ∈ R^{k×n}``.  Accumulation is fp32.
+
+The ``*_v1_ref`` versions sum as the v1 kernels (``_fwd_kernel_v1``,
+``_transpose_kernel_v1``, ``_blockrow_kernel_v1`` of the JAX package) do:
+one contribution per wiring level ℓ, each already scaled, added in ℓ
+order; the fused versions scale once at the end.
 """
 from __future__ import annotations
 
@@ -74,23 +79,47 @@ def _global_fwd_ref(plan: BlockPermPlan, A: torch.Tensor) -> torch.Tensor:
     return Y[: plan.k] * plan.scale
 
 
-def _global_transpose_ref(plan: BlockPermPlan, Y: torch.Tensor) -> torch.Tensor:
+def _global_fwd_v1_ref(plan: BlockPermPlan, A: torch.Tensor) -> torch.Tensor:
+    """The global forward summed as v1 sums it: the level ℓ = input block ℓ
+    (κ = M), each level's scatter-add scaled, added in order."""
+    Ap = pad_input(plan, A).to(torch.float32)
+    Y = torch.zeros((plan.k_pad, Ap.shape[1]), dtype=torch.float32,
+                    device=A.device)
+    for ell in range(plan.M):
+        u = torch.arange(ell * plan.Bc, (ell + 1) * plan.Bc,
+                         dtype=torch.int64, device=A.device)
+        part = torch.zeros_like(Y)
+        for i in range(plan.s):
+            rows, signs = global_rows_signs(plan, u, i)
+            part.index_add_(0, rows, signs[:, None] * Ap[u])
+        Y = Y + part * plan.scale
+    return Y[: plan.k]
+
+
+def _global_transpose_ref(plan: BlockPermPlan, Y: torch.Tensor,
+                          v1: bool = False) -> torch.Tensor:
     """X = Sᵀ Y for a global family: each padded input row gathers its s
-    hashed output rows back."""
+    hashed output rows back.  ``v1``: the rows of one output block (ℓ =
+    row // Br, so runs of max(1, Br/chunk) consecutive i) are summed, then
+    each level's sum is scaled and added."""
     Yp = pad_rows(Y, plan.k_pad).to(torch.float32)
     u = torch.arange(plan.d_pad, dtype=torch.int64, device=Y.device)
     X = torch.zeros((plan.d_pad, Yp.shape[1]), dtype=torch.float32,
                     device=Y.device)
-    for i in range(plan.s):
-        rows, signs = global_rows_signs(plan, u, i)
-        X = X + signs[:, None] * Yp[rows]
-    return X[: plan.d] * plan.scale
+    per = max(1, plan.Br // plan.chunk) if v1 else plan.s
+    for i0 in range(0, plan.s, per):
+        part = torch.zeros_like(X)
+        for i in range(i0, min(plan.s, i0 + per)):
+            rows, signs = global_rows_signs(plan, u, i)
+            part = part + signs[:, None] * Yp[rows]
+        X = X + (part * plan.scale if v1 else part)
+    return X[: plan.d] if v1 else X[: plan.d] * plan.scale
 
 
-def flashsketch_ref(plan: BlockPermPlan, A: torch.Tensor) -> torch.Tensor:
-    """Y = S A for S ~ plan.  A: (d, n) -> Y: (k, n) fp32."""
-    if plan.is_global:
-        return _global_fwd_ref(plan, A)
+def _fwd_levels(plan: BlockPermPlan, A: torch.Tensor,
+                per_level: bool) -> torch.Tensor:
+    """Blockperm Y = S A as a sum over the κ wiring levels, scaled once at
+    the end or (``per_level``, v1) level by level."""
     n = A.shape[1]
     Ap = pad_input(plan, A).to(torch.float32)
     A_blocks = Ap.reshape(plan.M, plan.Bc, n)
@@ -100,16 +129,17 @@ def flashsketch_ref(plan: BlockPermPlan, A: torch.Tensor) -> torch.Tensor:
     for ell in range(plan.kappa):
         h_of_g = pi[ell]
         phi = _phi_all_blocks(plan, h_of_g)                       # (M, Br, Bc)
-        Y_blocks = Y_blocks + torch.bmm(phi, A_blocks[h_of_g])
-    Y = Y_blocks.reshape(plan.k_pad, n) * plan.scale
-    return Y[: plan.k]
+        contrib = torch.bmm(phi, A_blocks[h_of_g])
+        Y_blocks = Y_blocks + (contrib * plan.scale if per_level
+                               else contrib)
+    Y = Y_blocks.reshape(plan.k_pad, n)
+    return (Y if per_level else Y * plan.scale)[: plan.k]
 
 
-def flashsketch_transpose_ref(plan: BlockPermPlan,
-                              Y: torch.Tensor) -> torch.Tensor:
-    """X = Sᵀ Y.  Y: (k, n) -> X: (d, n) fp32."""
-    if plan.is_global:
-        return _global_transpose_ref(plan, Y)
+def _transpose_levels(plan: BlockPermPlan, Y: torch.Tensor,
+                      per_level: bool) -> torch.Tensor:
+    """Blockperm X = Sᵀ Y as a sum over the κ wiring levels (see
+    ``_fwd_levels``)."""
     n = Y.shape[1]
     Y_blocks = pad_rows(Y, plan.k_pad).reshape(plan.M, plan.Br, n)
     Y_blocks = Y_blocks.to(torch.float32)
@@ -120,9 +150,40 @@ def flashsketch_transpose_ref(plan: BlockPermPlan,
         h_of_g = pi[ell]
         phi = _phi_all_blocks(plan, h_of_g)                       # (M, Br, Bc)
         contrib = torch.bmm(phi.transpose(1, 2), Y_blocks)        # (M, Bc, n)
-        X_blocks = X_blocks.index_add(0, h_of_g, contrib)
-    X = X_blocks.reshape(plan.d_pad, n) * plan.scale
-    return X[: plan.d]
+        X_blocks = X_blocks.index_add(
+            0, h_of_g, contrib * plan.scale if per_level else contrib)
+    X = X_blocks.reshape(plan.d_pad, n)
+    return (X if per_level else X * plan.scale)[: plan.d]
+
+
+def flashsketch_ref(plan: BlockPermPlan, A: torch.Tensor) -> torch.Tensor:
+    """Y = S A for S ~ plan.  A: (d, n) -> Y: (k, n) fp32."""
+    if plan.is_global:
+        return _global_fwd_ref(plan, A)
+    return _fwd_levels(plan, A, per_level=False)
+
+
+def flashsketch_transpose_ref(plan: BlockPermPlan,
+                              Y: torch.Tensor) -> torch.Tensor:
+    """X = Sᵀ Y.  Y: (k, n) -> X: (d, n) fp32."""
+    if plan.is_global:
+        return _global_transpose_ref(plan, Y)
+    return _transpose_levels(plan, Y, per_level=False)
+
+
+def flashsketch_v1_ref(plan: BlockPermPlan, A: torch.Tensor) -> torch.Tensor:
+    """Y = S A summed as the v1 kernel sums it.  A: (d, n) -> (k, n) fp32."""
+    if plan.is_global:
+        return _global_fwd_v1_ref(plan, A)
+    return _fwd_levels(plan, A, per_level=True)
+
+
+def flashsketch_transpose_v1_ref(plan: BlockPermPlan,
+                                 Y: torch.Tensor) -> torch.Tensor:
+    """X = Sᵀ Y summed as the v1 kernel sums it.  Y: (k, n) -> (d, n)."""
+    if plan.is_global:
+        return _global_transpose_ref(plan, Y, v1=True)
+    return _transpose_levels(plan, Y, per_level=True)
 
 
 # ---------------------------------------------------------------------------
@@ -163,19 +224,30 @@ def _phi_rows_all_blocks(plan: BlockPermPlan,
     return phi
 
 
-def blockrow_ref(plan: BlockPermPlan, A: torch.Tensor) -> torch.Tensor:
-    """FLASHBLOCKROW forward: Y = S_row A with the Alg. 2 scaling.
-    A: (d, n) -> Y: (k, n) fp32."""
+def _blockrow_levels(plan: BlockPermPlan, A: torch.Tensor,
+                     per_level: bool) -> torch.Tensor:
     n = A.shape[1]
     Ap = pad_input(plan, A).to(torch.float32)
     A_blocks = Ap.reshape(plan.M, plan.Bc, n)
     hh = blockrow_wiring(plan, A.device)
+    scale = plan.scale * math.sqrt(plan.d_pad / plan.k_pad)
     Y_blocks = torch.zeros((plan.M, plan.Br, n), dtype=torch.float32,
                            device=A.device)
     for ell in range(plan.kappa):
         h_of_g = hh[ell]
         phi = _phi_rows_all_blocks(plan, h_of_g)                  # (M, Br, Bc)
-        Y_blocks = Y_blocks + torch.bmm(phi, A_blocks[h_of_g])
-    scale = plan.scale * math.sqrt(plan.d_pad / plan.k_pad)
-    Y = Y_blocks.reshape(plan.k_pad, n) * scale
-    return Y[: plan.k]
+        contrib = torch.bmm(phi, A_blocks[h_of_g])
+        Y_blocks = Y_blocks + (contrib * scale if per_level else contrib)
+    Y = Y_blocks.reshape(plan.k_pad, n)
+    return (Y if per_level else Y * scale)[: plan.k]
+
+
+def blockrow_ref(plan: BlockPermPlan, A: torch.Tensor) -> torch.Tensor:
+    """FLASHBLOCKROW forward: Y = S_row A with the Alg. 2 scaling.
+    A: (d, n) -> Y: (k, n) fp32."""
+    return _blockrow_levels(plan, A, per_level=False)
+
+
+def blockrow_v1_ref(plan: BlockPermPlan, A: torch.Tensor) -> torch.Tensor:
+    """FLASHBLOCKROW summed as the v1 kernel sums it (each level scaled)."""
+    return _blockrow_levels(plan, A, per_level=True)

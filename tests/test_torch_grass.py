@@ -18,6 +18,7 @@ from repro.attribution import grass as jgrass
 from repro.attribution import lds as jlds
 from repro.attribution import mlp as jmlp
 from repro.core import hashing as jhashing
+from repro.core import variants as jvariants
 from repro_torch.attribution import grass as tgrass
 from repro_torch.attribution import lds as tlds
 from repro_torch.attribution import mlp as tmlp
@@ -37,7 +38,8 @@ def trained():
     params = jmlp.train_mlp(MCFG_J, x, y)
     params_np = {k: np.asarray(v) for k, v in params.items()}
     xt, yt = tmlp.make_synthetic_mnist(50, 64, seed=0)
-    return params, tmlp.params_from_reference(params_np), x, y, xt, yt
+    return (params, tmlp.params_from_reference(params_np, device="cpu"), x,
+            y, xt, yt)
 
 
 def _pipes(params, model, family, chunk=16, fused=True, attribution="dot"):
@@ -62,7 +64,7 @@ def _rel_close(got, want, rel):
 @pytest.mark.parametrize("d_total,d_keep,seed", [(257, 32, 0), (1000, 100, 3),
                                                  (4096, 512, 9)])
 def test_sparsify_mask_equals_reference(d_total, d_keep, seed):
-    got = tgrass.sparsify_mask(d_total, d_keep, seed)
+    got = tgrass.sparsify_mask(d_total, d_keep, seed, device="cpu")
     np.testing.assert_array_equal(
         got.numpy(), np.asarray(jgrass.sparsify_mask(d_total, d_keep, seed)))
     # the reference's historical definition: argsort of the scores
@@ -103,7 +105,7 @@ def test_model_and_margin_match_reference(trained):
 
 
 def test_paper_mlp_width():
-    model = tmlp.init_mlp(tmlp.MLPConfig())
+    model = tmlp.init_mlp(tmlp.MLPConfig(), device="cpu")
     assert sum(p.numel() for p in model.parameters()) == 109_386
     assert tconf.GRASS.k_values == (1024, 2048, 4096)
 
@@ -178,7 +180,7 @@ def test_lds_of_port_tau_matches_reference():
     x, y = jmlp.make_synthetic_mnist(n_train + n_test, 64, seed=1)
     params = jmlp.train_mlp(mcfg, x[:n_train], y[:n_train])
     model = tmlp.params_from_reference(
-        {k: np.asarray(v) for k, v in params.items()})
+        {k: np.asarray(v) for k, v in params.items()}, device="cpu")
     xt, yt = tmlp.make_synthetic_mnist(n_train + n_test, 64, seed=1)
     jp, tp = _pipes(params, model, "blockperm")
     tau_j = jp.attribute(jp.build_cache(x[:n_train], y[:n_train])[0],
@@ -235,14 +237,40 @@ def test_entry_points_default_to_cuda(trained, monkeypatch):
         tgrass.GrassPipeline(cfg, model)
     with pytest.raises(RuntimeError, match="CUDA"):
         tgrass.run_grass_lds(cfg, MCFG_T, n_train=16, n_test=4, m_subsets=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tgrass.sparsify_mask(256, 32, 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tmlp.init_mlp(MCFG_T)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tmlp.params_from_reference(
+            {n: p.detach().numpy() for n, p in model.named_parameters()})
     with pytest.raises(NotImplementedError, match="queue 1, item 10"):
         tgrass.GrassPipeline(cfg, model, mesh=object(), device="cpu")
 
 
-@pytest.mark.parametrize("name", tvariants.QUEUED_FAMILIES)
-def test_unported_families_raise(name):
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        tvariants.make_sketch(name, 256, 64)
+@pytest.mark.parametrize("name", ("dense_gaussian", "dense_rademacher",
+                                  "sjlt", "srht", "localized", "countsketch",
+                                  "graph"))
+def test_unported_families_raise(name, rng):
+    """The seven families that once raised here: each is now the
+    reference's family.  S (the sketch of the identity, one ±scale term per
+    entry) is equal, the dense families' S carried across; an apply to
+    random data agrees within 1e-5."""
+    assert name not in tvariants.QUEUED_FAMILIES
+    d, k = 96, 64
+    js = jvariants.make_sketch(name, d, k, seed=3)
+    ts = (tvariants.SKETCH_FAMILIES[name].from_reference(np.asarray(js._S),
+                                                          seed=3)
+          if name.startswith("dense") else
+          tvariants.make_sketch(name, d, k, seed=3))
+    assert ts.k == js.k
+    np.testing.assert_array_equal(
+        ts.apply(torch.eye(d)).numpy(),
+        np.asarray(js.apply(jnp.eye(d, dtype=jnp.float32))))
+    A = rng.normal(size=(d, 24)).astype(np.float32)
+    np.testing.assert_allclose(ts.apply(torch.from_numpy(A)).numpy(),
+                               np.asarray(js.apply(jnp.asarray(A))),
+                               atol=1e-5, rtol=1e-5)
 
 
 def test_ported_families(rng):
@@ -258,5 +286,8 @@ def test_ported_families(rng):
     assert tvariants.BlockRowSketch.unbiased is False
     assert tvariants.make_sketch("blockperm_fp8", 300, 64).plan.dtype == \
         "fp8_e4m3_sr"
-    with pytest.raises(NotImplementedError, match="queue 2, item 7"):
-        tvariants.make_sketch("blockperm", 300, 64, kernel_version="v1")
+    v1 = tvariants.make_sketch("blockperm", 300, 64, seed=1,
+                               kernel_version="v1")
+    assert torch.equal(v1.apply(A[1]), tvariants.make_sketch(
+        "blockperm", 300, 64, seed=1).apply(A[1]))
+    assert v1.lowering_for(4, device="cuda").impl == "cuda_v1"

@@ -17,6 +17,8 @@ import torch
 
 from repro.core import blockperm as jb
 from repro.core import precision as jp
+from repro.kernels import flashsketch as jfsk
+from repro.kernels import lowering as jlow
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.core import blockperm as tb
@@ -158,14 +160,15 @@ def test_lowering_resolves_per_device():
 
 
 @pytest.mark.parametrize("spec,exc", [
-    (dict(impl="pallas_v1"), NotImplementedError),
+    (dict(impl="pallas_v1"), ValueError),     # the port's name is cuda_v1
     (dict(gather=True, op="transpose"), ValueError),  # no gathered transpose
     (dict(batch=0), ValueError),
     (dict(shard="row"), NotImplementedError),
-    (dict(op="blockrow", impl="pallas_v1"), NotImplementedError),
+    (dict(op="blockrow", impl="pallas_v1"), ValueError),
     (dict(impl="xla"), ValueError),
     (dict(op="gram"), ValueError),
     (dict(impl="cuda"), ValueError),         # a CUDA kernel for a CPU tensor
+    (dict(impl="cuda_v1"), ValueError),
     (dict(n=0), ValueError),
 ])
 def test_lowering_rejects(spec, exc):
@@ -247,9 +250,9 @@ def test_cuda_sketch_of_identity_is_exact(cuda):
     p = tb.make_plan(512, 64, kappa=4, s=2, seed=3)
     SI = tops.sketch_apply(p, torch.eye(512, device=cuda))
     assert torch.equal(SI, tb.materialize_sketch_matrix(p, cuda)[:, :512])
-    with pytest.raises(NotImplementedError):
-        tops.sketch_apply(tb.make_plan(512, 64, family="countsketch", s=1),
-                          torch.eye(512, device=cuda))
+    g = tb.make_plan(512, 64, family="countsketch", s=1)
+    SI = tops.sketch_apply(g, torch.eye(512, device=cuda))
+    assert torch.equal(SI, tb.materialize_sketch_matrix(g, cuda)[:, :512])
 
 
 # ---------------------------------------------------------------------------
@@ -411,3 +414,214 @@ def test_cuda_grass_kernels_match_plain(policy, cuda):
                 want = plain(p, G)
                 assert float((got - want).abs().max()) <= atol * float(
                     want.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# the v1 kernels and the global families
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("policy", POLICIES)
+def test_v1_matches_pallas_v1(policy, ragged):
+    """The v1 wrappers' CPU path (the v1 plain versions on the streamed,
+    fp32-upcast operand) against ``impl="pallas_v1"`` of the reference,
+    which rounds through the same stream (interpret mode)."""
+    pj, pt, A, Y = ragged
+    pj, pt = pj.with_dtype(policy), pt.with_dtype(policy)
+    atol = jp.resolve(policy).exactness_atol
+    Ap = tref.pad_input(pt, torch.from_numpy(A))
+    _close(tfsk.flashsketch_fwd_v1(pt, Ap)[: pt.k],
+           jops.sketch_apply(pj, jnp.asarray(A), "pallas_v1", 64), atol)
+    _close(tfsk.flashsketch_transpose_v1(pt, torch.from_numpy(Y))[:1000],
+           jops.sketch_apply_t(pj, jnp.asarray(Y), "pallas_v1", 64), atol)
+    _close(tfsk.blockrow_fwd_v1(pt, Ap)[: pt.k],
+           jops.blockrow_apply(pj, jnp.asarray(A), "pallas_v1", 64), atol)
+
+
+@pytest.fixture(scope="module")
+def global_plans():
+    """CountSketch (s=1, M=8, Bc=125: d_pad == d, Bc not a power of two)
+    and graph (s=4, M=2: two row chunks meet each output block) plans,
+    with ragged operands."""
+    rng = np.random.default_rng(13)
+    out = []
+    for kw in (dict(family="countsketch", s=1, block_rows=32),
+               dict(family="graph", s=4, block_rows=64)):
+        pj, pt = _plans(1000, 256 if kw["s"] == 1 else 128, seed=6, **kw)
+        out.append((pj, pt, rng.normal(size=(pt.d_pad, 37)).astype(np.float32),
+                    rng.normal(size=(pt.k_pad, 37)).astype(np.float32)))
+    return out
+
+
+def test_global_plans_cover_both_layouts(global_plans):
+    (_, cs, _, _), (_, gr, _, _) = global_plans
+    assert tfsk.row_chunks_per_block(cs) == 1 and cs.M == 8
+    assert tfsk.row_chunks_per_block(gr) == 2 and gr.M == 2
+
+
+@pytest.mark.parametrize("policy", ["float32", "bfloat16"])
+def test_global_v1_matches_pallas_v1(policy, global_plans):
+    for pj, pt, A, Y in global_plans:
+        pj, pt = pj.with_dtype(policy), pt.with_dtype(policy)
+        atol = jp.resolve(policy).exactness_atol
+        x = jp.emulate_stream(jnp.asarray(A), pj.precision, seed=pj.seed)
+        y = jp.emulate_stream(jnp.asarray(Y), pj.precision, seed=pj.seed)
+        _close(tfsk.flashsketch_fwd_v1(pt, torch.from_numpy(A)),
+               jfsk.flashsketch_pallas_v1(pj, x, tn=64), atol)
+        _close(tfsk.flashsketch_transpose_v1(pt, torch.from_numpy(Y)),
+               jfsk.flashsketch_transpose_pallas_v1(pj, y, tn=64), atol)
+
+
+def test_global_kernels_match_pallas(global_plans):
+    """The global forward, transpose and gather wrappers' CPU paths
+    against the fused Pallas kernels' global branch (interpret mode)."""
+    rng = np.random.default_rng(14)
+    for pj, pt, A, Y in global_plans:
+        _close(tfsk.flashsketch_fwd(pt, torch.from_numpy(A)),
+               jfsk.flashsketch_pallas(pj, jnp.asarray(A), tn=64), 1e-5)
+        _close(tfsk.flashsketch_transpose(pt, torch.from_numpy(Y)),
+               jfsk.flashsketch_transpose_pallas(pj, jnp.asarray(Y), tn=64),
+               1e-5)
+        src = rng.normal(size=(1500, 37)).astype(np.float32)
+        idx = np.sort(rng.choice(1500, pt.d, replace=False)).astype(np.int32)
+        rmap = tlow.row_map_for(pt, idx)
+        want = jfsk.flashsketch_pallas_gather(
+            pj, jnp.asarray(src), jlow.row_map_for(pj, jnp.asarray(idx)),
+            tn=64)[:, :37]
+        _close(tfsk.flashsketch_fwd_gather(pt, torch.from_numpy(src), rmap),
+               want, 1e-5)
+
+
+@pytest.mark.parametrize("op,gather", [("fwd", False), ("fwd", True),
+                                       ("transpose", False),
+                                       ("blockrow", False)])
+def test_downgrade_record_matches_reference(op, gather):
+    """A pinned tall block: the fused kernel does not fit shared memory, so
+    the engine sends ``cuda`` to ``cuda_v1`` before any launch, as the
+    reference sends ``pallas`` to ``pallas_v1``; op, dtype, gather and
+    padding fields agree with the reference's record."""
+    pj, pt = _plans(65536, 4096, kappa=4, block_rows=2048)
+    spec = dict(op=op, n=1000, gather=gather)
+    ref = jlow.lower(pj, jlow.LaunchSpec(impl="pallas", **spec))
+    lw = tlow.lower(pt, tlow.LaunchSpec(device="cuda", **spec))
+    assert (lw.op, lw.dtype, lw.gather, lw.gather_fused, lw.pad_rows) == (
+        ref.op, ref.dtype, ref.gather, ref.gather_fused, ref.pad_rows)
+    assert lw.impl_requested == "auto"
+    if op == "fwd":          # the card's limit catches the forward
+        assert ref.impl == "pallas_v1" and lw.impl == "cuda_v1"
+        assert "cuda_v1" in lw.downgrade and "downgrade[" in lw.describe()
+        assert "impl: 'cuda' -> 'cuda_v1'" in tlow.explain(
+            pt, device="cuda", **spec)
+    else:                    # its own; the reference's VMEM budget differs
+        assert lw.impl == "cuda" and lw.downgrade is None
+    assert tlow.lower(pt, tlow.LaunchSpec(impl="cuda_v1", device="cuda",
+                                          **spec)).impl == "cuda_v1"
+
+
+def test_v1_lowering_and_autograd_keep_the_impl(rng, monkeypatch):
+    """An explicit ``cuda_v1`` request materializes a gather and records
+    why, and ops' backward lowers the transpose with the forward's
+    requested impl (so a ``cuda_v1`` forward has the v1 transpose)."""
+    pt = tb.make_plan(300, 64, kappa=3, s=2, seed=1)
+    lw = tlow.lower(pt, tlow.LaunchSpec(impl="cuda_v1", device="cuda",
+                                        gather=True, n=5))
+    assert (lw.impl, lw.gather_fused, lw.tn_source) == ("cuda_v1", False,
+                                                        "v1_default")
+    assert "no fused gather" in lw.downgrade
+    calls = []
+    real = tlow.execute
+
+    def spy(lw, operand, row_index=None):
+        calls.append((lw.op, lw.impl_requested))
+        return real(lw, operand, row_index)
+
+    monkeypatch.setattr(tlow, "execute", spy)
+    A = torch.from_numpy(rng.normal(size=(300, 5))).requires_grad_(True)
+    (tops.sketch_apply(pt, A, "torch") ** 2).sum().backward()
+    assert calls == [("fwd", "torch"), ("transpose", "torch")]
+
+    # a cuda_v1 forward: both steps are lowered for the card as cuda_v1 (no
+    # card needed), then run by the v1 wrappers' plain versions on the CPU
+    lowered = []
+    real_lower = tlow.lower
+
+    def lower_for_card(plan, spec):
+        lw = real_lower(plan, dataclasses.replace(spec, device="cuda"))
+        lowered.append((lw.op, lw.impl_requested, lw.impl))
+        return lw
+
+    monkeypatch.setattr(tlow, "lower", lower_for_card)
+    monkeypatch.setattr(tlow, "execute", lambda lw, operand, row_index=None:
+                        real(dataclasses.replace(lw, device="cpu"), operand,
+                             row_index))
+    A = torch.from_numpy(rng.normal(size=(300, 5))).float()
+    A.requires_grad_(True)
+    Y = tops.sketch_apply(pt, A, "cuda_v1")
+    (Y ** 2).sum().backward()
+    assert lowered == [("fwd", "cuda_v1", "cuda_v1"),
+                       ("transpose", "cuda_v1", "cuda_v1")]
+    want = tref.flashsketch_transpose_v1_ref(
+        pt, tref.pad_rows(2 * Y.detach(), pt.k_pad))[:300]
+    np.testing.assert_allclose(A.grad.numpy(), want.numpy(), rtol=1e-6,
+                               atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy", POLICIES)
+def test_cuda_v1_and_global_kernels_match_plain(policy, cuda):
+    """On the card: the three v1 kernels, the fused forward and transpose,
+    and the global forward, transpose and gather against their plain
+    versions, at small plans and at the main shape's graph (s = 4, one row
+    chunk per block) and localized (κ = 1) plans; S·I == S for v1 and the
+    global forward; the global gather equals the global forward on the
+    zero-padded materialized gather bit for bit."""
+    from repro_torch.solvers.multisketch import derive_seed, family_stream
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    graph_seed = derive_seed(0, 0, 0, stream=family_stream("graph"))
+
+    def close(got, want, p):
+        assert float((got - want).abs().max()) <= \
+            p.precision.exactness_atol * float(want.abs().max())
+
+    for d, k, kw, n in [(1000, 96, dict(kappa=4, s=2), 37),
+                        (4096, 256, dict(kappa=2, s=4), 100),
+                        (1000, 256, dict(family="countsketch", s=1,
+                                         block_rows=32), 37),
+                        (1000, 128, dict(family="graph", s=4,
+                                         block_rows=64), 37),
+                        (700, 64, dict(family="graph", s=4), 33),
+                        (65536, 4096, dict(family="graph", s=4,
+                                           seed=graph_seed), 1024),
+                        (65536, 4096, dict(kappa=1, s=2), 1024)]:
+        p = tb.make_plan(d, k, dtype=policy, **kw)
+        full = dataclasses.replace(p, d=p.d_pad)
+        A = torch.randn(p.d_pad, n, generator=gen, device=cuda)
+        Y = torch.randn(p.k_pad, n, generator=gen, device=cuda)
+        x, y = tfsk._stream(p, A).float(), tfsk._stream(p, Y).float()
+        close(tfsk.flashsketch_fwd_v1(p, A), tref.flashsketch_v1_ref(p, x), p)
+        close(tfsk.flashsketch_transpose_v1(p, Y),
+              tref.flashsketch_transpose_v1_ref(full, y), p)
+        close(tfsk.flashsketch_fwd(p, A), tref.flashsketch_ref(p, x), p)
+        close(tfsk.flashsketch_transpose(p, Y),
+              tref.flashsketch_transpose_ref(full, y), p)
+        if not p.is_global:
+            close(tfsk.blockrow_fwd_v1(p, A), tref.blockrow_v1_ref(p, x), p)
+            continue
+        src = torch.randn(3 * d, n, generator=gen, device=cuda)
+        ri = torch.randperm(3 * d, generator=gen, device=cuda)[:d].sort()[0]
+        rmap = tlow.row_map_for(p, ri, cuda)
+        got = tfsk.flashsketch_fwd_gather(p, src, rmap)
+        close(got, tref.flashsketch_ref(
+            p, tref.gather_rows(p, tfsk._stream(p, src), rmap)), p)
+        assert torch.equal(got, tfsk.flashsketch_fwd(
+            p, tref.pad_input(p, src[ri])))
+        if policy == "float32" and p.d_pad <= 4096:
+            eye = torch.eye(p.d_pad, device=cuda)
+            S = tb.materialize_sketch_matrix(p, cuda)
+            assert torch.equal(tfsk.flashsketch_fwd(p, eye), S)
+            assert torch.equal(tfsk.flashsketch_fwd_v1(p, eye), S)
+            for impl in ("cuda_v1", "auto"):     # the adjoint pairs
+                lhs = float((tops.sketch_apply(p, A[:d], impl).double()
+                             * Y.double()).sum())
+                rhs = float((A[:d].double() * tops.sketch_apply_t(
+                    p, Y, impl).double()).sum())
+                assert abs(lhs - rhs) <= 1e-5 * max(abs(lhs), 1.0)

@@ -168,7 +168,10 @@ def test_port_imports_neither_jax_nor_reference():
             repro_torch.__path__, "repro_torch.")]
         for name in names:
             importlib.import_module(name)
-        for script in ("chip_smoke.py", "benchmarks/torch_grass_bench.py"):
+        importlib.import_module("repro_torch.core.coherence")
+        for script in ("chip_smoke.py", "benchmarks/torch_grass_bench.py",
+                       "benchmarks/torch_kernel_bench.py",
+                       "benchmarks/torch_pareto_bench.py"):
             spec = importlib.util.spec_from_file_location(
                 "script", {ROOT!r} + "/" + script)
             spec.loader.exec_module(importlib.util.module_from_spec(spec))
@@ -180,7 +183,7 @@ def test_port_imports_neither_jax_nor_reference():
                          text=True, timeout=120, cwd=ROOT,
                          env={**os.environ, "PYTHONPATH": ""})
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 23
+    assert int(out.stdout.split()[-1]) >= 24
 
 
 @pytest.mark.parametrize("entry", ["sketch_precondition_lstsq",
