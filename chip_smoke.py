@@ -50,6 +50,26 @@ Phases, any failure exits non-zero and prints no result:
      and backward; the launch counts of this phase, which must show every
      v1 and global kernel.
 
+  7. the distributed path (``repro_torch.distributed``): P = 1 in this
+     process, P = 2 and 4 in one spawn of four processes on this card, a
+     ``gloo`` group (NCCL refuses two ranks on one device): the P = 2
+     checks on the subgroup of ranks {0, 1}, then the P = 4 checks on all
+     four (each spawn costs seconds of process start and imports): the
+     row-sharded apply at the main plan (fp32, bf16,
+     FLASHBLOCKROW) the same bits on every rank (``all_gather``) and for
+     every P, and within the policy's tolerance of the single-device
+     kernels and of ``impl="torch"``; column- and batch-sharded applies
+     (with a ``row_index`` gather) equal to one device; at P = 2 GraSS
+     featurize batch-sharded at the paper's width equal to one device,
+     with a NaN-poisoned example quarantined once; at P = 4 the paper's
+     largest shape (d = 262 144, n = 512, k = 2 048) with per-rank kernel,
+     all-reduce and fold times beside the single-device forward, and the
+     distributed solve of phase 3's problem with the main plan and with
+     the default ``plan_for_mesh`` plan, each within ``10·cond·tol`` of
+     ``torch.linalg.lstsq``; the launch counts of the phase (all ranks),
+     which must show both partial kernels.  A failure in any rank fails
+     the run.
+
 Phase 2 also holds the three v1 kernels (ragged n with d < d_pad, κ × s ∈
 {1,2,4}², the Br = 2 048 plan the lowering downgrades, the main plan) and
 the global forward, transpose and gather (CountSketch and graph plans,
@@ -59,7 +79,14 @@ through them: graph (s = 4, one row chunk per block) and localized (κ = 1,
 also through the fused forward and transpose); with the exact checks S·I == S for v1 and the
 global forward, the adjoint pairs, and global gather == global forward on
 the zero-padded materialized gather; phase 4 times them (v1 at the main
-plan, the global kernels at the CountSketch plan of the main shape).
+plan, the global kernels at the CountSketch plan of the main shape).  It
+holds both partial kernels (phase 7's) to their plain version under all
+six policies at the ragged plan, κ × s ∈ {1,2,4}², the main plan and its
+``plan_for_mesh`` plan (Br = 1 024, tn = 32), the ranks of P ∈ {1, 2, 4}
+emulated in turn: the folded partials equal across P, non-owned pairs of
+the masked kernel exact zeros, S·I partials folded == S; phase 4 times
+them at the main plan for one rank of P = 4 (M_loc = 8) and for P = 1,
+beside ``torch.sparse.mm`` of the rank's slice of S.
 
 The line before the last is one JSON object ``{"kernels": [...]}``; the
 last is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -73,6 +100,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -107,6 +135,13 @@ KERNEL_INFO = {
     "blockrow_fwd_v1": dict(
         source="src/repro_torch/kernels/csrc/flashsketch_v1.cu",
         replaces="src/repro/kernels/flashsketch.py:927"),
+    # both bodies of the row-sharded partial (distributed slice)
+    "flashsketch_fwd_partial": dict(
+        source="src/repro_torch/kernels/csrc/flashsketch_fwd.cu",
+        replaces="src/repro/kernels/flashsketch.py:736"),
+    "blockrow_fwd_partial": dict(
+        source="src/repro_torch/kernels/csrc/flashsketch_blockrow.cu",
+        replaces="src/repro/kernels/flashsketch.py:736"),
     # the global families' branch (_phi_global_tile) of kernels 1-3
     "flashsketch_fwd_global": dict(
         source="src/repro_torch/kernels/csrc/flashsketch_fwd.cu",
@@ -127,6 +162,10 @@ V1_KERNELS = ("flashsketch_fwd_v1", "flashsketch_transpose_v1",
               "blockrow_fwd_v1")
 GLOBAL_KERNELS = ("flashsketch_fwd_global", "flashsketch_transpose_global",
                   "flashsketch_fwd_gather_global")
+# the kernels of the distributed path (phase 7)
+PARTIAL_KERNELS = ("flashsketch_fwd_partial", "blockrow_fwd_partial")
+# ranks of the spawned phase-7 groups; a hung rank fails the run
+SPAWN_TIMEOUT_S = 300.0
 # GraSS (paper App. E): 109 386-parameter MLP, sparse dim 4 096, κ = 4, s = 2
 GRASS_D_SRC, GRASS_D, GRASS_CHUNK, GRASS_K = 109_386, 4096, 64, 1024
 
@@ -138,6 +177,14 @@ class SmokeFailure(Exception):
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise SmokeFailure(what)
+
+
+def timed(label, fn, *args):
+    """``fn(*args)``, printing its host seconds (the run's time budget)."""
+    t = time.perf_counter()
+    out = fn(*args)
+    print(f"[{label}: {time.perf_counter() - t:.1f} s]")
+    return out
 
 
 def cuda_ms(fn, warmup: int = 3, reps: int = 15) -> float:
@@ -435,6 +482,111 @@ def phase_family_kernels(rt, main_plan, n_main):
           f"all policies, {len(plans) + 2} plans")
     return {name: main_errs[(name, "float32")]
             for name in V1_KERNELS + GLOBAL_KERNELS}
+
+
+def sharded_serial(rt, plan, A, P, rows):
+    """The row-sharded apply of P ranks in turn in one process: the ranks'
+    partials summed (what the all_reduce does), folded in ℓ order."""
+    dist_ = rt["dist"]
+    M_loc = plan.M // P
+    acc = None
+    for r in range(P):
+        parts = dist_.local_partial_apply(
+            plan, dist_.shard_rows(plan, A, r, P), r * M_loc,
+            rows_pattern=rows)
+        acc = parts if acc is None else acc + parts
+    scale = rt["fsk"].blockrow_scale(plan) if rows else plan.scale
+    return rt["fold"](acc, plan, scale)
+
+
+def compare_partial_kernels(rt, plan, n, gen, shards=(1, 2, 4)):
+    """Both partial kernels against their plain version at one plan, all
+    policies, in-process (the ranks emulated in turn, no process group),
+    on every rank of the largest shard count of ``shards`` that divides M;
+    plus the exact checks: non-owned pairs of the masked kernel are exact
+    zeros, and the partials of P shards, summed and folded, are the same
+    bits for every P of ``shards`` dividing M.  Returns the max abs errors
+    by (kernel, policy)."""
+    fsk, ref, dist_ = rt["fsk"], rt["ref"], rt["dist"]
+    errs = {}
+    A = torch.randn(plan.d, n, generator=gen, device="cuda") * 3
+    for pol in POLICIES:
+        p = plan.with_dtype(pol)
+        key = f"{pol} {plan.describe()} n={n}"
+        for rows, name in ((False, "flashsketch_fwd_partial"),
+                           (True, "blockrow_fwd_partial")):
+            counts = [P for P in shards if p.M % P == 0]
+            P = counts[-1]
+            M_loc = p.M // P
+            for r in range(P):
+                slab = dist_.shard_rows(p, A, r, P)
+                tab = dist_.partial_tables(p, r * M_loc, M_loc, rows, "cuda")
+                got = fsk.flashsketch_partial(p, slab, tab, rows_pattern=rows)
+                e = _err(got, ref.partial_ref(p, fsk._stream(
+                    p, slab).float(), tab, rows), p,
+                    f"{name} P={P} rank {r} {key}")
+                errs[(name, pol)] = max(errs.get((name, pol), 0.0), e)
+                if rows:
+                    owned = tab[2].bool().repeat_interleave(p.Br, 1)
+                    check(bool((got[~owned] == 0).all()),
+                          f"{name} {key}: a non-owned pair is not 0")
+            outs = [sharded_serial(rt, p, A, P, rows) for P in counts]
+            check(all(torch.equal(o, outs[0]) for o in outs),
+                  f"{name} {key}: folded partials differ across P")
+    return errs
+
+
+def phase_partial_kernels(rt, main_plan, n_main):
+    """Phase 2 for the two partial kernels: ragged n with d < d_pad,
+    κ × s ∈ {1,2,4}², the main plan and its plan_for_mesh plan (Br = 1 024,
+    tn = 32); the sharded results held to the fused forward and
+    FLASHBLOCKROW within the policy's tolerance; S·I folded == S."""
+    fsk, ops, dist_ = rt["fsk"], rt["ops"], rt["dist"]
+    make_plan = rt["blockperm"].make_plan
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    print("phase 2 (partial kernels): each rank's partials against the "
+          "plain version (the ranks of the largest P in {1, 2, 4} dividing "
+          "M, in turn), the folded partials across P")
+    plans = [(make_plan(1000, 96, kappa=4, s=2, seed=1), 37)]
+    plans += [(make_plan(4096, 256, kappa=k, s=s, seed=10 * k + s), 100)
+              for k in (1, 2, 4) for s in (1, 2, 4)]
+    d, k = main_plan.d, main_plan.k_req
+    mesh_plan = dist_.plan_for_mesh(d, k, 4, kappa=4)
+    worst = {}
+    for plan, n in plans + [(main_plan, n_main), (mesh_plan, n_main)]:
+        errs = compare_partial_kernels(rt, plan, n, gen)
+        for key, e in errs.items():
+            worst[key] = max(worst.get(key, 0.0), e)
+        if plan in (main_plan, mesh_plan):
+            for (name, pol), e in sorted(errs.items()):
+                print(f"  {plan.describe()} n={n} {name:24s} {pol:12s} "
+                      f"max_abs_err {e:.3e}")
+        if plan is main_plan:
+            main_errs = errs
+    # the sharded results against the single-device kernels
+    A = torch.randn(d, n_main, generator=gen, device="cuda")
+    for plan in (main_plan, mesh_plan):
+        for rows, fn in ((False, ops.sketch_apply), (True, ops.blockrow_apply)):
+            for pol in ("float32", "bfloat16"):
+                p = plan.with_dtype(pol)
+                got = sharded_serial(rt, p, A, 4, rows)
+                e = _err(got, fn(p, A), p, f"sharded vs fused {pol} "
+                         f"{'blockrow' if rows else 'fwd'} {p.describe()}")
+                print(f"  {p.describe()} P=4 {'blockrow' if rows else 'fwd':8s}"
+                      f" {pol:9s} vs the single-device kernel max_abs_err "
+                      f"{e:.3e}")
+    plan = make_plan(512, 64, kappa=4, s=2, seed=3)
+    eye = torch.eye(plan.d_pad, device="cuda")
+    S = rt["blockperm"].materialize_sketch_matrix(plan, "cuda")
+    for P in (1, 2, 4):
+        check(torch.equal(sharded_serial(rt, plan, eye, P, False), S[:plan.k]),
+              f"S·I partials folded != S at P={P}")
+    print(f"  exact: {len(plans) + 2} plans x 6 policies: folded partials "
+          f"equal across P (torch.equal), non-owned masked pairs exact "
+          f"zeros, S·I partials folded == S at P in (1, 2, 4); small plans "
+          f"worst err "
+          f"{ {k: f'{v:.2e}' for k, v in worst.items() if k[1] == 'float32'} }")
+    return {name: main_errs[(name, "float32")] for name in PARTIAL_KERNELS}
 
 
 # ---------------------------------------------------------------------------
@@ -841,6 +993,93 @@ def phase_family_timing(rt, main_plan, n, errs):
     return rows
 
 
+def partial_sketch(rt, plan, lo, M_loc, rows):
+    """The rank's slice of S, unscaled, in CSR on the card: (κ·M_loc·Br,
+    M_loc·Bc) onto the compact layout, or (κ·k_pad, M_loc·Bc) onto the
+    masked one (owned pairs only).  The library yardstick; never called by
+    the port."""
+    blockperm, hashing, ref = rt["blockperm"], rt["hashing"], rt["ref"]
+    tab = rt["dist"].partial_tables(plan, lo, M_loc, rows, "cuda").long()
+    rows_, cols, vals = [], [], []
+    for ell in range(plan.kappa):
+        if rows:
+            g = torch.arange(plan.M, device="cuda")[:, None, None]
+            r = torch.arange(plan.Br, device="cuda")[None, :, None]
+            t = torch.arange(plan.s, device="cuda")[None, None, :]
+            h = tab[1, ell][:, None, None]
+            hsh = hashing.hash_words(plan.seed, ref.BLOCKROW_PHI_TAG, g, h, r,
+                                     t)
+            keep = tab[2, ell].bool()[:, None, None].expand_as(hsh)
+            rr = ((ell * plan.M + g) * plan.Br + r).expand_as(hsh)
+            cc = tab[0, ell][:, None, None] * plan.Bc + hashing.hash_mod(
+                hsh, plan.Bc)
+            rows_.append(rr[keep])
+            cols.append(cc[keep])
+            vals.append(hashing.hash_to_unit_sign(hsh)[keep])
+        else:
+            m = torch.arange(M_loc, device="cuda")[:, None, None]
+            u = torch.arange(plan.Bc, device="cuda")[None, :, None]
+            i = torch.arange(plan.s, device="cuda")[None, None, :]
+            g = tab[0, ell][:, None, None]
+            h = tab[1, ell][:, None, None]
+            r, sgn = blockperm.block_rows_signs(plan, g, h, u, i)
+            rows_.append(((ell * M_loc + m) * plan.Br + r).reshape(-1))
+            cols.append((m * plan.Bc + u).expand_as(r).reshape(-1))
+            vals.append(sgn.reshape(-1))
+    out_rows = plan.kappa * (plan.k_pad if rows else M_loc * plan.Br)
+    return _csr(torch.stack([torch.cat(rows_), torch.cat(cols)]),
+                torch.cat(vals).float(), (out_rows, M_loc * plan.Bc))
+
+
+def phase_partial_timing(rt, plan, n, errs):
+    """Phase 4 for the partial kernels at the main plan: the slab of one of
+    P = 4 ranks (M_loc = 8) and of P = 1; the kernels line reports P = 4.
+    Bound: the slab read once plus the output written once (compact: the
+    κ·M_loc·Br rows; masked: all κ·k_pad rows, zeros included, and only
+    the slab rows some owned nonzero names)."""
+    fsk, ref, dist_ = rt["fsk"], rt["ref"], rt["dist"]
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    before = dict(fsk.LAUNCHES)
+    print(f"phase 4 (partial kernels): {plan.describe()}, n={n}, fp32 "
+          f"stream; library torch.sparse.mm of the rank's unscaled S slice "
+          f"in CSR")
+    rows_out = {}
+    for P in (4, 1):
+        M_loc = plan.M // P
+        slab = torch.randn(M_loc * plan.Bc, n, generator=gen, device="cuda")
+        for rows, name in ((False, "flashsketch_fwd_partial"),
+                           (True, "blockrow_fwd_partial")):
+            tab = dist_.partial_tables(plan, 0, M_loc, rows, "cuda")
+            S = partial_sketch(rt, plan, 0, M_loc, rows)
+            if rows:
+                owned = int(tab[2].sum())
+                named = int(torch.unique(S.col_indices()).numel())
+                io = named * n * 4 + plan.kappa * plan.k_pad * n * 4
+                ops_ = owned * plan.Br * plan.s * n
+            else:
+                io = (M_loc * plan.Bc + plan.kappa * M_loc * plan.Br) * n * 4
+                ops_ = plan.kappa * plan.s * M_loc * plan.Bc * n
+            w = dict(kernel=lambda: fsk.flashsketch_partial(
+                         plan, slab, tab, rows_pattern=rows),
+                     plain=lambda: ref.partial_ref(plan, slab, tab, rows),
+                     library=lambda: torch.sparse.mm(S, slab).reshape(
+                         plan.kappa, -1, n),
+                     bytes=io, ops=ops_)
+            lib_err = float((w["library"]() - w["kernel"]()).abs().max())
+            row = time_row(name, w, 0, errs[name])
+            print(f"  P={P} (M_loc={M_loc:2d}) {name:24s} kernel "
+                  f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}, "
+                  f"{io / 1e6:.1f} MB)  library {row['library_ms']:.4f} ms "
+                  f"(|lib - kernel| {lib_err:.2e})  share of bound "
+                  f"{row['bound_ms'] / row['ms']:.4f}")
+            if P == 4:
+                rows_out[name] = row
+    for k in before:      # timing launches are not main-path launches
+        fsk.LAUNCHES[k] = before[k]
+    return [rows_out[name] for name in PARTIAL_KERNELS]
+
+
 # ---------------------------------------------------------------------------
 # Phase 6: every sketch family at the paper's main shape.
 # ---------------------------------------------------------------------------
@@ -1055,6 +1294,291 @@ def phase_grass(rt, n_train=5000, n_test=500):
     print(f"  launch counts over phase 5: {launches}")
     for name in GRASS_KERNELS:
         check(launches[name] > 0, f"{name} never launched on the GraSS path")
+    state = {name: p.detach().cpu().numpy()
+             for name, p in base.named_parameters()}
+    return launches, state
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: the distributed path.  P > 1 runs as P processes of a gloo group
+# on the one card (NCCL refuses two ranks on one device); P = 1 in-process.
+# ---------------------------------------------------------------------------
+
+def _all_equal(t, group=None):
+    """Whether ``t`` is the same bits on every rank of ``group``."""
+    import torch.distributed as dist
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t.contiguous(), group=group)
+    return all(torch.equal(p, t) for p in parts)
+
+
+def main_inputs(plan, n):
+    """The main plan's A (d, n) and a batch stack with its gather rows,
+    from seeded generators on the card (the same in every process)."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    d = plan.d
+    A = torch.randn(d, n, generator=gen, device="cuda")
+    G = torch.randn(8, d, n // 8, generator=gen, device="cuda")
+    idx = torch.randperm(d, generator=gen, device="cuda")[:GRASS_D]
+    return A, G, idx.sort().values
+
+
+def phase7_rank(rank, world, cfg):
+    """One of the four ranks of phase 7: the P = 2 checks on the subgroup
+    of ranks {0, 1}, then the P = 4 checks on all four.  Returns, by P,
+    what the parent compares, with the launch counts of the path (timing
+    launches excluded) and the rank's start and end times."""
+    import torch.distributed as dist
+    from repro_torch.kernels import flashsketch as fsk
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fsk.reset_launch_counts()
+    start = time.time() - cfg["t_spawn"]
+    pair = dist.new_group([0, 1])          # every rank takes part
+    out = {}
+    if rank < 2:
+        out[2] = _phase7_checks(rank, 2, pair, cfg)
+    dist.barrier()
+    out[4] = _phase7_checks(rank, world, None, cfg)
+    torch.cuda.synchronize()
+    out.update(launches=dict(fsk.LAUNCHES), start=start, t_end=time.time())
+    return out
+
+
+def _phase7_checks(rank, world, group, cfg):
+    """Every check of P = ``world`` on this rank's shard, in ``group``
+    (``None``: the default group)."""
+    import torch.distributed as dist
+    from benchmarks import torch_dist_bench as bench
+    from repro_torch import distributed as D
+    from repro_torch.attribution import grass, mlp
+    from repro_torch.core.blockperm import make_plan
+    from repro_torch.kernels import flashsketch as fsk
+    from repro_torch.kernels import ops
+    dev = torch.device("cuda")
+    secs = {}                      # host seconds by step, for the record
+    t_step = time.perf_counter()
+    main_plan = make_plan(*cfg["main_plan"], kappa=4, s=2, seed=0)
+    n = cfg["n"]
+    A, G, idx = main_inputs(main_plan, n)
+    out = {"equal": {}, "err": {}, "secs": secs}
+    for key, plan, rows in (
+            ("fwd_float32", main_plan, False),
+            ("fwd_bfloat16", main_plan.with_dtype("bfloat16"), False),
+            ("blockrow_float32", main_plan, True)):
+        Y = D.sketch_apply_sharded(plan, D.shard_rows(plan, A, rank, world),
+                                   group, rows_pattern=rows)
+        out["equal"][f"row {key} across ranks"] = _all_equal(Y, group)
+        out[key] = Y.cpu().numpy()
+    out["col"] = D.sketch_apply_colsharded(
+        main_plan, D.shard_cols(A, rank, world)).cpu().numpy()
+    out["batch"] = D.sketch_apply_batched_sharded(
+        main_plan, D.shard_batch(G, rank, world)).cpu().numpy()
+    gplan = make_plan(GRASS_D, GRASS_K, kappa=4, s=2, seed=0)
+    out["batch_gather"] = D.sketch_apply_batched_sharded(
+        gplan, D.shard_batch(G, rank, world), row_index=idx).cpu().numpy()
+    secs["main plan applies"] = time.perf_counter() - t_step
+
+    if world == 2:      # GraSS featurize, batch-sharded, at the paper width
+        model = mlp.params_from_reference(cfg["grass_state"], device=dev)
+        x, y = mlp.make_synthetic_mnist(5500, 784, 10, seed=0)
+        x, y = x[:5000].to(dev), y[:5000].to(dev)
+        gcfg = grass.GrassPipelineConfig(
+            sparse_dim=GRASS_D, sketch_dim=GRASS_K,
+            sketch_kwargs=(("kappa", 4), ("s", 2)), chunk=GRASS_CHUNK)
+        x[5, 0] = float("nan")             # one quarantined example
+        pipe = grass.GrassPipeline(gcfg, model, group=group, device=dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        feats = pipe.featurize(x, y)
+        torch.cuda.synchronize()
+        out["grass_s"] = time.perf_counter() - t
+        out["equal"]["grass across ranks"] = _all_equal(feats, group)
+        out["grass_quarantined"] = pipe.quarantined
+        out["equal"]["grass quarantined row zero"] = bool(
+            (feats[5] == 0).all())
+        if rank == 0:
+            single = grass.GrassPipeline(gcfg, model, device=dev)
+            out["equal"]["grass == single device"] = torch.equal(
+                single.featurize(x, y), feats)
+        dist.barrier(group=group)
+        torch.cuda.synchronize()
+        t_warm = time.perf_counter()
+        pipe.featurize(x, y)
+        torch.cuda.synchronize()
+        out["grass_warm_s"] = time.perf_counter() - t_warm
+        secs["grass"] = time.perf_counter() - t
+
+    if world == 4:      # the paper's largest shape, timed; the solves
+        t_step = time.perf_counter()
+        big = make_plan(cfg["big"][0], cfg["big"][2], kappa=4, s=2, seed=0)
+        gen = torch.Generator(device="cuda").manual_seed(12)
+        Ab = torch.randn(big.d, cfg["big"][1], generator=gen, device=dev)
+        slab = D.shard_rows(big, Ab, rank, world)
+        for pol in ("float32", "bfloat16"):
+            p = big.with_dtype(pol)
+            Y = D.sketch_apply_sharded(p, slab)
+            out["equal"][f"big {pol} across ranks"] = _all_equal(Y)
+            want = ops.sketch_apply(p, Ab)
+            e = float((Y - want).abs().max())
+            out["err"][f"big {pol} vs fused"] = e
+            out["equal"][f"big {pol} within tol of fused"] = \
+                e <= p.precision.exactness_atol * float(want.abs().max())
+        before = dict(fsk.LAUNCHES)
+        t = bench.timings(big, slab, rank, world, dev, bench.REPS)
+        dist.barrier()
+        if rank == 0:
+            t["single_ms"] = bench.ms(lambda: ops.sketch_apply(big, Ab), dev,
+                                      bench.REPS)
+        dist.barrier()
+        fsk.LAUNCHES.update(before)        # timing launches do not count
+        out["big_timing"] = t
+        del Ab, slab
+        secs["largest shape"] = time.perf_counter() - t_step
+        t_step = time.perf_counter()
+
+        # this rank's rows of the least-squares problem, from the parent
+        ls = torch.load(os.path.join(cfg["ls_dir"], f"rows{rank}.pt"))
+        A_loc, b_loc = ls["A"].to(dev), ls["b"].to(dev)
+        x_ref = torch.from_numpy(cfg["x_ref"]).to(dev)
+        for label, plan in (("main plan", main_plan),
+                            ("plan_for_mesh", None)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = D.dist_sketch_precondition_lstsq(A_loc, b_loc, plan=plan,
+                                                   tol=cfg["tol"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            err = float(torch.linalg.vector_norm(res.x - x_ref)
+                        / torch.linalg.vector_norm(x_ref))
+            out["equal"][f"solve {label} x across ranks"] = _all_equal(res.x)
+            out[f"solve {label}"] = dict(
+                iterations=res.iterations, relres=res.relres,
+                converged=res.converged, err=err, wall_s=wall,
+                plan=res.lowering.plan.describe(),
+                lowering=res.lowering.describe())
+        secs["solves"] = time.perf_counter() - t_step
+    return out
+
+
+def phase_distributed(rt, main_plan, n, cond, big, grass_state):
+    """Phase 7: the distributed path at P = 1 (in-process), 2 and 4 (one
+    spawned gloo group of four ranks, the P = 2 checks on its subgroup of
+    ranks {0, 1}): the
+    row-sharded apply (fp32, bf16, FLASHBLOCKROW) the same bits across
+    ranks and P and within tolerance of the single-device kernels and of
+    the plain version; column- and batch-sharded (with row_index) equal to
+    one device; at P = 2 GraSS featurize batch-sharded; at P = 4 the
+    paper's largest shape ``big`` = (d, n, k) timed (per-rank kernel,
+    all-reduce, fold) and two distributed solves.  Returns the launch
+    counts of the phase."""
+    import numpy as np
+    fsk, ops, D = rt["fsk"], rt["ops"], rt["dist"]
+    run_ranks = rt["run_ranks"]
+    print(f"phase 7: the distributed path, P = 1 in-process, P = 2 and 4 in "
+          f"one gloo group of four processes on this card (P = 2 on ranks "
+          f"0-1); main plan "
+          f"{main_plan.describe()}, n={n}")
+    A, G, idx = main_inputs(main_plan, n)
+    # phase 3's problem; each of the 4 ranks gets its rows through a file
+    # (rebuilding it in every rank would rest on the QR's determinism)
+    ls_dir = tempfile.TemporaryDirectory()
+    Als, bls = make_ls_problem(main_plan.d, n, cond)
+    x_ref = torch.linalg.lstsq(Als, bls[:, None]).solution[:, 0]
+    for r in range(4):
+        torch.save({"A": D.shard_rows(main_plan, Als, r, 4).cpu(),
+                    "b": D.shard_rows(main_plan, bls[:, None], r, 4)[:, 0]
+                    .cpu()}, os.path.join(ls_dir.name, f"rows{r}.pt"))
+    cfg = dict(main_plan=(main_plan.d, main_plan.k_req), n=n, big=big,
+               tol=rt["presets"]["default"].tol, x_ref=x_ref.cpu().numpy(),
+               ls_dir=ls_dir.name, grass_state=grass_state)
+    del Als, bls
+    fsk.reset_launch_counts()
+    single = {}
+    for key, plan, rows in (
+            ("fwd_float32", main_plan, False),
+            ("fwd_bfloat16", main_plan.with_dtype("bfloat16"), False),
+            ("blockrow_float32", main_plan, True)):
+        Y1 = D.sketch_apply_sharded(plan, D.shard_rows(plan, A, 0, 1),
+                                    rows_pattern=rows)
+        fn = ops.blockrow_apply if rows else ops.sketch_apply
+        e_fused = _err(Y1, fn(plan, A), plan, f"P=1 {key} vs fused")
+        e_plain = _err(Y1, fn(plan, A, "torch"), plan, f"P=1 {key} vs torch")
+        print(f"  P=1 row-sharded {key:17s} vs the fused kernel "
+              f"{e_fused:.3e}, vs impl='torch' {e_plain:.3e}")
+        single[key] = Y1.cpu().numpy()
+    launches = dict(fsk.LAUNCHES)
+    want_col = ops.sketch_apply(main_plan, A).cpu().numpy()
+    want_batch = ops.sketch_apply_batched(main_plan, G).cpu().numpy()
+    gplan = rt["blockperm"].make_plan(GRASS_D, GRASS_K, kappa=4, s=2, seed=0)
+    want_gather = ops.sketch_apply_batched(gplan, G,
+                                           row_index=idx).cpu().numpy()
+    del A, G
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    cfg["t_spawn"] = time.time()
+    try:
+        ranks = run_ranks(phase7_rank, 4, cfg, timeout=SPAWN_TIMEOUT_S)
+    finally:
+        ls_dir.cleanup()
+    print(f"  4 ranks in {time.perf_counter() - t:.1f} s: each started its "
+          f"work {min(o['start'] for o in ranks):.1f}-"
+          f"{max(o['start'] for o in ranks):.1f} s after the call (process "
+          f"start, imports, rendezvous); the call returned "
+          f"{time.time() - max(o['t_end'] for o in ranks):.1f} s after the "
+          f"last rank's work ended")
+    for out in ranks:
+        for name, v in out["launches"].items():
+            launches[name] += v
+    for P in (2, 4):
+        outs = [o[P] for o in ranks if P in o]
+        for r, out in enumerate(outs):
+            for what, ok in out["equal"].items():
+                check(ok, f"P={P} rank {r}: {what}")
+        o = outs[0]
+        for key, want in single.items():
+            check(np.array_equal(o[key], want),
+                  f"P={P} row-sharded {key} != P=1")
+        check(np.array_equal(np.concatenate([x["col"] for x in outs], 1),
+                             want_col), f"P={P} column-sharded != one device")
+        check(np.array_equal(np.concatenate([x["batch"] for x in outs]),
+                             want_batch), f"P={P} batch-sharded != one device")
+        check(np.array_equal(np.concatenate([x["batch_gather"]
+                                             for x in outs]), want_gather),
+              f"P={P} batch-sharded gather != one device")
+        print(f"  P={P}: row-sharded fp32, bf16 and FLASHBLOCKROW equal to "
+              f"P=1 and across ranks (torch.equal); column-, batch- and "
+              f"gather-batch-sharded equal to one device; checks "
+              f"{sorted(o['equal'])}; rank 0 host seconds by step "
+              f"{ {k: round(v, 2) for k, v in o['secs'].items()} }")
+        if P == 2:
+            check(all(x["grass_quarantined"] == 1 for x in outs),
+                  "GraSS quarantine count")
+            print(f"  P=2 GraSS featurize (5 000 examples, one NaN-poisoned, "
+                  f"k={GRASS_K}, chunks of {GRASS_CHUNK}): equal to one "
+                  f"device, quarantined 1 on every rank, its row zero; "
+                  f"first (cold) call {o['grass_s']:.3f} s, second "
+                  f"{o['grass_warm_s']:.3f} s")
+        if P == 4:
+            t = o["big_timing"]
+            print(f"  P=4 d={big[0]} n={big[1]} k={big[2]}: per-rank kernel "
+                  f"ms "
+                  f"{[x['big_timing']['kernel_ms'] for x in outs]}, "
+                  f"all-reduce {t['allreduce_ms']:.4f} ms, fold "
+                  f"{t['fold_ms']:.4f} ms, total {t['total_ms']:.4f} ms; "
+                  f"single-device fused forward {t['single_ms']:.4f} ms; "
+                  f"err vs fused {o['err']}")
+            for label in ("main plan", "plan_for_mesh"):
+                sol = o[f"solve {label}"]
+                print(f"  P=4 solve ({label}, {sol['plan']}): iterations "
+                      f"{sol['iterations']} relres {sol['relres']:.3e} "
+                      f"|x-x_lstsq|/|x_lstsq| {sol['err']:.3e} (bound "
+                      f"{10 * cond * cfg['tol']:.0e}) wall "
+                      f"{sol['wall_s']:.3f} s {sol['lowering']}")
+                check(sol["converged"] and sol["err"] <= 10 * cond *
+                      cfg["tol"], f"P=4 solve {label}: {sol}")
+    print(f"  launch counts over phase 7 (all ranks): {launches}")
+    for name in PARTIAL_KERNELS:
+        check(launches[name] > 0, f"{name} never launched in phase 7")
     return launches
 
 
@@ -1072,7 +1596,10 @@ def main() -> int:
         from repro_torch.configs.flashsketch_paper import (CONFIG, GRASS,
                                                            SOLVER_PRESETS,
                                                            solver_sketch_rows)
+        from repro_torch import distributed
         from repro_torch.core import blockperm, hashing, variants, wiring
+        from repro_torch.distributed.sharded_apply import _fold_scale_truncate
+        from repro_torch.distributed.spawn import run_ranks
         from repro_torch.kernels import build, lowering, ops, ref
         from repro_torch.kernels import flashsketch as fsk
     except ImportError as exc:
@@ -1082,7 +1609,9 @@ def main() -> int:
     rt = dict(solvers=solvers, presets=SOLVER_PRESETS, blockperm=blockperm,
               wiring=wiring, hashing=hashing, ops=ops, ref=ref, fsk=fsk,
               lowering=lowering, grass=grass, mlp=mlp, lds=lds,
-              grass_cfg=GRASS, variants=variants, pareto=pareto)
+              grass_cfg=GRASS, variants=variants, pareto=pareto,
+              dist=distributed, fold=_fold_scale_truncate,
+              run_ranks=run_ranks)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1104,21 +1633,37 @@ def main() -> int:
     k = solver_sketch_rows(n, SOLVER_PRESETS["default"].sampling_factor)
     main_plan = blockperm.make_plan(d, k, kappa=4, s=2, seed=0)
     print(f"main plan: {main_plan.describe()}")
+    d_big = CONFIG.d_values[-1]
+    big = (d_big, CONFIG.n_for(d_big),
+           solver_sketch_rows(CONFIG.n_for(d_big),
+                              SOLVER_PRESETS["default"].sampling_factor))
     try:
-        errs = phase_kernels(rt, main_plan, n)
-        errs.update(phase_grass_kernels(rt))
-        errs.update(phase_family_kernels(rt, main_plan, n))
-        launches, _ = phase_main_path(rt, main_plan, d, n, cond=1e4)
-        rows = phase_timing(rt, main_plan, n, launches, errs)
-        rows += phase_grass_timing(rt, errs)
-        rows += phase_family_timing(rt, main_plan, n, errs)
-        grass_launches = phase_grass(rt)
-        family_launches = phase_families(rt, main_plan)
+        errs = timed("phase 2", phase_kernels, rt, main_plan, n)
+        errs.update(timed("phase 2, GraSS kernels", phase_grass_kernels, rt))
+        errs.update(timed("phase 2, v1 and global kernels",
+                          phase_family_kernels, rt, main_plan, n))
+        errs.update(timed("phase 2, partial kernels", phase_partial_kernels,
+                          rt, main_plan, n))
+        launches, _ = timed("phase 3", phase_main_path, rt, main_plan, d, n,
+                            1e4)
+        rows = timed("phase 4", phase_timing, rt, main_plan, n, launches,
+                     errs)
+        rows += timed("phase 4, GraSS kernels", phase_grass_timing, rt, errs)
+        rows += timed("phase 4, v1 and global kernels", phase_family_timing,
+                      rt, main_plan, n, errs)
+        rows += timed("phase 4, partial kernels", phase_partial_timing, rt,
+                      main_plan, n, errs)
+        grass_launches, grass_state = timed("phase 5", phase_grass, rt)
+        family_launches = timed("phase 6", phase_families, rt, main_plan)
+        dist_launches = timed("phase 7", phase_distributed, rt, main_plan, n,
+                              1e4, big, grass_state)
         for row in rows:
             if row["name"] in GRASS_KERNELS:
                 row["launches"] = grass_launches[row["name"]]
             if row["name"] in V1_KERNELS + GLOBAL_KERNELS:
                 row["launches"] = family_launches[row["name"]]
+            if row["name"] in PARTIAL_KERNELS:
+                row["launches"] = dist_launches[row["name"]]
         torch.cuda.synchronize()
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)

@@ -14,6 +14,13 @@ runs ``blockrow_fwd_gather``, or ``blockrow_fwd`` unfused.
 
 Entry points run on the card (``device="cuda"``) unless ``device="cpu"``
 is passed, and raise when there is none.
+
+Batch-sharded featurize (``GrassPipeline(..., group=pg)``, the reference's
+``mesh, shard_axis``): every rank is given the whole batch and the same
+weights, pads the chunk count to a multiple of P, runs its contiguous share
+of the chunks, and all-gathers the features and quarantine flags.  Each
+chunk goes through the same kernel as on one device, so the features are
+the single-device ones bit for bit.
 """
 from __future__ import annotations
 
@@ -23,6 +30,7 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.func import functional_call, grad, vmap
 
 from repro_torch.attribution import lds as lds_lib
@@ -79,15 +87,16 @@ class GrassPipeline:
     QUARANTINED, zeroed before the sketch so that it contributes nothing
     to its chunk, and counted (``.quarantined`` and the process-wide
     ``grass.quarantined`` counter).
+
+    ``group``: a ``torch.distributed`` process group to shard featurize's
+    chunks over (see the module docstring); every rank counts every
+    quarantined row.  ``None`` runs every chunk here.
     """
 
     def __init__(self, cfg: GrassPipelineConfig, model: torch.nn.Module,
-                 mesh=None, device: torch.device | str = "cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "batch-sharded featurize waits for the distributed slice "
-                "(ROADMAP queue 1, item 10)")
+                 group=None, device: torch.device | str = "cuda"):
         self.cfg = cfg
+        self.group = group
         self.device = resolve_device(device)
         self._names = mlp_lib.param_order(model)
         self.params = {name: p.detach().to(self.device)
@@ -131,17 +140,36 @@ class GrassPipeline:
         b = xs.shape[0]
         c = max(1, min(self.cfg.chunk, b))
         n_chunks = -(-b // c)
+        rank, world = 0, 1
+        if self.group is not None:
+            # every rank runs n_chunks / P contiguous chunks
+            rank, world = dist.get_rank(self.group), \
+                dist.get_world_size(self.group)
+            n_chunks = -(-n_chunks // world) * world
         pad = n_chunks * c - b
         if pad:
             # repeat the first example: its gradients are well-defined and
             # the padded features are sliced off below
             xs = torch.cat([xs, xs[:1].expand(pad, *xs.shape[1:])])
             ys = torch.cat([ys, ys[:1].expand(pad)])
+        per = n_chunks // world
         feats, bad = zip(*(self._chunk_feats(xs[i:i + c], ys[i:i + c])
-                           for i in range(0, n_chunks * c, c)))
+                           for i in range(rank * per * c,
+                                          (rank + 1) * per * c, c)))
+        feats, bad = torch.cat(feats), torch.cat(bad)
+        if world > 1:
+            feats = self._all_gather(feats)
+            bad = self._all_gather(bad.to(torch.int32)).bool()
         # padded rows are sliced off before the bad-row count, so a
         # quarantined example is never counted again through its copies
-        return torch.cat(feats)[:b], torch.cat(bad)[:b]
+        return feats[:b], bad[:b]
+
+    def _all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The ranks' equal-shaped ``x``, concatenated in rank order."""
+        parts = [torch.empty_like(x)
+                 for _ in range(dist.get_world_size(self.group))]
+        dist.all_gather(parts, x.contiguous(), group=self.group)
+        return torch.cat(parts)
 
     def featurize(self, xs, ys) -> torch.Tensor:
         """Sketched features ``(b, k)`` for a batch; rows whose gradient

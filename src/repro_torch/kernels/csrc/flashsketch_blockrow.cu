@@ -4,8 +4,11 @@
 // Replaces: src/repro/kernels/flashsketch.py:711 blockrow_pallas (body
 // _fused_fwd_kernel :231 with Φ from _phi_rows_tile :190) and
 // flashsketch.py:682 blockrow_pallas_gather (body _fused_gather_kernel
-// :280).  Plain versions: repro_torch/kernels/ref.py:blockrow_ref on the
-// streamed operand, and on its materialized gather (ref.gather_rows).
+// :280); and the masked body of flashsketch.py:736
+// flashsketch_pallas_partial, _partial_masked_kernel (:422), here
+// blockrow_partial_kernel (see its note).  Plain versions:
+// repro_torch/kernels/ref.py:blockrow_ref on the streamed operand, on its
+// materialized gather (ref.gather_rows), and ref.partial_ref.
 //
 // What it computes (paper App. C): for output block g and ℓ < κ the input
 // block is h_ℓ = tab[ℓ, g], an iid draw (ref.blockrow_wiring, tag 0xB10C),
@@ -122,6 +125,79 @@ int launch(const void* A, void* Y, const void* tab, const void* row_map,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Row-sharded FLASHBLOCKROW partials.  A rank owns the contiguous input
+// blocks [lo, lo + M_loc) of the padded A, its slab.  The iid wiring is not a
+// permutation, so there is no compact grid of owned pairs: block
+// (p = ℓ·M + g, column tile) covers the full (κ, M) grid of the (3, κ, M)
+// table [local block, global h, owned].  A pair another rank owns writes
+// exact zeros; an owned pair sums, for each row r, Σ_t sign(g, h, r, t) ·
+// A[local·Bc + col(g, h, r, t), c] in t order, unscaled, into row block p
+// of the (κ, k_pad, n) output.  One thread per output element, as in
+// blockrow_kernel, with ℓ a grid axis instead of a register loop: a pair's
+// sum depends on neither the shard count nor the tile, so the partials
+// summed over the ranks (one nonzero contributor per element) and folded in
+// ℓ order are the same bits for every shard count (not the fused kernel's,
+// which sums over ℓ in one register).  Bound: the slab rows some nonzero
+// names, read once, plus the (κ, k_pad, n) output written once.
+template <typename T>
+__global__ void blockrow_partial_kernel(
+    const T* __restrict__ A, float* __restrict__ Y, const int* __restrict__ tab,
+    int M, int Br, int Bc, int kappa, int s, long long n, uint32_t seed) {
+  extern __shared__ __align__(16) uint32_t ent[];   // (Br, s)
+  const int tn = blockDim.x;
+  const int groups = blockDim.y;
+  const int p = blockIdx.x;
+  const int g = p % M;
+  const int cl = threadIdx.x;
+  const int q = threadIdx.y;
+  const long long c = static_cast<long long>(blockIdx.y) * tn + cl;
+  float* dst = Y + static_cast<long long>(p) * Br * n + c;
+  if (tab[2 * kappa * M + p] == 0) {      // not owned: the whole block
+    if (c < n)
+      for (int r = q; r < Br; r += groups)
+        dst[static_cast<long long>(r) * n] = 0.f;
+    return;
+  }
+  const int local = tab[p];
+  const int h = tab[kappa * M + p];
+  const uint32_t prefix = fs::blockrow_prefix(seed, g, h);
+  // entry word: (slab row << 1) | sign
+  for (int e = q * tn + cl; e < Br * s; e += tn * groups) {
+    const int r = e / s;
+    const uint32_t w = fs::blockrow_entry(prefix, r, e - r * s, Bc);
+    ent[e] = (static_cast<uint32_t>(local * Bc + (w >> 1)) << 1) | (w & 1u);
+  }
+  __syncthreads();
+  if (c >= n) return;
+  const T* col = A + c;
+  for (int r = q; r < Br; r += groups) {
+    float sum = 0.f;
+    const uint32_t* wr = ent + r * s;
+    for (int t = 0; t < s; ++t) {
+      const uint32_t w = wr[t];
+      const float a = fs::to_f32(col[static_cast<long long>(w >> 1) * n]);
+      sum += (w & 1u) ? -a : a;
+    }
+    dst[static_cast<long long>(r) * n] = sum;
+  }
+}
+
+template <typename T>
+int launch_partial(const void* A, void* Y, const void* tab, int M, int Br,
+                   int Bc, int kappa, int s, long long n, unsigned int seed,
+                   int tn, int groups, int smem, void* stream) {
+  auto kern = blockrow_partial_kernel<T>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(kappa * M, static_cast<unsigned int>((n + tn - 1) / tn));
+  const dim3 block(tn, groups);
+  kern<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(A), static_cast<float*>(Y),
+      static_cast<const int*>(tab), M, Br, Bc, kappa, s, n, seed);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -144,6 +220,22 @@ int fs_blockrow(const void* A, void* Y, const void* tab, const void* row_map,
           : launch<T, false>(A, Y, tab, row_map, M, Br, Bc, kappa, s, n, rs, \
                              cs, d, d_src, seed, scale, tn, groups, smem,    \
                              stream))
+  FS_DISPATCH(dtype, FS_LAUNCH)
+#undef FS_LAUNCH
+}
+
+// Row-sharded FLASHBLOCKROW partials: Y (κ, k_pad, n) fp32, unscaled, for
+// a slab A (M_loc·Bc, n) of the padded input, both row-major and
+// contiguous; tab is the (3, κ, M) int32 table [local block, global h,
+// owned] on the device.  Launches on `stream` and returns
+// cudaGetLastError() (0 on success).
+int fs_blockrow_partial(const void* A, void* Y, const void* tab, int dtype,
+                        int M, int Br, int Bc, int kappa, int s, long long n,
+                        unsigned int seed, int tn, int groups, int smem,
+                        void* stream) {
+#define FS_LAUNCH(T)                                                        \
+  launch_partial<T>(A, Y, tab, M, Br, Bc, kappa, s, n, seed, tn, groups,   \
+                    smem, stream)
   FS_DISPATCH(dtype, FS_LAUNCH)
 #undef FS_LAUNCH
 }

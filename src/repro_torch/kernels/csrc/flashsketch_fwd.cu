@@ -6,9 +6,12 @@
 // flashsketch.py:642 flashsketch_pallas_gather, whose body is
 // _fused_gather_kernel (:280); for the global families (CountSketch, sparse
 // graph) both with Φ from _phi_global_tile (:165) and the all-blocks table
-// _global_table (:118), here global_fwd_kernel (see its note).  Plain
-// versions: repro_torch/kernels/ref.py:flashsketch_ref on the streamed
-// operand, and on its materialized gather (ref.gather_rows).
+// _global_table (:118), here global_fwd_kernel (see its note); and the
+// compact body of flashsketch.py:736 flashsketch_pallas_partial,
+// _partial_fwd_kernel (:378), the template flag kPartial (see its note).
+// Plain versions: repro_torch/kernels/ref.py:flashsketch_ref on the
+// streamed operand, on its materialized gather (ref.gather_rows), and
+// ref.partial_ref.
 //
 // What it computes: for output block g, Y[g·Br + r, c] = scale ·
 // Σ_ℓ Σ_u Σ_i [row(g, h_ℓ, u, i) = r] · sign(g, h_ℓ, u, i) · A[h_ℓ·Bc + u, c]
@@ -55,6 +58,22 @@
 // gradients come as (c, D) row-major and are sketched as the (D, c) view
 // (row stride 1, column stride D) without a copy.  Bound: the d gathered
 // rows read once plus Y written once.
+//
+// Partial (the row-sharded apply, template flag kPartial).  A rank owns the
+// contiguous input blocks [lo, lo + M_loc) of the padded A, its slab.  The
+// wiring π_ℓ is a permutation, so each owned block h feeds one output block
+// g = π_ℓ⁻¹(h) per level: the rank's work is the κ·M_loc owned pairs of the
+// (2, κ, M_loc) table [g, h] (global ids, which feed the hashes).  Block
+// p = ℓ·M_loc + m of the grid is pair p: the forward's body with one level,
+// h from the table, input block m of the slab, unscaled, written once into
+// row block p of the compact (κ, M_loc·Br, n) output; the caller scatters
+// it into the global (κ, k_pad, n) layout.  A pair's sums run in the
+// forward's per-level order (u, then the thread group's i), which depends
+// on neither M_loc, tn nor the thread groups: the partials, summed over the
+// ranks (one nonzero contributor per element) and folded in ℓ order, are
+// the same bits for every shard count.  They are not the fused forward's
+// bits, which adds level ℓ+1 onto level ℓ's running sum.  Bound: the slab
+// read once plus the compact output written once.
 
 #include "hash.cuh"
 
@@ -87,7 +106,7 @@ __device__ __forceinline__ void load_rows(float (&a)[kUnroll], const T* col,
   }
 }
 
-template <typename T, bool kGather>
+template <typename T, bool kGather, bool kPartial>
 __global__ void flashsketch_fwd_kernel(
     const T* __restrict__ A, float* __restrict__ Y, const int* __restrict__ tab,
     const int* __restrict__ row_map, int M, int Br, int Bc, int kappa, int s,
@@ -100,7 +119,9 @@ __global__ void flashsketch_fwd_kernel(
   uint32_t* ent = reinterpret_cast<uint32_t*>(acc + Br * tn);  // (uc, s)
   int* src = reinterpret_cast<int*>(ent + uc * s);           // (uc) gather
 
-  const int g = blockIdx.x;
+  // the output block; with kPartial the owned pair p (M is then M_loc)
+  const int p = blockIdx.x;
+  const int g = kPartial ? tab[p] : p;
   const int cl = threadIdx.x;
   const int q = threadIdx.y;
   const long long c = static_cast<long long>(blockIdx.y) * tn + cl;
@@ -112,12 +133,13 @@ __global__ void flashsketch_fwd_kernel(
 
   for (int idx = tid; idx < Br * tn; idx += nthreads) acc[idx] = 0.f;
 
-  for (int ell = 0; ell < kappa; ++ell) {
-    const int h = tab[ell * M + g];
+  for (int ell = 0; ell < (kPartial ? 1 : kappa); ++ell) {
+    const int h = kPartial ? tab[kappa * M + p] : tab[ell * M + g];
+    const int blk = kPartial ? p % M : h;       // the block of A to read
     const uint32_t prefix = fs::block_prefix(seed, g, h);
     for (int u0 = 0; u0 < Bc; u0 += uc) {
       const int nu = min(uc, Bc - u0);
-      const long long row0 = static_cast<long long>(h) * Bc + u0;
+      const long long row0 = static_cast<long long>(blk) * Bc + u0;
       __syncthreads();  // the previous chunk's entries are consumed
       for (int e = tid; e < nu * s; e += nthreads) {
         const int uu = e / s;
@@ -157,21 +179,22 @@ __global__ void flashsketch_fwd_kernel(
   }
   __syncthreads();
   if (!valid) return;
-  float* dst = Y + static_cast<long long>(g) * Br * n + c;
+  float* dst = Y + static_cast<long long>(p) * Br * n + c;
   for (int r = q; r < Br; r += groups)
     dst[static_cast<long long>(r) * n] = acc[r * tn + cl] * scale;
 }
 
-template <typename T, bool kGather>
+template <typename T, bool kGather, bool kPartial = false>
 int launch(const void* A, void* Y, const void* tab, const void* row_map,
            int M, int Br, int Bc, int kappa, int s, long long n, long long rs,
            long long cs, int d, int d_src, unsigned int seed, float scale,
            int tn, int groups, int uc, int smem, void* stream) {
-  auto kern = flashsketch_fwd_kernel<T, kGather>;
+  auto kern = flashsketch_fwd_kernel<T, kGather, kPartial>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(M, static_cast<unsigned int>((n + tn - 1) / tn));
+  const dim3 grid(kPartial ? kappa * M : M,
+                  static_cast<unsigned int>((n + tn - 1) / tn));
   const dim3 block(tn, groups);
   kern<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(A), static_cast<float*>(Y),
@@ -320,6 +343,22 @@ int fs_fwd_gather(const void* A, void* Y, const void* tab, const void* row_map,
 #define FS_LAUNCH(T)                                                         \
   launch<T, true>(A, Y, tab, row_map, M, Br, Bc, kappa, s, n, rs, cs, d,     \
                   d_src, seed, scale, tn, groups, uc, smem, stream)
+  FS_DISPATCH(dtype, FS_LAUNCH)
+#undef FS_LAUNCH
+}
+
+// Row-sharded partials: Y (κ, M_loc·Br, n) fp32, unscaled, for a slab A
+// (M_loc·Bc, n) of the padded input, both row-major and contiguous; tab is
+// the (2, κ, M_loc) int32 table [g, h] of the owned pairs, global block ids,
+// on the device.  Row block p = ℓ·M_loc + m is Φ_{g,h} · A_m.  Launches on
+// `stream` and returns cudaGetLastError() (0 on success).
+int fs_fwd_partial(const void* A, void* Y, const void* tab, int dtype,
+                   int M_loc, int Br, int Bc, int kappa, int s, long long n,
+                   unsigned int seed, int tn, int groups, int uc, int smem,
+                   void* stream) {
+#define FS_LAUNCH(T)                                                       \
+  launch<T, false, true>(A, Y, tab, nullptr, M_loc, Br, Bc, kappa, s, n, n, \
+                         1, 0, 0, seed, 1.f, tn, groups, uc, smem, stream)
   FS_DISPATCH(dtype, FS_LAUNCH)
 #undef FS_LAUNCH
 }

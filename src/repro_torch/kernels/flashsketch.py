@@ -16,6 +16,11 @@ hand for ``sm_90a`` (sources in ``csrc/``, built by ``build.py``):
     — the κ-revisiting v1 kernels, fp32 only (replace
     ``flashsketch_pallas_v1``, ``flashsketch_transpose_pallas_v1`` and
     ``blockrow_pallas_v1``)
+  * ``flashsketch_partial``    — the unscaled per-ℓ partials of one block
+    slab, for the row-sharded apply (replaces
+    ``flashsketch_pallas_partial``); it counts as ``flashsketch_fwd_partial``
+    (the compact body) or ``blockrow_fwd_partial`` (the masked
+    FLASHBLOCKROW body)
 
 The global families (CountSketch, sparse graph: κ = M plans) run kernels of
 their own behind the same wrappers: the forward and its gather hash every
@@ -62,7 +67,8 @@ LAUNCHES: Dict[str, int] = {
     "flashsketch_fwd_gather": 0, "blockrow_fwd": 0, "blockrow_fwd_gather": 0,
     "flashsketch_fwd_v1": 0, "flashsketch_transpose_v1": 0,
     "blockrow_fwd_v1": 0, "flashsketch_fwd_global": 0,
-    "flashsketch_transpose_global": 0, "flashsketch_fwd_gather_global": 0}
+    "flashsketch_transpose_global": 0, "flashsketch_fwd_gather_global": 0,
+    "flashsketch_fwd_partial": 0, "blockrow_fwd_partial": 0}
 
 # Streamed-type codes of csrc/hash.cuh (fs::StreamType).
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1,
@@ -241,6 +247,18 @@ def blockrow_launch(plan: BlockPermPlan, tn: int) -> Tuple[int, int]:
     return groups, 4 * plan.kappa * plan.Br * plan.s
 
 
+def partial_launch(plan: BlockPermPlan, tn: int,
+                   rows_pattern: bool = False) -> Tuple[int, int]:
+    """(thread groups, shared bytes) of the partial kernel at tile width
+    ``tn``: the compact one is the forward's block with one level (the fp32
+    (Br, tn) accumulator and one chunk of hashed entries), the masked
+    FLASHBLOCKROW one holds the Br·s words of one level."""
+    if rows_pattern:
+        return max(1, min(plan.Br, MAX_THREADS // tn)), 4 * plan.Br * plan.s
+    groups, _, smem = fwd_launch(plan, tn)
+    return groups, smem
+
+
 def transpose_launch(plan: BlockPermPlan,
                      tn: int) -> Tuple[int, int, int, bool]:
     """(thread groups, hashed columns per chunk, shared bytes, staged) of the
@@ -288,9 +306,12 @@ def blockrow_v1_launch(plan: BlockPermPlan, tn: int) -> Tuple[int, int]:
 
 
 def launch_geometry(plan: BlockPermPlan, op: str, gather: bool, tn: int,
-                    v1: bool = False) -> Tuple[int, int]:
+                    v1: bool = False, partial: bool = False) -> Tuple[int, int]:
     """(thread groups, shared bytes) of the kernel of ``op`` at tile width
-    ``tn``: the fused one (with its gather), or the v1 one."""
+    ``tn``: the fused one (with its gather), the v1 one, or the row-sharded
+    partial one (``partial``)."""
+    if partial:
+        return partial_launch(plan, tn, op == "blockrow")
     if v1:
         if op == "transpose":
             groups, _, smem = transpose_v1_launch(plan, tn)
@@ -308,13 +329,14 @@ def launch_geometry(plan: BlockPermPlan, op: str, gather: bool, tn: int,
 
 
 def fitted_tn(plan: BlockPermPlan, op: str, n: int, gather: bool = False,
-              rejected: Optional[list] = None) -> int:
+              rejected: Optional[list] = None, partial: bool = False) -> int:
     """``default_tn`` narrowed, by halves in multiples of 32, while the
-    fused kernel's shared memory exceeds ``MAX_SMEM_BYTES``; the rejected
-    (tn, bytes) go to ``rejected``."""
+    fused (or, with ``partial``, the row-sharded partial) kernel's shared
+    memory exceeds ``MAX_SMEM_BYTES``; the rejected (tn, bytes) go to
+    ``rejected``."""
     tn = default_tn(plan, op, n)
     while tn > MIN_TN and (smem := launch_geometry(
-            plan, op, gather, tn)[1]) > MAX_SMEM_BYTES:
+            plan, op, gather, tn, partial=partial)[1]) > MAX_SMEM_BYTES:
         if rejected is not None:
             rejected.append((tn, smem))
         tn = max(MIN_TN, tn // 2 // 32 * 32)
@@ -587,6 +609,74 @@ def blockrow_fwd_gather(plan: BlockPermPlan, A: torch.Tensor,
     for bit to ``blockrow_fwd`` on the zero-padded ``A[row_map[:d]]``."""
     _check_row_map(plan, A, row_map, "blockrow_fwd_gather")
     return _blockrow(plan, A, row_map, tn, "blockrow_fwd_gather")
+
+
+def flashsketch_partial(plan: BlockPermPlan, A_local: torch.Tensor,
+                        tables: torch.Tensor, *, tn: Optional[int] = None,
+                        rows_pattern: bool = False) -> torch.Tensor:
+    """Unscaled per-ℓ partial sketch of one contiguous block slab.
+
+    ``A_local`` is the ``(M_loc·Bc, n)`` slab of the padded input a rank
+    owns (``n`` may be ragged: the kernel masks the edge), streamed in
+    ``plan.stream_dtype``; ``tables`` comes from
+    ``distributed.partial_tables``: ``(2, κ, M_loc)`` ``[g, h]`` of the
+    owned pairs, or ``(3, κ, M)`` ``[local, h, owned]`` with
+    ``rows_pattern`` (FLASHBLOCKROW).  Returns fp32: the compact
+    ``(κ, M_loc·Br, n)`` (row block ``(ℓ, m)`` belongs to output block
+    ``tables[0, ℓ, m]``), or with ``rows_pattern`` the global
+    ``(κ, k_pad, n)`` with exact zeros at the pairs another rank owns.
+    Summed over the ranks and folded in ℓ order it is ``S·A / scale``.
+    CUDA tensors run the CUDA kernel (``tn=None`` takes the forward's or
+    FLASHBLOCKROW's default tile, narrowed to fit shared memory), CPU
+    tensors its plain version ``ref.partial_ref``.
+    """
+    rows_loc, n = A_local.shape
+    M_loc = rows_loc // plan.Bc
+    if rows_loc % plan.Bc or M_loc == 0 or plan.M % M_loc:
+        raise ValueError(f"A_local must be a slab of M_loc·Bc rows with "
+                         f"M_loc | M={plan.M} (Bc={plan.Bc}), got "
+                         f"{rows_loc} rows")
+    want = (3, plan.kappa, plan.M) if rows_pattern else (2, plan.kappa, M_loc)
+    if tuple(tables.shape) != want:
+        raise ValueError(f"tables must be {want}, got {tuple(tables.shape)}")
+    x = _stream(plan, A_local)
+    if A_local.device.type == "cpu":
+        return kref.partial_ref(plan, x.to(torch.float32), tables,
+                                rows_pattern)
+    if A_local.device.type != "cuda":
+        raise ValueError(f"no partial kernel for device {A_local.device}")
+    name = "blockrow_fwd_partial" if rows_pattern else \
+        "flashsketch_fwd_partial"
+    tn = tn or fitted_tn(plan, "blockrow" if rows_pattern else "fwd", n,
+                         partial=True)
+    groups, smem = partial_launch(plan, tn, rows_pattern)
+    if smem > MAX_SMEM_BYTES:
+        raise NotImplementedError(
+            f"{name}: {smem} B of shared memory at tn={tn} exceeds the "
+            f"{MAX_SMEM_BYTES} B a block may use (Br={plan.Br}); there is "
+            f"no v1 partial: run the plain version with impl='torch'")
+    _check_launch(plan, x, tn, smem, rows_loc, name)
+    x = x.contiguous()
+    tab = tables.to(device=x.device, dtype=torch.int32).contiguous()
+    common = ((_I, _DTYPE_CODES[x.dtype]), (_I, plan.M if rows_pattern
+                                                else M_loc),
+              (_I, plan.Br), (_I, plan.Bc), (_I, plan.kappa), (_I, plan.s),
+              (_LL, n), (_U, plan.seed & 0xFFFFFFFF), (_I, tn), (_I, groups))
+    if rows_pattern:
+        Y = torch.empty((plan.kappa, plan.k_pad, n), dtype=torch.float32,
+                        device=x.device)
+        _call("flashsketch_blockrow.cu", "fs_blockrow_partial", x.device,
+              (_P, x.data_ptr()), (_P, Y.data_ptr()), (_P, tab.data_ptr()),
+              *common, (_I, smem))
+    else:
+        Y = torch.empty((plan.kappa, M_loc * plan.Br, n), dtype=torch.float32,
+                        device=x.device)
+        _, uc, _ = fwd_launch(plan, tn)
+        _call("flashsketch_fwd.cu", "fs_fwd_partial", x.device,
+              (_P, x.data_ptr()), (_P, Y.data_ptr()), (_P, tab.data_ptr()),
+              *common, (_I, uc), (_I, smem))
+    LAUNCHES[name] += 1
+    return Y
 
 
 # ---------------------------------------------------------------------------

@@ -34,8 +34,18 @@ catches is the card's own):
   2. ``cuda``, the fused ``fwd`` / ``transpose`` / ``blockrow`` kernel over
      the limit at tn = 32 → ``cuda_v1``.
 
-Sharding waits for the distributed slice and raises
-``NotImplementedError`` naming the ``ROADMAP.md`` queue where it waits.
+``shard`` (``"none" | "row" | "col" | "batch"``, over ``devices`` ranks)
+records a sharded launch and rejects what the reference rejects.
+``"row"`` is the per-rank partial of ``distributed.sketch_apply_sharded``:
+``fwd`` or ``blockrow`` only, ``P | M``, no gather, no ``cuda_v1`` (there is
+no v1 partial); its kernel must fit shared memory at tn = 32
+(``partial_fits_smem``) or the lowering raises, naming ``impl="torch"``.
+The reference's predicate is the TPU's VMEM budget for the (Br, Bc) Φ
+tile, so the plans each one refuses differ: ``plan_for_mesh(262_144,
+1024, 8, kappa=2)`` (Br = 128, Bc = 32 768) goes to the reference's jnp
+oracle and runs the partial kernel here.  ``"col"`` (``P | n``) and
+``"batch"`` (``P | batch``) run the single-device kernels on each rank's
+slab.
 """
 from __future__ import annotations
 
@@ -56,16 +66,18 @@ GATHER_OPS = ("fwd", "blockrow")
 IMPLS = ("auto", "cuda", "cuda_v1", "torch")
 CUDA_IMPLS = ("cuda", "cuda_v1")
 
-# Requests that wait for a later slice, and the ROADMAP queue that holds them.
-_QUEUED = {
-    "shard": "the distributed slice (ROADMAP queue 1, item 10; queue 2, "
-             "item 6)",
-}
+SHARDS = ("none", "row", "col", "batch")
 
 
-def _queued(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what!r} is not ported yet: it waits for {_QUEUED[what]}")
+def partial_fits_smem(plan: BlockPermPlan, tn: int,
+                      rows_pattern: bool = False) -> bool:
+    """Whether the row-sharded partial kernel fits a block's shared
+    memory at tile width ``tn``: the fp32 (Br, tn) accumulator plus one
+    chunk of hashed entries (the masked FLASHBLOCKROW kernel: Br·s
+    words)."""
+    return fsk.launch_geometry(plan, "blockrow" if rows_pattern else "fwd",
+                               False, tn, partial=True)[1] \
+        <= fsk.MAX_SMEM_BYTES
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,8 +97,9 @@ class LaunchSpec:
         (``fwd`` / ``blockrow`` only).
       batch: a stack of ``batch`` matrices folded into the column axis
         (recorded; the tile does not depend on it yet).
-      shard: a request of a later slice; anything but ``"none"`` raises
-        ``NotImplementedError``.
+      shard: ``"none" | "row" | "col" | "batch"`` (see the module
+        docstring).
+      devices: shard degree P (ignored for ``shard="none"``).
     """
 
     op: str = "fwd"
@@ -98,6 +111,7 @@ class LaunchSpec:
     gather: bool = False
     batch: int = 1
     shard: str = "none"
+    devices: int = 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,7 +127,8 @@ class Lowering:
     launch geometry (``None`` for the plain version); ``pad_rows`` the zero
     rows added to the operand (none with a fused gather: the kernel zeroes
     the padding rows itself).  Columns are never padded: the kernels mask
-    the ragged edge.
+    the ragged edge.  ``shard`` / ``devices`` record a sharded launch; with
+    ``shard="row"`` the kernel is the per-rank partial.
     """
 
     plan: BlockPermPlan
@@ -133,6 +148,8 @@ class Lowering:
     gather_fused: bool = False
     batch: int = 1
     downgrade: Optional[str] = None
+    shard: str = "none"
+    devices: int = 1
 
     def describe(self) -> str:
         bits = [self.op, f"impl={self.impl}"]
@@ -143,6 +160,8 @@ class Lowering:
                                      else "materialized"))
         if self.batch > 1:
             bits.append(f"batch={self.batch}")
+        if self.shard != "none":
+            bits.append(f"shard={self.shard}x{self.devices}")
         bits += [f"device={self.device}", f"tn={self.tn}:{self.tn_source}",
                  f"dtype={self.dtype}", f"n={self.n}"]
         if self.smem_bytes is not None:
@@ -166,8 +185,8 @@ def _validate(plan: BlockPermPlan, spec: LaunchSpec) -> None:
             f"{plan.family!r} has no blockrow formulation")
     if spec.batch < 1:
         raise ValueError(f"batch must be >= 1, got {spec.batch}")
-    if spec.shard != "none":
-        raise _queued("shard")
+    if spec.shard not in SHARDS:
+        raise ValueError(f"shard must be one of {SHARDS}, got {spec.shard!r}")
     if spec.n < 1:
         raise ValueError(f"n must be >= 1, got {spec.n}")
     if spec.tn is not None and spec.tn < 1:
@@ -179,6 +198,40 @@ def _validate(plan: BlockPermPlan, spec: LaunchSpec) -> None:
         raise ValueError(f"impl={spec.impl!r} runs a CUDA kernel and needs a "
                          f"CUDA tensor; use impl='auto' or 'torch' on the "
                          f"CPU")
+    if spec.shard == "none":
+        return
+    if spec.devices < 1:
+        raise ValueError(f"devices must be >= 1, got {spec.devices}")
+    if spec.shard == "row":
+        if plan.is_global:
+            raise ValueError(
+                f"row-sharding has no compact partial for global family "
+                f"{plan.family!r}: every input block feeds every output "
+                f"block, so a per-device block slab still touches the full "
+                f"output (shard the column or batch axis instead)")
+        if spec.op == "transpose":
+            raise ValueError(
+                "row-sharding has no partial transpose formulation")
+        if spec.gather:
+            raise ValueError(
+                "row-sharding does not compose with the fused gather (shard "
+                "the batch axis instead — see "
+                "distributed.sketch_apply_batched_sharded)")
+        if spec.impl == "cuda_v1":
+            raise ValueError(
+                "cuda_v1 has no partial formulation; row-sharded impl must "
+                "be 'auto', 'cuda' or 'torch'")
+        if plan.M % spec.devices != 0:
+            raise ValueError(
+                f"row-sharding needs the shard count to divide the block "
+                f"grid: P={spec.devices} does not divide M={plan.M} "
+                f"(rebuild the plan with block_rows= so that P | M)")
+    elif spec.shard == "col" and spec.n % spec.devices != 0:
+        raise ValueError(f"column sharding needs P | n: P={spec.devices}, "
+                         f"n={spec.n}")
+    elif spec.shard == "batch" and spec.batch % spec.devices != 0:
+        raise ValueError(f"batch sharding needs P | B: P={spec.devices}, "
+                         f"B={spec.batch}")
 
 
 def _lower(plan: BlockPermPlan, spec: LaunchSpec,
@@ -200,6 +253,17 @@ def _lower(plan: BlockPermPlan, spec: LaunchSpec,
         t(f"impl: 'auto' -> {impl!r} (operand on {spec.device})")
     else:
         t(f"impl: {impl!r} requested")
+
+    n_loc, batch_loc = spec.n, spec.batch      # one rank's share
+    if spec.shard == "row":
+        return _lower_row(eff, spec, impl, t)
+    if spec.shard == "col":
+        n_loc = spec.n // spec.devices
+        t(f"shard=col x{spec.devices}: per-rank columns n_loc={n_loc}")
+    elif spec.shard == "batch":
+        batch_loc = spec.batch // spec.devices
+        t(f"shard=batch x{spec.devices}: per-rank fold "
+          f"batch_loc={batch_loc}")
 
     downgrades: List[str] = []
     gather_fused = False
@@ -239,24 +303,9 @@ def _lower(plan: BlockPermPlan, spec: LaunchSpec,
         tn = groups = smem = grid_cols = None
         tn_source = "n/a"
     else:
-        v1 = impl == "cuda_v1"
-        if spec.tn is not None:
-            tn, tn_source = spec.tn, "explicit"
-        elif v1:
-            tn = fsk.default_tn(eff, spec.op, spec.n * spec.batch, v1=True)
-            tn_source = "v1_default"
-        else:
-            rejected: List[Tuple[int, int]] = []
-            tn = fsk.fitted_tn(eff, spec.op, spec.n * spec.batch,
-                               gather_fused, rejected)
-            tn_source = "default:smem_shrunk" if rejected else "default"
-            for bad, smem in rejected:
-                t(f"tn={bad} rejected: {smem} B of shared memory > "
-                  f"{fsk.MAX_SMEM_BYTES} B")
-        groups, smem = fsk.launch_geometry(eff, spec.op, gather_fused, tn, v1)
-        grid_cols = -(-spec.n // tn)
-        t(f"tn: {tn} ({tn_source}); {groups} thread groups, {smem} B shared "
-          f"memory, {grid_cols} column tiles")
+        tn, tn_source, groups, smem, grid_cols = _fit_tile(
+            eff, spec, n_loc, batch_loc, gather_fused, impl == "cuda_v1",
+            False, t)
     if spec.batch > 1:
         t(f"batch: {spec.batch} matrices folded into the column axis")
     t(f"pad: rows +{pad_rows}, cols +0 (the ragged column edge is masked "
@@ -269,7 +318,65 @@ def _lower(plan: BlockPermPlan, spec: LaunchSpec,
         device=spec.device, tn=tn, tn_source=tn_source, dtype=eff.dtype,
         n=spec.n, grid_cols=grid_cols, groups=groups, smem_bytes=smem,
         pad_rows=pad_rows, gather=spec.gather, gather_fused=gather_fused,
-        batch=spec.batch, downgrade=downgrade)
+        batch=spec.batch, downgrade=downgrade, shard=spec.shard,
+        devices=spec.devices if spec.shard != "none" else 1)
+
+
+def _fit_tile(eff: BlockPermPlan, spec: LaunchSpec, n_loc: int,
+              batch_loc: int, gather_fused: bool, v1: bool, partial: bool,
+              t) -> Tuple[int, str, int, int, int]:
+    """(tn, its source, thread groups, shared bytes, column tiles) of the
+    kernel the lowering chose: the explicit tile, the v1 default, or the
+    default narrowed until that kernel's shared memory fits."""
+    if spec.tn is not None:
+        tn, tn_source = spec.tn, "explicit"
+    elif v1:
+        tn = fsk.default_tn(eff, spec.op, n_loc * batch_loc, v1=True)
+        tn_source = "v1_default"
+    else:
+        rejected: List[Tuple[int, int]] = []
+        tn = fsk.fitted_tn(eff, spec.op, n_loc * batch_loc, gather_fused,
+                           rejected, partial=partial)
+        tn_source = "default:smem_shrunk" if rejected else "default"
+        for bad, smem in rejected:
+            t(f"tn={bad} rejected: {smem} B of shared memory > "
+              f"{fsk.MAX_SMEM_BYTES} B")
+    groups, smem = fsk.launch_geometry(eff, spec.op, gather_fused, tn, v1,
+                                       partial)
+    grid_cols = -(-n_loc // tn)
+    t(f"tn: {tn} ({tn_source}); {'partial kernel, ' if partial else ''}"
+      f"{groups} thread groups, {smem} B shared memory, {grid_cols} column "
+      f"tiles")
+    return tn, tn_source, groups, smem, grid_cols
+
+
+def _lower_row(eff: BlockPermPlan, spec: LaunchSpec, impl: str,
+               t) -> Lowering:
+    """The row-sharded partial's launch: the partial kernel (``cuda``) or
+    its plain version (``torch``), on a slab that is already padded."""
+    rows_pattern = spec.op == "blockrow"
+    t(f"shard=row x{spec.devices}: per-rank block slab "
+      f"M_loc={eff.M // spec.devices} of M={eff.M}")
+    tn = groups = smem = grid_cols = None
+    tn_source = "n/a"
+    if impl == "torch":
+        t("torch: plain partial (no tiling, no shared memory)")
+    else:
+        if not partial_fits_smem(eff, fsk.MIN_TN, rows_pattern):
+            smem = fsk.partial_launch(eff, fsk.MIN_TN, rows_pattern)[1]
+            raise NotImplementedError(
+                f"shared memory: the partial kernel needs {smem} B at "
+                f"tn={fsk.MIN_TN} > {fsk.MAX_SMEM_BYTES} B (Br={eff.Br}) and "
+                f"there is no v1 partial; run the plain version with "
+                f"impl='torch'")
+        tn, tn_source, groups, smem, grid_cols = _fit_tile(
+            eff, spec, spec.n, 1, False, False, True, t)
+    t("pad: rows +0 (the slab is cut from the padded input), cols +0")
+    return Lowering(
+        plan=eff, op=spec.op, impl=impl, impl_requested=spec.impl,
+        device=spec.device, tn=tn, tn_source=tn_source, dtype=eff.dtype,
+        n=spec.n, grid_cols=grid_cols, groups=groups, smem_bytes=smem,
+        pad_rows=0, batch=spec.batch, shard="row", devices=spec.devices)
 
 
 
@@ -292,7 +399,8 @@ def explain(plan: BlockPermPlan, spec: Optional[LaunchSpec] = None,
     lw = _lower(plan, spec, trace)
     head = (f"lower(op={spec.op!r}, n={spec.n}, impl={spec.impl!r}, "
             f"tn={spec.tn}, dtype={spec.dtype!r}, device={spec.device!r}, "
-            f"gather={spec.gather}, batch={spec.batch})")
+            f"gather={spec.gather}, batch={spec.batch}, "
+            f"shard={spec.shard!r}x{spec.devices})")
     lines = [head] + ["  " + ln for ln in trace] + ["=> " + lw.describe()]
     lines.append("health: " + health_report.summarize_counters())
     return "\n".join(lines)
@@ -330,6 +438,9 @@ def execute(lw: Lowering, operand: torch.Tensor,
     if operand.device.type != lw.device:
         raise ValueError(f"lowering for a {lw.device} operand got one on "
                          f"{operand.device}")
+    if lw.shard == "row":
+        raise ValueError("a row-sharded lowering runs per rank through "
+                         "distributed.local_partial_apply")
     plan = lw.plan
     n = operand.shape[1]
     if lw.gather:

@@ -251,3 +251,48 @@ def blockrow_ref(plan: BlockPermPlan, A: torch.Tensor) -> torch.Tensor:
 def blockrow_v1_ref(plan: BlockPermPlan, A: torch.Tensor) -> torch.Tensor:
     """FLASHBLOCKROW summed as the v1 kernel sums it (each level scaled)."""
     return _blockrow_levels(plan, A, per_level=True)
+
+
+# ---------------------------------------------------------------------------
+# Row-sharded partials (the reference's ``_partial_oracle``): the unscaled
+# per-ℓ sketch of one contiguous block slab, for the distributed apply.
+# ---------------------------------------------------------------------------
+
+def partial_ref(plan: BlockPermPlan, slab: torch.Tensor, tables: torch.Tensor,
+                rows_pattern: bool = False) -> torch.Tensor:
+    """Unscaled per-ℓ partials of a slab ``(M_loc·Bc, n)``, fp32.
+
+    Default: compact ``(κ, M_loc·Br, n)`` over the owned pairs of the
+    ``(2, κ, M_loc)`` ``[g, h]`` table, row block ``(ℓ, m)`` holding
+    ``Φ_{g,h} · slab_m``.  ``rows_pattern`` (FLASHBLOCKROW): masked
+    ``(κ, k_pad, n)`` from the ``(3, κ, M)`` ``[local, h, owned]`` table,
+    exact zeros at the pairs another shard owns.
+
+    Each level runs the very product of ``_fwd_levels`` /
+    ``_blockrow_levels``: one bmm over all M output blocks, the slab
+    standing in its place among zero blocks, so every owned pair's sum is
+    bit-equal to its row of the single-device plain apply (BLAS sums a
+    product differently in batches of other sizes).
+    """
+    n = slab.shape[1]
+    M_loc = slab.shape[0] // plan.Bc
+    blocks = slab.to(torch.float32).reshape(M_loc, plan.Bc, n)
+    tab = tables.to(device=slab.device, dtype=torch.int64)
+    parts = []
+    if rows_pattern:
+        for ell in range(plan.kappa):
+            local, h_of_g, owned = tab[0, ell], tab[1, ell], tab[2, ell]
+            contrib = torch.bmm(_phi_rows_all_blocks(plan, h_of_g),
+                                blocks[local])                  # (M, Br, n)
+            parts.append(torch.where(owned[:, None, None] == 1, contrib, 0.0))
+        return torch.stack(parts).reshape(plan.kappa, plan.k_pad, n)
+    lo = int(tab[1, 0, 0])                    # the slab's first block
+    A_blocks = blocks.new_zeros((plan.M, plan.Bc, n))
+    A_blocks[lo:lo + M_loc] = blocks
+    pi = wiring.wiring_torch(plan.seed, plan.M, plan.kappa, slab.device)
+    for ell in range(plan.kappa):
+        h_of_g = pi[ell]
+        contrib = torch.bmm(_phi_all_blocks(plan, h_of_g),
+                            A_blocks[h_of_g])                   # (M, Br, n)
+        parts.append(contrib[tab[0, ell]])                      # owned g
+    return torch.stack(parts).reshape(plan.kappa, M_loc * plan.Br, n)

@@ -93,14 +93,17 @@ def _right_precond_ops(A: Optional[torch.Tensor], R: Optional[torch.Tensor],
 
 
 def _lsqr_recurrence(matvec, rmatvec, unprec, base_matvec, b, x0, nvars,
-                     *, tol: float, max_iters: int):
+                     *, tol: float, max_iters: int,
+                     row_norm: Callable = torch.linalg.vector_norm):
     """Golub–Kahan LSQR on ``min ||A R⁻¹ y - b||`` with x = R⁻¹ y; stops when
     the recurrence estimate ``phibar / ||b||`` drops to ``tol`` or after
-    ``max_iters``.  Returns (x, iterations, relres estimate)."""
+    ``max_iters``.  ``row_norm`` takes the norm of a row-space vector (b,
+    the residual, u), which may be sharded over ranks.  Returns (x,
+    iterations, relres estimate)."""
     eps = torch.finfo(b.dtype).tiny
     r0 = b - base_matvec(x0) if x0 is not None else b
-    bnorm = torch.clamp_min(torch.linalg.vector_norm(b), eps)
-    beta = torch.linalg.vector_norm(r0)
+    bnorm = torch.clamp_min(row_norm(b), eps)
+    beta = row_norm(r0)
     u = r0 / torch.clamp_min(beta, eps)
     v = rmatvec(u)
     alpha = torch.linalg.vector_norm(v)
@@ -112,7 +115,7 @@ def _lsqr_recurrence(matvec, rmatvec, unprec, base_matvec, b, x0, nvars,
     # one device-to-host read per iteration: the stopping test
     while it < max_iters and bool(phibar / bnorm > tol):
         u = matvec(v) - alpha * u
-        beta = torch.linalg.vector_norm(u)
+        beta = row_norm(u)
         u = u / torch.clamp_min(beta, eps)
         v = rmatvec(u) - beta * v
         alpha = torch.linalg.vector_norm(v)
@@ -173,9 +176,14 @@ def lsqr_operator(matvec: Callable, rmatvec: Callable, b: torch.Tensor, *,
                   nvars: int, R: Optional[torch.Tensor] = None,
                   x0: Optional[torch.Tensor] = None, tol: float = 1e-6,
                   max_iters: Optional[int] = None,
-                  restart_every: int = 50) -> SolveResult:
+                  restart_every: int = 50,
+                  row_norm: Callable = torch.linalg.vector_norm
+                  ) -> SolveResult:
     """LSQR on an operator given by ``matvec(v) -> (d,)`` and
-    ``rmatvec(u) -> (n,)`` closures; otherwise as ``lsqr``."""
+    ``rmatvec(u) -> (n,)`` closures; otherwise as ``lsqr``.  ``row_norm``
+    is the norm of a ``(d,)`` vector: with the rows sharded over ranks
+    (``distributed.dist_solvers``) it reduces across them, so every rank
+    takes the same steps."""
     if max_iters is None:
         max_iters = 200 if R is not None else 4 * nvars
     mv, rmv, unprec = _right_precond_ops(None, R, matvec=matvec,
@@ -183,18 +191,22 @@ def lsqr_operator(matvec: Callable, rmatvec: Callable, b: torch.Tensor, *,
 
     def run_chunk(x, chunk):
         return _lsqr_recurrence(mv, rmv, unprec, matvec, b, x, nvars,
-                                tol=float(tol), max_iters=chunk)
+                                tol=float(tol), max_iters=chunk,
+                                row_norm=row_norm)
 
     return _restarted_drive(run_chunk, lambda x: matvec(x) - b, b, x0,
                             nvars=nvars, tol=tol, max_iters=int(max_iters),
-                            restart_every=restart_every)
+                            restart_every=restart_every, row_norm=row_norm)
 
 
 def _restarted_drive(run_chunk, resid, b, x0, *, nvars, tol, max_iters,
-                     restart_every) -> SolveResult:
+                     restart_every,
+                     row_norm: Callable = torch.linalg.vector_norm
+                     ) -> SolveResult:
     """Run ``restart_every``-iteration chunks, recompute the exact residual
-    between chunks, warm-restart, and stop on convergence or stall."""
-    bnorm = float(torch.linalg.vector_norm(b))
+    between chunks, warm-restart, and stop on convergence or stall.
+    ``row_norm`` as in ``lsqr_operator``."""
+    bnorm = float(row_norm(b))
     x = x0
     total = 0
     relres = float("inf")
@@ -202,8 +214,7 @@ def _restarted_drive(run_chunk, resid, b, x0, *, nvars, tol, max_iters,
         chunk = min(int(restart_every), max_iters - total)
         x_new, it, _ = run_chunk(x, chunk)
         total += int(it)
-        new_relres = float(torch.linalg.vector_norm(resid(x_new))) / max(
-            bnorm, 1e-30)
+        new_relres = float(row_norm(resid(x_new))) / max(bnorm, 1e-30)
         stalled = new_relres >= relres
         if new_relres < relres:
             x, relres = x_new, new_relres

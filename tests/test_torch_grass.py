@@ -244,8 +244,10 @@ def test_entry_points_default_to_cuda(trained, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         tmlp.params_from_reference(
             {n: p.detach().numpy() for n, p in model.named_parameters()})
-    with pytest.raises(NotImplementedError, match="queue 1, item 10"):
-        tgrass.GrassPipeline(cfg, model, mesh=object(), device="cpu")
+    # the batch-sharded pipeline runs on the card too (it shards featurize's
+    # chunks over a process group; see test_torch_distributed.py)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tgrass.GrassPipeline(cfg, model, group=object())
 
 
 @pytest.mark.parametrize("name", ("dense_gaussian", "dense_rademacher",

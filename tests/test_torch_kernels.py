@@ -163,7 +163,7 @@ def test_lowering_resolves_per_device():
     (dict(impl="pallas_v1"), ValueError),     # the port's name is cuda_v1
     (dict(gather=True, op="transpose"), ValueError),  # no gathered transpose
     (dict(batch=0), ValueError),
-    (dict(shard="row"), NotImplementedError),
+    (dict(shard="row", devices=3), ValueError),  # P must divide M
     (dict(op="blockrow", impl="pallas_v1"), ValueError),
     (dict(impl="xla"), ValueError),
     (dict(op="gram"), ValueError),

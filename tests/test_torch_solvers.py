@@ -171,7 +171,8 @@ def test_port_imports_neither_jax_nor_reference():
         importlib.import_module("repro_torch.core.coherence")
         for script in ("chip_smoke.py", "benchmarks/torch_grass_bench.py",
                        "benchmarks/torch_kernel_bench.py",
-                       "benchmarks/torch_pareto_bench.py"):
+                       "benchmarks/torch_pareto_bench.py",
+                       "benchmarks/torch_dist_bench.py"):
             spec = importlib.util.spec_from_file_location(
                 "script", {ROOT!r} + "/" + script)
             spec.loader.exec_module(importlib.util.module_from_spec(spec))
@@ -183,7 +184,7 @@ def test_port_imports_neither_jax_nor_reference():
                          text=True, timeout=120, cwd=ROOT,
                          env={**os.environ, "PYTHONPATH": ""})
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 24
+    assert int(out.stdout.split()[-1]) >= 28
 
 
 @pytest.mark.parametrize("entry", ["sketch_precondition_lstsq",
