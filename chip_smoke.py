@@ -13,7 +13,8 @@ Phases, any failure exits non-zero and prints no result:
      for the GraSS kernels, whose gathers run in both operand layouts, with
      one plan whose Bc is not a power of two); plus the exact checks
      S·I == S, ⟨S x, y⟩ == ⟨x, Sᵀ y⟩, each gather == its kernel on the
-     zero-padded materialized gather, and an identity row_index == the
+     zero-padded materialized gather (the gather-fused forward also under
+     every row split R it takes), and an identity row_index == the
      non-gather kernel;
   3. the main path at the paper's size (d = 65 536, n = 1 024): the
      ``default``, ``fast`` and ``precise`` solver presets on a cond-1e4
@@ -31,7 +32,10 @@ Phases, any failure exits non-zero and prints no result:
      main shape; the gather-fused forward and both FLASHBLOCKROW kernels
      at the GraSS chunk (d_src = 109 386, d = 4 096, n = 64, k = 1 024) and
      at a bandwidth-sized shape (d_src = 262 144, d = 65 536, n = 1 024,
-     k = 4 096), the gathers in both operand layouts;
+     k = 4 096), the gathers in both operand layouts; for the two row-split
+     kernels (the gather-fused forward, the v1 forward) also their split R,
+     their time over the library's, and the time of the kernel they
+     replaced (the v1 forward beside the fused forward of the same run);
   5. GraSS data attribution at the paper's width (784 → 128 → 64 → 10,
      109 386 parameters; sparse dim 4 096, k ∈ {1024, 2048, 4096}, κ = 4,
      s = 2, chunks of 64; 5 000 train and 500 test examples, m = 50 LDS
@@ -71,7 +75,9 @@ Phases, any failure exits non-zero and prints no result:
      the run.
 
 Phase 2 also holds the three v1 kernels (ragged n with d < d_pad, κ × s ∈
-{1,2,4}², the Br = 2 048 plan the lowering downgrades, the main plan) and
+{1,2,4}², the Br = 2 048 plan the lowering downgrades, the main plan; the
+v1 forward also under every row split R, with S·I == S at a Br = 2 048
+plan) and
 the global forward, transpose and gather (CountSketch and graph plans,
 ragged n, the CountSketch plan of the main shape) to their plain versions
 under all six policies, and at the main shape the plans phase 6 runs
@@ -168,6 +174,10 @@ PARTIAL_KERNELS = ("flashsketch_fwd_partial", "blockrow_fwd_partial")
 SPAWN_TIMEOUT_S = 300.0
 # GraSS (paper App. E): 109 386-parameter MLP, sparse dim 4 096, κ = 4, s = 2
 GRASS_D_SRC, GRASS_D, GRASS_CHUNK, GRASS_K = 109_386, 4096, 64, 1024
+# ms of the kernels the row-split design replaced, as PERF.md records them
+# (NVIDIA H100 80GB HBM3 at a 700 W power limit): the gather-fused forward
+# at the GraSS chunk in the (D, c) view and the v1 forward at the main plan
+REPLACED_MS = {"flashsketch_fwd_gather": 0.603, "flashsketch_fwd_v1": 3.485}
 
 
 class SmokeFailure(Exception):
@@ -237,13 +247,23 @@ def compare_kernels(fsk, ref, plan, n, gen):
     return errs
 
 
+def fitting_splits(rt, plan):
+    """The row splits R the gather-fused forward takes at ``plan``: every
+    allowed R whose blocks' nonzeros fit shared memory."""
+    fsk = rt["fsk"]
+    return [R for R in fsk.split_allowed(plan)
+            if 4 * fsk._csr_block_cap(plan, torch.device("cuda"), R)
+            <= fsk.MAX_SMEM_BYTES]
+
+
 def compare_grass_kernels(rt, plan, n, d_src, gen):
     """The gather-fused forward and both FLASHBLOCKROW kernels against
     their plain versions at one plan, all policies, the gathers in both
     operand layouts (a row-major (d_src, n) source and the (d_src, n) view
     of a row-major (n, d_src) one); plus the exact checks: each gather
     equals its non-gather kernel on the zero-padded materialized gather
-    bit for bit.  Returns the max abs errors by (kernel, policy)."""
+    bit for bit, the gather-fused forward under every row split R it
+    takes.  Returns the max abs errors by (kernel, policy)."""
     fsk, ref, lowering = rt["fsk"], rt["ref"], rt["lowering"]
     errs = {}
     layouts = {"rows": torch.randn(d_src, n, generator=gen, device="cuda") * 3,
@@ -270,9 +290,17 @@ def compare_grass_kernels(rt, plan, n, d_src, gen):
                 got = getattr(fsk, name)(p, A, rmap)
                 e = _err(got, plain(p, G), p, f"{name} {layout} {key}")
                 errs[(name, pol)] = max(errs.get((name, pol), 0.0), e)
-                check(torch.equal(got, flat(p, Gp)),
+                want_bits = flat(p, Gp)
+                check(torch.equal(got, want_bits),
                       f"{name} {layout} {key}: not bit-equal to "
                       f"{flat.__name__} on the materialized gather")
+                if name != "flashsketch_fwd_gather":
+                    continue
+                for R in fitting_splits(rt, p):
+                    check(torch.equal(getattr(fsk, name)(
+                        p, A, rmap, row_splits=R), want_bits),
+                        f"{name} {layout} {key} R={R}: not bit-equal to "
+                        f"{flat.__name__} on the materialized gather")
     return errs
 
 
@@ -339,7 +367,9 @@ def phase_grass_kernels(rt):
               f"(small plans worst {worst[(name, pol)]:.3e})")
     print(f"  exact: every gather == its kernel on the zero-padded "
           f"materialized gather (torch.equal), both layouts, all policies, "
-          f"{len(plans) + 1} plans, Bc={odd.Bc} among them")
+          f"{len(plans) + 1} plans, Bc={odd.Bc} among them; the gather-fused "
+          f"forward under every row split R that fits (GraSS chunk: R in "
+          f"{fitting_splits(rt, grass_plan)})")
     # an identity row_index is the non-gather kernel
     p, n = plans[0][0], 37
     A = torch.randn(p.d, n, generator=gen, device="cuda")
@@ -476,10 +506,33 @@ def phase_family_kernels(rt, main_plan, n_main):
                 plan, y, impl).double()).sum())
             check(abs(lhs - rhs) <= 1e-5 * max(abs(lhs), 1.0),
                   f"adjoint {impl} {plan.describe()}: {lhs} vs {rhs}")
-    print(f"  exact: v1 and global S·I == S (torch.equal); <Sx,y> == "
-          f"<x,S^T y> for v1 and the global pair; global gather == global "
-          f"forward on the zero-padded materialized gather, both layouts, "
-          f"all policies, {len(plans) + 2} plans")
+    # the v1 forward's row split forced to every R: S·I == S at a Br = 2 048
+    # plan, within each policy's tolerance of its plain version elsewhere
+    tall = make_plan(4096, 4096, kappa=4, s=2, block_rows=2048, seed=5)
+    eye = torch.eye(tall.d_pad, device="cuda")
+    S = blockperm.materialize_sketch_matrix(tall, "cuda")
+    for R in fsk.split_allowed(tall):
+        check(torch.equal(fsk.flashsketch_fwd_v1(tall, eye, row_splits=R), S),
+              f"v1 S·I != S at {tall.describe()} R={R}")
+    forced = 0
+    for plan, n in plans[:11]:
+        if plan.is_global:
+            continue
+        A = torch.randn(plan.d_pad, n, generator=gen, device="cuda") * 3
+        for pol in POLICIES:
+            p = plan.with_dtype(pol)
+            want = rt["ref"].flashsketch_v1_ref(p, fsk._stream(p, A).float())
+            for R in fsk.split_allowed(p):
+                _err(fsk.flashsketch_fwd_v1(p, A, row_splits=R), want, p,
+                     f"flashsketch_fwd_v1 {pol} {p.describe()} R={R}")
+                forced += 1
+    print(f"  exact: v1 and global S·I == S (torch.equal), v1 also at "
+          f"{tall.describe()} under every row split R in "
+          f"{fsk.split_allowed(tall)}; <Sx,y> == <x,S^T y> for v1 and the "
+          f"global pair; global gather == global forward on the zero-padded "
+          f"materialized gather, both layouts, all policies, "
+          f"{len(plans) + 2} plans; v1 within tolerance under every forced "
+          f"R ({forced} launches, all policies)")
     return {name: main_errs[(name, "float32")]
             for name in V1_KERNELS + GLOBAL_KERNELS}
 
@@ -885,12 +938,21 @@ def phase_grass_timing(rt, errs):
             work = grass_work(rt, plan, d_src, n, layout, gen)
             for name, w in work.items():
                 row = time_row(name, w, 0, errs[name])
+                split = ""
+                if name == "flashsketch_fwd_gather":
+                    split = (f"  R={fsk.row_splits(plan, 64)} (row-split"
+                             f"; kernel / library "
+                             f"{row['ms'] / row['library_ms']:.2f}")
+                    if label == "GraSS chunk" and layout == "view":
+                        split += (f"; it replaced a {REPLACED_MS[name]:.3f} "
+                                  f"ms kernel")
+                    split += ")"
                 print(f"  {label:11s} {layout:4s} {name:22s} kernel "
                       f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  "
                       f"bound {row['bound_ms']:.5f} ms ({row['bound_by']})  "
                       f"library {row['library_ms']:.4f} ms  share of bound "
                       f"{row['bound_ms'] / row['ms']:.4f}  "
-                      f"[{plan.describe()}, d_src={d_src}, n={n}]")
+                      f"[{plan.describe()}, d_src={d_src}, n={n}]{split}")
                 if label == "GraSS chunk" and layout == "view":
                     rows[name] = row
     for k in before:      # timing launches are not main-path launches
@@ -988,6 +1050,12 @@ def phase_family_timing(rt, main_plan, n, errs):
               f"({row['bound_by']})  library torch.sparse.mm "
               f"{row['library_ms']:.4f} ms (|lib - kernel| {lib_err:.2e})  "
               f"share of bound {row['bound_ms'] / row['ms']:.4f}")
+        if name == "flashsketch_fwd_v1":
+            fused = cuda_ms(lambda: fsk.flashsketch_fwd(p, A))
+            print(f"    row-split R={fsk.row_splits(p, 64)}; kernel / "
+                  f"library {row['ms'] / row['library_ms']:.2f}; the fused "
+                  f"forward at this plan {fused:.4f} ms in this run; it "
+                  f"replaced a {REPLACED_MS[name]:.3f} ms kernel")
     for k in before:      # timing launches are not main-path launches
         fsk.LAUNCHES[k] = before[k]
     return rows

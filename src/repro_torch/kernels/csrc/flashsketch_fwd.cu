@@ -46,18 +46,19 @@
 // bound above counts it once, and the gap is the first target of later work
 // (TMA loads, Φ shared across column tiles, wgmma on dense Φ tiles).
 //
-// Gather (the GraSS sparsify→sketch step, template flag kGather).  Row u of
-// input block h is read from source row row_map[h·Bc + u] of A (d_src, n)
-// instead of row h·Bc + u, so A[row_map] is never written.  The source rows
-// of a chunk are staged in shared memory beside its hashed entries; rows
-// h·Bc + u ≥ d (the padding of the masked dim) skip their load and add an
-// exact zero, as a zero-padded materialized gather would.  Everything else,
-// the order of the sums included, is the forward's, so on the card the
-// gather equals the forward on the zero-padded A[row_map] bit for bit.  A
-// is read through an explicit row and column stride: the per-example
-// gradients come as (c, D) row-major and are sketched as the (D, c) view
-// (row stride 1, column stride D) without a copy.  Bound: the d gathered
-// rows read once plus Y written once.
+// Gather (the GraSS sparsify→sketch step, fs_fwd_gather).  Row u of input
+// block h is read from source row row_map[h·Bc + u] of A (d_src, n)
+// instead of row h·Bc + u, so A[row_map] is never written.  It runs the
+// row-split body of row_split.cuh (redesigned for the GraSS chunk, where
+// the grid above is 4 blocks): rows h·Bc + u ≥ d (the padding of the
+// masked dim) skip their load and add an exact zero, as a zero-padded
+// materialized gather would, and every output element gets its adds in the
+// (ℓ, u) order of the kernel below, so on the card the gather equals the
+// forward on the zero-padded A[row_map] bit for bit.  A is read through an
+// explicit row and column stride: the per-example gradients come as (c, D)
+// row-major and are sketched as the (D, c) view (row stride 1, column
+// stride D) without a copy.  Bound: the d gathered rows read once plus Y
+// written once.
 //
 // Partial (the row-sharded apply, template flag kPartial).  A rank owns the
 // contiguous input blocks [lo, lo + M_loc) of the padded A, its slab.  The
@@ -75,49 +76,36 @@
 // bits, which adds level ℓ+1 onto level ℓ's running sum.  Bound: the slab
 // read once plus the compact output written once.
 
-#include "hash.cuh"
+#include "row_split.cuh"
 
 namespace {
 
 constexpr int kUnroll = 16;
 
 // Rows [uu, uu + kUnroll) of the current chunk in this thread's column
-// `col`, zero past nu, past the ragged edge and, in the gather, for the
-// padding rows (source row -1).  `row0` is the chunk's first row of A
-// (forward); `src` holds the chunk's source rows (gather).
-template <typename T, bool kGather>
+// `col`, zero past nu and past the ragged edge; `row0` is the chunk's first
+// row of A.
+template <typename T>
 __device__ __forceinline__ void load_rows(float (&a)[kUnroll], const T* col,
                                           long long rs, long long row0,
-                                          const int* src, int uu, int nu,
-                                          bool valid) {
+                                          int uu, int nu, bool valid) {
 #pragma unroll
   for (int t = 0; t < kUnroll; ++t) {
     const int v = uu + t;
-    float x = 0.f;
-    if (valid && v < nu) {
-      if constexpr (kGather) {
-        const int r = src[v];
-        if (r >= 0) x = fs::to_f32(col[static_cast<long long>(r) * rs]);
-      } else {
-        x = fs::to_f32(col[(row0 + v) * rs]);
-      }
-    }
-    a[t] = x;
+    a[t] = valid && v < nu ? fs::to_f32(col[(row0 + v) * rs]) : 0.f;
   }
 }
 
-template <typename T, bool kGather, bool kPartial>
+template <typename T, bool kPartial>
 __global__ void flashsketch_fwd_kernel(
     const T* __restrict__ A, float* __restrict__ Y, const int* __restrict__ tab,
-    const int* __restrict__ row_map, int M, int Br, int Bc, int kappa, int s,
-    long long n, long long rs, long long cs, int d, int d_src, uint32_t seed,
+    int M, int Br, int Bc, int kappa, int s, long long n, uint32_t seed,
     float scale, int uc) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int tn = blockDim.x;
   const int groups = blockDim.y;
   float* acc = reinterpret_cast<float*>(smem);               // (Br, tn)
   uint32_t* ent = reinterpret_cast<uint32_t*>(acc + Br * tn);  // (uc, s)
-  int* src = reinterpret_cast<int*>(ent + uc * s);           // (uc) gather
 
   // the output block; with kPartial the owned pair p (M is then M_loc)
   const int p = blockIdx.x;
@@ -129,7 +117,7 @@ __global__ void flashsketch_fwd_kernel(
   const int tid = q * tn + cl;
   const int nthreads = tn * groups;
   const uint32_t chunk = static_cast<uint32_t>(Br / s);
-  const T* col = A + (valid ? c * cs : 0);
+  const T* col = A + (valid ? c : 0);
 
   for (int idx = tid; idx < Br * tn; idx += nthreads) acc[idx] = 0.f;
 
@@ -145,24 +133,13 @@ __global__ void flashsketch_fwd_kernel(
         const int uu = e / s;
         ent[e] = fs::entry(prefix, u0 + uu, e - uu * s, chunk);
       }
-      if constexpr (kGather) {
-        for (int e = tid; e < nu; e += nthreads) {
-          int r = -1;               // padding: skip the load, add a zero
-          if (row0 + e < d) {
-            r = row_map[row0 + e];
-            if (r < 0 || r >= d_src) __trap();   // a row outside A
-          }
-          src[e] = r;
-        }
-      }
       __syncthreads();
       // software pipeline: the next kUnroll rows are in flight while the
       // current ones are added into the accumulator
       float a[kUnroll], next[kUnroll];
-      load_rows<T, kGather>(a, col, rs, row0, src, 0, nu, valid);
+      load_rows<T>(a, col, n, row0, 0, nu, valid);
       for (int uu = 0; uu < nu; uu += kUnroll) {
-        load_rows<T, kGather>(next, col, rs, row0, src, uu + kUnroll, nu,
-                              valid);
+        load_rows<T>(next, col, n, row0, uu + kUnroll, nu, valid);
 #pragma unroll
         for (int t = 0; t < kUnroll; ++t) {
           if (uu + t >= nu) break;
@@ -184,12 +161,11 @@ __global__ void flashsketch_fwd_kernel(
     dst[static_cast<long long>(r) * n] = acc[r * tn + cl] * scale;
 }
 
-template <typename T, bool kGather, bool kPartial = false>
-int launch(const void* A, void* Y, const void* tab, const void* row_map,
-           int M, int Br, int Bc, int kappa, int s, long long n, long long rs,
-           long long cs, int d, int d_src, unsigned int seed, float scale,
+template <typename T, bool kPartial = false>
+int launch(const void* A, void* Y, const void* tab, int M, int Br, int Bc,
+           int kappa, int s, long long n, unsigned int seed, float scale,
            int tn, int groups, int uc, int smem, void* stream) {
-  auto kern = flashsketch_fwd_kernel<T, kGather, kPartial>;
+  auto kern = flashsketch_fwd_kernel<T, kPartial>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -198,13 +174,13 @@ int launch(const void* A, void* Y, const void* tab, const void* row_map,
   const dim3 block(tn, groups);
   kern<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(A), static_cast<float*>(Y),
-      static_cast<const int*>(tab), static_cast<const int*>(row_map), M, Br,
-      Bc, kappa, s, n, rs, cs, d, d_src, seed, scale, uc);
+      static_cast<const int*>(tab), M, Br, Bc, kappa, s, n, seed, scale, uc);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Global families (CountSketch, sparse graph; template flag kGather as
-// above).  Output block g holds the rows [g·Br, (g+1)·Br) of one or more
+// Global families (CountSketch, sparse graph; template flag kGather: the
+// gather, rows read through row_map as fs_fwd_gather reads them).  Output
+// block g holds the rows [g·Br, (g+1)·Br) of one or more
 // row chunks i (chunk = k_pad/s, n_i = max(1, Br/chunk) of them, from
 // i_lo = g·Br/chunk); nonzero i of every column u lands in block g with
 // probability Br/chunk.  So the block does not walk its κ = M input blocks
@@ -324,26 +300,36 @@ extern "C" {
 int fs_fwd(const void* A, void* Y, const void* tab, int dtype, int M, int Br,
            int Bc, int kappa, int s, long long n, unsigned int seed,
            float scale, int tn, int groups, int uc, int smem, void* stream) {
-#define FS_LAUNCH(T)                                                        \
-  launch<T, false>(A, Y, tab, nullptr, M, Br, Bc, kappa, s, n, n, 1, 0, 0,  \
-                   seed, scale, tn, groups, uc, smem, stream)
+#define FS_LAUNCH(T)                                                     \
+  launch<T>(A, Y, tab, M, Br, Bc, kappa, s, n, seed, scale, tn, groups, uc, \
+            smem, stream)
   FS_DISPATCH(dtype, FS_LAUNCH)
 #undef FS_LAUNCH
 }
 
 // Y (k_pad, n) fp32 = S · A[row_map]: A (d_src, n) with row stride `rs` and
 // column stride `cs` (in elements), row_map (d_pad,) int32 source rows of
-// which the first d are read (a row outside [0, d_src) traps).  Otherwise
-// as fs_fwd.
-int fs_fwd_gather(const void* A, void* Y, const void* tab, const void* row_map,
-                  int dtype, int M, int Br, int Bc, int kappa, int s,
-                  long long n, long long rs, long long cs, int d, int d_src,
-                  unsigned int seed, float scale, int tn, int groups, int uc,
-                  int smem, void* stream) {
-#define FS_LAUNCH(T)                                                         \
-  launch<T, true>(A, Y, tab, row_map, M, Br, Bc, kappa, s, n, rs, cs, d,     \
-                  d_src, seed, scale, tn, groups, uc, smem, stream)
-  FS_DISPATCH(dtype, FS_LAUNCH)
+// which the first d are read (a row outside [0, d_src) traps).  S comes as
+// the plan's CSR (ptr, ent: see row_split.cuh).  The row-split body: grid
+// (M·R, ⌈n/tn⌉), block (tn, groups), `cap` ints of shared memory (the most
+// nonzeros a block has).  The integers come in one array, p = {dtype, M,
+// Br, Bc, κ, n, rs, cs, d, d_src, tn, groups, R, cap}, built once per
+// launch shape by the caller.  Launches on `stream` and returns
+// cudaGetLastError() (0 on success).
+int fs_fwd_gather(const void* A, void* Y, const void* ptr, const void* ent,
+                  const void* row_map, const long long* p, float scale,
+                  void* stream) {
+  const int M = static_cast<int>(p[1]), Br = static_cast<int>(p[2]);
+  const int Bc = static_cast<int>(p[3]), kappa = static_cast<int>(p[4]);
+  const int d = static_cast<int>(p[8]), d_src = static_cast<int>(p[9]);
+  const int tn = static_cast<int>(p[10]), groups = static_cast<int>(p[11]);
+  const int R = static_cast<int>(p[12]), cap = static_cast<int>(p[13]);
+#define FS_LAUNCH(T)                                                        \
+  fs::launch_split<T, true, false, false>(A, Y, ptr, ent, row_map, M, Br,    \
+                                          Bc, kappa, p[5], p[6], p[7], d,    \
+                                          d_src, scale, tn, groups, R, cap,  \
+                                          stream)
+  FS_DISPATCH(static_cast<int>(p[0]), FS_LAUNCH)
 #undef FS_LAUNCH
 }
 
@@ -356,9 +342,9 @@ int fs_fwd_partial(const void* A, void* Y, const void* tab, int dtype,
                    int M_loc, int Br, int Bc, int kappa, int s, long long n,
                    unsigned int seed, int tn, int groups, int uc, int smem,
                    void* stream) {
-#define FS_LAUNCH(T)                                                       \
-  launch<T, false, true>(A, Y, tab, nullptr, M_loc, Br, Bc, kappa, s, n, n, \
-                         1, 0, 0, seed, 1.f, tn, groups, uc, smem, stream)
+#define FS_LAUNCH(T)                                                   \
+  launch<T, true>(A, Y, tab, M_loc, Br, Bc, kappa, s, n, seed, 1.f, tn, \
+                  groups, uc, smem, stream)
   FS_DISPATCH(dtype, FS_LAUNCH)
 #undef FS_LAUNCH
 }

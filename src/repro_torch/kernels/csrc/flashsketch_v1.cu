@@ -28,16 +28,17 @@
 // one block owns (column tile j, output block g) and walks ℓ = 0..κ-1
 // itself.
 //
-//  * Forward.  Per ℓ the block hashes `uc` columns of input block h_ℓ at a
-//    time into packed (row, sign) words in shared memory (for a global plan,
-//    h_ℓ = ℓ and only the nonzeros whose global row lands in block g are
-//    kept, compacted in (u, i) order), then adds scale·(±A[u, c]) straight
-//    into Y in device memory, which L2 holds: the TPU's fp32 output block
-//    revisited κ times.  Thread group q owns the rows r ≡ q (mod groups) of
-//    the block and threadIdx.x one column, so every word of Y has one
-//    writer, which adds in (ℓ, u, i) order: no atomics, a fixed order.  No
-//    (B_r, tn) tile lives in shared memory, so the plans whose fused tile
-//    does not fit (B_r = 2 048, say) run here.
+//  * Forward.  The row-split body of row_split.cuh (redesigned: it added
+//    every nonzero's scale·(±a) straight into Y in device memory, each add
+//    waiting on the read-add-write before it).  Block (g, ρ, j) owns the
+//    rows [ρ·B_r/R, (ρ+1)·B_r/R) of output block g in column tile j and
+//    holds two fp32 tiles of them in shared memory: the current level's
+//    sum, in (u, i) order, and the running output, to which each finished
+//    level is added scaled, as the reference adds it; Y is written once.
+//    R splits the block so that the tiles fit shared memory for any B_r
+//    (B_r = 2 048 is what the lowering sends here) and the grid fills the
+//    card.  Global plans (h_ℓ = ℓ) keep only the nonzeros whose global row
+//    lands in the sub-range, compacted in (u, i) order.
 //  * Transpose.  A pure gather: per column u of input block hb the block
 //    hashes the κ·s words once into shared memory; thread (c, q) walks ℓ
 //    (g = π_ℓ⁻¹(hb)), sums the s rows of Y of that level and adds the
@@ -49,80 +50,9 @@
 //    it walks ℓ and the s per-row nonzeros (hash tag 0x5EED, iid wiring
 //    0xB10C), and adds each level's scaled sum.
 
-#include "hash.cuh"
+#include "row_split.cuh"
 
 namespace {
-
-// Forward.  Y (k_pad, n) is fully written: each thread zeroes its rows
-// first.  groups is a power of two.
-template <bool kGlobal>
-__global__ void __launch_bounds__(1024)
-fwd_v1_kernel(
-    const float* __restrict__ A, float* __restrict__ Y,
-    const int* __restrict__ tab, int M, int Br, int Bc, int kappa, int s,
-    long long n, int k_pad, uint32_t seed, float scale, int uc, int n_i) {
-  extern __shared__ __align__(16) uint32_t ent[];   // (cap) packed words
-  const int tn = blockDim.x;
-  const int groups = blockDim.y;
-  const int cap = kGlobal ? uc * n_i : uc * s;
-  int* ucol = reinterpret_cast<int*>(ent + cap);    // (cap) global only
-  int* scratch = ucol + cap;                         // nwarps + 1
-
-  const int g = blockIdx.y;
-  const int cl = threadIdx.x;
-  const int q = threadIdx.y;
-  const long long c = static_cast<long long>(blockIdx.x) * tn + cl;
-  const bool valid = c < n;
-  const int tid = q * tn + cl;
-  const int nthreads = tn * groups;
-  const uint32_t chunk = static_cast<uint32_t>(kGlobal ? k_pad / s : Br / s);
-  const long long row0 = static_cast<long long>(g) * Br;
-  const int i_lo = kGlobal ? static_cast<int>(row0 / chunk) : 0;
-  float* ycol = Y + row0 * n + (valid ? c : 0);
-  const float* acol = A + (valid ? c : 0);
-
-  if (valid)
-    for (int r = q; r < Br; r += groups)
-      ycol[static_cast<long long>(r) * n] = 0.f;
-
-  for (int ell = 0; ell < kappa; ++ell) {
-    const int h = kGlobal ? ell : tab[ell * M + g];
-    const uint32_t prefix =
-        kGlobal ? fs::global_prefix(seed) : fs::block_prefix(seed, g, h);
-    for (int u0 = 0; u0 < Bc; u0 += uc) {
-      const int nu = min(uc, Bc - u0);
-      int cnt;
-      __syncthreads();  // the previous chunk's words are consumed
-      if constexpr (kGlobal) {
-        cnt = fs::global_block_entries(
-            prefix, static_cast<long long>(h) * Bc + u0, nu, i_lo, n_i, chunk,
-            row0, Br, scratch, tid, nthreads,
-            [&](int slot, int uu, uint32_t w) {
-              ent[slot] = w;
-              ucol[slot] = uu;
-            });
-      } else {
-        for (int e = tid; e < nu * s; e += nthreads) {
-          const int uu = e / s;
-          ent[e] = fs::entry(prefix, u0 + uu, e - uu * s, chunk);
-        }
-        __syncthreads();
-        cnt = nu * s;
-      }
-      if (!valid) continue;
-      const float* arow = acol + (static_cast<long long>(h) * Bc + u0) * n;
-      for (int e = 0; e < cnt; ++e) {
-        const uint32_t w = ent[e];
-        const int r = static_cast<int>(w >> 1);
-        if ((r & (groups - 1)) != q) continue;
-        const int uu = kGlobal ? ucol[e] : e / s;
-        const float a = arow[static_cast<long long>(uu) * n];
-        float* y = ycol + static_cast<long long>(r) * n;
-        *y += scale * ((w & 1u) ? -a : a);
-      }
-    }
-  }
-}
 
 // Transpose, blockperm plans: grid (⌈n/tn⌉, M).
 __global__ void __launch_bounds__(1024)
@@ -234,25 +164,27 @@ unsigned int tiles(long long n, int tn) {
 extern "C" {
 
 // Y (k_pad, n) fp32 = S · A (d_pad, n) fp32, both row-major and contiguous;
-// tab is the (κ, M) int32 neighbour table (ignored for a global plan,
-// global != 0, whose κ = M levels are the input blocks in order).  `uc`
-// columns are hashed per chunk; n_i = max(1, Br·s/k_pad) row chunks meet an
-// output block of a global plan.  Launches on `stream` and returns
-// cudaGetLastError() (0 on success).
-int fs_fwd_v1(const void* A, void* Y, const void* tab, int global, int M,
-              int Br, int Bc, int kappa, int s, long long n, int k_pad,
-              unsigned int seed, float scale, int tn, int groups, int uc,
-              int n_i, int smem, void* stream) {
-  const dim3 grid(tiles(n, tn), M);
-  const dim3 block(tn, groups);
-  const float* a = static_cast<const float*>(A);
-  float* y = static_cast<float*>(Y);
-  const int* t = static_cast<const int*>(tab);
-  if (global)
-    return launch(fwd_v1_kernel<true>, grid, block, smem, stream, a, y, t, M,
-                  Br, Bc, kappa, s, n, k_pad, seed, scale, uc, n_i);
-  return launch(fwd_v1_kernel<false>, grid, block, smem, stream, a, y, t, M,
-                Br, Bc, kappa, s, n, k_pad, seed, scale, uc, n_i);
+// S comes as the plan's CSR (ptr, ent: see row_split.cuh), level segments
+// per row for a blockperm plan, the κ = M levels of a global plan told apart
+// by column.  The row-split body: grid (M·R, ⌈n/tn⌉), block (tn, groups).
+// The integers come in one array, p = {global, M, Br, Bc, κ, n, tn, groups,
+// R}, built once per launch shape by the caller.  Launches on `stream` and
+// returns cudaGetLastError() (0 on success).
+int fs_fwd_v1(const void* A, void* Y, const void* ptr, const void* ent,
+              const long long* p, float scale, void* stream) {
+  const int M = static_cast<int>(p[1]), Br = static_cast<int>(p[2]);
+  const int Bc = static_cast<int>(p[3]), kappa = static_cast<int>(p[4]);
+  const long long n = p[5];
+  const int tn = static_cast<int>(p[6]), groups = static_cast<int>(p[7]);
+  const int R = static_cast<int>(p[8]);
+  const int d_pad = M * Bc;
+  if (p[0])
+    return fs::launch_split<float, false, true, true>(
+        A, Y, ptr, ent, nullptr, M, Br, Bc, kappa, n, n, 1, d_pad, d_pad,
+        scale, tn, groups, R, 0, stream);
+  return fs::launch_split<float, false, true, false>(
+      A, Y, ptr, ent, nullptr, M, Br, Bc, kappa, n, n, 1, d_pad, d_pad, scale,
+      tn, groups, R, 0, stream);
 }
 
 // X (d_pad, n) fp32 = Sᵀ · Y (k_pad, n) fp32, both row-major and

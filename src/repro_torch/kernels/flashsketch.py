@@ -40,9 +40,14 @@ fp32, on the materialized gather for the gathers) for a CPU tensor.  Each
 launch adds one to the wrapper's entry of ``LAUNCHES``, so a run can show
 that it went through the kernels.
 
+The gather-fused forward (blockperm plans) and the v1 forward run the
+row-split body (``csrc/row_split.cuh``): each output block's Br rows over
+R blocks, one row per thread (``row_splits``), the nonzeros read from a
+CSR of S built once per plan on the device (``_device_csr``).
+
 How the kernels tile the work (``tn`` columns per block, thread groups,
-the chunk of hashed columns held in shared memory) is a launch choice made
-here; the plan geometry is not.
+the chunk of hashed columns held in shared memory, the row split R) is a
+launch choice made here; the plan geometry is not.
 """
 from __future__ import annotations
 
@@ -56,8 +61,9 @@ import numpy as np
 import torch
 
 from repro_torch.core import precision as precision_mod
-from repro_torch.core.blockperm import (BlockPermPlan, dense_block,
-                                        dense_global_block)
+from repro_torch.core.blockperm import (BlockPermPlan, block_rows_signs,
+                                        dense_block, dense_global_block,
+                                        global_rows_signs)
 from repro_torch.kernels import build
 from repro_torch.kernels import ref as kref
 
@@ -91,6 +97,9 @@ MAX_THREADS = 1024
 # The narrowest column tile (one warp); the lowering's downgrade ladder
 # asks whether a fused kernel fits shared memory there.
 MIN_TN = 32
+# Row-split kernels (the gather-fused forward and the v1 forward,
+# csrc/row_split.cuh): the most threads of a block (its __launch_bounds__).
+_SPLIT_MAX_THREADS = 512
 
 
 def reset_launch_counts() -> None:
@@ -173,9 +182,12 @@ def stacked_phi(plan: BlockPermPlan, g: int, neighbors) -> torch.Tensor:
 def _stream(plan: BlockPermPlan, operand: torch.Tensor) -> torch.Tensor:
     """Quantize the operand into the plan's streaming dtype: the streaming
     cast (``core.precision.quantize_stream``), keyed on ``plan.seed`` for
-    the stochastic-rounding policies."""
-    return precision_mod.quantize_stream(operand, plan.precision,
-                                         seed=plan.seed)
+    the stochastic-rounding policies; an operand already in a non-fp8
+    streaming dtype is that cast's result itself."""
+    p = plan.precision
+    if not p.is_fp8 and operand.dtype == p.stream_dtype:
+        return operand
+    return precision_mod.quantize_stream(operand, p, seed=plan.seed)
 
 
 # ---------------------------------------------------------------------------
@@ -213,31 +225,56 @@ def row_chunks_per_block(plan: BlockPermPlan) -> int:
     return max(1, plan.Br // plan.chunk)
 
 
-def _global_fwd_geometry(plan: BlockPermPlan, tn: int,
-                         acc: bool) -> Tuple[int, int, int]:
+def _global_fwd_geometry(plan: BlockPermPlan,
+                         tn: int) -> Tuple[int, int, int]:
     """(thread groups, hashed columns per chunk, shared bytes) of a global
-    forward: the (Br, tn) fp32 accumulator (``acc``), the compacted list
-    and the scan's scratch; groups is a power of two."""
+    forward: the (Br, tn) fp32 accumulator, the compacted list and the
+    scan's scratch; groups is a power of two."""
     groups = _pow2_floor(min(plan.Br, MAX_THREADS // tn))
     n_i = row_chunks_per_block(plan)
     uc = max(1, _GLOBAL_ENTRIES // n_i)
-    if not acc:
-        uc = min(uc, plan.Bc)
     nwarps = tn * groups // 32
-    return groups, uc, (4 * plan.Br * tn * int(acc) + 8 * uc * n_i
-                        + 4 * (nwarps + 1))
+    return groups, uc, (4 * plan.Br * tn + 8 * uc * n_i + 4 * (nwarps + 1))
 
 
-def fwd_launch(plan: BlockPermPlan, tn: int,
-               gather: bool = False) -> Tuple[int, int, int]:
+def fwd_launch(plan: BlockPermPlan, tn: int) -> Tuple[int, int, int]:
     """(thread groups, hashed columns per chunk, shared bytes) of the
-    forward kernel at tile width ``tn``; the gather also stages one source
-    row per hashed column (a global plan's list holds it anyway)."""
+    forward kernel at tile width ``tn`` (also the global gather's: its list
+    holds the source row anyway)."""
     if plan.is_global:
-        return _global_fwd_geometry(plan, tn, acc=True)
+        return _global_fwd_geometry(plan, tn)
     groups = max(1, min(plan.s, MAX_THREADS // tn))
     uc = max(1, _FWD_ENTRIES // plan.s)
-    return groups, uc, 4 * (plan.Br * tn + uc * (plan.s + int(gather)))
+    return groups, uc, 4 * (plan.Br * tn + uc * plan.s)
+
+
+@functools.lru_cache(maxsize=256)
+def split_allowed(plan: BlockPermPlan) -> Tuple[int, ...]:
+    """The row splits R the row-split kernels take for ``plan``: the powers
+    of two that divide Br."""
+    return tuple(1 << b for b in range(plan.Br.bit_length())
+                 if plan.Br % (1 << b) == 0)
+
+
+def split_launch(plan: BlockPermPlan, tn: int, R: int) -> int:
+    """Thread groups of a row-split kernel at tile width ``tn`` and split
+    ``R``: group q owns the rows q, q + G, … of the Br/R, as many groups as
+    fit ``_SPLIT_MAX_THREADS``.  The gather's shared memory is the most
+    nonzeros a block holds (``_csr_block_cap``); v1 uses none."""
+    return max(1, min(plan.Br // R, _SPLIT_MAX_THREADS // tn))
+
+
+@functools.lru_cache(maxsize=1024)
+def row_splits(plan: BlockPermPlan, tn: int) -> int:
+    """The split R of a row-split kernel at tile width ``tn``, a fixed rule
+    of the launch geometry: one output row per thread, so that no thread
+    sums more than one row's nonzeros in series, R = Br·tn/512 (a block of
+    ``_SPLIT_MAX_THREADS`` threads owns 512/tn rows), at least 1.  The
+    GraSS chunk (Br = 256, tn = 64) gets R = 32, 128 blocks; the main plan
+    (Br = 128) R = 16."""
+    allowed = split_allowed(plan)
+    want = max(1, plan.Br * tn // _SPLIT_MAX_THREADS)
+    return max(R for R in allowed if R <= want)
 
 
 def blockrow_launch(plan: BlockPermPlan, tn: int) -> Tuple[int, int]:
@@ -275,19 +312,6 @@ def transpose_launch(plan: BlockPermPlan,
     return groups, uc, tables + (tile if staged else 0), staged
 
 
-def fwd_v1_launch(plan: BlockPermPlan,
-                  tn: int) -> Tuple[int, int, int, int]:
-    """(thread groups, hashed columns per chunk, row chunks per block,
-    shared bytes) of the v1 forward: groups own the rows r ≡ q (mod
-    groups), a power of two; no accumulator tile."""
-    if plan.is_global:
-        groups, uc, smem = _global_fwd_geometry(plan, tn, acc=False)
-        return groups, uc, row_chunks_per_block(plan), smem
-    groups = _pow2_floor(min(plan.Br, MAX_THREADS // tn))
-    uc = max(1, _FWD_ENTRIES // plan.s)
-    return groups, uc, 1, 4 * uc * plan.s
-
-
 def transpose_v1_launch(plan: BlockPermPlan,
                         tn: int) -> Tuple[int, int, int]:
     """(thread groups, columns per chunk or rows per block, shared bytes)
@@ -305,27 +329,39 @@ def blockrow_v1_launch(plan: BlockPermPlan, tn: int) -> Tuple[int, int]:
     return max(1, min(plan.Br, MAX_THREADS // tn)), 8 * plan.kappa
 
 
+def is_row_split(plan: BlockPermPlan, op: str, gather: bool,
+                 v1: bool = False) -> bool:
+    """Whether the kernel of ``op`` is a row-split one: the blockperm
+    gather-fused forward and the v1 forward (global plans included)."""
+    return op == "fwd" and (v1 or (gather and not plan.is_global))
+
+
 def launch_geometry(plan: BlockPermPlan, op: str, gather: bool, tn: int,
-                    v1: bool = False, partial: bool = False) -> Tuple[int, int]:
-    """(thread groups, shared bytes) of the kernel of ``op`` at tile width
-    ``tn``: the fused one (with its gather), the v1 one, or the row-sharded
-    partial one (``partial``)."""
+                    v1: bool = False,
+                    partial: bool = False) -> Tuple[int, int, int]:
+    """(thread groups, shared bytes, row split R) of the kernel of ``op``
+    at tile width ``tn``: the fused one (with its gather), the v1 one, or
+    the row-sharded partial one (``partial``); R = 1 but for the row-split
+    kernels."""
     if partial:
-        return partial_launch(plan, tn, op == "blockrow")
+        return (*partial_launch(plan, tn, op == "blockrow"), 1)
+    if is_row_split(plan, op, gather, v1):
+        R = row_splits(plan, tn)
+        smem = 4 * _csr_block_cap(plan, torch.device("cpu"), R) if gather \
+            else 0
+        return split_launch(plan, tn, R), smem, R
     if v1:
         if op == "transpose":
             groups, _, smem = transpose_v1_launch(plan, tn)
-        elif op == "blockrow":
-            groups, smem = blockrow_v1_launch(plan, tn)
         else:
-            groups, _, _, smem = fwd_v1_launch(plan, tn)
+            groups, smem = blockrow_v1_launch(plan, tn)
     elif op == "transpose":
         groups, _, smem, _ = transpose_launch(plan, tn)
     elif op == "blockrow":
         groups, smem = blockrow_launch(plan, tn)
     else:
-        groups, _, smem = fwd_launch(plan, tn, gather)
-    return groups, smem
+        groups, _, smem = fwd_launch(plan, tn)
+    return groups, smem, 1
 
 
 def fitted_tn(plan: BlockPermPlan, op: str, n: int, gather: bool = False,
@@ -334,13 +370,22 @@ def fitted_tn(plan: BlockPermPlan, op: str, n: int, gather: bool = False,
     fused (or, with ``partial``, the row-sharded partial) kernel's shared
     memory exceeds ``MAX_SMEM_BYTES``; the rejected (tn, bytes) go to
     ``rejected``."""
+    tn, bad = _fitted_tn(plan, op, n, gather, partial)
+    if rejected is not None:
+        rejected.extend(bad)
+    return tn
+
+
+@functools.lru_cache(maxsize=1024)
+def _fitted_tn(plan: BlockPermPlan, op: str, n: int, gather: bool,
+               partial: bool) -> Tuple[int, Tuple[Tuple[int, int], ...]]:
     tn = default_tn(plan, op, n)
+    bad = []
     while tn > MIN_TN and (smem := launch_geometry(
             plan, op, gather, tn, partial=partial)[1]) > MAX_SMEM_BYTES:
-        if rejected is not None:
-            rejected.append((tn, smem))
+        bad.append((tn, smem))
         tn = max(MIN_TN, tn // 2 // 32 * 32)
-    return tn
+    return tn, tuple(bad)
 
 
 def _check_launch(plan: BlockPermPlan, operand: torch.Tensor, tn: int,
@@ -366,17 +411,41 @@ def _check_launch(plan: BlockPermPlan, operand: torch.Tensor, tn: int,
                          f"65535 column tiles at tn={tn}")
 
 
+_SYMBOLS: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
+
+
+def _current_stream(device: torch.device) -> int:
+    """The current CUDA stream of ``device`` as an int (PyTorch's raw
+    accessor where it has one: the public one builds a Stream object)."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None and device.index is not None:
+        return raw(device.index)
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+@functools.lru_cache(maxsize=1024)
+def _int_params(*values: int) -> Tuple[ctypes.Array, int]:
+    """A C array of long longs holding ``values`` and its address, kept
+    alive by the cache: a launch shape's integer arguments, converted
+    once."""
+    arr = (ctypes.c_longlong * len(values))(*values)
+    return arr, ctypes.addressof(arr)
+
+
 def _call(source: str, symbol: str, device: torch.device, *args) -> None:
     """Call ``symbol`` of the library built from ``source`` with ``args``,
     (ctypes type, value) pairs in the C function's order, on the current
-    stream of ``device``; raise with CUDA's message if the launch failed."""
-    lib = build.load(source)
-    fn = getattr(lib, symbol)
-    fn.argtypes = [t for t, _ in args] + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = fn(*[v for _, v in args], stream)
+    stream of ``device``; raise with CUDA's message if the launch failed.
+    The argument types are set at the symbol's first call."""
+    fn = _SYMBOLS.get((source, symbol))
+    if fn is None:
+        fn = getattr(build.load(source), symbol)
+        fn.argtypes = [t for t, _ in args] + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _SYMBOLS[source, symbol] = fn
+    err = fn(*[v for _, v in args], _current_stream(device))
     if err != 0:
+        lib = build.load(source)
         lib.fs_error_string.restype = ctypes.c_char_p
         lib.fs_error_string.argtypes = [ctypes.c_int]
         raise RuntimeError(f"{symbol} launch failed: "
@@ -527,9 +596,78 @@ def _plan_args(plan: BlockPermPlan, x: torch.Tensor):
             (_I, plan.d), (_I, x.shape[0]), (_U, plan.seed & 0xFFFFFFFF))
 
 
+@functools.lru_cache(maxsize=1024)
+def _split_geometry(plan: BlockPermPlan, tn: int, row_splits_: Optional[int],
+                    name: str) -> Tuple[int, int]:
+    """(R, thread groups) of a row-split launch; ``row_splits_`` forces R
+    (one of ``split_allowed``)."""
+    R = row_splits_ or row_splits(plan, tn)
+    if R not in split_allowed(plan):
+        raise ValueError(f"{name}: row_splits={R} is not one of "
+                         f"{split_allowed(plan)} for {plan.describe()}")
+    if tn > _SPLIT_MAX_THREADS:
+        raise ValueError(f"{name}: tn={tn} exceeds the {_SPLIT_MAX_THREADS} "
+                         f"threads of a row-split block")
+    return R, split_launch(plan, tn, R)
+
+
+@functools.lru_cache(maxsize=16)
+def _device_csr(plan: BlockPermPlan,
+                device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """S of ``plan`` as a CSR on ``device``, built once per plan from the
+    hashes of ``core.blockperm`` (the fused kernels' own hashes): ``ent``
+    int32 (column << 1) | sign bit of every nonzero, each row's sorted by
+    (ℓ, u); ``ptr`` int32, for a blockperm plan κ offsets per row (row r's
+    level ℓ is ent[ptr[r·κ+ℓ]:ptr[r·κ+ℓ+1]]) and a final end, for a global
+    plan one offset per row and a final end."""
+    if plan.is_global:
+        u = torch.arange(plan.d_pad, dtype=torch.int64, device=device)
+        rows, cols, negs = [], [], []
+        for i in range(plan.s):
+            r, sgn = global_rows_signs(plan, u, i)
+            rows.append(r)
+            cols.append(u)
+            negs.append(sgn < 0)
+        row, col, neg = torch.cat(rows), torch.cat(cols), torch.cat(negs)
+        seg, nseg = row, plan.k_pad
+    else:
+        tab = _device_table(plan, "fwd", device).to(torch.int64)
+        g = torch.arange(plan.M, device=device)[:, None, None]
+        u = torch.arange(plan.Bc, device=device)[None, :, None]
+        i = torch.arange(plan.s, device=device)[None, None, :]
+        rows, cols, negs, segs = [], [], [], []
+        for ell in range(plan.kappa):
+            h = tab[ell][:, None, None]
+            r, sgn = block_rows_signs(plan, g, h, u, i)
+            row = (g * plan.Br + r).reshape(-1)
+            rows.append(row)
+            cols.append((h * plan.Bc + u).expand_as(r).reshape(-1))
+            negs.append((sgn < 0).reshape(-1))
+            segs.append(row * plan.kappa + ell)
+        row, col, neg = torch.cat(rows), torch.cat(cols), torch.cat(negs)
+        seg, nseg = torch.cat(segs), plan.k_pad * plan.kappa
+    order = torch.argsort(seg * plan.d_pad + col)
+    ent = ((col << 1) | neg.to(torch.int64))[order].to(torch.int32)
+    counts = torch.bincount(seg, minlength=nseg)
+    ptr = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+    return ptr.to(torch.int32), ent
+
+
+@functools.lru_cache(maxsize=64)
+def _csr_block_cap(plan: BlockPermPlan, device: torch.device, R: int) -> int:
+    """The most nonzeros any block of the row-split grid at split ``R``
+    holds (its shared memory, in ints; read from the CSR once per plan and
+    split)."""
+    ptr, _ = _device_csr(plan, device)
+    rows_per_seg = 1 if plan.is_global else plan.kappa
+    edges = ptr[::rows_per_seg * (plan.Br // R)]
+    return max(1, int((edges[1:] - edges[:-1]).max()))
+
+
 def flashsketch_fwd_gather(plan: BlockPermPlan, A: torch.Tensor,
                            row_map: torch.Tensor, *,
-                           tn: Optional[int] = None) -> torch.Tensor:
+                           tn: Optional[int] = None,
+                           row_splits: Optional[int] = None) -> torch.Tensor:
     """Y = S · A[row_map] in one launch, without writing A[row_map].
 
     A is the ``(d_src, n)`` source, in any strides (the ``(D, c)`` view of
@@ -539,7 +677,9 @@ def flashsketch_fwd_gather(plan: BlockPermPlan, A: torch.Tensor,
     ``[0, d_src)`` stops the kernel with a device-side trap, as PyTorch's
     own indexing asserts on the card.  Returns ``(k_pad, n)`` fp32; on the
     card equal bit for bit to ``flashsketch_fwd`` on the zero-padded
-    ``A[row_map[:d]]``.
+    ``A[row_map[:d]]``, for every ``tn`` and row split.  ``row_splits``
+    forces the blockperm kernel's split R (checks on the card); ``None``
+    takes ``row_splits()``.
     """
     _check_row_map(plan, A, row_map, "flashsketch_fwd_gather")
     x = _stream(plan, A)
@@ -547,20 +687,34 @@ def flashsketch_fwd_gather(plan: BlockPermPlan, A: torch.Tensor,
         return kref.flashsketch_ref(plan, kref.gather_rows(plan, x, row_map))
     if A.device.type != "cuda":
         raise ValueError(f"no FlashSketch kernel for device {A.device}")
-    tn = tn or fitted_tn(plan, "fwd", x.shape[1], gather=True)
-    groups, uc, smem = fwd_launch(plan, tn, gather=True)
-    _check_launch(plan, x, tn, smem, None, "flashsketch_fwd_gather")
-    Y = torch.empty((plan.k_pad, x.shape[1]), dtype=torch.float32,
-                    device=x.device)
-    rmap = row_map.to(torch.int32).contiguous()
+    n = x.shape[1]
+    tn = tn or fitted_tn(plan, "fwd", n, gather=True)
+    Y = torch.empty((plan.k_pad, n), dtype=torch.float32, device=x.device)
+    rmap = row_map if row_map.dtype == torch.int32 and \
+        row_map.is_contiguous() else row_map.to(torch.int32).contiguous()
     if plan.is_global:
+        if row_splits not in (None, 1):
+            raise ValueError("flashsketch_fwd_gather: a global plan's gather "
+                             "has no row split")
+        groups, uc, smem = fwd_launch(plan, tn)
+        _check_launch(plan, x, tn, smem, None, "flashsketch_fwd_gather")
         _launch_global_fwd(plan, x, Y, rmap, tn, groups, uc, smem)
         LAUNCHES["flashsketch_fwd_gather_global"] += 1
         return Y
+    R, groups = _split_geometry(plan, tn, row_splits,
+                                "flashsketch_fwd_gather")
+    ptr, ent = _device_csr(plan, x.device)
+    cap = _csr_block_cap(plan, x.device, R)
+    _check_launch(plan, x, tn, 4 * cap, None, "flashsketch_fwd_gather")
+    # arr, the integers' buffer, stays referenced through the call
+    arr, params = _int_params(_DTYPE_CODES[x.dtype], plan.M, plan.Br,
+                              plan.Bc, plan.kappa, n, x.stride(0),
+                              x.stride(1), plan.d, x.shape[0], tn, groups, R,
+                              cap)
     _call("flashsketch_fwd.cu", "fs_fwd_gather", x.device,
-          *_pointer_args(x, Y, _device_table(plan, "fwd", x.device), rmap),
-          *_plan_args(plan, x), (_F, plan.scale),
-          *[(_I, v) for v in (tn, groups, uc, smem)])
+          (_P, x.data_ptr()), (_P, Y.data_ptr()), (_P, ptr.data_ptr()),
+          (_P, ent.data_ptr()), (_P, rmap.data_ptr()), (_P, params),
+          (_F, plan.scale))
     LAUNCHES["flashsketch_fwd_gather"] += 1
     return Y
 
@@ -695,10 +849,13 @@ def _v1_device(x: torch.Tensor, name: str) -> None:
 
 
 def flashsketch_fwd_v1(plan: BlockPermPlan, A: torch.Tensor, *,
-                       tn: Optional[int] = None) -> torch.Tensor:
+                       tn: Optional[int] = None,
+                       row_splits: Optional[int] = None) -> torch.Tensor:
     """Y = S A through the v1 kernel (global plans included).  A must be
     (d_pad, n); returns (k_pad, n) fp32.  CUDA tensors run the kernel, CPU
-    tensors its plain version ``ref.flashsketch_v1_ref``."""
+    tensors its plain version ``ref.flashsketch_v1_ref``.  ``row_splits``
+    forces the split R (checks on the card); ``None`` takes
+    ``row_splits()``."""
     if A.shape[0] != plan.d_pad:
         raise ValueError(f"A must have d_pad={plan.d_pad} rows, got "
                          f"{A.shape[0]}")
@@ -706,19 +863,19 @@ def flashsketch_fwd_v1(plan: BlockPermPlan, A: torch.Tensor, *,
     if A.device.type == "cpu":
         return kref.flashsketch_v1_ref(plan, x)
     _v1_device(x, "flashsketch_fwd_v1")
-    tn = tn or default_tn(plan, "fwd", x.shape[1], v1=True)
-    groups, uc, n_i, smem = fwd_v1_launch(plan, tn)
-    _check_launch(plan, x, tn, smem, plan.d_pad, "flashsketch_fwd_v1")
+    n = x.shape[1]
+    tn = tn or default_tn(plan, "fwd", n, v1=True)
+    R, groups = _split_geometry(plan, tn, row_splits, "flashsketch_fwd_v1")
+    ptr, ent = _device_csr(plan, x.device)
+    _check_launch(plan, x, tn, 0, plan.d_pad, "flashsketch_fwd_v1")
     x = x.contiguous()
-    Y = torch.empty((plan.k_pad, x.shape[1]), dtype=torch.float32,
-                    device=x.device)
-    tab = None if plan.is_global else _device_table(plan, "fwd", x.device)
+    Y = torch.empty((plan.k_pad, n), dtype=torch.float32, device=x.device)
+    # arr, the integers' buffer, stays referenced through the call
+    arr, params = _int_params(int(plan.is_global), plan.M, plan.Br,
+                              plan.Bc, plan.kappa, n, tn, groups, R)
     _call("flashsketch_v1.cu", "fs_fwd_v1", x.device, (_P, x.data_ptr()),
-          (_P, Y.data_ptr()), (_P, 0 if tab is None else tab.data_ptr()),
-          (_I, int(plan.is_global)), (_I, plan.M), (_I, plan.Br),
-          (_I, plan.Bc), (_I, plan.kappa), (_I, plan.s), (_LL, x.shape[1]),
-          (_I, plan.k_pad), (_U, plan.seed & 0xFFFFFFFF), (_F, plan.scale),
-          *[(_I, v) for v in (tn, groups, uc, n_i, smem)])
+          (_P, Y.data_ptr()), (_P, ptr.data_ptr()), (_P, ent.data_ptr()),
+          (_P, params), (_F, plan.scale))
     LAUNCHES["flashsketch_fwd_v1"] += 1
     return Y
 

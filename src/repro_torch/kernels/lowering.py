@@ -28,9 +28,11 @@ health counter ``lowering.downgrade``, decided from the geometry before any
 launch, as the reference decides it from its VMEM budget (which plans it
 catches is the card's own):
 
-  1. ``cuda`` + gather, the gather kernel's shared memory over the block's
-     limit at the narrowest tile (tn = 32) → materialize the gather and
-     continue as the plain op;
+  1. ``cuda`` + gather, the fused kernel of the op over the block's limit
+     at the narrowest tile (tn = 32) → materialize the gather and continue
+     as the plain op (the blockperm gather kernel splits its rows to fit
+     any plan, but fuses only where the op's own fused kernel runs, as the
+     reference's gather fuses only where its forward does);
   2. ``cuda``, the fused ``fwd`` / ``transpose`` / ``blockrow`` kernel over
      the limit at tn = 32 → ``cuda_v1``.
 
@@ -124,7 +126,10 @@ class Lowering:
     request ran as asked); ``gather`` the
     request and ``gather_fused`` what runs (``False``: ``A[row_index]`` is
     materialized first); ``tn``, ``groups`` and ``smem_bytes`` the CUDA
-    launch geometry (``None`` for the plain version); ``pad_rows`` the zero
+    launch geometry (``None`` for the plain version), ``row_splits`` the
+    split R of a row-split kernel (the fused gather of a blockperm plan and
+    the v1 forward: each output block's Br rows in R sub-ranges, one block
+    each; ``None`` for the other kernels); ``pad_rows`` the zero
     rows added to the operand (none with a fused gather: the kernel zeroes
     the padding rows itself).  Columns are never padded: the kernels mask
     the ragged edge.  ``shard`` / ``devices`` record a sharded launch; with
@@ -150,6 +155,7 @@ class Lowering:
     downgrade: Optional[str] = None
     shard: str = "none"
     devices: int = 1
+    row_splits: Optional[int] = None
 
     def describe(self) -> str:
         bits = [self.op, f"impl={self.impl}"]
@@ -166,6 +172,8 @@ class Lowering:
                  f"dtype={self.dtype}", f"n={self.n}"]
         if self.smem_bytes is not None:
             bits.append(f"groups={self.groups}, smem={self.smem_bytes}B")
+        if self.row_splits is not None:
+            bits.append(f"R={self.row_splits}")
         if self.downgrade:
             bits.append(f"downgrade[{self.downgrade}]")
         return "Lowering(" + ", ".join(bits) + ")"
@@ -275,9 +283,9 @@ def _lower(plan: BlockPermPlan, spec: LaunchSpec,
                 "A[row_index]")
             t(f"gather: materialized ({downgrades[-1]})")
         elif impl == "cuda" and (smem := fsk.launch_geometry(
-                eff, spec.op, True, fsk.MIN_TN)[1]) > fsk.MAX_SMEM_BYTES:
+                eff, spec.op, False, fsk.MIN_TN)[1]) > fsk.MAX_SMEM_BYTES:
             downgrades.append(
-                f"shared memory: the {spec.op!r} gather kernel needs {smem} B "
+                f"shared memory: the fused {spec.op!r} kernel needs {smem} B "
                 f"at tn={fsk.MIN_TN} > {fsk.MAX_SMEM_BYTES} B — gather "
                 f"materialized, then the regular dispatch runs on "
                 f"A[row_index]")
@@ -298,12 +306,13 @@ def _lower(plan: BlockPermPlan, spec: LaunchSpec,
     downgrade = "; ".join(downgrades) or None
     pad_rows = (eff.d_pad - eff.d
                 if spec.op != "transpose" and not gather_fused else 0)
+    splits = None
     if impl == "torch":
         t("torch: plain version (no tiling, no shared memory)")
         tn = groups = smem = grid_cols = None
         tn_source = "n/a"
     else:
-        tn, tn_source, groups, smem, grid_cols = _fit_tile(
+        tn, tn_source, groups, smem, grid_cols, splits = _fit_tile(
             eff, spec, n_loc, batch_loc, gather_fused, impl == "cuda_v1",
             False, t)
     if spec.batch > 1:
@@ -319,15 +328,17 @@ def _lower(plan: BlockPermPlan, spec: LaunchSpec,
         n=spec.n, grid_cols=grid_cols, groups=groups, smem_bytes=smem,
         pad_rows=pad_rows, gather=spec.gather, gather_fused=gather_fused,
         batch=spec.batch, downgrade=downgrade, shard=spec.shard,
-        devices=spec.devices if spec.shard != "none" else 1)
+        devices=spec.devices if spec.shard != "none" else 1,
+        row_splits=splits)
 
 
 def _fit_tile(eff: BlockPermPlan, spec: LaunchSpec, n_loc: int,
               batch_loc: int, gather_fused: bool, v1: bool, partial: bool,
-              t) -> Tuple[int, str, int, int, int]:
-    """(tn, its source, thread groups, shared bytes, column tiles) of the
-    kernel the lowering chose: the explicit tile, the v1 default, or the
-    default narrowed until that kernel's shared memory fits."""
+              t) -> Tuple[int, str, int, int, int, Optional[int]]:
+    """(tn, its source, thread groups, shared bytes, column tiles, row
+    split R or ``None``) of the kernel the lowering chose: the explicit
+    tile, the v1 default, or the default narrowed until that kernel's
+    shared memory fits; R for a row-split kernel (``fsk.row_splits``)."""
     if spec.tn is not None:
         tn, tn_source = spec.tn, "explicit"
     elif v1:
@@ -341,13 +352,20 @@ def _fit_tile(eff: BlockPermPlan, spec: LaunchSpec, n_loc: int,
         for bad, smem in rejected:
             t(f"tn={bad} rejected: {smem} B of shared memory > "
               f"{fsk.MAX_SMEM_BYTES} B")
-    groups, smem = fsk.launch_geometry(eff, spec.op, gather_fused, tn, v1,
-                                       partial)
+    groups, smem, R = fsk.launch_geometry(eff, spec.op, gather_fused, tn, v1,
+                                          partial)
     grid_cols = -(-n_loc // tn)
     t(f"tn: {tn} ({tn_source}); {'partial kernel, ' if partial else ''}"
       f"{groups} thread groups, {smem} B shared memory, {grid_cols} column "
       f"tiles")
-    return tn, tn_source, groups, smem, grid_cols
+    splits = None
+    if fsk.is_row_split(eff, spec.op, gather_fused, v1):
+        splits = R
+        tiles = -(-n_loc * batch_loc // tn)
+        t(f"row split: R={R} (each output block's {eff.Br} rows in {R} "
+          f"sub-ranges of {eff.Br // R}, one row per thread; grid "
+          f"{eff.M}x{R} x {tiles} = {eff.M * R * tiles} blocks)")
+    return tn, tn_source, groups, smem, grid_cols, splits
 
 
 def _lower_row(eff: BlockPermPlan, spec: LaunchSpec, impl: str,
@@ -369,7 +387,7 @@ def _lower_row(eff: BlockPermPlan, spec: LaunchSpec, impl: str,
                 f"tn={fsk.MIN_TN} > {fsk.MAX_SMEM_BYTES} B (Br={eff.Br}) and "
                 f"there is no v1 partial; run the plain version with "
                 f"impl='torch'")
-        tn, tn_source, groups, smem, grid_cols = _fit_tile(
+        tn, tn_source, groups, smem, grid_cols, _ = _fit_tile(
             eff, spec, spec.n, 1, False, False, True, t)
     t("pad: rows +0 (the slab is cut from the padded input), cols +0")
     return Lowering(

@@ -356,7 +356,12 @@ def test_gather_lowering_records_and_errors(gathered):
                                           batch=4))
     assert (cuda.gather, cuda.gather_fused, cuda.pad_rows, cuda.batch) == (
         True, True, 0, 4)
-    assert cuda.smem_bytes == tfsk.fwd_launch(pt, cuda.tn, gather=True)[2]
+    # the row-split gather kernel: R from its rule, the most nonzeros of a
+    # block in shared memory
+    assert cuda.row_splits == tfsk.row_splits(pt, cuda.tn)
+    assert (cuda.groups, cuda.smem_bytes) == (
+        tfsk.split_launch(pt, cuda.tn, cuda.row_splits),
+        4 * tfsk._csr_block_cap(pt, torch.device("cpu"), cuda.row_splits))
     assert "gather=fused" in cuda.describe()
     cpu = tlow.lower(pt, tlow.LaunchSpec(n=64, gather=True))
     assert (cpu.impl, cpu.gather_fused, cpu.pad_rows) == ("torch", False, 2)
@@ -625,3 +630,186 @@ def test_cuda_v1_and_global_kernels_match_plain(policy, cuda):
                 rhs = float((A[:d].double() * tops.sketch_apply_t(
                     p, Y, impl).double()).sum())
                 assert abs(lhs - rhs) <= 1e-5 * max(abs(lhs), 1.0)
+
+
+# ---------------------------------------------------------------------------
+# the row-split kernels (the gather-fused forward and the v1 forward): their
+# launch geometry, the per-plan CSR of S they read, and the order of their
+# sums
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("k,M,R", [(1024, 4, 32), (2048, 8, 32),
+                                   (4096, 16, 32)])
+def test_row_split_geometry_at_the_grass_chunk(k, M, R):
+    """GraSS (sparse dim 4 096, κ = 4, s = 2, chunks of n = 64): Br = 256,
+    one row per thread of a 512-thread block gives R = 32 and M·32 blocks;
+    the gather's shared memory holds the most nonzeros of a block."""
+    pt = tb.make_plan(4096, k, kappa=4, s=2)
+    lw = tlow.lower(pt, tlow.LaunchSpec(n=64, device="cuda", gather=True))
+    assert (pt.M, pt.Br, lw.tn, lw.gather_fused) == (M, 256, 64, True)
+    assert (lw.row_splits, lw.groups) == (R, 8)
+    assert pt.M * lw.row_splits * lw.grid_cols == M * R
+    cap = tfsk._csr_block_cap(pt, torch.device("cpu"), R)
+    assert lw.smem_bytes == 4 * cap <= tfsk.MAX_SMEM_BYTES
+    # a block holds its 8 rows' nonzeros, κ·s·Bc/Br a row on average
+    per_row = pt.kappa * pt.s * pt.Bc // pt.Br
+    assert 8 * per_row <= cap < 2 * 8 * per_row
+    assert f"R={R}" in lw.describe()
+    assert "row split: R=" in tlow.explain(pt, n=64, device="cuda",
+                                           gather=True)
+
+
+def test_row_split_geometry_main_and_v1_plans():
+    """The main plan (Br = 128) splits 16 ways, 8 192 blocks at n = 1 024;
+    the forward and transpose keep their own grid; the Br = 2 048 plan
+    still downgrades to cuda_v1, whose row split needs no shared memory."""
+    main = tb.make_plan(65536, 4096)
+    lw = tlow.lower(main, tlow.LaunchSpec(n=1024, device="cuda", gather=True))
+    assert (lw.row_splits, lw.groups, lw.grid_cols) == (16, 8, 16)
+    assert main.M * lw.row_splits * lw.grid_cols == 8192
+    assert lw.smem_bytes <= tfsk.MAX_SMEM_BYTES
+    for op in ("fwd", "transpose"):
+        plain = tlow.lower(main, tlow.LaunchSpec(op=op, n=1024,
+                                                 device="cuda"))
+        assert plain.row_splits is None and "R=" not in plain.describe()
+    big = tb.make_plan(65536, 4096, kappa=4, block_rows=2048)
+    v1 = tlow.lower(big, tlow.LaunchSpec(n=1000, device="cuda"))
+    assert (v1.impl, v1.row_splits, v1.groups, v1.smem_bytes) == (
+        "cuda_v1", 256, 8, 0)
+    assert big.M * v1.row_splits * v1.grid_cols == 4 * 256 * 16
+    assert "R=256" in v1.describe() and "downgrade[" in v1.describe()
+
+
+def test_row_split_rule_and_forced_splits():
+    """R = Br·tn/512 (one row per thread), at least 1, a power of two
+    dividing Br; a forced split must be one of ``split_allowed``."""
+    pt = tb.make_plan(1000, 96, kappa=4, s=2, seed=1)     # Br = 32
+    assert tfsk.split_allowed(pt) == (1, 2, 4, 8, 16, 32)
+    assert [tfsk.row_splits(pt, tn) for tn in (32, 64, 128, 512)] == [
+        2, 4, 8, 32]
+    assert tfsk.split_launch(pt, 64, 4) == 8
+    assert tfsk._split_geometry(pt, 64, 2, "x") == (2, 8)
+    with pytest.raises(ValueError, match="row_splits=3"):
+        tfsk._split_geometry(pt, 64, 3, "x")
+    with pytest.raises(ValueError, match="tn=1024"):
+        tfsk._split_geometry(pt, 1024, None, "x")
+
+
+_CSR_PLANS = [dict(d=1000, k=96, kappa=4, s=2, seed=5),
+              dict(d=4096, k=256, kappa=2, s=4, seed=24),
+              dict(d=3000, k=64, kappa=2, s=2, seed=7),
+              dict(d=1000, k=256, family="countsketch", s=1, block_rows=32,
+                   seed=2),
+              dict(d=1000, k=128, family="graph", s=4, block_rows=64,
+                   seed=4)]
+
+
+def _csr_rows(pt):
+    """Per output row, the (level, column, sign) of its CSR entries, in the
+    order the row-split kernels add them."""
+    ptr, ent = tfsk._device_csr(pt, torch.device("cpu"))
+    per = 1 if pt.is_global else pt.kappa
+    rows = []
+    for r in range(pt.k_pad):
+        row = []
+        for ell in range(per):
+            lo, hi = int(ptr[r * per + ell]), int(ptr[r * per + ell + 1])
+            for w in ent[lo:hi].tolist():
+                col = w >> 1
+                lvl = col // pt.Bc if pt.is_global else ell
+                row.append((lvl, col, -1.0 if w & 1 else 1.0))
+        rows.append(row)
+    return rows
+
+
+@pytest.mark.parametrize("kw", _CSR_PLANS)
+def test_device_csr_is_the_plans_sketch(kw):
+    """The CSR the row-split kernels read is S: the dense S of the plan
+    from its entries, each row's sorted by (ℓ, u), each blockperm level's
+    columns inside the input block the wiring names."""
+    kw = dict(kw)
+    pt = tb.make_plan(kw.pop("d"), kw.pop("k"), **kw)
+    rows = _csr_rows(pt)
+    D = torch.zeros(pt.k_pad, pt.d_pad)
+    for r, row in enumerate(rows):
+        for lvl, col, sign in row:
+            D[r, col] += sign
+    assert torch.equal(D * pt.scale, tb.materialize_sketch_matrix(pt))
+    tab = tfsk._fwd_neighbor_table(pt)
+    for r, row in enumerate(rows):
+        assert row == sorted(row, key=lambda e: (e[0], e[1]))
+        if not pt.is_global:
+            g = r // pt.Br
+            assert all(col // pt.Bc == tab[lvl, g] for lvl, col, _ in row)
+    assert sum(map(len, rows)) == pt.nnz_per_col * pt.d_pad
+
+
+def _emulate_row_split(pt, A, v1):
+    """The row-split kernels' sums in fp32, vectorized over rows and
+    columns: each row's CSR entries added one at a time in CSR order from
+    +0 (the gather), or each level's apart and folded in ℓ order (v1)."""
+    rows = _csr_rows(pt)
+    levels = pt.M if pt.is_global else pt.kappa
+    out = torch.zeros(pt.k_pad, A.shape[1])
+    run = torch.zeros_like(out)
+    acc = torch.zeros_like(out)
+    for ell in (range(levels) if v1 else [None]):
+        seqs = [[(c, sg) for lvl, c, sg in row if ell is None or lvl == ell]
+                for row in rows]
+        acc.zero_()
+        for j in range(max(map(len, seqs))):
+            for r, seq in enumerate(seqs):
+                if j < len(seq):
+                    c, sg = seq[j]
+                    acc[r] = acc[r] + sg * A[c]
+        if v1:
+            run = run + acc * pt.scale
+    return run if v1 else acc * pt.scale
+
+
+@pytest.mark.parametrize("kw", _CSR_PLANS[:2] + _CSR_PLANS[3:4])
+def test_row_split_sum_order_matches_the_plain_versions(kw, rng):
+    """Summed in the kernels' order from the CSR, the gather's and v1's
+    sums agree with their plain versions within fp32's exactness_atol."""
+    kw = dict(kw)
+    pt = tb.make_plan(kw.pop("d"), kw.pop("k"), **kw)
+    A = torch.from_numpy(rng.normal(size=(pt.d_pad, 3)).astype(np.float32))
+    want = tref.flashsketch_v1_ref(pt, A)
+    _close(_emulate_row_split(pt, A, True)[: pt.k], want, 1e-5)
+    if not pt.is_global:
+        _close(_emulate_row_split(pt, A, False)[: pt.k],
+               tref.flashsketch_ref(pt, A), 1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy", ["float32", "bfloat16", "fp8_e4m3_sr"])
+def test_cuda_row_split_forced_splits(policy, cuda):
+    """On the card, under every row split a block fits: the gather equals
+    the forward on the zero-padded materialized gather bit for bit in both
+    source layouts, v1 is within the policy's tolerance of its plain
+    version, and v1's S·I == S at a Br = 2 048 plan."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for d, k, kw, n, d_src in [(1000, 96, dict(kappa=4, s=2), 37, 3000),
+                               (4096, 1024, dict(kappa=4, s=2), 64, 109386)]:
+        p = tb.make_plan(d, k, dtype=policy, **kw)
+        ri = torch.randperm(d_src, generator=gen, device=cuda)[:d].sort()[0]
+        rmap = tlow.row_map_for(p, ri, cuda)
+        splits = [R for R in tfsk.split_allowed(p) if 4 * tfsk._csr_block_cap(
+            p, cuda, R) <= tfsk.MAX_SMEM_BYTES]
+        for src in (torch.randn(d_src, n, generator=gen, device=cuda),
+                    torch.randn(n, d_src, generator=gen, device=cuda).T):
+            flat = tfsk.flashsketch_fwd(p, tref.pad_input(p, src[ri]))
+            for R in splits:
+                assert torch.equal(tfsk.flashsketch_fwd_gather(
+                    p, src, rmap, row_splits=R), flat), R
+        A = torch.randn(p.d_pad, n, generator=gen, device=cuda)
+        want = tref.flashsketch_v1_ref(p, tfsk._stream(p, A).float())
+        for R in tfsk.split_allowed(p):
+            got = tfsk.flashsketch_fwd_v1(p, A, row_splits=R)
+            assert float((got - want).abs().max()) <= \
+                p.precision.exactness_atol * float(want.abs().max()), R
+    big = tb.make_plan(4096, 4096, kappa=4, s=2, block_rows=2048, seed=5)
+    eye = torch.eye(big.d_pad, device=cuda)
+    S = tb.materialize_sketch_matrix(big, cuda)
+    for R in (1, 8, 64, 2048):
+        assert torch.equal(tfsk.flashsketch_fwd_v1(big, eye, row_splits=R), S)
