@@ -15,7 +15,11 @@ Phases, any failure exits non-zero and prints no result:
      S·I == S, ⟨S x, y⟩ == ⟨x, Sᵀ y⟩, each gather == its kernel on the
      zero-padded materialized gather (the gather-fused forward also under
      every row split R it takes), and an identity row_index == the
-     non-gather kernel;
+     non-gather kernel; the fused forward (the row-split kernel
+     split_vec_kernel) under every row split R at the main plan and at a
+     Br = 32, Bc = 8 192 plan: within each policy's tolerance, the same
+     bits for every R, S·E == S on slabs E of the identity, and the gather
+     == the forward on the materialized gather under every R;
   3. the main path at the paper's size (d = 65 536, n = 1 024): the
      ``default``, ``fast`` and ``precise`` solver presets on a cond-1e4
      least-squares problem in float64, each solved twice (the first solve
@@ -32,10 +36,11 @@ Phases, any failure exits non-zero and prints no result:
      main shape; the gather-fused forward and both FLASHBLOCKROW kernels
      at the GraSS chunk (d_src = 109 386, d = 4 096, n = 64, k = 1 024) and
      at a bandwidth-sized shape (d_src = 262 144, d = 65 536, n = 1 024,
-     k = 4 096), the gathers in both operand layouts; for the two row-split
-     kernels (the gather-fused forward, the v1 forward) also their split R,
-     their time over the library's, and the time of the kernel they
-     replaced (the v1 forward beside the fused forward of the same run);
+     k = 4 096), the gathers in both operand layouts; for the row-split
+     kernels (the fused, gather-fused and v1 forwards, the compact
+     partial) also their split R or their time over the library's, and
+     for the gather and v1 the time of the kernel they replaced (the v1
+     forward beside the fused forward of the same run);
   5. GraSS data attribution at the paper's width (784 → 128 → 64 → 10,
      109 386 parameters; sparse dim 4 096, k ∈ {1024, 2048, 4096}, κ = 4,
      s = 2, chunks of 64; 5 000 train and 500 test examples, m = 50 LDS
@@ -48,8 +53,9 @@ Phases, any failure exits non-zero and prints no result:
      k = 4 096, gaussian data, cond 1e4): ``score_family`` of all eleven
      families, one trial (OSE error on U = orth(A), preconditioned-LSQR
      iterations, warm apply µs), the front; a BlockPerm apply at
-     Br = 2 048, whose lowering must downgrade to ``cuda_v1``; a backward
-     under ``impl="cuda_v1"``; FLASHBLOCKROW under ``impl="cuda_v1"``;
+     Br = 2 048, whose lowering runs the row-split forward with no
+     downgrade (the reference's ``pallas_v1``), and the same apply under
+     ``impl="cuda_v1"``; a backward under ``impl="cuda_v1"``; FLASHBLOCKROW under ``impl="cuda_v1"``;
      CountSketch's fused gather (== its apply on the materialized gather)
      and backward; the launch counts of this phase, which must show every
      v1 and global kernel.
@@ -75,7 +81,7 @@ Phases, any failure exits non-zero and prints no result:
      the run.
 
 Phase 2 also holds the three v1 kernels (ragged n with d < d_pad, κ × s ∈
-{1,2,4}², the Br = 2 048 plan the lowering downgrades, the main plan; the
+{1,2,4}², a Br = 2 048 plan, the main plan; the
 v1 forward also under every row split R, with S·I == S at a Br = 2 048
 plan) and
 the global forward, transpose and gather (CountSketch and graph plans,
@@ -90,7 +96,13 @@ holds both partial kernels (phase 7's) to their plain version under all
 six policies at the ragged plan, κ × s ∈ {1,2,4}², the main plan and its
 ``plan_for_mesh`` plan (Br = 1 024, tn = 32), the ranks of P ∈ {1, 2, 4}
 emulated in turn: the folded partials equal across P, non-owned pairs of
-the masked kernel exact zeros, S·I partials folded == S; phase 4 times
+the masked kernel exact zeros, S·I partials folded == S; and the
+Br = 2 048 plan (``make_plan(65 536, 4 096, kappa=4, block_rows=2048)``,
+which the reference sends to its jnp oracle) row-sharded at P = 2 through
+the compact kernel, held to the plain partial and to the single-device
+apply; and a masked partial whose level's Br·s words outgrow shared
+memory (Br = 8 192, s = 8: hashed in chunks of whole rows) at P ∈ {1, 2},
+held likewise; phase 4 times
 them at the main plan for one rank of P = 4 (M_loc = 8) and for P = 1,
 beside ``torch.sparse.mm`` of the rank's slice of S.
 
@@ -118,7 +130,7 @@ POLICIES = ("float32", "bfloat16", "fp8_e4m3", "fp8_e5m2", "fp8_e4m3_sr",
             "fp8_e5m2_sr")
 KERNEL_INFO = {
     "flashsketch_fwd": dict(
-        source="src/repro_torch/kernels/csrc/flashsketch_fwd.cu",
+        source="src/repro_torch/kernels/csrc/row_split.cuh",
         replaces="src/repro/kernels/flashsketch.py:594"),
     "flashsketch_transpose": dict(
         source="src/repro_torch/kernels/csrc/flashsketch_transpose.cu",
@@ -143,7 +155,7 @@ KERNEL_INFO = {
         replaces="src/repro/kernels/flashsketch.py:927"),
     # both bodies of the row-sharded partial (distributed slice)
     "flashsketch_fwd_partial": dict(
-        source="src/repro_torch/kernels/csrc/flashsketch_fwd.cu",
+        source="src/repro_torch/kernels/csrc/row_split.cuh",
         replaces="src/repro/kernels/flashsketch.py:736"),
     "blockrow_fwd_partial": dict(
         source="src/repro_torch/kernels/csrc/flashsketch_blockrow.cu",
@@ -342,6 +354,66 @@ def phase_kernels(rt, main_plan, n_main):
     return {name: main_errs[(name, "float32")] for name in MAIN_KERNELS}
 
 
+def phase_fwd_splits(rt, main_plan, n):
+    """The fused forward (split_vec_kernel) under every row split R at the
+    main plan and at a Br = 32, Bc = 8 192 plan (2 048 nonzeros a row):
+    within each policy's tolerance of its plain
+    version and the same bits for every R; exact: S·E == S[:, slab] for two
+    slabs E of 1 024 columns of the identity (every entry one ±scale
+    term), and the gather-fused forward == the forward on the zero-padded
+    materialized gather under every R the gather takes."""
+    fsk, ref, blockperm = rt["fsk"], rt["ref"], rt["blockperm"]
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    wide = blockperm.make_plan(main_plan.d, 256, kappa=4, s=2, seed=0)
+    check((wide.Br, wide.Bc) == (32, 8192), f"wide plan {wide.describe()}")
+    print("phase 2 (fused forward): every row split R, every policy")
+    worst = {}
+    for plan in (main_plan, wide):
+        splits = fsk.split_allowed(plan)
+        A = torch.randn(plan.d_pad, n, generator=gen, device="cuda") * 3
+        for pol in POLICIES:
+            p = plan.with_dtype(pol)
+            want = ref.flashsketch_ref(p, fsk._stream(p, A).float())
+            base = fsk.flashsketch_fwd(p, A)
+            err = _err(base, want, p, f"flashsketch_fwd {pol} {p.describe()}")
+            worst[pol] = max(worst.get(pol, 0.0), err)
+            for R in splits:
+                check(torch.equal(fsk.flashsketch_fwd(p, A, row_splits=R),
+                                  base),
+                      f"flashsketch_fwd {pol} {p.describe()} R={R}: bits "
+                      f"differ from the default split")
+        del A
+        S = blockperm.materialize_sketch_matrix(plan, "cuda")
+        for c0 in (0, plan.d_pad // 2 + 512):
+            E = torch.zeros(plan.d_pad, 1024, device="cuda")
+            E[torch.arange(c0, c0 + 1024, device="cuda"),
+              torch.arange(1024, device="cuda")] = 1.0
+            for R in splits:
+                check(torch.equal(fsk.flashsketch_fwd(plan, E, row_splits=R),
+                                  S[:, c0:c0 + 1024]),
+                      f"S·E != S at {plan.describe()} R={R} columns {c0}+")
+        del S, E
+        src = torch.randn(2 * plan.d, n, generator=gen, device="cuda")
+        ri = torch.randperm(2 * plan.d, generator=gen,
+                            device="cuda")[:plan.d].sort().values
+        rmap = rt["lowering"].row_map_for(plan, ri, "cuda")
+        flat = fsk.flashsketch_fwd(plan, ref.pad_input(plan, src[ri]))
+        gsplits = fitting_splits(rt, plan)
+        for R in gsplits:
+            check(torch.equal(fsk.flashsketch_fwd_gather(plan, src, rmap,
+                                                         row_splits=R), flat),
+                  f"gather R={R} at {plan.describe()}: not bit-equal to the "
+                  f"forward on the materialized gather")
+        print(f"  {plan.describe()} n={n}: R in {splits} the same bits "
+              f"(default R={fsk.vec_splits(plan, fsk.fwd_tn(plan, n))}, "
+              f"tn={fsk.fwd_tn(plan, n)}); "
+              f"S·E == S on 2 slabs of 1 024 columns under every R; gather "
+              f"== forward on the materialized gather under R in {gsplits}")
+        del src
+    print(f"  worst err vs plain by policy "
+          f"{ {k: f'{v:.2e}' for k, v in worst.items()} }")
+
+
 def phase_grass_kernels(rt):
     fsk, ref, make_plan = rt["fsk"], rt["ref"], rt["blockperm"].make_plan
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -446,8 +518,7 @@ def phase_family_kernels(rt, main_plan, n_main):
     fsk, blockperm, ops = rt["fsk"], rt["blockperm"], rt["ops"]
     make_plan = blockperm.make_plan
     gen = torch.Generator(device="cuda").manual_seed(5)
-    # v1: ragged n with d < d_pad, κ × s ∈ {1,2,4}², the plan the lowering
-    # downgrades (Br = 2 048, the fused tile does not fit shared memory)
+    # v1: ragged n with d < d_pad, κ × s ∈ {1,2,4}², a Br = 2 048 plan
     plans = [(make_plan(1000, 96, kappa=4, s=2, seed=1), 37)]
     plans += [(make_plan(4096, 256, kappa=k, s=s, seed=10 * k + s), 100)
               for k in (1, 2, 4) for s in (1, 2, 4)]
@@ -634,6 +705,42 @@ def phase_partial_kernels(rt, main_plan, n_main):
     for P in (1, 2, 4):
         check(torch.equal(sharded_serial(rt, plan, eye, P, False), S[:plan.k]),
               f"S·I partials folded != S at P={P}")
+    # the Br = 2 048 plan the reference sends to its jnp oracle: row-sharded
+    # at P = 2 through the compact kernel
+    f1 = make_plan(d, k, kappa=4, block_rows=2048, seed=0)
+    lw = rt["lowering"].lower(f1, rt["lowering"].LaunchSpec(
+        n=64, device="cuda", shard="row", devices=2))
+    check(lw.impl == "cuda" and lw.downgrade is None,
+          f"Br=2048 row-sharded lowering {lw.describe()}")
+    f1_errs = compare_partial_kernels(rt, f1, 64, gen, shards=(1, 2))
+    A = torch.randn(d, 64, generator=gen, device="cuda")
+    for pol in POLICIES:
+        p = f1.with_dtype(pol)
+        got = sharded_serial(rt, p, A, 2, False)
+        e = _err(got, ops.sketch_apply(p, A), p,
+                 f"Br=2048 P=2 sharded vs single device {pol}")
+        print(f"  {p.describe()} P=2 {pol:12s} partial vs plain "
+              f"{f1_errs[('flashsketch_fwd_partial', pol)]:.3e}, sharded vs "
+              f"the single-device apply {e:.3e}")
+    # a masked partial whose level's Br·s words (65 536) outgrow shared
+    # memory: its kernel hashes them in two chunks of whole rows
+    big_rows = make_plan(16_384, 16_384, kappa=2, s=8, block_rows=8192,
+                         seed=4)
+    lw = rt["lowering"].lower(big_rows, rt["lowering"].LaunchSpec(
+        op="blockrow", n=40, device="cuda", shard="row", devices=2))
+    check(lw.impl == "cuda" and lw.downgrade is None
+          and lw.smem_bytes < 4 * big_rows.Br * big_rows.s,
+          f"chunked masked partial lowering {lw.describe()}")
+    chunk_errs = compare_partial_kernels(rt, big_rows, 40, gen, shards=(1, 2))
+    A = torch.randn(big_rows.d, 40, generator=gen, device="cuda")
+    for pol in ("float32", "bfloat16"):
+        p = big_rows.with_dtype(pol)
+        e = _err(sharded_serial(rt, p, A, 2, True), ops.blockrow_apply(p, A),
+                 p, f"chunked masked partial P=2 vs single device {pol}")
+        print(f"  {p.describe()} masked partial in chunks of "
+              f"{lw.smem_bytes // (4 * p.s)} rows, {pol:9s} vs plain "
+              f"{chunk_errs[('blockrow_fwd_partial', pol)]:.3e}, P=2 sharded "
+              f"vs the single-device apply {e:.3e}")
     print(f"  exact: {len(plans) + 2} plans x 6 policies: folded partials "
           f"equal across P (torch.equal), non-owned masked pairs exact "
           f"zeros, S·I partials folded == S at P in (1, 2, 4); small plans "
@@ -841,12 +948,17 @@ def phase_timing(rt, plan, n, launches, errs):
     for name, w in work.items():
         row = time_row(name, w, launches[name], errs[name])
         rows.append(row)
+        split = ""
+        if name == "flashsketch_fwd":
+            tn = fsk.fwd_tn(plan, n)
+            split = (f"  [row-split R={fsk.vec_splits(plan, tn)}, tn={tn}; "
+                     f"kernel / library {row['ms'] / row['library_ms']:.2f}]")
         print(f"  {name:22s} kernel {row['ms']:.4f} ms  plain "
               f"{row['plain_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms "
               f"({row['bound_by']})  library torch.sparse.mm "
               f"{row['library_ms']:.4f} ms (|lib - kernel| "
               f"{lib_err[name]:.2e})  share of bound "
-              f"{row['bound_ms'] / row['ms']:.3f}")
+              f"{row['bound_ms'] / row['ms']:.3f}{split}")
     bf = plan.with_dtype("bfloat16")
     k_bf = cuda_ms(lambda: fsk.flashsketch_fwd(bf, A))
     print(f"  flashsketch_fwd bf16 stream (cast included) {k_bf:.4f} ms")
@@ -1140,7 +1252,8 @@ def phase_partial_timing(rt, plan, n, errs):
                   f"{row['bound_ms']:.4f} ms ({row['bound_by']}, "
                   f"{io / 1e6:.1f} MB)  library {row['library_ms']:.4f} ms "
                   f"(|lib - kernel| {lib_err:.2e})  share of bound "
-                  f"{row['bound_ms'] / row['ms']:.4f}")
+                  f"{row['bound_ms'] / row['ms']:.4f}  kernel / library "
+                  f"{row['ms'] / row['library_ms']:.2f}")
             if P == 4:
                 rows_out[name] = row
     for k in before:      # timing launches are not main-path launches
@@ -1199,11 +1312,13 @@ def phase_families(rt, main_plan):
     lw = big.lowering_for(reg["n"], device="cuda")
     print(f"  BlockPermSketch(d={reg['d']}, k={reg['k']}, kappa=4, "
           f"block_rows=2048): {lw.describe()}")
-    check(lw.impl == "cuda_v1" and "cuda_v1" in (lw.downgrade or ""),
-          "the Br=2048 apply did not downgrade to cuda_v1")
+    check(lw.impl == "cuda" and lw.downgrade is None and lw.row_splits,
+          "the Br=2048 apply did not lower to the row-split forward")
     Yb = big.apply(A)
-    _err(Yb, ref.flashsketch_v1_ref(big.plan, A), big.plan,
-         "downgraded apply")
+    _err(Yb, ref.flashsketch_ref(big.plan, A), big.plan, "Br=2048 apply")
+    _err(ops.sketch_apply(big.plan, A, "cuda_v1"),
+         ref.flashsketch_v1_ref(big.plan, A), big.plan,
+         "Br=2048 apply under cuda_v1")
     A32 = A.clone().requires_grad_(True)
     Y = ops.sketch_apply(main_plan, A32, "cuda_v1")
     (Y ** 2).sum().backward()
@@ -1226,7 +1341,8 @@ def phase_families(rt, main_plan):
          "CountSketch backward")
     torch.cuda.synchronize()
     launches = dict(fsk.LAUNCHES)
-    print(f"  downgraded apply, cuda_v1 backward (max err {gerr:.3e}), "
+    print(f"  Br=2048 apply (row-split forward and cuda_v1), cuda_v1 "
+          f"backward (max err {gerr:.3e}), "
           f"blockrow cuda_v1, CountSketch gather == apply (torch.equal) "
           f"and backward: checked")
     print(f"  launch counts over phase 6: {launches}")
@@ -1707,6 +1823,8 @@ def main() -> int:
                               SOLVER_PRESETS["default"].sampling_factor))
     try:
         errs = timed("phase 2", phase_kernels, rt, main_plan, n)
+        timed("phase 2, fused forward splits", phase_fwd_splits, rt,
+              main_plan, n)
         errs.update(timed("phase 2, GraSS kernels", phase_grass_kernels, rt))
         errs.update(timed("phase 2, v1 and global kernels",
                           phase_family_kernels, rt, main_plan, n))

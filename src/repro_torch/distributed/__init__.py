@@ -16,7 +16,6 @@
 from repro_torch.distributed.sharded_apply import (  # noqa: F401
     check_row_partition,
     local_partial_apply,
-    partial_fits_smem,
     partial_tables,
     plan_for_mesh,
     rank_world,

@@ -42,7 +42,8 @@ From the reference's API to this one:
     ``dist.all_reduce(SUM)``; ``out_specs=P(None, None)`` (replicated) → the
     same ``(k, n)`` on every rank; ``out_specs=P(axis)`` → the local slab.
   * ``impl`` ``"pallas" | "xla"`` → ``"cuda" | "torch"``.
-  * ``partial_fits_vmem`` → ``partial_fits_smem`` (the card's own budget).
+  * ``partial_fits_vmem`` → none: both partial kernels run every plan
+    (the lowering records no downgrade for a row-sharded launch).
   * ``_phi_pairs`` → ``ref._phi_all_blocks`` on the full grid (the owned
     pairs are its rows ``g``); ``_partial_oracle`` → ``ref.partial_ref``; ``fsk.flashsketch_pallas_partial`` →
     ``fsk.flashsketch_partial``.
@@ -59,8 +60,6 @@ from repro_torch.core.blockperm import BlockPermPlan, _next_pow2, make_plan
 from repro_torch.kernels import flashsketch as fsk
 from repro_torch.kernels import lowering, ops
 from repro_torch.kernels import ref as kref
-
-partial_fits_smem = lowering.partial_fits_smem
 
 
 def rank_world(group=None) -> Tuple[int, int]:

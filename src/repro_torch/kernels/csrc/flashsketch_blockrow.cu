@@ -137,13 +137,17 @@ int launch(const void* A, void* Y, const void* tab, const void* row_map,
 // sum depends on neither the shard count nor the tile, so the partials
 // summed over the ranks (one nonzero contributor per element) and folded in
 // ℓ order are the same bits for every shard count (not the fused kernel's,
-// which sums over ℓ in one register).  Bound: the slab rows some nonzero
-// names, read once, plus the (κ, k_pad, n) output written once.
+// which sums over ℓ in one register).  The block hashes its Br·s words into
+// shared memory `chunk` rows at a time (chunk·s words, all Br rows where
+// they fit), so every plan runs: a row's words never straddle two chunks,
+// and its sum is the same in every chunking.  Bound: the slab rows some
+// nonzero names, read once, plus the (κ, k_pad, n) output written once.
 template <typename T>
 __global__ void blockrow_partial_kernel(
     const T* __restrict__ A, float* __restrict__ Y, const int* __restrict__ tab,
-    int M, int Br, int Bc, int kappa, int s, long long n, uint32_t seed) {
-  extern __shared__ __align__(16) uint32_t ent[];   // (Br, s)
+    int M, int Br, int Bc, int kappa, int s, long long n, uint32_t seed,
+    int chunk) {
+  extern __shared__ __align__(16) uint32_t ent[];   // (chunk, s)
   const int tn = blockDim.x;
   const int groups = blockDim.y;
   const int p = blockIdx.x;
@@ -161,24 +165,28 @@ __global__ void blockrow_partial_kernel(
   const int local = tab[p];
   const int h = tab[kappa * M + p];
   const uint32_t prefix = fs::blockrow_prefix(seed, g, h);
-  // entry word: (slab row << 1) | sign
-  for (int e = q * tn + cl; e < Br * s; e += tn * groups) {
-    const int r = e / s;
-    const uint32_t w = fs::blockrow_entry(prefix, r, e - r * s, Bc);
-    ent[e] = (static_cast<uint32_t>(local * Bc + (w >> 1)) << 1) | (w & 1u);
-  }
-  __syncthreads();
-  if (c >= n) return;
   const T* col = A + c;
-  for (int r = q; r < Br; r += groups) {
-    float sum = 0.f;
-    const uint32_t* wr = ent + r * s;
-    for (int t = 0; t < s; ++t) {
-      const uint32_t w = wr[t];
-      const float a = fs::to_f32(col[static_cast<long long>(w >> 1) * n]);
-      sum += (w & 1u) ? -a : a;
+  for (int r0 = 0; r0 < Br; r0 += chunk) {
+    const int rows = min(chunk, Br - r0);
+    if (r0) __syncthreads();              // the last chunk's reads are done
+    // entry word: (slab row << 1) | sign
+    for (int e = q * tn + cl; e < rows * s; e += tn * groups) {
+      const int r = e / s;
+      const uint32_t w = fs::blockrow_entry(prefix, r0 + r, e - r * s, Bc);
+      ent[e] = (static_cast<uint32_t>(local * Bc + (w >> 1)) << 1) | (w & 1u);
     }
-    dst[static_cast<long long>(r) * n] = sum;
+    __syncthreads();
+    if (c >= n) continue;
+    for (int r = q; r < rows; r += groups) {
+      float sum = 0.f;
+      const uint32_t* wr = ent + r * s;
+      for (int t = 0; t < s; ++t) {
+        const uint32_t w = wr[t];
+        const float a = fs::to_f32(col[static_cast<long long>(w >> 1) * n]);
+        sum += (w & 1u) ? -a : a;
+      }
+      dst[static_cast<long long>(r0 + r) * n] = sum;
+    }
   }
 }
 
@@ -190,11 +198,13 @@ int launch_partial(const void* A, void* Y, const void* tab, int M, int Br,
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const int chunk = smem / (4 * s);
+  if (chunk < 1) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(kappa * M, static_cast<unsigned int>((n + tn - 1) / tn));
   const dim3 block(tn, groups);
   kern<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(A), static_cast<float*>(Y),
-      static_cast<const int*>(tab), M, Br, Bc, kappa, s, n, seed);
+      static_cast<const int*>(tab), M, Br, Bc, kappa, s, n, seed, chunk);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -227,7 +237,8 @@ int fs_blockrow(const void* A, void* Y, const void* tab, const void* row_map,
 // Row-sharded FLASHBLOCKROW partials: Y (κ, k_pad, n) fp32, unscaled, for
 // a slab A (M_loc·Bc, n) of the padded input, both row-major and
 // contiguous; tab is the (3, κ, M) int32 table [local block, global h,
-// owned] on the device.  Launches on `stream` and returns
+// owned] on the device; smem = 4·chunk·s bytes holds the hashed words of
+// `chunk` rows (1 ≤ chunk ≤ Br).  Launches on `stream` and returns
 // cudaGetLastError() (0 on success).
 int fs_blockrow_partial(const void* A, void* Y, const void* tab, int dtype,
                         int M, int Br, int Bc, int kappa, int s, long long n,

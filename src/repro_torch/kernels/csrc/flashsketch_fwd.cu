@@ -8,10 +8,9 @@
 // graph) both with Φ from _phi_global_tile (:165) and the all-blocks table
 // _global_table (:118), here global_fwd_kernel (see its note); and the
 // compact body of flashsketch.py:736 flashsketch_pallas_partial,
-// _partial_fwd_kernel (:378), the template flag kPartial (see its note).
-// Plain versions: repro_torch/kernels/ref.py:flashsketch_ref on the
-// streamed operand, on its materialized gather (ref.gather_rows), and
-// ref.partial_ref.
+// _partial_fwd_kernel (:378).  Plain versions:
+// repro_torch/kernels/ref.py:flashsketch_ref on the streamed operand, on its
+// materialized gather (ref.gather_rows), and ref.partial_ref.
 //
 // What it computes: for output block g, Y[g·Br + r, c] = scale ·
 // Σ_ℓ Σ_u Σ_i [row(g, h_ℓ, u, i) = r] · sign(g, h_ℓ, u, i) · A[h_ℓ·Bc + u, c]
@@ -29,154 +28,54 @@
 // sums are κs adds per element of A, far below the fp32 rate: the kernel is
 // bound by bytes.
 //
-// Design.  The TPU kernel holds the dense stacked Φ* (Br, κ·Bc) in VMEM; at
-// the main plan that is 4 MiB, and a block here has at most 227 KB of shared
-// memory.  So Φ* is never materialised: one block per (g, column tile j)
-// hashes the compact form, one packed (row, sign) word per nonzero, for a
-// chunk of `uc` columns u at a time, into shared memory.  Its threads then
-// stream the rows h_ℓ·Bc + u of A, neighbouring threads on neighbouring
-// columns (coalesced), and add ±a into an fp32 (Br, tn) accumulator in
-// shared memory, with the next rows' loads in flight while the current ones
-// are added.  threadIdx.x owns one column; threadIdx.y picks a subset of
-// the s nonzero indices i, whose rows lie in disjoint chunks [i·Br/s,
-// (i+1)·Br/s), so no two threads ever touch one accumulator word: no
-// atomics, and the order of the sums is fixed.  Each output tile is written
-// once, scaled.  The ragged n edge is masked.  Every block reads its κ input
-// blocks itself, so A is read κ times in all (from L2 where it hits); the
-// bound above counts it once, and the gap is the first target of later work
-// (TMA loads, Φ shared across column tiles, wgmma on dense Φ tiles).
+// Design (blockperm plans: fs_fwd, fs_fwd_partial, fs_fwd_gather).  The TPU
+// kernel holds the dense stacked Φ* (Br, κ·Bc) in VMEM; at the main plan
+// that is 4 MiB, and a block here has at most 227 KB of shared memory.  All
+// three run the row-split bodies of row_split.cuh, which read S from the
+// plan's CSR (built once per plan on the card) and keep every sum in a
+// register: the forward and the partial split_vec_kernel, 16-byte loads of
+// A, 4 fp32 (8 bf16, 16 fp8) columns a thread, so a CSR word and its address
+// arithmetic are paid once per 16 bytes and a warp's request covers 256-512
+// contiguous bytes; the gather split_fwd_kernel, one column a thread through
+// explicit strides.  Each output element gets its adds in (ℓ, u) order
+// from +0, then × scale, the order of the kernel this body replaced (one
+// block per (g, column tile) with Φ hashed in every block and a (Br, tn)
+// shared-memory accumulator), so the forward kept its bits; see
+// row_split.cuh for the grid, the sum order and what bounds it.
 //
 // Gather (the GraSS sparsify→sketch step, fs_fwd_gather).  Row u of input
 // block h is read from source row row_map[h·Bc + u] of A (d_src, n)
-// instead of row h·Bc + u, so A[row_map] is never written.  It runs the
-// row-split body of row_split.cuh (redesigned for the GraSS chunk, where
-// the grid above is 4 blocks): rows h·Bc + u ≥ d (the padding of the
-// masked dim) skip their load and add an exact zero, as a zero-padded
-// materialized gather would, and every output element gets its adds in the
-// (ℓ, u) order of the kernel below, so on the card the gather equals the
-// forward on the zero-padded A[row_map] bit for bit.  A is read through an
-// explicit row and column stride: the per-example gradients come as (c, D)
-// row-major and are sketched as the (D, c) view (row stride 1, column
-// stride D) without a copy.  Bound: the d gathered rows read once plus Y
-// written once.
+// instead of row h·Bc + u, so A[row_map] is never written.  Rows h·Bc + u
+// ≥ d (the padding of the masked dim) skip their load and add an exact
+// zero, as a zero-padded materialized gather would, and every output
+// element gets its adds in the forward's (ℓ, u) order, so on the card the
+// gather equals the forward on the zero-padded A[row_map] bit for bit.  A is
+// read through an explicit row and column stride: the per-example
+// gradients come as (c, D) row-major and are sketched as the (D, c) view
+// (row stride 1, column stride D) without a copy.  Bound: the d gathered
+// rows read once plus Y written once.
 //
-// Partial (the row-sharded apply, template flag kPartial).  A rank owns the
+// Partial (the row-sharded apply, fs_fwd_partial).  A rank owns the
 // contiguous input blocks [lo, lo + M_loc) of the padded A, its slab.  The
 // wiring π_ℓ is a permutation, so each owned block h feeds one output block
 // g = π_ℓ⁻¹(h) per level: the rank's work is the κ·M_loc owned pairs of the
-// (2, κ, M_loc) table [g, h] (global ids, which feed the hashes).  Block
-// p = ℓ·M_loc + m of the grid is pair p: the forward's body with one level,
-// h from the table, input block m of the slab, unscaled, written once into
-// row block p of the compact (κ, M_loc·Br, n) output; the caller scatters
-// it into the global (κ, k_pad, n) layout.  A pair's sums run in the
-// forward's per-level order (u, then the thread group's i), which depends
-// on neither M_loc, tn nor the thread groups: the partials, summed over the
+// (2, κ, M_loc) table [g, h] (global ids).  Row block p = ℓ·M_loc + m of the
+// compact (κ, M_loc·Br, n) output is pair p: each row of g sums level ℓ's
+// CSR segment alone (its columns all in block h, read as rows of slab block
+// m), unscaled, in u order from +0, the per-level order of the partial's
+// first kernel, which depends on neither M_loc, tn nor R: the partials, summed over the
 // ranks (one nonzero contributor per element) and folded in ℓ order, are
 // the same bits for every shard count.  They are not the fused forward's
-// bits, which adds level ℓ+1 onto level ℓ's running sum.  Bound: the slab
-// read once plus the compact output written once.
+// bits, which adds level ℓ+1 onto level ℓ's running sum.  The CSR is the
+// whole plan's (4 bytes per nonzero on every rank).  No (Br, tn)
+// accumulator, so every plan the reference runs has a kernel here.  Bound:
+// the slab read once plus the compact output written once.
 
 #include "row_split.cuh"
 
 namespace {
 
 constexpr int kUnroll = 16;
-
-// Rows [uu, uu + kUnroll) of the current chunk in this thread's column
-// `col`, zero past nu and past the ragged edge; `row0` is the chunk's first
-// row of A.
-template <typename T>
-__device__ __forceinline__ void load_rows(float (&a)[kUnroll], const T* col,
-                                          long long rs, long long row0,
-                                          int uu, int nu, bool valid) {
-#pragma unroll
-  for (int t = 0; t < kUnroll; ++t) {
-    const int v = uu + t;
-    a[t] = valid && v < nu ? fs::to_f32(col[(row0 + v) * rs]) : 0.f;
-  }
-}
-
-template <typename T, bool kPartial>
-__global__ void flashsketch_fwd_kernel(
-    const T* __restrict__ A, float* __restrict__ Y, const int* __restrict__ tab,
-    int M, int Br, int Bc, int kappa, int s, long long n, uint32_t seed,
-    float scale, int uc) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int tn = blockDim.x;
-  const int groups = blockDim.y;
-  float* acc = reinterpret_cast<float*>(smem);               // (Br, tn)
-  uint32_t* ent = reinterpret_cast<uint32_t*>(acc + Br * tn);  // (uc, s)
-
-  // the output block; with kPartial the owned pair p (M is then M_loc)
-  const int p = blockIdx.x;
-  const int g = kPartial ? tab[p] : p;
-  const int cl = threadIdx.x;
-  const int q = threadIdx.y;
-  const long long c = static_cast<long long>(blockIdx.y) * tn + cl;
-  const bool valid = c < n;
-  const int tid = q * tn + cl;
-  const int nthreads = tn * groups;
-  const uint32_t chunk = static_cast<uint32_t>(Br / s);
-  const T* col = A + (valid ? c : 0);
-
-  for (int idx = tid; idx < Br * tn; idx += nthreads) acc[idx] = 0.f;
-
-  for (int ell = 0; ell < (kPartial ? 1 : kappa); ++ell) {
-    const int h = kPartial ? tab[kappa * M + p] : tab[ell * M + g];
-    const int blk = kPartial ? p % M : h;       // the block of A to read
-    const uint32_t prefix = fs::block_prefix(seed, g, h);
-    for (int u0 = 0; u0 < Bc; u0 += uc) {
-      const int nu = min(uc, Bc - u0);
-      const long long row0 = static_cast<long long>(blk) * Bc + u0;
-      __syncthreads();  // the previous chunk's entries are consumed
-      for (int e = tid; e < nu * s; e += nthreads) {
-        const int uu = e / s;
-        ent[e] = fs::entry(prefix, u0 + uu, e - uu * s, chunk);
-      }
-      __syncthreads();
-      // software pipeline: the next kUnroll rows are in flight while the
-      // current ones are added into the accumulator
-      float a[kUnroll], next[kUnroll];
-      load_rows<T>(a, col, n, row0, 0, nu, valid);
-      for (int uu = 0; uu < nu; uu += kUnroll) {
-        load_rows<T>(next, col, n, row0, uu + kUnroll, nu, valid);
-#pragma unroll
-        for (int t = 0; t < kUnroll; ++t) {
-          if (uu + t >= nu) break;
-          const uint32_t* row = ent + (uu + t) * s;
-          for (int i = q; i < s; i += groups) {
-            const uint32_t en = row[i];
-            acc[(en >> 1) * tn + cl] += (en & 1u) ? -a[t] : a[t];
-          }
-        }
-#pragma unroll
-        for (int t = 0; t < kUnroll; ++t) a[t] = next[t];
-      }
-    }
-  }
-  __syncthreads();
-  if (!valid) return;
-  float* dst = Y + static_cast<long long>(p) * Br * n + c;
-  for (int r = q; r < Br; r += groups)
-    dst[static_cast<long long>(r) * n] = acc[r * tn + cl] * scale;
-}
-
-template <typename T, bool kPartial = false>
-int launch(const void* A, void* Y, const void* tab, int M, int Br, int Bc,
-           int kappa, int s, long long n, unsigned int seed, float scale,
-           int tn, int groups, int uc, int smem, void* stream) {
-  auto kern = flashsketch_fwd_kernel<T, kPartial>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(kPartial ? kappa * M : M,
-                  static_cast<unsigned int>((n + tn - 1) / tn));
-  const dim3 block(tn, groups);
-  kern<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(A), static_cast<float*>(Y),
-      static_cast<const int*>(tab), M, Br, Bc, kappa, s, n, seed, scale, uc);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // Global families (CountSketch, sparse graph; template flag kGather: the
 // gather, rows read through row_map as fs_fwd_gather reads them).  Output
@@ -294,16 +193,23 @@ int launch_global(const void* A, void* Y, const void* row_map, int M, int Br,
 
 extern "C" {
 
-// Y (k_pad, n) fp32 = S · A (d_pad, n), both row-major and contiguous; tab
-// is the (κ, M) int32 neighbour table on the device.  Launches on `stream`
-// and returns cudaGetLastError() (0 on success).
-int fs_fwd(const void* A, void* Y, const void* tab, int dtype, int M, int Br,
-           int Bc, int kappa, int s, long long n, unsigned int seed,
-           float scale, int tn, int groups, int uc, int smem, void* stream) {
-#define FS_LAUNCH(T)                                                     \
-  launch<T>(A, Y, tab, M, Br, Bc, kappa, s, n, seed, scale, tn, groups, uc, \
-            smem, stream)
-  FS_DISPATCH(dtype, FS_LAUNCH)
+// Y (k_pad, n) fp32 = S · A (d_pad, n), both row-major and contiguous, for
+// a blockperm plan; S comes as the plan's CSR (ptr, ent: see row_split.cuh).
+// The row-split body split_vec_kernel: grid (M·R, ⌈n/tn⌉), block
+// (tn·itemsize/16, groups).  The integers come in one array, p = {dtype, M,
+// Br, Bc, κ, n, tn, groups, R, vec}, built once per launch shape by the
+// caller; vec != 0: A is 16-byte aligned and n a multiple of 16/itemsize.
+// Launches on `stream` and returns cudaGetLastError() (0 on success).
+int fs_fwd(const void* A, void* Y, const void* ptr, const void* ent,
+           const long long* p, float scale, void* stream) {
+  const int M = static_cast<int>(p[1]), Br = static_cast<int>(p[2]);
+  const int Bc = static_cast<int>(p[3]), kappa = static_cast<int>(p[4]);
+  const int tn = static_cast<int>(p[6]), groups = static_cast<int>(p[7]);
+  const int R = static_cast<int>(p[8]), vec = static_cast<int>(p[9]);
+#define FS_LAUNCH(T)                                                      \
+  fs::launch_vec<T, false>(A, Y, ptr, ent, nullptr, M, Br, Bc, kappa, p[5], \
+                           scale, tn, groups, R, vec, stream)
+  FS_DISPATCH(static_cast<int>(p[0]), FS_LAUNCH)
 #undef FS_LAUNCH
 }
 
@@ -336,16 +242,21 @@ int fs_fwd_gather(const void* A, void* Y, const void* ptr, const void* ent,
 // Row-sharded partials: Y (κ, M_loc·Br, n) fp32, unscaled, for a slab A
 // (M_loc·Bc, n) of the padded input, both row-major and contiguous; tab is
 // the (2, κ, M_loc) int32 table [g, h] of the owned pairs, global block ids,
-// on the device.  Row block p = ℓ·M_loc + m is Φ_{g,h} · A_m.  Launches on
-// `stream` and returns cudaGetLastError() (0 on success).
-int fs_fwd_partial(const void* A, void* Y, const void* tab, int dtype,
-                   int M_loc, int Br, int Bc, int kappa, int s, long long n,
-                   unsigned int seed, int tn, int groups, int uc, int smem,
-                   void* stream) {
-#define FS_LAUNCH(T)                                                   \
-  launch<T, true>(A, Y, tab, M_loc, Br, Bc, kappa, s, n, seed, 1.f, tn, \
-                  groups, uc, smem, stream)
-  FS_DISPATCH(dtype, FS_LAUNCH)
+// on the device; S comes as the whole plan's CSR.  Row block p = ℓ·M_loc + m
+// is Φ_{g,h} · A_m.  The row-split body split_vec_kernel: grid
+// (κ·M_loc·R, ⌈n/tn⌉); p = {dtype, M_loc, Br, Bc, κ, n, tn, groups, R, vec}
+// as for fs_fwd.  Launches on `stream` and returns cudaGetLastError()
+// (0 on success).
+int fs_fwd_partial(const void* A, void* Y, const void* ptr, const void* ent,
+                   const void* tab, const long long* p, void* stream) {
+  const int M = static_cast<int>(p[1]), Br = static_cast<int>(p[2]);
+  const int Bc = static_cast<int>(p[3]), kappa = static_cast<int>(p[4]);
+  const int tn = static_cast<int>(p[6]), groups = static_cast<int>(p[7]);
+  const int R = static_cast<int>(p[8]), vec = static_cast<int>(p[9]);
+#define FS_LAUNCH(T)                                                        \
+  fs::launch_vec<T, true>(A, Y, ptr, ent, tab, M, Br, Bc, kappa, p[5], 1.f, \
+                          tn, groups, R, vec, stream)
+  FS_DISPATCH(static_cast<int>(p[0]), FS_LAUNCH)
 #undef FS_LAUNCH
 }
 

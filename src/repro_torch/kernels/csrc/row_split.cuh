@@ -1,18 +1,32 @@
-// The row-split forward body, for Hopper (sm_90a): the gather-fused
-// forward Y = S·A[row_map] (flashsketch_fwd.cu, fs_fwd_gather) and the v1
-// forward Y = Σ_ℓ scale·Φ_{g,h_ℓ}A_{h_ℓ} (flashsketch_v1.cu, fs_fwd_v1),
-// global plans included for v1.
+// The row-split bodies, for Hopper (sm_90a): every blockperm forward reads
+// S from a CSR of S and sums each output element in a register.
+//
+//   * split_fwd_kernel: the gather-fused forward Y = S·A[row_map]
+//     (flashsketch_fwd.cu, fs_fwd_gather) and the v1 forward
+//     Y = Σ_ℓ scale·Φ_{g,h_ℓ}A_{h_ℓ} (flashsketch_v1.cu, fs_fwd_v1), global
+//     plans included for v1: one column per thread, scalar loads through
+//     explicit strides (the gather's (D, c) view).
+//   * split_vec_kernel: the fused forward Y = S·A (flashsketch_fwd.cu,
+//     fs_fwd; replaces _fused_fwd_kernel, src/repro/kernels/flashsketch.py
+//     :231, launcher flashsketch_pallas :594) and the compact row-sharded
+//     partial (fs_fwd_partial; replaces _partial_fwd_kernel :378, launcher
+//     flashsketch_pallas_partial :736): 16-byte loads of a contiguous A,
+//     4 fp32 (8 bf16, 16 fp8) columns per thread.
 //
 // Why.  One block per (output block g, column tile j) left the card nearly
 // empty where M·⌈n/tn⌉ is small: the GraSS chunk (M = 4, n = 64) launched 4
-// blocks, each walking κ·Bc gathered rows one after another.  And the v1
-// forward added every nonzero straight into Y in device memory, each add
-// waiting on the previous read-add-write of the same word.  Splitting each
-// output block's rows over R blocks fixes the first, but a block that still
-// hashes every column of its κ input blocks to find the nonzeros that land
-// in its rows repeats each hash R/s times (and ⌈n/tn⌉ times over the column
-// tiles), and must sort what it finds by row; measured on the H100, that
-// bookkeeping, not the data, set the time.
+// blocks, each walking κ·Bc gathered rows one after another.  The fused
+// forward of that grid also hashed Φ again in every block and every column
+// tile, and added each nonzero into a (Br, tn) accumulator in shared memory
+// (a read-modify-write per nonzero, and the shared memory that sent Br =
+// 2 048 plans to v1 and a sharded Br = 2 048 plan to no kernel at all).  And
+// the v1 forward added every nonzero straight into Y in device memory, each
+// add waiting on the previous read-add-write of the same word.  Splitting
+// each output block's rows over R blocks fixes the first, but a block that
+// still hashes every column of its κ input blocks to find the nonzeros that
+// land in its rows repeats each hash R/s times (and ⌈n/tn⌉ times over the
+// column tiles), and must sort what it finds by row; measured on the H100,
+// that bookkeeping, not the data, set the time.
 //
 // So the nonzeros come from a CSR of S, built once per plan on the device
 // from the same hashes (kernels/flashsketch.py:_device_csr, 4 bytes per
@@ -25,27 +39,38 @@
 // Grid (M·R, ⌈n/tn⌉): block (g, ρ) owns the rows [ρ·Br/R, (ρ+1)·Br/R) of
 // output block g.  The gather's threads first copy the sub-range's nonzero
 // words into shared memory, each column read through row_map there, once
-// per block; then thread (c, q) sums the nonzeros of its rows q,
-// q + G, … of column c, ±A[src, c], in a register, the loads of
-// kUnrollNz of them in flight at once.  Neighbouring threads read
-// neighbouring columns of A's row.  No atomics, nothing written but Y.
+// per block (the others read the words where they lie: all the threads of
+// a row read the same word, one request, and staging them measured no
+// faster on the H100); then thread (c, q) sums the nonzeros of its rows q,
+// q + G, … of its column(s) in registers, the loads of several nonzeros in
+// flight at once.  Neighbouring threads read neighbouring columns of A's
+// row.  No atomics, nothing written but Y.
 //
 // Order of the sums.  Element (r, c) gets its adds in (ℓ, u) order, from
-// +0, then × scale: the order of the fused forward (flashsketch_fwd_kernel),
-// so the gather equals the forward on the zero-padded materialized gather
-// bit for bit (a padding row adds an exact zero there; here it adds 0).
-// v1 sums each level in its own register, in u order, kLevels levels side
-// by side (independent chains, so their loads overlap), then adds them into
-// the running output in ℓ order, run = run + L_ℓ·scale, as the reference's
+// +0, then × scale: the order of the port's first fused forward (a (Br,
+// tn) shared-memory accumulator per (g, column tile), which this body
+// replaced bit for bit), so the gather equals the forward on the
+// zero-padded materialized gather bit for bit (a padding row adds an exact
+// zero there; here it adds 0).  The partial sums level ℓ's segment alone,
+// in u order from +0, unscaled: the same bits for every P, M_loc, tn and
+// R, folded in ℓ order by distributed/sharded_apply.py.  v1 sums each level
+// in its own register, in u order, kLevels levels side by side
+// (independent chains, so their loads overlap), then adds them into the
+// running output in ℓ order, run = run + L_ℓ·scale, as the reference's
 // _fwd_kernel_v1 does; a global plan's levels come one after another in the
 // row's column order, each folded when the next begins (a level with no
 // nonzero in the row would add an exact zero, which changes no bit).
 //
-// Bound: each row of A read once (the gather: the d mapped rows) and Y
-// written once.  The kernel reads A once per nonzero, κ·s times per row in
-// all, from L2: the column tiles run one after another (blockIdx.y is the
-// slow grid axis), so a tile's slice of A, d_pad·tn·4 bytes, stays in L2
-// while every block that needs it runs.
+// Bound: each row of A read once (the gather: the d mapped rows; the
+// partial: the slab) and Y written once.  The kernels read A once per
+// nonzero, κ·s times per row in all, from L2: the column tiles run one
+// after another (blockIdx.y is the slow grid axis), so a tile's slice of A,
+// d_pad·tn·itemsize bytes, stays in L2 while every block that needs it
+// runs; the forward's tile is sized so that slice fits L2 beside the CSR
+// (kernels/flashsketch.py:fwd_tn).  What is left is L2's rate for κ·s reads
+// of every element of A; split_vec_kernel pays each CSR word and its
+// address arithmetic once per 16 bytes of A instead of once per element,
+// and a warp's request covers 256-512 contiguous bytes.
 #pragma once
 
 #include "hash.cuh"
@@ -210,6 +235,166 @@ int launch_split(const void* A, void* Y, const void* ptr, const void* ent,
       static_cast<const int*>(ptr), static_cast<const int*>(ent),
       static_cast<const int*>(row_map), Br, Bc, kappa, n, rs, cs, d, d_src,
       scale, R);
+  return static_cast<int>(cudaGetLastError());
+}
+
+
+// ---------------------------------------------------------------------------
+// The fused forward and the compact partial: 16-byte loads.
+// ---------------------------------------------------------------------------
+
+constexpr int kUnrollVec = 8;  // nonzeros whose 16-byte loads are in flight
+
+// Element j of a 16-byte vector of T (j a constant once unrolled), upcast
+// to fp32 exactly.
+__device__ __forceinline__ uint32_t word_of(const uint4& r, int i) {
+  return i == 0 ? r.x : i == 1 ? r.y : i == 2 ? r.z : r.w;
+}
+template <typename T>
+__device__ __forceinline__ float unpack(const uint4& r, int j);
+template <>
+__device__ __forceinline__ float unpack<float>(const uint4& r, int j) {
+  return __uint_as_float(word_of(r, j));
+}
+template <>
+__device__ __forceinline__ float unpack<__nv_bfloat16>(const uint4& r,
+                                                       int j) {
+  const uint32_t w = word_of(r, j >> 1);
+  return __uint_as_float((j & 1) ? (w & 0xFFFF0000u) : (w << 16));
+}
+template <typename F8>
+__device__ __forceinline__ float unpack_fp8(const uint4& r, int j) {
+  F8 x;
+  x.__x = static_cast<__nv_fp8_storage_t>(
+      (word_of(r, j >> 2) >> (8 * (j & 3))) & 0xFFu);
+  return static_cast<float>(x);
+}
+template <>
+__device__ __forceinline__ float unpack<__nv_fp8_e4m3>(const uint4& r,
+                                                       int j) {
+  return unpack_fp8<__nv_fp8_e4m3>(r, j);
+}
+template <>
+__device__ __forceinline__ float unpack<__nv_fp8_e5m2>(const uint4& r,
+                                                       int j) {
+  return unpack_fp8<__nv_fp8_e5m2>(r, j);
+}
+
+// A contiguous (rows, n) A; thread (x, q) of block (p, ρ), column tile j
+// owns the kV = 16/sizeof(T) columns c0 = (j·blockDim.x + x)·kV … and the
+// rows q, q + G, … of the sub-range.  Forward (kPartial false): p = g, the
+// row's κ level segments, ×scale, into row block g of Y (k_pad, n).
+// Partial: p = ℓ·M + m indexes the (2, κ, M) table [g, h] of the owned
+// pairs (M is M_loc), the row of g sums level ℓ's segment only, each column
+// word read as slab row col + (m − h)·Bc, into row block p of the compact
+// (κ, M·Br, n) output, scale 1.  `vec` says 16-byte loads are aligned
+// (n % kV == 0 and A 16-byte aligned); a thread past the ragged edge or
+// with vec false loads its columns one by one.
+template <typename T, bool kPartial>
+__global__ void __launch_bounds__(512)
+split_vec_kernel(const T* __restrict__ A, float* __restrict__ Y,
+                 const int* __restrict__ ptr, const int* __restrict__ ent,
+                 const int* __restrict__ tab, int M, int Br, int Bc,
+                 int kappa, long long n, float scale, int R, int vec) {
+  constexpr int kV = 16 / sizeof(T);
+  const int G = blockDim.y;
+  const int q = threadIdx.y;
+  const int br = Br / R;
+  const int p = blockIdx.x / R;
+  const int rho = blockIdx.x - p * R;
+  int g = p, lo = 0, hi = kappa;
+  long long off = 0;                      // column word -> row of A
+  if constexpr (kPartial) {
+    const int ell = p / M;
+    g = tab[p];
+    off = static_cast<long long>(p - ell * M - tab[kappa * M + p]) * Bc;
+    lo = ell;
+    hi = ell + 1;
+  }
+  const long long row0 =
+      static_cast<long long>(g) * Br + static_cast<long long>(rho) * br;
+  const long long out0 =
+      static_cast<long long>(p) * Br + static_cast<long long>(rho) * br;
+  const long long c0 =
+      (static_cast<long long>(blockIdx.y) * blockDim.x + threadIdx.x) * kV;
+  if (c0 >= n) return;
+  const bool full = vec && c0 + kV <= n;
+
+  for (int r = q; r < br; r += G) {
+    const long long row = row0 + r;
+    const int beg = ptr[row * kappa + lo];
+    const int end = ptr[row * kappa + hi];
+    float acc[kV];
+#pragma unroll
+    for (int j = 0; j < kV; ++j) acc[j] = 0.f;
+    for (int e0 = beg; e0 < end; e0 += kUnrollVec) {
+      int w[kUnrollVec];
+#pragma unroll
+      for (int k = 0; k < kUnrollVec; ++k)
+        w[k] = e0 + k < end ? __ldg(ent + e0 + k) : 0;
+      if (full) {
+        uint4 v[kUnrollVec];
+#pragma unroll
+        for (int k = 0; k < kUnrollVec; ++k)
+          v[k] = e0 + k < end
+                     ? __ldg(reinterpret_cast<const uint4*>(
+                           A + ((w[k] >> 1) + off) * n + c0))
+                     : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+        for (int k = 0; k < kUnrollVec; ++k) {
+          if (e0 + k >= end) break;
+#pragma unroll
+          for (int j = 0; j < kV; ++j) {
+            const float a = unpack<T>(v[k], j);
+            acc[j] += (w[k] & 1) ? -a : a;
+          }
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < kUnrollVec; ++k) {
+          if (e0 + k >= end) break;
+          const T* src = A + ((w[k] >> 1) + off) * n;
+#pragma unroll
+          for (int j = 0; j < kV; ++j)
+            if (c0 + j < n) {
+              const float a = to_f32(src[c0 + j]);
+              acc[j] += (w[k] & 1) ? -a : a;
+            }
+        }
+      }
+    }
+    float* dst = Y + (out0 + r) * n + c0;
+    if (full && kV % 4 == 0) {
+#pragma unroll
+      for (int j = 0; j < kV; j += 4)
+        *reinterpret_cast<float4*>(dst + j) =
+            make_float4(acc[j] * scale, acc[j + 1] * scale,
+                        acc[j + 2] * scale, acc[j + 3] * scale);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kV; ++j)
+        if (c0 + j < n) dst[j] = acc[j] * scale;
+    }
+  }
+}
+
+// The forward (kPartial false) or the partial: grid (blocks·R, ⌈n/tn⌉),
+// block (tn·sizeof(T)/16, groups), no shared memory.
+template <typename T, bool kPartial>
+int launch_vec(const void* A, void* Y, const void* ptr, const void* ent,
+               const void* tab, int M, int Br, int Bc, int kappa, long long n,
+               float scale, int tn, int groups, int R, int vec,
+               void* stream) {
+  auto kern = split_vec_kernel<T, kPartial>;
+  const int tx = tn * static_cast<int>(sizeof(T)) / 16;
+  const int blocks = kPartial ? kappa * M : M;
+  const dim3 grid(static_cast<unsigned int>(blocks * R),
+                  static_cast<unsigned int>((n + tn - 1) / tn));
+  const dim3 block(tx, groups);
+  kern<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(A), static_cast<float*>(Y),
+      static_cast<const int*>(ptr), static_cast<const int*>(ent),
+      static_cast<const int*>(tab), M, Br, Bc, kappa, n, scale, R, vec);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -40,10 +40,13 @@ fp32, on the materialized gather for the gathers) for a CPU tensor.  Each
 launch adds one to the wrapper's entry of ``LAUNCHES``, so a run can show
 that it went through the kernels.
 
-The gather-fused forward (blockperm plans) and the v1 forward run the
-row-split body (``csrc/row_split.cuh``): each output block's Br rows over
-R blocks, one row per thread (``row_splits``), the nonzeros read from a
-CSR of S built once per plan on the device (``_device_csr``).
+Every blockperm forward runs a row-split body (``csrc/row_split.cuh``):
+each output block's Br rows over R blocks, each sum in a register, the
+nonzeros read from a CSR of S built once per plan on the device
+(``_device_csr``).  The fused forward and the compact partial read A with
+16-byte loads, 16/itemsize columns a thread (``vec_launch``: R by
+``vec_splits``, the tile by ``fwd_tn``); the gather-fused forward and the
+v1 forward one column a thread (``row_splits``).
 
 How the kernels tile the work (``tn`` columns per block, thread groups,
 the chunk of hashed columns held in shared memory, the row split R) is a
@@ -83,7 +86,6 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1,
 # Shared memory a block may use on the H100 (227 KB).
 MAX_SMEM_BYTES = 232_448
 # Packed (row, sign) words a block hashes into shared memory at a time.
-_FWD_ENTRIES = 4096
 _TRANSPOSE_ENTRIES = 2048
 # Shared memory the transpose may give its staged tile of Y.
 _TRANSPOSE_TILE_BYTES = 160 * 1024
@@ -97,9 +99,16 @@ MAX_THREADS = 1024
 # The narrowest column tile (one warp); the lowering's downgrade ladder
 # asks whether a fused kernel fits shared memory there.
 MIN_TN = 32
-# Row-split kernels (the gather-fused forward and the v1 forward,
-# csrc/row_split.cuh): the most threads of a block (its __launch_bounds__).
+# Row-split kernels (csrc/row_split.cuh): the most threads of a block (its
+# __launch_bounds__).
 _SPLIT_MAX_THREADS = 512
+# The fused forward and the compact partial (split_vec_kernel): the column
+# tile's slice of A, d_pad·tn·itemsize bytes, kept within this much of the
+# H100's 50 MB L2 (the CSR shares the rest), the widest tile, and the
+# threads of a block (small blocks even out the rows' unequal lengths).
+_L2_SLICE_BYTES = 32 << 20
+_FWD_MAX_TN = 256
+_VEC_BLOCK_THREADS = 256
 
 
 def reset_launch_counts() -> None:
@@ -194,23 +203,26 @@ def _stream(plan: BlockPermPlan, operand: torch.Tensor) -> torch.Tensor:
 # Launch geometry.
 # ---------------------------------------------------------------------------
 
-FWD_DEFAULT_TN = 64
+FWD_DEFAULT_TN = 64          # the gather-fused forward's
 TRANSPOSE_DEFAULT_TN = 32
 BLOCKROW_DEFAULT_TN = 64
 V1_DEFAULT_TN = {"fwd": 64, "transpose": 32, "blockrow": 64}
 
 
 def default_tn(plan: BlockPermPlan, op: str, n: int,
-               v1: bool = False) -> int:
+               v1: bool = False, gather: bool = False) -> int:
     """The column tile a launch of ``op`` over ``n`` columns takes unless
     asked otherwise.  The global forward hashes every column once per
     column tile, so it takes all n columns in one tile, up to
     ``MAX_THREADS`` (the lowering narrows it where shared memory runs
-    out)."""
+    out); the blockperm forward (and the compact partial) takes
+    ``fwd_tn``."""
     if v1:
         return V1_DEFAULT_TN[op]
     if plan.is_global and op == "fwd":
         return min(MAX_THREADS, max(32, -(-n // 32) * 32))
+    if op == "fwd" and not gather:
+        return fwd_tn(plan, n)
     return {"fwd": FWD_DEFAULT_TN, "transpose": TRANSPOSE_DEFAULT_TN,
             "blockrow": BLOCKROW_DEFAULT_TN}[op]
 
@@ -219,33 +231,42 @@ def _pow2_floor(x: int) -> int:
     return 1 << (max(1, x).bit_length() - 1)
 
 
+def vec_width(plan: BlockPermPlan) -> int:
+    """Columns of one 16-byte load of the streamed operand: 4 fp32, 8
+    bf16, 16 fp8."""
+    return 16 // plan.stream_itemsize
+
+
+def fwd_tn(plan: BlockPermPlan, n: int) -> int:
+    """The blockperm forward's column tile, a fixed rule: the widest power
+    of two (32 to ``_FWD_MAX_TN``) whose slice of A, d_pad·tn·itemsize,
+    fits ``_L2_SLICE_BYTES``, so the slice stays in L2 while its κ·s
+    readers run (the tiles run one after another), and no wider than n
+    needs.  The main plan (d_pad = 65 536) takes 128 fp32 columns (32
+    threads of 16-byte loads a row, a warp's 512 contiguous bytes), 256
+    bf16 or fp8 (32 or 16 threads)."""
+    tn = _pow2_floor(_L2_SLICE_BYTES // (plan.d_pad * plan.stream_itemsize))
+    return max(MIN_TN, min(_FWD_MAX_TN, tn,
+                           1 << (max(n, MIN_TN) - 1).bit_length()))
+
+
 def row_chunks_per_block(plan: BlockPermPlan) -> int:
     """Row chunks (k_pad/s rows each) that meet one output block of a
     global plan: max(1, Br·s/k_pad)."""
     return max(1, plan.Br // plan.chunk)
 
 
-def _global_fwd_geometry(plan: BlockPermPlan,
-                         tn: int) -> Tuple[int, int, int]:
-    """(thread groups, hashed columns per chunk, shared bytes) of a global
-    forward: the (Br, tn) fp32 accumulator, the compacted list and the
-    scan's scratch; groups is a power of two."""
+def global_fwd_launch(plan: BlockPermPlan,
+                      tn: int) -> Tuple[int, int, int]:
+    """(thread groups, hashed columns per chunk, shared bytes) of the
+    global forward (and gather) kernel at tile width ``tn``: the (Br, tn)
+    fp32 accumulator, the compacted list and the scan's scratch; groups is
+    a power of two."""
     groups = _pow2_floor(min(plan.Br, MAX_THREADS // tn))
     n_i = row_chunks_per_block(plan)
     uc = max(1, _GLOBAL_ENTRIES // n_i)
     nwarps = tn * groups // 32
     return groups, uc, (4 * plan.Br * tn + 8 * uc * n_i + 4 * (nwarps + 1))
-
-
-def fwd_launch(plan: BlockPermPlan, tn: int) -> Tuple[int, int, int]:
-    """(thread groups, hashed columns per chunk, shared bytes) of the
-    forward kernel at tile width ``tn`` (also the global gather's: its list
-    holds the source row anyway)."""
-    if plan.is_global:
-        return _global_fwd_geometry(plan, tn)
-    groups = max(1, min(plan.s, MAX_THREADS // tn))
-    uc = max(1, _FWD_ENTRIES // plan.s)
-    return groups, uc, 4 * (plan.Br * tn + uc * plan.s)
 
 
 @functools.lru_cache(maxsize=256)
@@ -277,6 +298,35 @@ def row_splits(plan: BlockPermPlan, tn: int) -> int:
     return max(R for R in allowed if R <= want)
 
 
+@functools.lru_cache(maxsize=1024)
+def vec_splits(plan: BlockPermPlan, tn: int) -> int:
+    """The split R of the fused forward and the compact partial at tile
+    width ``tn``, a fixed rule: one output row per thread row of tn/vec
+    threads, so the fewest R (of ``split_allowed``) whose Br/R rows fit
+    ``_VEC_BLOCK_THREADS`` threads; the main plan (Br = 128, 32 threads a
+    row) takes R = 16, 8 rows a block."""
+    tx = tn // vec_width(plan)
+    allowed = split_allowed(plan)
+    fit = [R for R in allowed if plan.Br // R * tx <= _VEC_BLOCK_THREADS]
+    return fit[0] if fit else allowed[-1]
+
+
+def vec_launch(plan: BlockPermPlan, tn: int,
+               R: Optional[int] = None) -> Tuple[int, int]:
+    """(thread groups, row split R) of the fused forward and the compact
+    partial (``split_vec_kernel``) at tile width ``tn``: blocks of tn/vec ×
+    groups threads, group q owning the rows q, q + G, … of the Br/R, R =
+    ``vec_splits`` unless given (one of ``split_allowed``).  No shared
+    memory: each sum lives in a register and the CSR words are read where
+    they lie."""
+    tx = tn // vec_width(plan)
+    R = R or vec_splits(plan, tn)
+    if R not in split_allowed(plan):
+        raise ValueError(f"row_splits={R} is not one of "
+                         f"{split_allowed(plan)} for {plan.describe()}")
+    return max(1, min(plan.Br // R, _VEC_BLOCK_THREADS // tx)), R
+
+
 def blockrow_launch(plan: BlockPermPlan, tn: int) -> Tuple[int, int]:
     """(thread groups, shared bytes) of the FLASHBLOCKROW kernel at tile
     width ``tn``: one word per nonzero of the output block, κ·Br·s."""
@@ -287,13 +337,15 @@ def blockrow_launch(plan: BlockPermPlan, tn: int) -> Tuple[int, int]:
 def partial_launch(plan: BlockPermPlan, tn: int,
                    rows_pattern: bool = False) -> Tuple[int, int]:
     """(thread groups, shared bytes) of the partial kernel at tile width
-    ``tn``: the compact one is the forward's block with one level (the fp32
-    (Br, tn) accumulator and one chunk of hashed entries), the masked
-    FLASHBLOCKROW one holds the Br·s words of one level."""
+    ``tn``: the compact one is the forward's (``vec_launch``: no shared
+    memory), the masked FLASHBLOCKROW one hashes the Br·s words of its
+    level into shared memory as many whole rows at a time as
+    ``MAX_SMEM_BYTES`` holds (all Br where they fit).  Both run every
+    plan."""
     if rows_pattern:
-        return max(1, min(plan.Br, MAX_THREADS // tn)), 4 * plan.Br * plan.s
-    groups, _, smem = fwd_launch(plan, tn)
-    return groups, smem
+        chunk = min(plan.Br, MAX_SMEM_BYTES // (4 * plan.s))
+        return max(1, min(plan.Br, MAX_THREADS // tn)), 4 * chunk * plan.s
+    return vec_launch(plan, tn)[0], 0
 
 
 def transpose_launch(plan: BlockPermPlan,
@@ -331,9 +383,10 @@ def blockrow_v1_launch(plan: BlockPermPlan, tn: int) -> Tuple[int, int]:
 
 def is_row_split(plan: BlockPermPlan, op: str, gather: bool,
                  v1: bool = False) -> bool:
-    """Whether the kernel of ``op`` is a row-split one: the blockperm
-    gather-fused forward and the v1 forward (global plans included)."""
-    return op == "fwd" and (v1 or (gather and not plan.is_global))
+    """Whether the kernel of ``op`` is a row-split one: every blockperm
+    forward (fused, gather-fused, compact partial) and the v1 forward
+    (global plans included)."""
+    return op == "fwd" and (v1 or not plan.is_global)
 
 
 def launch_geometry(plan: BlockPermPlan, op: str, gather: bool, tn: int,
@@ -343,8 +396,11 @@ def launch_geometry(plan: BlockPermPlan, op: str, gather: bool, tn: int,
     at tile width ``tn``: the fused one (with its gather), the v1 one, or
     the row-sharded partial one (``partial``); R = 1 but for the row-split
     kernels."""
-    if partial:
-        return (*partial_launch(plan, tn, op == "blockrow"), 1)
+    if partial and op == "blockrow":
+        return (*partial_launch(plan, tn, True), 1)
+    if op == "fwd" and not (gather or v1 or plan.is_global):
+        groups, R = vec_launch(plan, tn)    # also the compact partial
+        return groups, 0, R
     if is_row_split(plan, op, gather, v1):
         R = row_splits(plan, tn)
         smem = 4 * _csr_block_cap(plan, torch.device("cpu"), R) if gather \
@@ -360,29 +416,29 @@ def launch_geometry(plan: BlockPermPlan, op: str, gather: bool, tn: int,
     elif op == "blockrow":
         groups, smem = blockrow_launch(plan, tn)
     else:
-        groups, _, smem = fwd_launch(plan, tn)
+        groups, _, smem = global_fwd_launch(plan, tn)
     return groups, smem, 1
 
 
 def fitted_tn(plan: BlockPermPlan, op: str, n: int, gather: bool = False,
-              rejected: Optional[list] = None, partial: bool = False) -> int:
+              rejected: Optional[list] = None) -> int:
     """``default_tn`` narrowed, by halves in multiples of 32, while the
-    fused (or, with ``partial``, the row-sharded partial) kernel's shared
-    memory exceeds ``MAX_SMEM_BYTES``; the rejected (tn, bytes) go to
-    ``rejected``."""
-    tn, bad = _fitted_tn(plan, op, n, gather, partial)
+    fused kernel's shared memory exceeds ``MAX_SMEM_BYTES``; the rejected
+    (tn, bytes) go to ``rejected``.  (The row-sharded partials fit every
+    tile and take ``default_tn``.)"""
+    tn, bad = _fitted_tn(plan, op, n, gather)
     if rejected is not None:
         rejected.extend(bad)
     return tn
 
 
 @functools.lru_cache(maxsize=1024)
-def _fitted_tn(plan: BlockPermPlan, op: str, n: int, gather: bool,
-               partial: bool) -> Tuple[int, Tuple[Tuple[int, int], ...]]:
-    tn = default_tn(plan, op, n)
+def _fitted_tn(plan: BlockPermPlan, op: str, n: int,
+               gather: bool) -> Tuple[int, Tuple[Tuple[int, int], ...]]:
+    tn = default_tn(plan, op, n, gather=gather)
     bad = []
     while tn > MIN_TN and (smem := launch_geometry(
-            plan, op, gather, tn, partial=partial)[1]) > MAX_SMEM_BYTES:
+            plan, op, gather, tn)[1]) > MAX_SMEM_BYTES:
         bad.append((tn, smem))
         tn = max(MIN_TN, tn // 2 // 32 * 32)
     return tn, tuple(bad)
@@ -503,11 +559,14 @@ def _launch_global_transpose(plan: BlockPermPlan, y: torch.Tensor,
 
 
 def flashsketch_fwd(plan: BlockPermPlan, A: torch.Tensor, *,
-                    tn: Optional[int] = None) -> torch.Tensor:
+                    tn: Optional[int] = None,
+                    row_splits: Optional[int] = None) -> torch.Tensor:
     """Y = S A.  A must be (d_pad, n); returns (k_pad, n) fp32 on A's
-    device.  CUDA tensors run the CUDA kernel (the global kernel for a
-    global plan), CPU tensors its plain version; ragged n is handled in
-    the kernel.  ``tn=None`` takes ``fitted_tn``."""
+    device.  CUDA tensors run the CUDA kernel (the row-split kernel for a
+    blockperm plan, the global kernel for a global plan), CPU tensors its
+    plain version; ragged n is handled in the kernel.  ``tn=None`` takes
+    ``fitted_tn``; ``row_splits`` forces the blockperm kernel's split R
+    (checks on the card: the result is the same bits for every R)."""
     if A.shape[0] != plan.d_pad:
         raise ValueError(f"A must have d_pad={plan.d_pad} rows, got "
                          f"{A.shape[0]}")
@@ -516,20 +575,49 @@ def flashsketch_fwd(plan: BlockPermPlan, A: torch.Tensor, *,
         return kref.flashsketch_ref(plan, x.to(torch.float32))
     if A.device.type != "cuda":
         raise ValueError(f"no FlashSketch kernel for device {A.device}")
-    tn = tn or fitted_tn(plan, "fwd", x.shape[1])
-    groups, uc, smem = fwd_launch(plan, tn)
-    _check_launch(plan, x, tn, smem, plan.d_pad, "flashsketch_fwd")
-    x = x.contiguous()
-    Y = torch.empty((plan.k_pad, x.shape[1]), dtype=torch.float32,
-                    device=x.device)
+    n = x.shape[1]
+    tn = tn or fitted_tn(plan, "fwd", n)
+    Y = torch.empty((plan.k_pad, n), dtype=torch.float32, device=x.device)
     if plan.is_global:
-        _launch_global_fwd(plan, x, Y, None, tn, groups, uc, smem)
+        if row_splits not in (None, 1):
+            raise ValueError("flashsketch_fwd: a global plan's forward has "
+                             "no row split")
+        groups, uc, smem = global_fwd_launch(plan, tn)
+        _check_launch(plan, x, tn, smem, plan.d_pad, "flashsketch_fwd")
+        _launch_global_fwd(plan, x.contiguous(), Y, None, tn, groups, uc,
+                           smem)
         LAUNCHES["flashsketch_fwd_global"] += 1
         return Y
-    _launch("flashsketch_fwd.cu", "fs_fwd", plan, x, Y,
-            _device_table(plan, "fwd", x.device), tn, groups, uc, smem)
+    _launch_vec(plan, x, Y, None, tn, row_splits, "flashsketch_fwd")
     LAUNCHES["flashsketch_fwd"] += 1
     return Y
+
+
+def _launch_vec(plan: BlockPermPlan, x: torch.Tensor, Y: torch.Tensor,
+                tab: Optional[torch.Tensor], tn: int,
+                row_splits_: Optional[int], name: str) -> None:
+    """The C interface of ``split_vec_kernel``: ``fs_fwd`` (the forward,
+    ``tab`` None) or ``fs_fwd_partial`` (``tab`` the (2, κ, M_loc) pairs,
+    M_loc read from x's rows)."""
+    groups, R = vec_launch(plan, tn, row_splits_)
+    rows = x.shape[0]
+    _check_launch(plan, x, tn, 0, rows, name)
+    x = x.contiguous()
+    n = x.shape[1]
+    ptr, ent = _device_csr(plan, x.device)
+    vec = int(n % vec_width(plan) == 0 and x.data_ptr() % 16 == 0)
+    # arr, the integers' buffer, stays referenced through the call
+    arr, params = _int_params(
+        _DTYPE_CODES[x.dtype], plan.M if tab is None else rows // plan.Bc,
+        plan.Br, plan.Bc, plan.kappa, n, tn, groups, R, vec)
+    pointers = [(_P, x.data_ptr()), (_P, Y.data_ptr()), (_P, ptr.data_ptr()),
+                (_P, ent.data_ptr())]
+    if tab is None:
+        _call("flashsketch_fwd.cu", "fs_fwd", x.device, *pointers,
+              (_P, params), (_F, plan.scale))
+    else:
+        _call("flashsketch_fwd.cu", "fs_fwd_partial", x.device, *pointers,
+              (_P, tab.data_ptr()), (_P, params))
 
 
 def flashsketch_transpose(plan: BlockPermPlan, Y: torch.Tensor, *,
@@ -696,7 +784,7 @@ def flashsketch_fwd_gather(plan: BlockPermPlan, A: torch.Tensor,
         if row_splits not in (None, 1):
             raise ValueError("flashsketch_fwd_gather: a global plan's gather "
                              "has no row split")
-        groups, uc, smem = fwd_launch(plan, tn)
+        groups, uc, smem = global_fwd_launch(plan, tn)
         _check_launch(plan, x, tn, smem, None, "flashsketch_fwd_gather")
         _launch_global_fwd(plan, x, Y, rmap, tn, groups, uc, smem)
         LAUNCHES["flashsketch_fwd_gather_global"] += 1
@@ -781,9 +869,15 @@ def flashsketch_partial(plan: BlockPermPlan, A_local: torch.Tensor,
     ``(κ, k_pad, n)`` with exact zeros at the pairs another rank owns.
     Summed over the ranks and folded in ℓ order it is ``S·A / scale``.
     CUDA tensors run the CUDA kernel (``tn=None`` takes the forward's or
-    FLASHBLOCKROW's default tile, narrowed to fit shared memory), CPU
-    tensors its plain version ``ref.partial_ref``.
+    FLASHBLOCKROW's default tile; the compact one is the forward's
+    row-split kernel on the plan's CSR), CPU tensors its plain version
+    ``ref.partial_ref``.  A global plan has no partial: every input block
+    feeds every output block.
     """
+    if plan.is_global:
+        raise ValueError(f"flashsketch_partial: global family "
+                         f"{plan.family!r} has no block-slab partial (shard "
+                         f"the column or batch axis instead)")
     rows_loc, n = A_local.shape
     M_loc = rows_loc // plan.Bc
     if rows_loc % plan.Bc or M_loc == 0 or plan.M % M_loc:
@@ -801,34 +895,24 @@ def flashsketch_partial(plan: BlockPermPlan, A_local: torch.Tensor,
         raise ValueError(f"no partial kernel for device {A_local.device}")
     name = "blockrow_fwd_partial" if rows_pattern else \
         "flashsketch_fwd_partial"
-    tn = tn or fitted_tn(plan, "blockrow" if rows_pattern else "fwd", n,
-                         partial=True)
-    groups, smem = partial_launch(plan, tn, rows_pattern)
-    if smem > MAX_SMEM_BYTES:
-        raise NotImplementedError(
-            f"{name}: {smem} B of shared memory at tn={tn} exceeds the "
-            f"{MAX_SMEM_BYTES} B a block may use (Br={plan.Br}); there is "
-            f"no v1 partial: run the plain version with impl='torch'")
-    _check_launch(plan, x, tn, smem, rows_loc, name)
-    x = x.contiguous()
+    tn = tn or default_tn(plan, "blockrow" if rows_pattern else "fwd", n)
     tab = tables.to(device=x.device, dtype=torch.int32).contiguous()
-    common = ((_I, _DTYPE_CODES[x.dtype]), (_I, plan.M if rows_pattern
-                                                else M_loc),
-              (_I, plan.Br), (_I, plan.Bc), (_I, plan.kappa), (_I, plan.s),
-              (_LL, n), (_U, plan.seed & 0xFFFFFFFF), (_I, tn), (_I, groups))
-    if rows_pattern:
-        Y = torch.empty((plan.kappa, plan.k_pad, n), dtype=torch.float32,
-                        device=x.device)
-        _call("flashsketch_blockrow.cu", "fs_blockrow_partial", x.device,
-              (_P, x.data_ptr()), (_P, Y.data_ptr()), (_P, tab.data_ptr()),
-              *common, (_I, smem))
-    else:
+    if not rows_pattern:
         Y = torch.empty((plan.kappa, M_loc * plan.Br, n), dtype=torch.float32,
                         device=x.device)
-        _, uc, _ = fwd_launch(plan, tn)
-        _call("flashsketch_fwd.cu", "fs_fwd_partial", x.device,
-              (_P, x.data_ptr()), (_P, Y.data_ptr()), (_P, tab.data_ptr()),
-              *common, (_I, uc), (_I, smem))
+        _launch_vec(plan, x, Y, tab, tn, None, name)
+        LAUNCHES[name] += 1
+        return Y
+    groups, smem = partial_launch(plan, tn, rows_pattern)
+    _check_launch(plan, x, tn, smem, rows_loc, name)
+    x = x.contiguous()
+    Y = torch.empty((plan.kappa, plan.k_pad, n), dtype=torch.float32,
+                    device=x.device)
+    _call("flashsketch_blockrow.cu", "fs_blockrow_partial", x.device,
+          (_P, x.data_ptr()), (_P, Y.data_ptr()), (_P, tab.data_ptr()),
+          (_I, _DTYPE_CODES[x.dtype]), (_I, plan.M), (_I, plan.Br),
+          (_I, plan.Bc), (_I, plan.kappa), (_I, plan.s), (_LL, n),
+          (_U, plan.seed & 0xFFFFFFFF), (_I, tn), (_I, groups), (_I, smem))
     LAUNCHES[name] += 1
     return Y
 

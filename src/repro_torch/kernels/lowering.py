@@ -33,21 +33,25 @@ catches is the card's own):
      as the plain op (the blockperm gather kernel splits its rows to fit
      any plan, but fuses only where the op's own fused kernel runs, as the
      reference's gather fuses only where its forward does);
-  2. ``cuda``, the fused ``fwd`` / ``transpose`` / ``blockrow`` kernel over
-     the limit at tn = 32 → ``cuda_v1``.
+  2. ``cuda``, the fused ``transpose`` / ``blockrow`` kernel over the limit
+     at tn = 32 → ``cuda_v1``.  The blockperm forward's row-split kernel
+     keeps every sum in a register and uses no shared memory, so it runs
+     every plan: the Br = 2 048 plans the reference sends to ``pallas_v1``
+     run it here.
 
 ``shard`` (``"none" | "row" | "col" | "batch"``, over ``devices`` ranks)
 records a sharded launch and rejects what the reference rejects.
 ``"row"`` is the per-rank partial of ``distributed.sketch_apply_sharded``:
 ``fwd`` or ``blockrow`` only, ``P | M``, no gather, no ``cuda_v1`` (there is
-no v1 partial); its kernel must fit shared memory at tn = 32
-(``partial_fits_smem``) or the lowering raises, naming ``impl="torch"``.
-The reference's predicate is the TPU's VMEM budget for the (Br, Bc) Φ
-tile, so the plans each one refuses differ: ``plan_for_mesh(262_144,
-1024, 8, kappa=2)`` (Br = 128, Bc = 32 768) goes to the reference's jnp
-oracle and runs the partial kernel here.  ``"col"`` (``P | n``) and
-``"batch"`` (``P | batch``) run the single-device kernels on each rank's
-slab.
+no v1 partial).  Both partial kernels run every plan: the compact one is
+the forward's row-split kernel (no shared memory), the masked
+FLASHBLOCKROW one hashes its level's words into shared memory a bounded
+chunk of rows at a time.  The reference's predicate is the TPU's VMEM
+budget for the (Br, Bc) Φ tile, so ``plan_for_mesh(262_144, 1024, 8,
+kappa=2)`` (Br = 128, Bc = 32 768) and ``make_plan(65_536, 4096, kappa=4,
+block_rows=2048)`` go to the reference's jnp oracle and run the partial
+kernel here.  ``"col"`` (``P | n``) and ``"batch"`` (``P | batch``)
+run the single-device kernels on each rank's slab.
 """
 from __future__ import annotations
 
@@ -69,17 +73,6 @@ IMPLS = ("auto", "cuda", "cuda_v1", "torch")
 CUDA_IMPLS = ("cuda", "cuda_v1")
 
 SHARDS = ("none", "row", "col", "batch")
-
-
-def partial_fits_smem(plan: BlockPermPlan, tn: int,
-                      rows_pattern: bool = False) -> bool:
-    """Whether the row-sharded partial kernel fits a block's shared
-    memory at tile width ``tn``: the fp32 (Br, tn) accumulator plus one
-    chunk of hashed entries (the masked FLASHBLOCKROW kernel: Br·s
-    words)."""
-    return fsk.launch_geometry(plan, "blockrow" if rows_pattern else "fwd",
-                               False, tn, partial=True)[1] \
-        <= fsk.MAX_SMEM_BYTES
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,9 +120,10 @@ class Lowering:
     request and ``gather_fused`` what runs (``False``: ``A[row_index]`` is
     materialized first); ``tn``, ``groups`` and ``smem_bytes`` the CUDA
     launch geometry (``None`` for the plain version), ``row_splits`` the
-    split R of a row-split kernel (the fused gather of a blockperm plan and
-    the v1 forward: each output block's Br rows in R sub-ranges, one block
-    each; ``None`` for the other kernels); ``pad_rows`` the zero
+    split R of a row-split kernel (every blockperm forward, the compact
+    partial and the v1 forward: each output block's Br rows in R
+    sub-ranges, one block each; ``None`` for the other kernels);
+    ``pad_rows`` the zero
     rows added to the operand (none with a fused gather: the kernel zeroes
     the padding rows itself).  Columns are never padded: the kernels mask
     the ragged edge.  ``shard`` / ``devices`` record a sharded launch; with
@@ -338,16 +332,19 @@ def _fit_tile(eff: BlockPermPlan, spec: LaunchSpec, n_loc: int,
     """(tn, its source, thread groups, shared bytes, column tiles, row
     split R or ``None``) of the kernel the lowering chose: the explicit
     tile, the v1 default, or the default narrowed until that kernel's
-    shared memory fits; R for a row-split kernel (``fsk.row_splits``)."""
+    shared memory fits (a partial kernel fits every tile); R for a
+    row-split kernel."""
     if spec.tn is not None:
         tn, tn_source = spec.tn, "explicit"
     elif v1:
         tn = fsk.default_tn(eff, spec.op, n_loc * batch_loc, v1=True)
         tn_source = "v1_default"
+    elif partial:
+        tn, tn_source = fsk.default_tn(eff, spec.op, n_loc), "default"
     else:
         rejected: List[Tuple[int, int]] = []
         tn = fsk.fitted_tn(eff, spec.op, n_loc * batch_loc, gather_fused,
-                           rejected, partial=partial)
+                           rejected)
         tn_source = "default:smem_shrunk" if rejected else "default"
         for bad, smem in rejected:
             t(f"tn={bad} rejected: {smem} B of shared memory > "
@@ -362,39 +359,38 @@ def _fit_tile(eff: BlockPermPlan, spec: LaunchSpec, n_loc: int,
     if fsk.is_row_split(eff, spec.op, gather_fused, v1):
         splits = R
         tiles = -(-n_loc * batch_loc // tn)
+        blocks = eff.kappa * (eff.M // spec.devices) if partial else eff.M
+        vec = not (gather_fused or v1)
+        per_row = (f"{tn // fsk.vec_width(eff)} threads of 16-byte loads a "
+                   f"row" if vec else "one row per thread")
         t(f"row split: R={R} (each output block's {eff.Br} rows in {R} "
-          f"sub-ranges of {eff.Br // R}, one row per thread; grid "
-          f"{eff.M}x{R} x {tiles} = {eff.M * R * tiles} blocks)")
+          f"sub-ranges of {eff.Br // R}, {per_row}; grid {blocks}x{R} x "
+          f"{tiles} = {blocks * R * tiles} blocks; "
+          f"{'CSR words staged' if smem else 'CSR words read in place'})")
     return tn, tn_source, groups, smem, grid_cols, splits
 
 
 def _lower_row(eff: BlockPermPlan, spec: LaunchSpec, impl: str,
                t) -> Lowering:
-    """The row-sharded partial's launch: the partial kernel (``cuda``) or
-    its plain version (``torch``), on a slab that is already padded."""
-    rows_pattern = spec.op == "blockrow"
+    """The row-sharded partial's launch: the partial kernel (``cuda``, on
+    every plan) or its plain version (``torch``), on a slab that is
+    already padded."""
     t(f"shard=row x{spec.devices}: per-rank block slab "
       f"M_loc={eff.M // spec.devices} of M={eff.M}")
-    tn = groups = smem = grid_cols = None
+    tn = groups = smem = grid_cols = splits = None
     tn_source = "n/a"
     if impl == "torch":
         t("torch: plain partial (no tiling, no shared memory)")
     else:
-        if not partial_fits_smem(eff, fsk.MIN_TN, rows_pattern):
-            smem = fsk.partial_launch(eff, fsk.MIN_TN, rows_pattern)[1]
-            raise NotImplementedError(
-                f"shared memory: the partial kernel needs {smem} B at "
-                f"tn={fsk.MIN_TN} > {fsk.MAX_SMEM_BYTES} B (Br={eff.Br}) and "
-                f"there is no v1 partial; run the plain version with "
-                f"impl='torch'")
-        tn, tn_source, groups, smem, grid_cols, _ = _fit_tile(
+        tn, tn_source, groups, smem, grid_cols, splits = _fit_tile(
             eff, spec, spec.n, 1, False, False, True, t)
     t("pad: rows +0 (the slab is cut from the padded input), cols +0")
     return Lowering(
         plan=eff, op=spec.op, impl=impl, impl_requested=spec.impl,
         device=spec.device, tn=tn, tn_source=tn_source, dtype=eff.dtype,
         n=spec.n, grid_cols=grid_cols, groups=groups, smem_bytes=smem,
-        pad_rows=0, batch=spec.batch, shard="row", devices=spec.devices)
+        pad_rows=0, batch=spec.batch, shard="row", devices=spec.devices,
+        row_splits=splits)
 
 
 

@@ -34,6 +34,7 @@ from repro_torch.attribution import mlp as tmlp
 from repro_torch.core import blockperm as tb
 from repro_torch.distributed.sharded_apply import _fold_scale_truncate
 from repro_torch.distributed.spawn import run_ranks
+from repro_torch.health import report as treport
 from repro_torch.kernels import flashsketch as tfsk
 from repro_torch.kernels import lowering as tlow
 from repro_torch.kernels import ops as tops
@@ -244,47 +245,145 @@ def test_lowering_shard_records_and_cuda_v1():
 
 def test_partial_fits_smem_decisions():
     """The card's budget, not the TPU's: the reference sends
-    plan_for_mesh(262_144, 1024, 8, kappa=2) (Br = 128, Bc = 32 768) to its
-    jnp oracle, the port runs the partial kernel; the default distributed
-    plan at d = 65 536 fits at tn = 32 only; Br = 2 048 does not fit and
-    the lowering raises, naming impl='torch'."""
+    plan_for_mesh(262_144, 1024, 8, kappa=2) (Br = 128, Bc = 32 768) and
+    the Br = 2 048 plan to its jnp oracle; the port runs the partial
+    kernel on both and on every plan: the compact partial is the forward's
+    row-split kernel (no (Br, tn) accumulator, no shared memory), and the
+    masked FLASHBLOCKROW partial hashes its level's Br·s words into shared
+    memory as many whole rows at a time as fit.  No row-sharded lowering
+    downgrades or raises."""
     pj = jdist.plan_for_mesh(262_144, 1024, 8, kappa=2)
     pt = tdist.plan_for_mesh(262_144, 1024, 8, kappa=2)
     assert (pt.Br, pt.Bc) == (128, 32_768)
     assert not jdist.partial_fits_vmem(pj, 8)
-    assert tdist.partial_fits_smem(pt, 32) and tdist.partial_fits_smem(pt, 64)
     lw = tlow.lower(pt, tlow.LaunchSpec(n=512, device="cuda", shard="row",
                                         devices=8))
-    assert (lw.impl, lw.tn, lw.tn_source) == ("cuda", 64, "default")
+    # the forward's tile: its slice of A (d_pad = 262 144) fits L2 at 32
+    assert (lw.impl, lw.tn, lw.tn_source, lw.smem_bytes) == (
+        "cuda", 32, "default", 0)
+    assert lw.tn == tfsk.fwd_tn(pt, 512)
 
     p4 = tdist.plan_for_mesh(65_536, 4096, 4, kappa=4)
     assert (p4.M, p4.Br, p4.Bc) == (4, 1024, 16_384)
-    assert tdist.partial_fits_smem(p4, 32) and not \
-        tdist.partial_fits_smem(p4, 64)
     lw = tlow.lower(p4, tlow.LaunchSpec(n=1024, device="cuda", shard="row",
                                         devices=4))
-    assert (lw.tn, lw.tn_source, lw.smem_bytes) == (32, "default:smem_shrunk",
-                                                    tfsk.partial_launch(
-                                                        p4, 32)[1])
-    big = tb.make_plan(65_536, 4096, kappa=4, block_rows=2048)
-    assert not tdist.partial_fits_smem(big, 32)
-    assert tdist.partial_fits_smem(big, 32, rows_pattern=True)
-    with pytest.raises(NotImplementedError, match="impl='torch'"):
-        tlow.lower(big, tlow.LaunchSpec(n=64, device="cuda", shard="row",
-                                        devices=2))
+    assert (lw.tn, lw.tn_source, lw.smem_bytes, lw.row_splits) == (
+        tfsk.fwd_tn(p4, 1024), "default", 0, tfsk.vec_splits(p4, 128))
+    assert lw.tn == 128
+    # F1: the Br = 2 048 plan, row-sharded at P = 2
+    pjb, big = _plans(65_536, 4096, kappa=4, block_rows=2048)
+    ref = jlow.lower(pjb, jlow.LaunchSpec(n=64, shard="row", devices=2,
+                                          impl="pallas"))
+    assert ref.impl == "xla" and "jnp oracle partial" in ref.downgrade
+    before = treport.counters().get("lowering.downgrade", 0)
+    lw = tlow.lower(big, tlow.LaunchSpec(n=64, device="cuda", shard="row",
+                                         devices=2))
+    assert (lw.impl, lw.downgrade, lw.tn, lw.row_splits, lw.groups) == (
+        "cuda", None, 64, 128, 16)
+    assert lw.smem_bytes == tfsk.partial_launch(big, 64)[1] == 0
+    assert "shard=rowx2" in lw.describe() and "R=128" in lw.describe()
     assert tlow.lower(big, tlow.LaunchSpec(
         n=64, device="cuda", shard="row", devices=2, impl="torch")).impl \
         == "torch"
+    lw = tlow.lower(big, tlow.LaunchSpec(op="blockrow", n=64, device="cuda",
+                                         shard="row", devices=2))
+    assert (lw.impl, lw.downgrade, lw.smem_bytes) == (
+        "cuda", None, 4 * big.Br * big.s)
+    # a masked partial whose level's Br·s words outgrow shared memory
+    # (Br = 65 536, s = 1) hashes them in chunks of whole rows: the
+    # lowering gives it the kernel at the largest chunk, no downgrade
+    huge = tb.make_plan(131_072, 65_536, kappa=1, s=1, block_rows=65_536)
+    assert 4 * huge.Br * huge.s > tfsk.MAX_SMEM_BYTES
+    lw = tlow.lower(huge, tlow.LaunchSpec(op="blockrow", n=8, device="cuda",
+                                          shard="row", devices=1))
+    chunk = tfsk.MAX_SMEM_BYTES // (4 * huge.s)
+    assert (lw.impl, lw.downgrade, lw.tn, lw.smem_bytes) == (
+        "cuda", None, tfsk.BLOCKROW_DEFAULT_TN, 4 * chunk * huge.s)
+    assert lw.smem_bytes <= tfsk.MAX_SMEM_BYTES
+    assert treport.counters().get("lowering.downgrade", 0) == before
+    assert "impl: 'cuda' -> 'torch'" not in tlow.explain(
+        huge, op="blockrow", n=8, device="cuda", shard="row", devices=1)
     # the masked body's tile follows its own model (Br·s words of one
     # level), not the full FLASHBLOCKROW kernel's κ·Br·s
     wide = tb.make_plan(65_536, 32_768, kappa=4, block_rows=8192)
     assert tfsk.blockrow_launch(wide, 64)[1] > tfsk.MAX_SMEM_BYTES
-    assert tfsk.fitted_tn(wide, "blockrow", 1024, partial=True) == 64
     lw = tlow.lower(wide, tlow.LaunchSpec(op="blockrow", n=1024,
                                           device="cuda", shard="row",
                                           devices=2))
     assert (lw.tn, lw.tn_source, lw.smem_bytes) == (
         64, "default", tfsk.partial_launch(wide, 64, True)[1])
+    assert lw.smem_bytes == 4 * wide.Br * wide.s
+
+
+@pytest.mark.parametrize("s,Br", [(1, 65_536), (4, 16_384), (8, 8192),
+                                  (2, 128)])
+def test_masked_partial_chunks_whole_rows(s, Br):
+    """The masked partial's shared memory: whole rows of s words, as many
+    as fit ``MAX_SMEM_BYTES`` (all Br where they fit), never over it."""
+    plan = tb.make_plan(4 * Br, 2 * Br, kappa=2, s=s, block_rows=Br)
+    groups, smem = tfsk.partial_launch(plan, 64, True)
+    chunk = smem // (4 * s)
+    assert smem == 4 * chunk * s <= tfsk.MAX_SMEM_BYTES
+    assert chunk == min(Br, tfsk.MAX_SMEM_BYTES // (4 * s)) >= 1
+    assert (chunk == Br) == (4 * Br * s <= tfsk.MAX_SMEM_BYTES)
+    assert groups == min(Br, tfsk.MAX_THREADS // 64)
+
+
+def test_partial_wrapper_rejects_global_plans():
+    """A global plan has no block-slab partial: the wrapper raises, as the
+    lowering does for shard='row', before it reads a table (on the card
+    the compact kernel would read ptr[row·κ + ℓ] past a global CSR)."""
+    pt = tb.make_plan(256, 64, family="countsketch", s=1)
+    assert pt.is_global
+    tab = torch.zeros((2, pt.kappa, pt.M // 2), dtype=torch.int32)
+    with pytest.raises(ValueError, match="no block-slab partial"):
+        tfsk.flashsketch_partial(pt, torch.zeros(pt.d_pad // 2, 4), tab)
+    with pytest.raises(ValueError, match="row-sharding has no compact"):
+        tlow.lower(pt, tlow.LaunchSpec(shard="row", devices=2))
+
+
+@pytest.mark.parametrize("kw,P", [
+    (dict(d=1000, k=96, kappa=4, s=2, seed=5), 2),
+    (dict(d=4096, k=256, kappa=2, s=4, seed=24), 2),
+    (dict(d=3000, k=64, kappa=3, s=2, seed=7), 4),
+    (dict(d=4096, k=1024, kappa=4, s=2, seed=1), 1)])
+def test_partial_csr_segments_are_the_owned_pairs(kw, P, rng):
+    """The compact partial kernel reads, for owned pair (ℓ, m) of
+    ``partial_tables``, level ℓ's CSR segment of each row of g = tab[0, ℓ,
+    m]: its columns all in input block h = tab[1, ℓ, m] = lo + m (slab
+    block m), in u order, and together Φ_{g,h} itself; summed in that order
+    from +0, unscaled, as the kernel sums them, the partials agree with
+    the plain partial within fp32's exactness_atol."""
+    kw = dict(kw)
+    pt = tb.make_plan(kw.pop("d"), kw.pop("k"), **kw)
+    ptr, ent = tfsk._device_csr(pt, torch.device("cpu"))
+    M_loc, Br, Bc, kappa = pt.M // P, pt.Br, pt.Bc, pt.kappa
+    A = torch.from_numpy(rng.normal(size=(pt.d_pad, 3)).astype(np.float32))
+    for r in range(P):
+        lo = r * M_loc
+        tab = tdist.partial_tables(pt, lo, M_loc)
+        slab = A[lo * Bc:(lo + M_loc) * Bc]
+        got = torch.zeros(kappa, M_loc * Br, 3)
+        for ell in range(kappa):
+            for m in range(M_loc):
+                g, h = int(tab[0, ell, m]), int(tab[1, ell, m])
+                assert h == lo + m
+                phi = torch.zeros(Br, Bc)
+                for row in range(Br):
+                    at = (g * Br + row) * kappa + ell
+                    words = ent[int(ptr[at]):int(ptr[at + 1])].tolist()
+                    us = [(w >> 1) - h * Bc for w in words]
+                    assert us == sorted(us) and all(0 <= u < Bc for u in us)
+                    acc = torch.zeros(3)
+                    for w, u in zip(words, us):
+                        sign = -1.0 if w & 1 else 1.0
+                        phi[row, u] += sign
+                        acc = acc + sign * slab[m * Bc + u]
+                    got[ell, m * Br + row] = acc
+                assert torch.equal(phi, tb.dense_block(pt, g, h))
+        want = tref.partial_ref(pt, slab, tab, False)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5,
+                                   rtol=1e-5)
 
 
 # ---------------------------------------------------------------------------

@@ -22,6 +22,7 @@ from repro.kernels import lowering as jlow
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.core import blockperm as tb
+from repro_torch.distributed.sharded_apply import partial_tables
 from repro_torch.health import report as treport
 from repro_torch.kernels import flashsketch as tfsk
 from repro_torch.kernels import lowering as tlow
@@ -145,18 +146,23 @@ def test_lowering_resolves_per_device():
     assert (cpu.impl, cpu.tn, cpu.pad_rows) == ("torch", None, 0)
     fwd = tlow.lower(pt, tlow.LaunchSpec(op="fwd", n=1000, device="cuda"))
     assert (fwd.impl, fwd.tn, fwd.tn_source, fwd.grid_cols) == (
-        "cuda", tfsk.FWD_DEFAULT_TN, "default", 16)
-    assert fwd.smem_bytes == tfsk.fwd_launch(pt, fwd.tn)[2] \
-        <= tfsk.MAX_SMEM_BYTES
+        "cuda", tfsk.fwd_tn(pt, 1000), "default", 8)
+    assert (fwd.smem_bytes, fwd.groups) == (0, tfsk.vec_launch(pt, fwd.tn)[0])
     tr = tlow.lower(pt, tlow.LaunchSpec(op="transpose", n=1024, tn=64,
                                         device="cuda", dtype="bf16"))
     assert (tr.tn, tr.tn_source, tr.dtype) == (64, "explicit", "bfloat16")
     assert tr.plan == pt.with_dtype("bfloat16")
-    # a pinned tall block shrinks the default tile to fit shared memory
-    big = tb.make_plan(4096, 2048, kappa=1, s=1, block_rows=1024)
+    # a pinned tall block shrinks the default tile to fit shared memory:
+    # the global forward's (Br, tn) accumulator (the blockperm forward keeps
+    # its sums in registers and never shrinks)
+    big = tb.make_plan(4096, 2048, family="countsketch", s=1, block_rows=1024)
     lw = tlow.lower(big, tlow.LaunchSpec(n=256, device="cuda"))
-    assert lw.tn_source == "default:smem_shrunk" and lw.tn < 64
+    assert lw.tn_source == "default:smem_shrunk"
+    assert lw.tn < tfsk.default_tn(big, "fwd", 256)
     assert lw.smem_bytes <= tfsk.MAX_SMEM_BYTES
+    tall = tb.make_plan(4096, 2048, kappa=1, s=1, block_rows=1024)
+    lw = tlow.lower(tall, tlow.LaunchSpec(n=256, device="cuda"))
+    assert (lw.tn, lw.tn_source) == (tfsk.fwd_tn(tall, 256), "default")
 
 
 @pytest.mark.parametrize("spec,exc", [
@@ -500,24 +506,29 @@ def test_global_kernels_match_pallas(global_plans):
                                        ("transpose", False),
                                        ("blockrow", False)])
 def test_downgrade_record_matches_reference(op, gather):
-    """A pinned tall block: the fused kernel does not fit shared memory, so
-    the engine sends ``cuda`` to ``cuda_v1`` before any launch, as the
-    reference sends ``pallas`` to ``pallas_v1``; op, dtype, gather and
-    padding fields agree with the reference's record."""
+    """A pinned tall block (Br = 2 048): the reference's fused tile busts
+    VMEM, so it sends ``pallas`` to ``pallas_v1`` (and materializes the
+    gather); the card's kernels follow their own resource model.  The
+    blockperm forward and its gather keep every sum in a register and run
+    the plan as asked, a documented difference; the transpose and
+    FLASHBLOCKROW fit too.  op, dtype, gather and padding agree with the
+    reference's record."""
     pj, pt = _plans(65536, 4096, kappa=4, block_rows=2048)
     spec = dict(op=op, n=1000, gather=gather)
     ref = jlow.lower(pj, jlow.LaunchSpec(impl="pallas", **spec))
     lw = tlow.lower(pt, tlow.LaunchSpec(device="cuda", **spec))
-    assert (lw.op, lw.dtype, lw.gather, lw.gather_fused, lw.pad_rows) == (
-        ref.op, ref.dtype, ref.gather, ref.gather_fused, ref.pad_rows)
+    assert (lw.op, lw.dtype, lw.gather, lw.pad_rows) == (
+        ref.op, ref.dtype, ref.gather, ref.pad_rows)
     assert lw.impl_requested == "auto"
-    if op == "fwd":          # the card's limit catches the forward
-        assert ref.impl == "pallas_v1" and lw.impl == "cuda_v1"
-        assert "cuda_v1" in lw.downgrade and "downgrade[" in lw.describe()
-        assert "impl: 'cuda' -> 'cuda_v1'" in tlow.explain(
-            pt, device="cuda", **spec)
-    else:                    # its own; the reference's VMEM budget differs
-        assert lw.impl == "cuda" and lw.downgrade is None
+    assert ref.impl == "pallas_v1" and not ref.gather_fused
+    assert lw.impl == "cuda" and lw.downgrade is None
+    assert "downgrade[" not in lw.describe()
+    assert "impl: 'cuda' -> 'cuda_v1'" not in tlow.explain(
+        pt, device="cuda", **spec)
+    assert lw.gather_fused == gather
+    if op == "fwd":          # the row-split forward and gather
+        assert lw.row_splits == (tfsk.row_splits(pt, lw.tn) if gather
+                                 else tfsk.vec_splits(pt, lw.tn))
     assert tlow.lower(pt, tlow.LaunchSpec(impl="cuda_v1", device="cuda",
                                           **spec)).impl == "cuda_v1"
 
@@ -660,24 +671,37 @@ def test_row_split_geometry_at_the_grass_chunk(k, M, R):
 
 
 def test_row_split_geometry_main_and_v1_plans():
-    """The main plan (Br = 128) splits 16 ways, 8 192 blocks at n = 1 024;
-    the forward and transpose keep their own grid; the Br = 2 048 plan
-    still downgrades to cuda_v1, whose row split needs no shared memory."""
+    """The main plan (Br = 128): the gather splits 16 ways, 8 192 blocks at
+    n = 1 024; the fused forward 16 ways too (32 threads of 16-byte loads a
+    row, 8 rows a block), 4 096 blocks, no shared memory; the transpose
+    keeps its own grid.  The Br = 2 048 plan runs the row-split forward
+    (256 ways, no downgrade); asked for, cuda_v1's row split needs no
+    shared memory either."""
     main = tb.make_plan(65536, 4096)
     lw = tlow.lower(main, tlow.LaunchSpec(n=1024, device="cuda", gather=True))
     assert (lw.row_splits, lw.groups, lw.grid_cols) == (16, 8, 16)
     assert main.M * lw.row_splits * lw.grid_cols == 8192
     assert lw.smem_bytes <= tfsk.MAX_SMEM_BYTES
-    for op in ("fwd", "transpose"):
-        plain = tlow.lower(main, tlow.LaunchSpec(op=op, n=1024,
-                                                 device="cuda"))
-        assert plain.row_splits is None and "R=" not in plain.describe()
+    fwd = tlow.lower(main, tlow.LaunchSpec(n=1024, device="cuda"))
+    assert (fwd.tn, fwd.row_splits, fwd.groups, fwd.grid_cols) == (
+        128, 16, 8, 8)
+    assert main.M * fwd.row_splits * fwd.grid_cols == 4096
+    assert fwd.smem_bytes == 0 and "R=16" in fwd.describe()
+    plain = tlow.lower(main, tlow.LaunchSpec(op="transpose", n=1024,
+                                             device="cuda"))
+    assert plain.row_splits is None and "R=" not in plain.describe()
     big = tb.make_plan(65536, 4096, kappa=4, block_rows=2048)
-    v1 = tlow.lower(big, tlow.LaunchSpec(n=1000, device="cuda"))
+    lw = tlow.lower(big, tlow.LaunchSpec(n=1000, device="cuda"))
+    assert (lw.impl, lw.downgrade, lw.tn, lw.row_splits, lw.groups) == (
+        "cuda", None, 128, 256, 8)
+    assert big.M * lw.row_splits * lw.grid_cols == 4 * 256 * 8
+    assert lw.smem_bytes == 0
+    v1 = tlow.lower(big, tlow.LaunchSpec(n=1000, device="cuda",
+                                         impl="cuda_v1"))
     assert (v1.impl, v1.row_splits, v1.groups, v1.smem_bytes) == (
         "cuda_v1", 256, 8, 0)
     assert big.M * v1.row_splits * v1.grid_cols == 4 * 256 * 16
-    assert "R=256" in v1.describe() and "downgrade[" in v1.describe()
+    assert "R=256" in v1.describe() and "downgrade[" not in v1.describe()
 
 
 def test_row_split_rule_and_forced_splits():
@@ -693,6 +717,61 @@ def test_row_split_rule_and_forced_splits():
         tfsk._split_geometry(pt, 64, 3, "x")
     with pytest.raises(ValueError, match="tn=1024"):
         tfsk._split_geometry(pt, 1024, None, "x")
+
+
+@pytest.mark.parametrize("dtype,tn,R,groups", [("float32", 128, 16, 8),
+                                               ("bfloat16", 256, 16, 8),
+                                               ("fp8_e4m3", 256, 8, 16)])
+def test_vec_geometry_forward_and_partial_main_plan(dtype, tn, R, groups):
+    """The fused forward and the compact partial (split_vec_kernel) at the
+    main plan: the tile whose slice of A fits the L2 budget (a warp's 512
+    contiguous bytes a row in fp32 and bf16), one row per thread row in
+    blocks of at most 256 threads, so R = Br·(tn/vec)/256 (8 rows a block
+    in fp32); no shared memory.  The partial of one rank of P = 4 takes the
+    same geometry over κ·M_loc pairs."""
+    main = tb.make_plan(65536, 4096, dtype=dtype)
+    assert tfsk.fwd_tn(main, 1024) == tn
+    assert main.d_pad * tn * main.stream_itemsize <= tfsk._L2_SLICE_BYTES
+    tx = tn // tfsk.vec_width(main)
+    assert tfsk.vec_splits(main, tn) == R == main.Br * tx // 256
+    assert tfsk.vec_launch(main, tn) == (groups, R)
+    assert groups * tx == 256
+    lw = tlow.lower(main, tlow.LaunchSpec(n=1024, device="cuda"))
+    assert (lw.tn, lw.row_splits, lw.groups, lw.smem_bytes) == (
+        tn, R, groups, 0)
+    part = tlow.lower(main, tlow.LaunchSpec(n=1024, device="cuda",
+                                            shard="row", devices=4))
+    assert (part.tn, part.row_splits, part.groups, part.smem_bytes) == (
+        tn, R, groups, 0)
+    assert tfsk.partial_launch(main, tn) == (groups, 0)
+    tiles = 1024 // tn
+    assert f"grid 32x{R} x {tiles} = {32 * R * tiles} blocks" in \
+        tlow.explain(main, n=1024, device="cuda", dtype=dtype, shard="row",
+                     devices=4)
+
+
+def test_vec_rule_tiles_and_splits():
+    """The rules: tn the widest power of two in [32, 256] whose slice of A
+    fits _L2_SLICE_BYTES and no wider than n needs; R the fewest splits
+    whose Br/R rows fit 256 threads of tn/vec a row (the largest allowed R
+    when none does); a forced R must be one of ``split_allowed``."""
+    big = tb.make_plan(262_144, 2048)                     # d_pad·32·4 = 32 MiB
+    assert tfsk.fwd_tn(big, 512) == tfsk.MIN_TN
+    assert tfsk.fwd_tn(tb.make_plan(4096, 1024), 64) == 64   # n-limited
+    assert tfsk.fwd_tn(tb.make_plan(1000, 96), 37) == 64
+    wide = tb.make_plan(65536, 256)                       # Br = 32, Bc = 8192
+    assert (wide.Br, wide.Bc, tfsk.fwd_tn(wide, 1024)) == (32, 8192, 128)
+    assert tfsk.vec_launch(wide, 128) == (8, 4)
+    assert tfsk.vec_launch(wide, 64) == (16, 2)
+    tall = tb.make_plan(65536, 4096, kappa=4, block_rows=2048)
+    assert [tfsk.vec_splits(tall, tn) for tn in (32, 64, 128, 256)] == [
+        64, 128, 256, 512]
+    assert tfsk.vec_launch(tall, 64, 2048) == (1, 2048)
+    odd = tb.make_plan(1000, 96, kappa=3, s=2)             # Br = 32
+    assert tfsk.vec_launch(odd, 32, 32) == (1, 32)
+    assert tfsk.vec_launch(odd, 1024) == (1, 32)           # 256 threads a row
+    with pytest.raises(ValueError, match="row_splits=3"):
+        tfsk.vec_launch(odd, 32, 3)
 
 
 _CSR_PLANS = [dict(d=1000, k=96, kappa=4, s=2, seed=5),
@@ -813,3 +892,63 @@ def test_cuda_row_split_forced_splits(policy, cuda):
     S = tb.materialize_sketch_matrix(big, cuda)
     for R in (1, 8, 64, 2048):
         assert torch.equal(tfsk.flashsketch_fwd_v1(big, eye, row_splits=R), S)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy", POLICIES)
+def test_cuda_vec_forward_and_partial_match_plain(policy, cuda):
+    """On the card: the fused forward (fs_fwd) and the compact partial
+    (fs_fwd_partial), both split_vec_kernel, within the policy's tolerance
+    of their plain versions at ragged and aligned n, under the default and
+    every forced row split R (the forward the same bits for every R); S·I
+    == S for the forward and, folded over the ranks of P ∈ {1, 2, 4}, for
+    the partials."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+
+    def close(got, want, p):
+        assert float((got - want).abs().max()) <= \
+            p.precision.exactness_atol * float(want.abs().max())
+
+    for d, k, kw, n in [(1000, 96, dict(kappa=4, s=2), 37),
+                        (4096, 256, dict(kappa=2, s=4), 100),
+                        (8192, 64, dict(kappa=4, s=2), 64),
+                        (4096, 4096, dict(kappa=4, s=2, block_rows=2048),
+                         48)]:
+        p = tb.make_plan(d, k, dtype=policy, **kw)
+        A = torch.randn(p.d_pad, n, generator=gen, device=cuda) * 3
+        want = tref.flashsketch_ref(p, tfsk._stream(p, A).float())
+        first = tfsk.flashsketch_fwd(p, A)
+        close(first, want, p)
+        for R in tfsk.split_allowed(p):
+            assert torch.equal(tfsk.flashsketch_fwd(p, A, row_splits=R),
+                               first), R
+        for P in (P for P in (1, 2, 4) if p.M % P == 0):
+            M_loc = p.M // P
+            for r in range(P):
+                tab = partial_tables(p, r * M_loc, M_loc, False, cuda)
+                slab = A[r * M_loc * p.Bc:(r + 1) * M_loc * p.Bc]
+                plain = tref.partial_ref(p, tfsk._stream(p, slab).float(),
+                                         tab, False)
+                close(tfsk.flashsketch_partial(p, slab, tab), plain, p)
+        if policy != "float32":
+            continue
+        eye = torch.eye(p.d_pad, device=cuda)
+        S = tb.materialize_sketch_matrix(p, cuda)
+        for R in tfsk.split_allowed(p):
+            assert torch.equal(tfsk.flashsketch_fwd(p, eye, row_splits=R), S)
+        for P in (P for P in (1, 2, 4) if p.M % P == 0):
+            M_loc = p.M // P
+            parts = torch.zeros(p.kappa, p.k_pad, p.d_pad, device=cuda)
+            for r in range(P):
+                tab = partial_tables(p, r * M_loc, M_loc, False, cuda)
+                rows = slice(r * M_loc * p.Bc, (r + 1) * M_loc * p.Bc)
+                got = tfsk.flashsketch_partial(p, eye[rows], tab)
+                compact = got.reshape(p.kappa, M_loc, p.Br, p.d_pad)
+                for ell in range(p.kappa):
+                    for m in range(M_loc):
+                        g = int(tab[0, ell, m])
+                        parts[ell, g * p.Br:(g + 1) * p.Br] += compact[ell, m]
+            Y = parts[0]
+            for ell in range(1, p.kappa):
+                Y = Y + parts[ell]
+            assert torch.equal(Y * p.scale, S), P

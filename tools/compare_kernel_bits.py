@@ -1,0 +1,127 @@
+#!/usr/bin/env python3
+"""Save, or compare bit for bit, the blockperm forward's and the compact
+partial's outputs of one tree of the port on the GPU, and time them.
+
+    PYTHONPATH=<parent>/src python tools/compare_kernel_bits.py \
+        --save _checkout/bits
+    PYTHONPATH=src python tools/compare_kernel_bits.py \
+        --against _checkout/bits
+
+Run from the root of a checkout, DIR inside it (``_checkout/`` is
+gitignored; the outputs take about 0.9 GB); ``PYTHONPATH`` picks the tree
+whose ``repro_torch`` runs, so a change to these kernels is held to its
+parent (unpacked beside it) bit for bit on one card. The inputs are made
+on the card from seeded generators: the main plan (d = 65 536, k = 4 096,
+M = 32, Br = 128, Bc = 2 048, κ = 4, s = 2) and a Br = 32, Bc = 8 192 plan
+(d = 65 536, k = 256), n = 1 024, every precision policy. Outputs:
+``flashsketch_fwd`` and ``flashsketch_partial`` (each rank of P = 4, and
+P = 1), at the wrapper's defaults. ``--save`` writes them to DIR;
+``--against`` holds each to the saved one with ``torch.equal``, prints the
+largest difference where they differ and exits 1 if any does. Both print
+the fp32 times (CUDA events, median of 15 after 3 warm-up calls, host
+dispatch included) and the card's name and power limit.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import statistics
+import subprocess
+import sys
+
+import torch
+
+POLICIES = ("float32", "bfloat16", "fp8_e4m3", "fp8_e5m2", "fp8_e4m3_sr",
+            "fp8_e5m2_sr")
+PLANS = {"main": (65_536, 4096), "wide": (65_536, 256)}
+N = 1024
+
+
+def cuda_ms(fn, warmup=3, reps=15):
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def outputs(fsk, tables, make_plan):
+    """(name, thunk) of every output compared, and the fp32 thunks timed."""
+    out, timed = [], []
+    for label, (d, k) in PLANS.items():
+        base = make_plan(d, k, kappa=4, s=2, seed=0)
+        gen = torch.Generator(device="cuda").manual_seed(17)
+        A = torch.randn(base.d_pad, N, generator=gen, device="cuda") * 3
+        for pol in POLICIES:
+            p = base.with_dtype(pol)
+            fwd = (f"{label} {pol} fwd", lambda p=p: fsk.flashsketch_fwd(p, A))
+            out.append(fwd)
+            if pol == "float32":
+                timed.append(fwd)
+            for P in (4, 1):
+                M_loc = p.M // P
+                for r in range(P):
+                    tab = tables(p, r * M_loc, M_loc, False, "cuda")
+                    slab = A[r * M_loc * p.Bc:(r + 1) * M_loc * p.Bc]
+                    item = (f"{label} {pol} partial P={P} rank {r}",
+                            lambda p=p, slab=slab, tab=tab:
+                            fsk.flashsketch_partial(p, slab, tab))
+                    out.append(item)
+                    if pol == "float32" and r == 0:
+                        timed.append(item)
+    return out, timed
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    mode = ap.add_mutually_exclusive_group(required=True)
+    mode.add_argument("--save", metavar="DIR")
+    mode.add_argument("--against", metavar="DIR")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("compare_kernel_bits: no CUDA device", file=sys.stderr)
+        return 2
+    from repro_torch.core.blockperm import make_plan
+    from repro_torch.distributed.sharded_apply import partial_tables
+    from repro_torch.kernels import flashsketch as fsk
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=False).stdout.strip()
+    print(f"card: {card}; repro_torch from {os.path.dirname(fsk.__file__)}")
+    out, timed = outputs(fsk, partial_tables, make_plan)
+    bad = 0
+    if args.save:
+        os.makedirs(args.save, exist_ok=True)
+    for i, (name, fn) in enumerate(out):
+        got = fn()
+        torch.cuda.synchronize()
+        path = os.path.join(args.save or args.against, f"{i:03d}.pt")
+        if args.save:
+            torch.save({"name": name, "y": got.cpu()}, path)
+            continue
+        saved = torch.load(path)
+        if saved["name"] != name:
+            raise SystemExit(f"{path} holds {saved['name']!r}, not {name!r}")
+        want = saved["y"].to(got.device)
+        if not torch.equal(got, want):
+            bad += 1
+            diff = float((got - want).abs().max()) \
+                if got.shape == want.shape else float("nan")
+            print(f"DIFFERS {name}: max abs diff {diff:.3e}")
+    if args.against:
+        print(f"compared {len(out)} outputs bit for bit: "
+              f"{len(out) - bad} equal, {bad} differ")
+    for name, fn in timed:
+        print(f"time {name}: {cuda_ms(fn):.4f} ms")
+    return 1 if bad else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
