@@ -15,11 +15,14 @@ Phases, any failure exits non-zero and prints no result:
      S·I == S, ⟨S x, y⟩ == ⟨x, Sᵀ y⟩, each gather == its kernel on the
      zero-padded materialized gather (the gather-fused forward also under
      every row split R it takes), and an identity row_index == the
-     non-gather kernel; the fused forward (the row-split kernel
-     split_vec_kernel) under every row split R at the main plan and at a
-     Br = 32, Bc = 8 192 plan: within each policy's tolerance, the same
-     bits for every R, S·E == S on slabs E of the identity, and the gather
-     == the forward on the materialized gather under every R;
+     non-gather kernel; the forwards of the row-split kernel
+     split_vec_kernel under every row split R (the fused forward at the
+     main plan and at a Br = 32, Bc = 8 192 plan, FLASHBLOCKROW at the main
+     plan and the GraSS chunk's, the global forward at the CountSketch and
+     graph plans of the main shape): within each policy's tolerance, the
+     same bits for every R, S·E == S on slabs E of the identity, and each
+     gather == its forward on the materialized gather under every R, both
+     source layouts;
   3. the main path at the paper's size (d = 65 536, n = 1 024): the
      ``default``, ``fast`` and ``precise`` solver presets on a cond-1e4
      least-squares problem in float64, each solved twice (the first solve
@@ -139,10 +142,10 @@ KERNEL_INFO = {
         source="src/repro_torch/kernels/csrc/flashsketch_fwd.cu",
         replaces="src/repro/kernels/flashsketch.py:642"),
     "blockrow_fwd": dict(
-        source="src/repro_torch/kernels/csrc/flashsketch_blockrow.cu",
+        source="src/repro_torch/kernels/csrc/row_split.cuh",
         replaces="src/repro/kernels/flashsketch.py:711"),
     "blockrow_fwd_gather": dict(
-        source="src/repro_torch/kernels/csrc/flashsketch_blockrow.cu",
+        source="src/repro_torch/kernels/csrc/row_split.cuh",
         replaces="src/repro/kernels/flashsketch.py:682"),
     "flashsketch_fwd_v1": dict(
         source="src/repro_torch/kernels/csrc/flashsketch_v1.cu",
@@ -162,13 +165,13 @@ KERNEL_INFO = {
         replaces="src/repro/kernels/flashsketch.py:736"),
     # the global families' branch (_phi_global_tile) of kernels 1-3
     "flashsketch_fwd_global": dict(
-        source="src/repro_torch/kernels/csrc/flashsketch_fwd.cu",
+        source="src/repro_torch/kernels/csrc/row_split.cuh",
         replaces="src/repro/kernels/flashsketch.py:594"),
     "flashsketch_transpose_global": dict(
         source="src/repro_torch/kernels/csrc/flashsketch_transpose.cu",
         replaces="src/repro/kernels/flashsketch.py:619"),
     "flashsketch_fwd_gather_global": dict(
-        source="src/repro_torch/kernels/csrc/flashsketch_fwd.cu",
+        source="src/repro_torch/kernels/csrc/row_split.cuh",
         replaces="src/repro/kernels/flashsketch.py:642"),
 }
 # the kernels of the main path (phase 3) and of the GraSS path (phase 5)
@@ -187,9 +190,23 @@ SPAWN_TIMEOUT_S = 300.0
 # GraSS (paper App. E): 109 386-parameter MLP, sparse dim 4 096, κ = 4, s = 2
 GRASS_D_SRC, GRASS_D, GRASS_CHUNK, GRASS_K = 109_386, 4096, 64, 1024
 # ms of the kernels the row-split design replaced, as PERF.md records them
-# (NVIDIA H100 80GB HBM3 at a 700 W power limit): the gather-fused forward
-# at the GraSS chunk in the (D, c) view and the v1 forward at the main plan
-REPLACED_MS = {"flashsketch_fwd_gather": 0.603, "flashsketch_fwd_v1": 3.485}
+# (NVIDIA H100 80GB HBM3 at a 700 W power limit; a range over two runs):
+# the gather-fused forward and both FLASHBLOCKROW kernels at the GraSS chunk
+# in the (D, c) view, the v1 forward at the main plan, the global forward
+# and gather at the CountSketch plan of the main shape
+REPLACED_MS = {"flashsketch_fwd_gather": (0.603, 0.603),
+               "flashsketch_fwd_v1": (3.485, 3.485),
+               "blockrow_fwd": (0.098, 0.101),
+               "blockrow_fwd_gather": (0.097, 0.100),
+               "flashsketch_fwd_global": (0.331, 0.338),
+               "flashsketch_fwd_gather_global": (0.343, 0.363)}
+
+
+def replaced(name):
+    """'it replaced a ... ms kernel' for ``name``, from REPLACED_MS."""
+    lo, hi = REPLACED_MS[name]
+    ms = f"{lo:.3f}" if lo == hi else f"{lo:.3f}-{hi:.3f}"
+    return f"it replaced a {ms} ms kernel"
 
 
 class SmokeFailure(Exception):
@@ -223,6 +240,22 @@ def cuda_ms(fn, warmup: int = 3, reps: int = 15) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Device time per call of the kernels ``fn`` launches, from
+    ``torch.profiler`` over ``reps`` warm calls: at a shape where the host's
+    dispatch sets ``cuda_ms``, what the card itself spends."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) \
+        / reps / 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -259,13 +292,14 @@ def compare_kernels(fsk, ref, plan, n, gen):
     return errs
 
 
-def fitting_splits(rt, plan):
-    """The row splits R the gather-fused forward takes at ``plan``: every
-    allowed R whose blocks' nonzeros fit shared memory."""
+def fitting_splits(rt, plan, rows_pattern=False):
+    """The row splits R a gather takes at ``plan`` (FLASHBLOCKROW's with
+    ``rows_pattern``): every allowed R whose blocks' nonzeros fit shared
+    memory."""
     fsk = rt["fsk"]
     return [R for R in fsk.split_allowed(plan)
-            if 4 * fsk._csr_block_cap(plan, torch.device("cuda"), R)
-            <= fsk.MAX_SMEM_BYTES]
+            if 4 * fsk._csr_block_cap(plan, torch.device("cuda"), R,
+                                      rows_pattern) <= fsk.MAX_SMEM_BYTES]
 
 
 def compare_grass_kernels(rt, plan, n, d_src, gen):
@@ -354,64 +388,96 @@ def phase_kernels(rt, main_plan, n_main):
     return {name: main_errs[(name, "float32")] for name in MAIN_KERNELS}
 
 
+def dense_blockrow(rt, plan):
+    """FLASHBLOCKROW's S_row of ``plan``, (k_pad, d_pad) on the card, scaled:
+    its nonzeros (collisions added) from ``blockrow_entries``."""
+    rows, cols, signs = blockrow_entries(rt, plan)
+    S = torch.zeros(plan.k_pad, plan.d_pad, device="cuda")
+    S.index_put_((rows, cols), signs, accumulate=True)
+    return S * rt["fsk"].blockrow_scale(plan)
+
+
 def phase_fwd_splits(rt, main_plan, n):
-    """The fused forward (split_vec_kernel) under every row split R at the
-    main plan and at a Br = 32, Bc = 8 192 plan (2 048 nonzeros a row):
-    within each policy's tolerance of its plain
-    version and the same bits for every R; exact: S·E == S[:, slab] for two
-    slabs E of 1 024 columns of the identity (every entry one ±scale
-    term), and the gather-fused forward == the forward on the zero-padded
-    materialized gather under every R the gather takes."""
+    """The forwards of split_vec_kernel under every row split R: the fused
+    forward at the main plan and at a Br = 32, Bc = 8 192 plan (2 048
+    nonzeros a row), FLASHBLOCKROW at the main plan and the GraSS chunk's
+    plan, the global forward at the CountSketch and graph plans of the main
+    shape (phase 6's): within each policy's tolerance of its plain version
+    and the same bits for every R; exact: S·E == S[:, slab] for two slabs E
+    of 1 024 columns of the identity (every entry a sum of ±1, then ×
+    scale), and each gather == its forward on the zero-padded materialized
+    gather under every R the gather takes, in both source layouts."""
     fsk, ref, blockperm = rt["fsk"], rt["ref"], rt["blockperm"]
     gen = torch.Generator(device="cuda").manual_seed(13)
-    wide = blockperm.make_plan(main_plan.d, 256, kappa=4, s=2, seed=0)
+    d, k = main_plan.d, main_plan.k_req
+    wide = blockperm.make_plan(d, 256, kappa=4, s=2, seed=0)
     check((wide.Br, wide.Bc) == (32, 8192), f"wide plan {wide.describe()}")
-    print("phase 2 (fused forward): every row split R, every policy")
+    count = blockperm.make_plan(d, k, family="countsketch", s=1, seed=0)
+    graph = rt["variants"].make_sketch(
+        "graph", d, k, seed=0, **rt["pareto"].FAMILY_KWARGS["graph"]).plan
+    grass = blockperm.make_plan(GRASS_D, GRASS_K, kappa=4, s=2, seed=0)
+    fused = (fsk.flashsketch_fwd, fsk.flashsketch_fwd_gather,
+             ref.flashsketch_ref)
+    kinds = {"fused": fused, "global": fused,
+             "blockrow": (fsk.blockrow_fwd, fsk.blockrow_fwd_gather,
+                          ref.blockrow_ref)}
+    print("phase 2 (row-split forwards): every row split R, every policy")
     worst = {}
-    for plan in (main_plan, wide):
+    for kind, plan in (("fused", main_plan), ("fused", wide),
+                       ("blockrow", main_plan), ("blockrow", grass),
+                       ("global", count), ("global", graph)):
+        fwd, gather, plain = kinds[kind]
+        rows = kind == "blockrow"
+        what = f"{fwd.__name__} {plan.describe()}"
         splits = fsk.split_allowed(plan)
         A = torch.randn(plan.d_pad, n, generator=gen, device="cuda") * 3
         for pol in POLICIES:
             p = plan.with_dtype(pol)
-            want = ref.flashsketch_ref(p, fsk._stream(p, A).float())
-            base = fsk.flashsketch_fwd(p, A)
-            err = _err(base, want, p, f"flashsketch_fwd {pol} {p.describe()}")
-            worst[pol] = max(worst.get(pol, 0.0), err)
+            want = plain(p, fsk._stream(p, A).float())
+            base = fwd(p, A)
+            err = _err(base, want, p, f"{what} {pol}")
+            worst[kind, pol] = max(worst.get((kind, pol), 0.0), err)
             for R in splits:
-                check(torch.equal(fsk.flashsketch_fwd(p, A, row_splits=R),
-                                  base),
-                      f"flashsketch_fwd {pol} {p.describe()} R={R}: bits "
-                      f"differ from the default split")
+                check(torch.equal(fwd(p, A, row_splits=R), base),
+                      f"{what} {pol} R={R}: bits differ from the default "
+                      f"split")
         del A
-        S = blockperm.materialize_sketch_matrix(plan, "cuda")
+        S = dense_blockrow(rt, plan) if rows else \
+            blockperm.materialize_sketch_matrix(plan, "cuda")
         for c0 in (0, plan.d_pad // 2 + 512):
             E = torch.zeros(plan.d_pad, 1024, device="cuda")
             E[torch.arange(c0, c0 + 1024, device="cuda"),
               torch.arange(1024, device="cuda")] = 1.0
             for R in splits:
-                check(torch.equal(fsk.flashsketch_fwd(plan, E, row_splits=R),
+                check(torch.equal(fwd(plan, E, row_splits=R),
                                   S[:, c0:c0 + 1024]),
-                      f"S·E != S at {plan.describe()} R={R} columns {c0}+")
+                      f"S·E != S: {what} R={R} columns {c0}+")
         del S, E
-        src = torch.randn(2 * plan.d, n, generator=gen, device="cuda")
+        gsplits = fitting_splits(rt, plan, rows)
         ri = torch.randperm(2 * plan.d, generator=gen,
                             device="cuda")[:plan.d].sort().values
         rmap = rt["lowering"].row_map_for(plan, ri, "cuda")
-        flat = fsk.flashsketch_fwd(plan, ref.pad_input(plan, src[ri]))
-        gsplits = fitting_splits(rt, plan)
-        for R in gsplits:
-            check(torch.equal(fsk.flashsketch_fwd_gather(plan, src, rmap,
-                                                         row_splits=R), flat),
-                  f"gather R={R} at {plan.describe()}: not bit-equal to the "
-                  f"forward on the materialized gather")
-        print(f"  {plan.describe()} n={n}: R in {splits} the same bits "
-              f"(default R={fsk.vec_splits(plan, fsk.fwd_tn(plan, n))}, "
-              f"tn={fsk.fwd_tn(plan, n)}); "
-              f"S·E == S on 2 slabs of 1 024 columns under every R; gather "
-              f"== forward on the materialized gather under R in {gsplits}")
-        del src
-    print(f"  worst err vs plain by policy "
-          f"{ {k: f'{v:.2e}' for k, v in worst.items()} }")
+        for layout in ("rows", "view"):
+            src = (torch.randn(2 * plan.d, n, generator=gen, device="cuda")
+                   if layout == "rows" else
+                   torch.randn(n, 2 * plan.d, generator=gen, device="cuda").T)
+            flat = fwd(plan, ref.pad_input(plan, src[ri]))
+            for R in gsplits:
+                check(torch.equal(gather(plan, src, rmap, row_splits=R),
+                                  flat),
+                      f"{gather.__name__} {layout} R={R} at "
+                      f"{plan.describe()}: not bit-equal to the forward on "
+                      f"the materialized gather")
+            del src, flat
+        tn = fsk.fwd_tn(plan, n)
+        print(f"  {what} n={n}: R in {splits} the same bits (default "
+              f"R={fsk.vec_splits(plan, tn)}, tn={tn}); S·E == S on 2 slabs "
+              f"of 1 024 columns under every R; {gather.__name__} == the "
+              f"forward on the materialized gather under R in {gsplits}, "
+              f"both layouts")
+    for kind in kinds:
+        print(f"  {kind}: worst err vs plain by policy "
+              f"{ {pol: f'{worst[kind, pol]:.2e}' for pol in POLICIES} }")
 
 
 def phase_grass_kernels(rt):
@@ -1050,15 +1116,15 @@ def phase_grass_timing(rt, errs):
             work = grass_work(rt, plan, d_src, n, layout, gen)
             for name, w in work.items():
                 row = time_row(name, w, 0, errs[name])
-                split = ""
-                if name == "flashsketch_fwd_gather":
-                    split = (f"  R={fsk.row_splits(plan, 64)} (row-split"
-                             f"; kernel / library "
-                             f"{row['ms'] / row['library_ms']:.2f}")
-                    if label == "GraSS chunk" and layout == "view":
-                        split += (f"; it replaced a {REPLACED_MS[name]:.3f} "
-                                  f"ms kernel")
-                    split += ")"
+                R = (fsk.vec_splits(plan, fsk.fwd_tn(plan, n))
+                     if name == "blockrow_fwd" else fsk.row_splits(plan, 64))
+                split = (f"  R={R} (row-split; kernel / library "
+                         f"{row['ms'] / row['library_ms']:.2f}")
+                if label == "GraSS chunk":
+                    split += f"; device {device_ms(w['kernel']):.4f} ms"
+                if label == "GraSS chunk" and layout == "view":
+                    split += f"; {replaced(name)}"
+                split += ")"
                 print(f"  {label:11s} {layout:4s} {name:22s} kernel "
                       f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  "
                       f"bound {row['bound_ms']:.5f} ms ({row['bound_by']})  "
@@ -1166,8 +1232,14 @@ def phase_family_timing(rt, main_plan, n, errs):
             fused = cuda_ms(lambda: fsk.flashsketch_fwd(p, A))
             print(f"    row-split R={fsk.row_splits(p, 64)}; kernel / "
                   f"library {row['ms'] / row['library_ms']:.2f}; the fused "
-                  f"forward at this plan {fused:.4f} ms in this run; it "
-                  f"replaced a {REPLACED_MS[name]:.3f} ms kernel")
+                  f"forward at this plan {fused:.4f} ms in this run; "
+                  f"{replaced(name)}")
+        elif name in REPLACED_MS:         # the global forward and gather
+            R = (fsk.vec_splits(g, fsk.fwd_tn(g, n))
+                 if name == "flashsketch_fwd_global"
+                 else fsk.row_splits(g, 64))
+            print(f"    row-split R={R}; kernel / library "
+                  f"{row['ms'] / row['library_ms']:.2f}; {replaced(name)}")
     for k in before:      # timing launches are not main-path launches
         fsk.LAUNCHES[k] = before[k]
     return rows
@@ -1823,7 +1895,7 @@ def main() -> int:
                               SOLVER_PRESETS["default"].sampling_factor))
     try:
         errs = timed("phase 2", phase_kernels, rt, main_plan, n)
-        timed("phase 2, fused forward splits", phase_fwd_splits, rt,
+        timed("phase 2, row-split forwards", phase_fwd_splits, rt,
               main_plan, n)
         errs.update(timed("phase 2, GraSS kernels", phase_grass_kernels, rt))
         errs.update(timed("phase 2, v1 and global kernels",

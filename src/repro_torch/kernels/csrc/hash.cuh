@@ -87,73 +87,6 @@ __device__ __forceinline__ uint32_t global_entry(uint32_t prefix,
   return ((i * chunk + hash_mod(hs, chunk)) << 1) | (hs >> 31);
 }
 
-// Deterministic stream compaction across a block.  Every thread offers at
-// most one item (`keep`); the kept items get consecutive slots in the order
-// of the linear thread index, after the `scratch[nwarps]` items kept by
-// earlier calls.  Returns the slot, or -1.  `scratch` is shared memory of
-// nwarps + 1 ints, scratch[nwarps] the running count (set it to 0 first).
-// Every thread of the block calls it; the block is whole warps.
-__device__ __forceinline__ int compact_slot(bool keep, int* scratch, int tid,
-                                            int nwarps) {
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const unsigned mask = __ballot_sync(0xFFFFFFFFu, keep);
-  if (lane == 0) scratch[warp] = __popc(mask);
-  __syncthreads();
-  if (tid == 0) {
-    int run = scratch[nwarps];
-    for (int w = 0; w < nwarps; ++w) {
-      const int cnt = scratch[w];
-      scratch[w] = run;
-      run += cnt;
-    }
-    scratch[nwarps] = run;
-  }
-  __syncthreads();
-  const int slot =
-      keep ? scratch[warp] + __popc(mask & ((1u << lane) - 1u)) : -1;
-  __syncthreads();   // scratch[warp] is rewritten by the next call
-  return slot;
-}
-
-// The nonzeros of a global plan that land in one output block, rows
-// [row0, row0 + Br), for the nu global columns col0 .. col0 + nu - 1: the
-// nonzeros i_lo .. i_lo + n_i - 1 of each column (the row chunks that meet
-// the block) are hashed, and those whose row lies in the block are kept,
-// compacted in (u, i) order.  Each kept one is handed to emit(slot, uu, w),
-// uu the column's offset from col0, w = (local row << 1) | sign_bit.
-// Returns the count.  Every thread of the block calls it, after a barrier
-// that frees the previous list; scratch is compact_slot's.
-template <typename Emit>
-__device__ __forceinline__ int global_block_entries(
-    uint32_t prefix, long long col0, int nu, int i_lo, int n_i,
-    uint32_t chunk, long long row0, int Br, int* scratch, int tid,
-    int nthreads, Emit emit) {
-  const int nwarps = nthreads >> 5;
-  if (tid == 0) scratch[nwarps] = 0;
-  __syncthreads();
-  const int items = nu * n_i;
-  for (int base = 0; base < items; base += nthreads) {
-    const int e = base + tid;
-    bool keep = false;
-    uint32_t w = 0u;
-    int uu = 0;
-    if (e < items) {
-      uu = e / n_i;
-      const uint32_t en = global_entry(
-          prefix, static_cast<uint32_t>(col0 + uu),
-          static_cast<uint32_t>(i_lo + e - uu * n_i), chunk);
-      const long long local = static_cast<long long>(en >> 1) - row0;
-      keep = local >= 0 && local < Br;
-      w = (static_cast<uint32_t>(local) << 1) | (en & 1u);
-    }
-    const int slot = compact_slot(keep, scratch, tid, nwarps);
-    if (slot >= 0) emit(slot, uu, w);
-  }
-  __syncthreads();
-  return scratch[nwarps];
-}
-
 // The streamed element upcast to fp32 (exact for every streamed type).
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {

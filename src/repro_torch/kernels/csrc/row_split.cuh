@@ -1,17 +1,23 @@
-// The row-split bodies, for Hopper (sm_90a): every blockperm forward reads
-// S from a CSR of S and sums each output element in a register.
+// The row-split bodies, for Hopper (sm_90a): every forward but the v1
+// FLASHBLOCKROW reads its sparse S from a CSR and sums each output element
+// in a register.  The TPU launchers they replace are in
+// src/repro/kernels/flashsketch.py.
 //
 //   * split_fwd_kernel: the gather-fused forward Y = S·A[row_map]
-//     (flashsketch_fwd.cu, fs_fwd_gather) and the v1 forward
-//     Y = Σ_ℓ scale·Φ_{g,h_ℓ}A_{h_ℓ} (flashsketch_v1.cu, fs_fwd_v1), global
-//     plans included for v1: one column per thread, scalar loads through
-//     explicit strides (the gather's (D, c) view).
+//     (flashsketch_fwd.cu, fs_fwd_gather; replaces flashsketch_pallas_gather
+//     :642 with its global branch, Φ from _phi_global_tile :165, and
+//     blockrow_pallas_gather :682, all with body _fused_gather_kernel :280)
+//     and the v1 forward Y = Σ_ℓ scale·Φ_{g,h_ℓ}A_{h_ℓ} (flashsketch_v1.cu,
+//     fs_fwd_v1), global plans included: one column per thread, scalar
+//     loads through explicit strides (the gather's (D, c) view).
 //   * split_vec_kernel: the fused forward Y = S·A (flashsketch_fwd.cu,
-//     fs_fwd; replaces _fused_fwd_kernel, src/repro/kernels/flashsketch.py
-//     :231, launcher flashsketch_pallas :594) and the compact row-sharded
-//     partial (fs_fwd_partial; replaces _partial_fwd_kernel :378, launcher
-//     flashsketch_pallas_partial :736): 16-byte loads of a contiguous A,
-//     4 fp32 (8 bf16, 16 fp8) columns per thread.
+//     fs_fwd; replaces _fused_fwd_kernel :231 under the launchers
+//     flashsketch_pallas :594, its global branch from _phi_global_tile
+//     :165 included, and blockrow_pallas :711, Φ from _phi_rows_tile :190)
+//     and the compact row-sharded partial (fs_fwd_partial; replaces
+//     _partial_fwd_kernel :378, launcher flashsketch_pallas_partial :736):
+//     16-byte loads of a contiguous A, 4 fp32 (8 bf16, 16 fp8) columns per
+//     thread.
 //
 // Why.  One block per (output block g, column tile j) left the card nearly
 // empty where M·⌈n/tn⌉ is small: the GraSS chunk (M = 4, n = 64) launched 4
@@ -26,15 +32,26 @@
 // still hashes every column of its κ input blocks to find the nonzeros that
 // land in its rows repeats each hash R/s times (and ⌈n/tn⌉ times over the
 // column tiles), and must sort what it finds by row; measured on the H100,
-// that bookkeeping, not the data, set the time.
+// that bookkeeping, not the data, set the time.  The FLASHBLOCKROW kernel
+// had the same grid (4 blocks at that chunk), hashed its block's κ·Br·s
+// words into shared memory in every block and column tile (the shared
+// memory that sent tall FLASHBLOCKROW plans to v1), and gave each thread
+// one column of Br/groups rows in series; the global forward (CountSketch,
+// sparse graph) hashed every column of A again in every column tile,
+// compacted the nonzeros of its block with a block-wide ballot scan and
+// added them into a (Br, tn) shared-memory accumulator.
 //
-// So the nonzeros come from a CSR of S, built once per plan on the device
-// from the same hashes (kernels/flashsketch.py:_device_csr, 4 bytes per
+// So the nonzeros come from a CSR, built once per plan on the device from
+// the same hashes (kernels/flashsketch.py:_device_csr, 4 bytes per
 // nonzero) and kept beside the neighbour tables: for each output row, its
-// nonzeros as (column << 1) | sign words, sorted by (ℓ, u); for a
-// blockperm plan `ptr` holds κ offsets per row, one segment per level (and
-// a final end), for a global plan one per row (the level of a global
-// column is column / Bc).
+// nonzeros as (column << 1) | sign words.  A blockperm plan's are sorted by
+// (ℓ, u) and `ptr` holds κ offsets per row, one segment per level (and a
+// final end); a global plan's are sorted by column (the level of a global
+// column is column / Bc) and `ptr` holds one offset per row, so the kernels
+// take 1 for κ (v1: kGlobal); FLASHBLOCKROW's S_row holds κ·s per row in
+// (ℓ, t) order, κ offsets per row, not sorted by column, its collisions
+// (two ℓ that draw one h, two t that hash to one column) kept as entries
+// of their own.
 //
 // Grid (M·R, ⌈n/tn⌉): block (g, ρ) owns the rows [ρ·Br/R, (ρ+1)·Br/R) of
 // output block g.  The gather's threads first copy the sub-range's nonzero
@@ -46,14 +63,17 @@
 // flight at once.  Neighbouring threads read neighbouring columns of A's
 // row.  No atomics, nothing written but Y.
 //
-// Order of the sums.  Element (r, c) gets its adds in (ℓ, u) order, from
-// +0, then × scale: the order of the port's first fused forward (a (Br,
-// tn) shared-memory accumulator per (g, column tile), which this body
-// replaced bit for bit), so the gather equals the forward on the
-// zero-padded materialized gather bit for bit (a padding row adds an exact
-// zero there; here it adds 0).  The partial sums level ℓ's segment alone,
-// in u order from +0, unscaled: the same bits for every P, M_loc, tn and
-// R, folded in ℓ order by distributed/sharded_apply.py.  v1 sums each level
+// Order of the sums.  Element (r, c) gets its adds in its CSR order, from
+// +0, then × scale: (ℓ, u) is the order of the port's first fused forward
+// (a (Br, tn) shared-memory accumulator per (g, column tile), which this
+// body replaced bit for bit); a global row's ascending columns are the
+// (u, i) list order of the global kernel it replaced; FLASHBLOCKROW's
+// (ℓ, t), × its own scale, that of its hashing kernel.  So the gather
+// equals the forward on the zero-padded materialized gather bit for bit
+// (a padding row adds an exact zero there; here it adds 0).  The partial
+// sums level ℓ's segment alone, in u order from +0, unscaled: the same bits
+// for every P, M_loc, tn and R, folded in ℓ order by
+// distributed/sharded_apply.py.  v1 sums each level
 // in its own register, in u order, kLevels levels side by side
 // (independent chains, so their loads overlap), then adds them into the
 // running output in ℓ order, run = run + L_ℓ·scale, as the reference's
@@ -62,7 +82,8 @@
 // nonzero in the row would add an exact zero, which changes no bit).
 //
 // Bound: each row of A read once (the gather: the d mapped rows; the
-// partial: the slab) and Y written once.  The kernels read A once per
+// partial: the slab; FLASHBLOCKROW: the rows some nonzero names) and Y
+// written once.  The kernels read A once per
 // nonzero, κ·s times per row in all, from L2: the column tiles run one
 // after another (blockIdx.y is the slow grid axis), so a tile's slice of A,
 // d_pad·tn·itemsize bytes, stays in L2 while every block that needs it

@@ -22,11 +22,10 @@ hand for ``sm_90a`` (sources in ``csrc/``, built by ``build.py``):
     (the compact body) or ``blockrow_fwd_partial`` (the masked
     FLASHBLOCKROW body)
 
-The global families (CountSketch, sparse graph: κ = M plans) run kernels of
-their own behind the same wrappers: the forward and its gather hash every
-column and keep the nonzeros of their output block, the transpose gathers
-the s rows of each column (``csrc/flashsketch_fwd.cu``,
-``csrc/flashsketch_transpose.cu``); they count as ``*_global`` launches.
+The global families (CountSketch, sparse graph: κ = M plans) run behind
+the same wrappers and count as ``*_global`` launches: the forward and its
+gather run the row-split bodies below on the plan's global CSR, the
+transpose gathers the s rows of each column (``csrc/flashsketch_transpose.cu``).
 The v1 transpose of a global plan is that transpose kernel, summed per
 level.
 
@@ -40,13 +39,14 @@ fp32, on the materialized gather for the gathers) for a CPU tensor.  Each
 launch adds one to the wrapper's entry of ``LAUNCHES``, so a run can show
 that it went through the kernels.
 
-Every blockperm forward runs a row-split body (``csrc/row_split.cuh``):
-each output block's Br rows over R blocks, each sum in a register, the
-nonzeros read from a CSR of S built once per plan on the device
-(``_device_csr``).  The fused forward and the compact partial read A with
-16-byte loads, 16/itemsize columns a thread (``vec_launch``: R by
-``vec_splits``, the tile by ``fwd_tn``); the gather-fused forward and the
-v1 forward one column a thread (``row_splits``).
+Every forward but the v1 FLASHBLOCKROW runs a row-split body
+(``csrc/row_split.cuh``): each output block's Br rows over R blocks, each
+sum in a register, the nonzeros read from a CSR of S built once per plan
+on the device (``_device_csr``: blockperm, global, or FLASHBLOCKROW's
+S_row).  The fused forward, FLASHBLOCKROW, the global forward and the
+compact partial read A with 16-byte loads, 16/itemsize columns a thread
+(``vec_launch``: R by ``vec_splits``, the tile by ``fwd_tn``); the gathers
+and the v1 forward one column a thread (``row_splits``).
 
 How the kernels tile the work (``tn`` columns per block, thread groups,
 the chunk of hashed columns held in shared memory, the row split R) is a
@@ -63,6 +63,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import hashing
 from repro_torch.core import precision as precision_mod
 from repro_torch.core.blockperm import (BlockPermPlan, block_rows_signs,
                                         dense_block, dense_global_block,
@@ -91,13 +92,11 @@ _TRANSPOSE_ENTRIES = 2048
 _TRANSPOSE_TILE_BYTES = 160 * 1024
 # Threads a transpose block gives to one column (strided over rows u).
 _TRANSPOSE_GROUPS = 8
-# Global forward: (row, sign) list entries a block builds per chunk; global
-# transposes: rows u per block.
-_GLOBAL_ENTRIES = 4096
+# Global transposes: rows u per block.
 _GLOBAL_TRANSPOSE_ROWS = 256
 MAX_THREADS = 1024
 # The narrowest column tile (one warp); the lowering's downgrade ladder
-# asks whether a fused kernel fits shared memory there.
+# asks whether the transpose fits shared memory there.
 MIN_TN = 32
 # Row-split kernels (csrc/row_split.cuh): the most threads of a block (its
 # __launch_bounds__).
@@ -203,28 +202,27 @@ def _stream(plan: BlockPermPlan, operand: torch.Tensor) -> torch.Tensor:
 # Launch geometry.
 # ---------------------------------------------------------------------------
 
-FWD_DEFAULT_TN = 64          # the gather-fused forward's
+GATHER_DEFAULT_TN = 64       # the gathers' (one column a thread)
 TRANSPOSE_DEFAULT_TN = 32
-BLOCKROW_DEFAULT_TN = 64
+MASKED_PARTIAL_TN = 64       # the masked FLASHBLOCKROW partial's
 V1_DEFAULT_TN = {"fwd": 64, "transpose": 32, "blockrow": 64}
 
 
-def default_tn(plan: BlockPermPlan, op: str, n: int,
-               v1: bool = False, gather: bool = False) -> int:
+def default_tn(plan: BlockPermPlan, op: str, n: int, v1: bool = False,
+               gather: bool = False, partial: bool = False) -> int:
     """The column tile a launch of ``op`` over ``n`` columns takes unless
-    asked otherwise.  The global forward hashes every column once per
-    column tile, so it takes all n columns in one tile, up to
-    ``MAX_THREADS`` (the lowering narrows it where shared memory runs
-    out); the blockperm forward (and the compact partial) takes
-    ``fwd_tn``."""
+    asked otherwise: the forwards of ``split_vec_kernel`` (blockperm,
+    global, FLASHBLOCKROW, the compact partial) ``fwd_tn``, the gathers
+    ``GATHER_DEFAULT_TN``, the transpose, the masked partial and v1 their
+    own constants.  Every kernel fits shared memory at its default tile
+    (the transpose's is the narrowest, ``MIN_TN``)."""
     if v1:
         return V1_DEFAULT_TN[op]
-    if plan.is_global and op == "fwd":
-        return min(MAX_THREADS, max(32, -(-n // 32) * 32))
-    if op == "fwd" and not gather:
-        return fwd_tn(plan, n)
-    return {"fwd": FWD_DEFAULT_TN, "transpose": TRANSPOSE_DEFAULT_TN,
-            "blockrow": BLOCKROW_DEFAULT_TN}[op]
+    if op == "transpose":
+        return TRANSPOSE_DEFAULT_TN
+    if partial and op == "blockrow":
+        return MASKED_PARTIAL_TN
+    return GATHER_DEFAULT_TN if gather else fwd_tn(plan, n)
 
 
 def _pow2_floor(x: int) -> int:
@@ -248,25 +246,6 @@ def fwd_tn(plan: BlockPermPlan, n: int) -> int:
     tn = _pow2_floor(_L2_SLICE_BYTES // (plan.d_pad * plan.stream_itemsize))
     return max(MIN_TN, min(_FWD_MAX_TN, tn,
                            1 << (max(n, MIN_TN) - 1).bit_length()))
-
-
-def row_chunks_per_block(plan: BlockPermPlan) -> int:
-    """Row chunks (k_pad/s rows each) that meet one output block of a
-    global plan: max(1, Br·s/k_pad)."""
-    return max(1, plan.Br // plan.chunk)
-
-
-def global_fwd_launch(plan: BlockPermPlan,
-                      tn: int) -> Tuple[int, int, int]:
-    """(thread groups, hashed columns per chunk, shared bytes) of the
-    global forward (and gather) kernel at tile width ``tn``: the (Br, tn)
-    fp32 accumulator, the compacted list and the scan's scratch; groups is
-    a power of two."""
-    groups = _pow2_floor(min(plan.Br, MAX_THREADS // tn))
-    n_i = row_chunks_per_block(plan)
-    uc = max(1, _GLOBAL_ENTRIES // n_i)
-    nwarps = tn * groups // 32
-    return groups, uc, (4 * plan.Br * tn + 8 * uc * n_i + 4 * (nwarps + 1))
 
 
 @functools.lru_cache(maxsize=256)
@@ -313,25 +292,18 @@ def vec_splits(plan: BlockPermPlan, tn: int) -> int:
 
 def vec_launch(plan: BlockPermPlan, tn: int,
                R: Optional[int] = None) -> Tuple[int, int]:
-    """(thread groups, row split R) of the fused forward and the compact
-    partial (``split_vec_kernel``) at tile width ``tn``: blocks of tn/vec ×
-    groups threads, group q owning the rows q, q + G, … of the Br/R, R =
-    ``vec_splits`` unless given (one of ``split_allowed``).  No shared
-    memory: each sum lives in a register and the CSR words are read where
-    they lie."""
+    """(thread groups, row split R) of ``split_vec_kernel`` (the fused,
+    global and FLASHBLOCKROW forwards, the compact partial) at tile width
+    ``tn``: blocks of tn/vec × groups threads, group q owning the rows q,
+    q + G, … of the Br/R, R = ``vec_splits`` unless given (one of
+    ``split_allowed``).  No shared memory: each sum lives in a register and
+    the CSR words are read where they lie."""
     tx = tn // vec_width(plan)
     R = R or vec_splits(plan, tn)
     if R not in split_allowed(plan):
         raise ValueError(f"row_splits={R} is not one of "
                          f"{split_allowed(plan)} for {plan.describe()}")
     return max(1, min(plan.Br // R, _VEC_BLOCK_THREADS // tx)), R
-
-
-def blockrow_launch(plan: BlockPermPlan, tn: int) -> Tuple[int, int]:
-    """(thread groups, shared bytes) of the FLASHBLOCKROW kernel at tile
-    width ``tn``: one word per nonzero of the output block, κ·Br·s."""
-    groups = max(1, min(plan.Br, MAX_THREADS // tn))
-    return groups, 4 * plan.kappa * plan.Br * plan.s
 
 
 def partial_launch(plan: BlockPermPlan, tn: int,
@@ -382,11 +354,12 @@ def blockrow_v1_launch(plan: BlockPermPlan, tn: int) -> Tuple[int, int]:
 
 
 def is_row_split(plan: BlockPermPlan, op: str, gather: bool,
-                 v1: bool = False) -> bool:
-    """Whether the kernel of ``op`` is a row-split one: every blockperm
-    forward (fused, gather-fused, compact partial) and the v1 forward
-    (global plans included)."""
-    return op == "fwd" and (v1 or not plan.is_global)
+                 v1: bool = False, partial: bool = False) -> bool:
+    """Whether the kernel of ``op`` is a row-split one: every forward
+    (fused, gather-fused, global and its gather, the compact partial, v1
+    with global plans included) and FLASHBLOCKROW with its gather; not the
+    transposes, the v1 FLASHBLOCKROW or the masked partial."""
+    return op == "fwd" or (op == "blockrow" and not (v1 or partial))
 
 
 def launch_geometry(plan: BlockPermPlan, op: str, gather: bool, tn: int,
@@ -395,53 +368,23 @@ def launch_geometry(plan: BlockPermPlan, op: str, gather: bool, tn: int,
     """(thread groups, shared bytes, row split R) of the kernel of ``op``
     at tile width ``tn``: the fused one (with its gather), the v1 one, or
     the row-sharded partial one (``partial``); R = 1 but for the row-split
-    kernels."""
+    kernels, whose only shared memory is a gather's staged CSR words."""
     if partial and op == "blockrow":
         return (*partial_launch(plan, tn, True), 1)
-    if op == "fwd" and not (gather or v1 or plan.is_global):
+    if op != "transpose" and not (gather or v1):
         groups, R = vec_launch(plan, tn)    # also the compact partial
         return groups, 0, R
     if is_row_split(plan, op, gather, v1):
         R = row_splits(plan, tn)
-        smem = 4 * _csr_block_cap(plan, torch.device("cpu"), R) if gather \
-            else 0
+        smem = 4 * _csr_block_cap(plan, torch.device("cpu"), R,
+                                  op == "blockrow") if gather else 0
         return split_launch(plan, tn, R), smem, R
-    if v1:
-        if op == "transpose":
-            groups, _, smem = transpose_v1_launch(plan, tn)
-        else:
-            groups, smem = blockrow_v1_launch(plan, tn)
-    elif op == "transpose":
-        groups, _, smem, _ = transpose_launch(plan, tn)
-    elif op == "blockrow":
-        groups, smem = blockrow_launch(plan, tn)
+    if op == "transpose":
+        groups, _, smem = (transpose_v1_launch(plan, tn) if v1
+                           else transpose_launch(plan, tn)[:3])
     else:
-        groups, _, smem = global_fwd_launch(plan, tn)
+        groups, smem = blockrow_v1_launch(plan, tn)
     return groups, smem, 1
-
-
-def fitted_tn(plan: BlockPermPlan, op: str, n: int, gather: bool = False,
-              rejected: Optional[list] = None) -> int:
-    """``default_tn`` narrowed, by halves in multiples of 32, while the
-    fused kernel's shared memory exceeds ``MAX_SMEM_BYTES``; the rejected
-    (tn, bytes) go to ``rejected``.  (The row-sharded partials fit every
-    tile and take ``default_tn``.)"""
-    tn, bad = _fitted_tn(plan, op, n, gather)
-    if rejected is not None:
-        rejected.extend(bad)
-    return tn
-
-
-@functools.lru_cache(maxsize=1024)
-def _fitted_tn(plan: BlockPermPlan, op: str, n: int,
-               gather: bool) -> Tuple[int, Tuple[Tuple[int, int], ...]]:
-    tn = default_tn(plan, op, n, gather=gather)
-    bad = []
-    while tn > MIN_TN and (smem := launch_geometry(
-            plan, op, gather, tn)[1]) > MAX_SMEM_BYTES:
-        bad.append((tn, smem))
-        tn = max(MIN_TN, tn // 2 // 32 * 32)
-    return tn, tuple(bad)
 
 
 def _check_launch(plan: BlockPermPlan, operand: torch.Tensor, tn: int,
@@ -461,7 +404,8 @@ def _check_launch(plan: BlockPermPlan, operand: torch.Tensor, tn: int,
         raise NotImplementedError(
             f"{name}: {smem} B of shared memory at tn={tn} exceeds the "
             f"{MAX_SMEM_BYTES} B a block may use (Br={plan.Br}); the "
-            f"lowering sends such plans to the v1 kernels (impl='cuda_v1')")
+            f"lowering materializes such a gather and sends such a "
+            f"transpose to the v1 kernel (impl='cuda_v1')")
     if -(-operand.shape[1] // tn) > 65535:
         raise ValueError(f"{name}: n={operand.shape[1]} needs more than "
                          f"65535 column tiles at tn={tn}")
@@ -528,23 +472,6 @@ def _launch(source: str, symbol: str, plan: BlockPermPlan, x: torch.Tensor,
 # Kernel wrappers.
 # ---------------------------------------------------------------------------
 
-def _launch_global_fwd(plan: BlockPermPlan, x: torch.Tensor, Y: torch.Tensor,
-                       row_map: Optional[torch.Tensor], tn: int, groups: int,
-                       uc: int, smem: int) -> None:
-    """The global forward's C interface (``fs_fwd_global``); a ``row_map``
-    makes it the gather."""
-    _call("flashsketch_fwd.cu", "fs_fwd_global", x.device,
-          (_P, x.data_ptr()), (_P, Y.data_ptr()),
-          (_P, 0 if row_map is None else row_map.data_ptr()),
-          (_I, int(row_map is not None)), (_I, _DTYPE_CODES[x.dtype]),
-          (_I, plan.M), (_I, plan.Br), (_I, plan.s), (_LL, x.shape[1]),
-          (_LL, x.stride(0)), (_LL, x.stride(1)), (_I, plan.d),
-          (_I, plan.d_pad), (_I, x.shape[0]), (_I, plan.k_pad),
-          (_U, plan.seed & 0xFFFFFFFF), (_F, plan.scale),
-          *[(_I, v) for v in (tn, groups, uc, row_chunks_per_block(plan),
-                              smem)])
-
-
 def _launch_global_transpose(plan: BlockPermPlan, y: torch.Tensor,
                              X: torch.Tensor, per_level: bool, tn: int,
                              groups: int, uc: int, smem: int) -> None:
@@ -562,11 +489,11 @@ def flashsketch_fwd(plan: BlockPermPlan, A: torch.Tensor, *,
                     tn: Optional[int] = None,
                     row_splits: Optional[int] = None) -> torch.Tensor:
     """Y = S A.  A must be (d_pad, n); returns (k_pad, n) fp32 on A's
-    device.  CUDA tensors run the CUDA kernel (the row-split kernel for a
-    blockperm plan, the global kernel for a global plan), CPU tensors its
+    device.  CUDA tensors run the row-split kernel on the plan's CSR (a
+    global plan's counts as ``flashsketch_fwd_global``), CPU tensors its
     plain version; ragged n is handled in the kernel.  ``tn=None`` takes
-    ``fitted_tn``; ``row_splits`` forces the blockperm kernel's split R
-    (checks on the card: the result is the same bits for every R)."""
+    ``default_tn``; ``row_splits`` forces the split R (checks on the card:
+    the result is the same bits for every R)."""
     if A.shape[0] != plan.d_pad:
         raise ValueError(f"A must have d_pad={plan.d_pad} rows, got "
                          f"{A.shape[0]}")
@@ -576,45 +503,46 @@ def flashsketch_fwd(plan: BlockPermPlan, A: torch.Tensor, *,
     if A.device.type != "cuda":
         raise ValueError(f"no FlashSketch kernel for device {A.device}")
     n = x.shape[1]
-    tn = tn or fitted_tn(plan, "fwd", n)
+    tn = tn or default_tn(plan, "fwd", n)
     Y = torch.empty((plan.k_pad, n), dtype=torch.float32, device=x.device)
-    if plan.is_global:
-        if row_splits not in (None, 1):
-            raise ValueError("flashsketch_fwd: a global plan's forward has "
-                             "no row split")
-        groups, uc, smem = global_fwd_launch(plan, tn)
-        _check_launch(plan, x, tn, smem, plan.d_pad, "flashsketch_fwd")
-        _launch_global_fwd(plan, x.contiguous(), Y, None, tn, groups, uc,
-                           smem)
-        LAUNCHES["flashsketch_fwd_global"] += 1
-        return Y
-    _launch_vec(plan, x, Y, None, tn, row_splits, "flashsketch_fwd")
-    LAUNCHES["flashsketch_fwd"] += 1
+    name = "flashsketch_fwd_global" if plan.is_global else "flashsketch_fwd"
+    _launch_vec(plan, x, Y, None, tn, row_splits, name)
+    LAUNCHES[name] += 1
     return Y
+
+
+def _csr_levels(plan: BlockPermPlan) -> int:
+    """``ptr`` entries per row of the plan's CSR: κ level segments for a
+    blockperm or FLASHBLOCKROW plan, one for a global plan (the row-split
+    kernels take it in place of κ)."""
+    return 1 if plan.is_global else plan.kappa
 
 
 def _launch_vec(plan: BlockPermPlan, x: torch.Tensor, Y: torch.Tensor,
                 tab: Optional[torch.Tensor], tn: int,
-                row_splits_: Optional[int], name: str) -> None:
-    """The C interface of ``split_vec_kernel``: ``fs_fwd`` (the forward,
-    ``tab`` None) or ``fs_fwd_partial`` (``tab`` the (2, κ, M_loc) pairs,
+                row_splits_: Optional[int], name: str,
+                rows_pattern: bool = False) -> None:
+    """The C interface of ``split_vec_kernel``: ``fs_fwd`` (a forward,
+    ``tab`` None: the plan's CSR, or with ``rows_pattern`` FLASHBLOCKROW's
+    and its scale) or ``fs_fwd_partial`` (``tab`` the (2, κ, M_loc) pairs,
     M_loc read from x's rows)."""
     groups, R = vec_launch(plan, tn, row_splits_)
     rows = x.shape[0]
     _check_launch(plan, x, tn, 0, rows, name)
     x = x.contiguous()
     n = x.shape[1]
-    ptr, ent = _device_csr(plan, x.device)
+    ptr, ent = _device_csr(plan, x.device, rows_pattern)
     vec = int(n % vec_width(plan) == 0 and x.data_ptr() % 16 == 0)
     # arr, the integers' buffer, stays referenced through the call
     arr, params = _int_params(
         _DTYPE_CODES[x.dtype], plan.M if tab is None else rows // plan.Bc,
-        plan.Br, plan.Bc, plan.kappa, n, tn, groups, R, vec)
+        plan.Br, plan.Bc, _csr_levels(plan), n, tn, groups, R, vec)
     pointers = [(_P, x.data_ptr()), (_P, Y.data_ptr()), (_P, ptr.data_ptr()),
                 (_P, ent.data_ptr())]
     if tab is None:
+        scale = blockrow_scale(plan) if rows_pattern else plan.scale
         _call("flashsketch_fwd.cu", "fs_fwd", x.device, *pointers,
-              (_P, params), (_F, plan.scale))
+              (_P, params), (_F, scale))
     else:
         _call("flashsketch_fwd.cu", "fs_fwd_partial", x.device, *pointers,
               (_P, tab.data_ptr()), (_P, params))
@@ -636,7 +564,7 @@ def flashsketch_transpose(plan: BlockPermPlan, Y: torch.Tensor, *,
         return kref.flashsketch_transpose_ref(full, y.to(torch.float32))
     if Y.device.type != "cuda":
         raise ValueError(f"no FlashSketch kernel for device {Y.device}")
-    tn = tn or fitted_tn(plan, "transpose", y.shape[1])
+    tn = tn or default_tn(plan, "transpose", y.shape[1])
     groups, uc, smem, staged = transpose_launch(plan, tn)
     _check_launch(plan, y, tn, smem, plan.k_pad, "flashsketch_transpose")
     y = y.contiguous()
@@ -668,22 +596,6 @@ def _check_row_map(plan: BlockPermPlan, A: torch.Tensor,
                          f"{A.device}")
 
 
-def _pointer_args(x: torch.Tensor, Y: torch.Tensor, tab: torch.Tensor,
-                  row_map: Optional[torch.Tensor]):
-    """The four pointers that open the gather and blockrow C interfaces."""
-    return ((_P, x.data_ptr()), (_P, Y.data_ptr()), (_P, tab.data_ptr()),
-            (_P, 0 if row_map is None else row_map.data_ptr()))
-
-
-def _plan_args(plan: BlockPermPlan, x: torch.Tensor):
-    """dtype, plan geometry, n, strides (elements), d, the source height
-    and seed, in the order of the gather and blockrow C interfaces."""
-    return ((_I, _DTYPE_CODES[x.dtype]), (_I, plan.M), (_I, plan.Br),
-            (_I, plan.Bc), (_I, plan.kappa), (_I, plan.s),
-            (_LL, x.shape[1]), (_LL, x.stride(0)), (_LL, x.stride(1)),
-            (_I, plan.d), (_I, x.shape[0]), (_U, plan.seed & 0xFFFFFFFF))
-
-
 @functools.lru_cache(maxsize=1024)
 def _split_geometry(plan: BlockPermPlan, tn: int, row_splits_: Optional[int],
                     name: str) -> Tuple[int, int]:
@@ -700,14 +612,21 @@ def _split_geometry(plan: BlockPermPlan, tn: int, row_splits_: Optional[int],
 
 
 @functools.lru_cache(maxsize=16)
-def _device_csr(plan: BlockPermPlan,
-                device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """S of ``plan`` as a CSR on ``device``, built once per plan from the
-    hashes of ``core.blockperm`` (the fused kernels' own hashes): ``ent``
-    int32 (column << 1) | sign bit of every nonzero, each row's sorted by
-    (ℓ, u); ``ptr`` int32, for a blockperm plan κ offsets per row (row r's
-    level ℓ is ent[ptr[r·κ+ℓ]:ptr[r·κ+ℓ+1]]) and a final end, for a global
-    plan one offset per row and a final end."""
+def _device_csr(plan: BlockPermPlan, device: torch.device,
+                rows_pattern: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """S of ``plan`` (with ``rows_pattern``, FLASHBLOCKROW's S_row) as a CSR
+    on ``device``, built once per plan from the kernels' own hashes:
+    ``ent`` int32 (column << 1) | sign bit of every nonzero; ``ptr`` int32,
+    ``_csr_levels`` offsets per row (row r's level ℓ is
+    ent[ptr[r·κ+ℓ]:ptr[r·κ+ℓ+1]]; a global plan's row r is
+    ent[ptr[r]:ptr[r+1]]) and a final end.  A blockperm or global row's
+    entries are sorted by (ℓ, u) (the global level is column / Bc), a
+    FLASHBLOCKROW row's are in (ℓ, t) order, not sorted by column, and
+    keep their collisions (two ℓ that draw one h, two t that hash to one
+    column): the order and the terms of the kernels they replaced."""
+    if rows_pattern:
+        return _blockrow_csr(plan, device)
     if plan.is_global:
         u = torch.arange(plan.d_pad, dtype=torch.int64, device=device)
         rows, cols, negs = [], [], []
@@ -741,15 +660,64 @@ def _device_csr(plan: BlockPermPlan,
     return ptr.to(torch.int32), ent
 
 
+def _blockrow_csr(plan: BlockPermPlan,
+                  device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """FLASHBLOCKROW's S_row as ``_device_csr`` lays it out: row g·Br + r
+    holds κ·s entries, level ℓ's s at h_ℓ·Bc + col(g, h_ℓ, r, t) in t
+    order, h_ℓ from the iid wiring (``ref.blockrow_wiring``), the hash
+    hash_words(seed, 0x5EED, g, h, r, t): col = hash_mod(hash, Bc), the
+    sign bit 31.  4 bytes a nonzero, κ·s·k_pad in all."""
+    tab = _device_table(plan, "blockrow", device).to(torch.int64)
+    h = tab.T[:, None, :, None]                                # (M, 1, κ, 1)
+    g = torch.arange(plan.M, device=device)[:, None, None, None]
+    r = torch.arange(plan.Br, device=device)[None, :, None, None]
+    t = torch.arange(plan.s, device=device)[None, None, None, :]
+    hsh = hashing.hash_words(plan.seed, kref.BLOCKROW_PHI_TAG, g, h, r,
+                             t)                                # (M, Br, κ, s)
+    col = h * plan.Bc + hashing.hash_mod(hsh, plan.Bc)
+    ent = ((col << 1) | (hsh >> 31)).reshape(-1).to(torch.int32)
+    ptr = torch.arange(plan.k_pad * plan.kappa + 1, dtype=torch.int32,
+                       device=device) * plan.s
+    return ptr, ent
+
+
 @functools.lru_cache(maxsize=64)
-def _csr_block_cap(plan: BlockPermPlan, device: torch.device, R: int) -> int:
+def _csr_block_cap(plan: BlockPermPlan, device: torch.device, R: int,
+                   rows_pattern: bool = False) -> int:
     """The most nonzeros any block of the row-split grid at split ``R``
-    holds (its shared memory, in ints; read from the CSR once per plan and
+    holds in the CSR of ``_device_csr(plan, device, rows_pattern)`` (the
+    gather's shared memory, in ints; read from the CSR once per plan and
     split)."""
-    ptr, _ = _device_csr(plan, device)
-    rows_per_seg = 1 if plan.is_global else plan.kappa
-    edges = ptr[::rows_per_seg * (plan.Br // R)]
+    ptr, _ = _device_csr(plan, device, rows_pattern)
+    edges = ptr[::_csr_levels(plan) * (plan.Br // R)]
     return max(1, int((edges[1:] - edges[:-1]).max()))
+
+
+def _launch_gather(plan: BlockPermPlan, x: torch.Tensor, Y: torch.Tensor,
+                   row_map: torch.Tensor, tn: int,
+                   row_splits_: Optional[int], name: str,
+                   rows_pattern: bool = False) -> None:
+    """The C interface of the gather (``fs_fwd_gather``,
+    ``split_fwd_kernel``) on the plan's CSR, or with ``rows_pattern``
+    FLASHBLOCKROW's and its scale: A read through its strides, the block's
+    nonzeros staged in shared memory with their rows read through
+    ``row_map``."""
+    R, groups = _split_geometry(plan, tn, row_splits_, name)
+    ptr, ent = _device_csr(plan, x.device, rows_pattern)
+    cap = _csr_block_cap(plan, x.device, R, rows_pattern)
+    _check_launch(plan, x, tn, 4 * cap, None, name)
+    rmap = row_map if row_map.dtype == torch.int32 and \
+        row_map.is_contiguous() else row_map.to(torch.int32).contiguous()
+    # arr, the integers' buffer, stays referenced through the call
+    arr, params = _int_params(_DTYPE_CODES[x.dtype], plan.M, plan.Br,
+                              plan.Bc, _csr_levels(plan), x.shape[1],
+                              x.stride(0), x.stride(1), plan.d, x.shape[0],
+                              tn, groups, R, cap)
+    scale = blockrow_scale(plan) if rows_pattern else plan.scale
+    _call("flashsketch_fwd.cu", "fs_fwd_gather", x.device,
+          (_P, x.data_ptr()), (_P, Y.data_ptr()), (_P, ptr.data_ptr()),
+          (_P, ent.data_ptr()), (_P, rmap.data_ptr()), (_P, params),
+          (_F, scale))
 
 
 def flashsketch_fwd_gather(plan: BlockPermPlan, A: torch.Tensor,
@@ -765,9 +733,9 @@ def flashsketch_fwd_gather(plan: BlockPermPlan, A: torch.Tensor,
     ``[0, d_src)`` stops the kernel with a device-side trap, as PyTorch's
     own indexing asserts on the card.  Returns ``(k_pad, n)`` fp32; on the
     card equal bit for bit to ``flashsketch_fwd`` on the zero-padded
-    ``A[row_map[:d]]``, for every ``tn`` and row split.  ``row_splits``
-    forces the blockperm kernel's split R (checks on the card); ``None``
-    takes ``row_splits()``.
+    ``A[row_map[:d]]``, for every ``tn`` and row split (a global plan's
+    counts as ``flashsketch_fwd_gather_global``).  ``row_splits`` forces
+    the split R (checks on the card); ``None`` takes ``row_splits()``.
     """
     _check_row_map(plan, A, row_map, "flashsketch_fwd_gather")
     x = _stream(plan, A)
@@ -776,40 +744,18 @@ def flashsketch_fwd_gather(plan: BlockPermPlan, A: torch.Tensor,
     if A.device.type != "cuda":
         raise ValueError(f"no FlashSketch kernel for device {A.device}")
     n = x.shape[1]
-    tn = tn or fitted_tn(plan, "fwd", n, gather=True)
+    tn = tn or default_tn(plan, "fwd", n, gather=True)
     Y = torch.empty((plan.k_pad, n), dtype=torch.float32, device=x.device)
-    rmap = row_map if row_map.dtype == torch.int32 and \
-        row_map.is_contiguous() else row_map.to(torch.int32).contiguous()
-    if plan.is_global:
-        if row_splits not in (None, 1):
-            raise ValueError("flashsketch_fwd_gather: a global plan's gather "
-                             "has no row split")
-        groups, uc, smem = global_fwd_launch(plan, tn)
-        _check_launch(plan, x, tn, smem, None, "flashsketch_fwd_gather")
-        _launch_global_fwd(plan, x, Y, rmap, tn, groups, uc, smem)
-        LAUNCHES["flashsketch_fwd_gather_global"] += 1
-        return Y
-    R, groups = _split_geometry(plan, tn, row_splits,
-                                "flashsketch_fwd_gather")
-    ptr, ent = _device_csr(plan, x.device)
-    cap = _csr_block_cap(plan, x.device, R)
-    _check_launch(plan, x, tn, 4 * cap, None, "flashsketch_fwd_gather")
-    # arr, the integers' buffer, stays referenced through the call
-    arr, params = _int_params(_DTYPE_CODES[x.dtype], plan.M, plan.Br,
-                              plan.Bc, plan.kappa, n, x.stride(0),
-                              x.stride(1), plan.d, x.shape[0], tn, groups, R,
-                              cap)
-    _call("flashsketch_fwd.cu", "fs_fwd_gather", x.device,
-          (_P, x.data_ptr()), (_P, Y.data_ptr()), (_P, ptr.data_ptr()),
-          (_P, ent.data_ptr()), (_P, rmap.data_ptr()), (_P, params),
-          (_F, plan.scale))
-    LAUNCHES["flashsketch_fwd_gather"] += 1
+    name = "flashsketch_fwd_gather_global" if plan.is_global else \
+        "flashsketch_fwd_gather"
+    _launch_gather(plan, x, Y, row_map, tn, row_splits, name)
+    LAUNCHES[name] += 1
     return Y
 
 
 def _blockrow(plan: BlockPermPlan, A: torch.Tensor,
-              row_map: Optional[torch.Tensor], tn: int,
-              name: str) -> torch.Tensor:
+              row_map: Optional[torch.Tensor], tn: Optional[int],
+              row_splits_: Optional[int], name: str) -> torch.Tensor:
     x = _stream(plan, A)
     if A.device.type == "cpu":
         if row_map is not None:
@@ -817,40 +763,40 @@ def _blockrow(plan: BlockPermPlan, A: torch.Tensor,
         return kref.blockrow_ref(plan, x.to(torch.float32))
     if A.device.type != "cuda":
         raise ValueError(f"no FLASHBLOCKROW kernel for device {A.device}")
-    groups, smem = blockrow_launch(plan, tn)
-    _check_launch(plan, x, tn, smem, None if row_map is not None
-                  else plan.d_pad, name)
-    Y = torch.empty((plan.k_pad, x.shape[1]), dtype=torch.float32,
-                    device=x.device)
-    rmap = None if row_map is None else row_map.to(torch.int32).contiguous()
-    _call("flashsketch_blockrow.cu", "fs_blockrow", x.device,
-          *_pointer_args(x, Y, _device_table(plan, "blockrow", x.device),
-                         rmap),
-          (_I, int(row_map is not None)), *_plan_args(plan, x),
-          (_F, blockrow_scale(plan)), (_I, tn), (_I, groups), (_I, smem))
+    n = x.shape[1]
+    tn = tn or default_tn(plan, "blockrow", n, gather=row_map is not None)
+    Y = torch.empty((plan.k_pad, n), dtype=torch.float32, device=x.device)
+    if row_map is None:
+        _launch_vec(plan, x, Y, None, tn, row_splits_, name, True)
+    else:
+        _launch_gather(plan, x, Y, row_map, tn, row_splits_, name, True)
     LAUNCHES[name] += 1
     return Y
 
 
 def blockrow_fwd(plan: BlockPermPlan, A: torch.Tensor, *,
-                 tn: int = BLOCKROW_DEFAULT_TN) -> torch.Tensor:
-    """FLASHBLOCKROW Y = S_row A.  A must be (d_pad, n), in any strides;
-    returns (k_pad, n) fp32.  CUDA tensors run the CUDA kernel, CPU tensors
-    its plain version; ragged n is handled in the kernel."""
+                 tn: Optional[int] = None,
+                 row_splits: Optional[int] = None) -> torch.Tensor:
+    """FLASHBLOCKROW Y = S_row A.  A must be (d_pad, n); returns (k_pad, n)
+    fp32.  CUDA tensors run the forward's row-split kernel on S_row's CSR,
+    CPU tensors its plain version; ragged n is handled in the kernel.
+    ``tn=None`` takes ``default_tn``; ``row_splits`` forces the split R
+    (checks on the card: the same bits for every R)."""
     if A.shape[0] != plan.d_pad:
         raise ValueError(f"A must have d_pad={plan.d_pad} rows, got "
                          f"{A.shape[0]}")
-    return _blockrow(plan, A, None, tn, "blockrow_fwd")
+    return _blockrow(plan, A, None, tn, row_splits, "blockrow_fwd")
 
 
 def blockrow_fwd_gather(plan: BlockPermPlan, A: torch.Tensor,
-                        row_map: torch.Tensor, *,
-                        tn: int = BLOCKROW_DEFAULT_TN) -> torch.Tensor:
+                        row_map: torch.Tensor, *, tn: Optional[int] = None,
+                        row_splits: Optional[int] = None) -> torch.Tensor:
     """FLASHBLOCKROW over gathered rows, Y = S_row · A[row_map], in one
     launch; arguments as ``flashsketch_fwd_gather``.  On the card equal bit
-    for bit to ``blockrow_fwd`` on the zero-padded ``A[row_map[:d]]``."""
+    for bit to ``blockrow_fwd`` on the zero-padded ``A[row_map[:d]]``, for
+    every ``tn`` and row split."""
     _check_row_map(plan, A, row_map, "blockrow_fwd_gather")
-    return _blockrow(plan, A, row_map, tn, "blockrow_fwd_gather")
+    return _blockrow(plan, A, row_map, tn, row_splits, "blockrow_fwd_gather")
 
 
 def flashsketch_partial(plan: BlockPermPlan, A_local: torch.Tensor,
@@ -868,9 +814,9 @@ def flashsketch_partial(plan: BlockPermPlan, A_local: torch.Tensor,
     ``tables[0, ℓ, m]``), or with ``rows_pattern`` the global
     ``(κ, k_pad, n)`` with exact zeros at the pairs another rank owns.
     Summed over the ranks and folded in ℓ order it is ``S·A / scale``.
-    CUDA tensors run the CUDA kernel (``tn=None`` takes the forward's or
-    FLASHBLOCKROW's default tile; the compact one is the forward's
-    row-split kernel on the plan's CSR), CPU tensors its plain version
+    CUDA tensors run the CUDA kernel (``tn=None`` takes the forward's tile
+    or ``MASKED_PARTIAL_TN``; the compact one is the forward's row-split
+    kernel on the plan's CSR), CPU tensors its plain version
     ``ref.partial_ref``.  A global plan has no partial: every input block
     feeds every output block.
     """
@@ -895,7 +841,8 @@ def flashsketch_partial(plan: BlockPermPlan, A_local: torch.Tensor,
         raise ValueError(f"no partial kernel for device {A_local.device}")
     name = "blockrow_fwd_partial" if rows_pattern else \
         "flashsketch_fwd_partial"
-    tn = tn or default_tn(plan, "blockrow" if rows_pattern else "fwd", n)
+    tn = tn or default_tn(plan, "blockrow" if rows_pattern else "fwd", n,
+                          partial=True)
     tab = tables.to(device=x.device, dtype=torch.int32).contiguous()
     if not rows_pattern:
         Y = torch.empty((plan.kappa, M_loc * plan.Br, n), dtype=torch.float32,
@@ -950,7 +897,7 @@ def flashsketch_fwd_v1(plan: BlockPermPlan, A: torch.Tensor, *,
     n = x.shape[1]
     tn = tn or default_tn(plan, "fwd", n, v1=True)
     R, groups = _split_geometry(plan, tn, row_splits, "flashsketch_fwd_v1")
-    ptr, ent = _device_csr(plan, x.device)
+    ptr, ent = _device_csr(plan, x.device, False)
     _check_launch(plan, x, tn, 0, plan.d_pad, "flashsketch_fwd_v1")
     x = x.contiguous()
     Y = torch.empty((plan.k_pad, n), dtype=torch.float32, device=x.device)

@@ -28,16 +28,17 @@ health counter ``lowering.downgrade``, decided from the geometry before any
 launch, as the reference decides it from its VMEM budget (which plans it
 catches is the card's own):
 
-  1. ``cuda`` + gather, the fused kernel of the op over the block's limit
-     at the narrowest tile (tn = 32) → materialize the gather and continue
-     as the plain op (the blockperm gather kernel splits its rows to fit
-     any plan, but fuses only where the op's own fused kernel runs, as the
-     reference's gather fuses only where its forward does);
-  2. ``cuda``, the fused ``transpose`` / ``blockrow`` kernel over the limit
-     at tn = 32 → ``cuda_v1``.  The blockperm forward's row-split kernel
-     keeps every sum in a register and uses no shared memory, so it runs
-     every plan: the Br = 2 048 plans the reference sends to ``pallas_v1``
-     run it here.
+  1. ``cuda`` + gather, the gather kernel's staged CSR words (the most
+     nonzeros of one block of its row split, at the tile it runs) over the
+     block's limit → materialize the gather and continue as the plain op;
+  2. ``cuda``, the fused ``transpose`` kernel over the limit at the
+     narrowest tile (tn = 32) → ``cuda_v1``.
+
+Every forward and FLASHBLOCKROW runs a row-split kernel that keeps each sum
+in a register and uses no shared memory but a gather's staged words, so
+none of them downgrades or narrows its tile: the Br = 2 048 plans the
+reference sends to ``pallas_v1`` run them here, and FLASHBLOCKROW goes to
+``cuda_v1`` only when asked.
 
 ``shard`` (``"none" | "row" | "col" | "batch"``, over ``devices`` ranks)
 records a sharded launch and rejects what the reference rejects.
@@ -120,9 +121,11 @@ class Lowering:
     request and ``gather_fused`` what runs (``False``: ``A[row_index]`` is
     materialized first); ``tn``, ``groups`` and ``smem_bytes`` the CUDA
     launch geometry (``None`` for the plain version), ``row_splits`` the
-    split R of a row-split kernel (every blockperm forward, the compact
-    partial and the v1 forward: each output block's Br rows in R
-    sub-ranges, one block each; ``None`` for the other kernels);
+    split R of a row-split kernel (every forward and its gather, global
+    plans included, FLASHBLOCKROW and its gather, the compact partial and
+    the v1 forward: each output block's Br rows in R sub-ranges, one block
+    each; ``None`` for the transposes, the v1 FLASHBLOCKROW and the masked
+    partial);
     ``pad_rows`` the zero
     rows added to the operand (none with a fused gather: the kernel zeroes
     the padding rows itself).  Columns are never padded: the kernels mask
@@ -236,6 +239,13 @@ def _validate(plan: BlockPermPlan, spec: LaunchSpec) -> None:
                          f"B={spec.batch}")
 
 
+def _gather_smem(eff: BlockPermPlan, spec: LaunchSpec, n: int) -> int:
+    """Shared bytes of the gather kernel of ``spec.op`` at the tile it
+    would run (the explicit one or its default): its block's CSR words."""
+    tn = spec.tn or fsk.default_tn(eff, spec.op, n, gather=True)
+    return fsk.launch_geometry(eff, spec.op, True, tn)[1]
+
+
 def _lower(plan: BlockPermPlan, spec: LaunchSpec,
            trace: Optional[List[str]]) -> Lowering:
     def t(line: str) -> None:
@@ -276,12 +286,12 @@ def _lower(plan: BlockPermPlan, spec: LaunchSpec,
                 "gather is materialized, then the v1 kernel runs on "
                 "A[row_index]")
             t(f"gather: materialized ({downgrades[-1]})")
-        elif impl == "cuda" and (smem := fsk.launch_geometry(
-                eff, spec.op, False, fsk.MIN_TN)[1]) > fsk.MAX_SMEM_BYTES:
+        elif impl == "cuda" and (smem := _gather_smem(
+                eff, spec, n_loc * batch_loc)) > fsk.MAX_SMEM_BYTES:
             downgrades.append(
-                f"shared memory: the fused {spec.op!r} kernel needs {smem} B "
-                f"at tn={fsk.MIN_TN} > {fsk.MAX_SMEM_BYTES} B — gather "
-                f"materialized, then the regular dispatch runs on "
+                f"shared memory: the {spec.op!r} gather kernel stages {smem} "
+                f"B of CSR words > {fsk.MAX_SMEM_BYTES} B — "
+                f"gather materialized, then the regular dispatch runs on "
                 f"A[row_index]")
             t(f"gather: materialized ({downgrades[-1]})")
         elif impl == "cuda":
@@ -289,8 +299,9 @@ def _lower(plan: BlockPermPlan, spec: LaunchSpec,
             t("gather: fused in-kernel (rows read through row_map)")
         else:
             t("gather: materialized A[row_index] (plain version)")
-    if impl == "cuda" and (smem := fsk.launch_geometry(
-            eff, spec.op, gather_fused, fsk.MIN_TN)[1]) > fsk.MAX_SMEM_BYTES:
+    if impl == "cuda" and spec.op == "transpose" and (
+            smem := fsk.launch_geometry(eff, spec.op, False, fsk.MIN_TN)[1]
+    ) > fsk.MAX_SMEM_BYTES:
         downgrades.append(
             f"shared memory: the fused {spec.op!r} kernel needs {smem} B at "
             f"tn={fsk.MIN_TN} > {fsk.MAX_SMEM_BYTES} B — cuda_v1, the v1 "
@@ -331,24 +342,17 @@ def _fit_tile(eff: BlockPermPlan, spec: LaunchSpec, n_loc: int,
               t) -> Tuple[int, str, int, int, int, Optional[int]]:
     """(tn, its source, thread groups, shared bytes, column tiles, row
     split R or ``None``) of the kernel the lowering chose: the explicit
-    tile, the v1 default, or the default narrowed until that kernel's
-    shared memory fits (a partial kernel fits every tile); R for a
-    row-split kernel."""
+    tile, the v1 default, or the kernel's default (every kernel fits shared
+    memory there); R for a row-split kernel."""
     if spec.tn is not None:
         tn, tn_source = spec.tn, "explicit"
     elif v1:
         tn = fsk.default_tn(eff, spec.op, n_loc * batch_loc, v1=True)
         tn_source = "v1_default"
-    elif partial:
-        tn, tn_source = fsk.default_tn(eff, spec.op, n_loc), "default"
     else:
-        rejected: List[Tuple[int, int]] = []
-        tn = fsk.fitted_tn(eff, spec.op, n_loc * batch_loc, gather_fused,
-                           rejected)
-        tn_source = "default:smem_shrunk" if rejected else "default"
-        for bad, smem in rejected:
-            t(f"tn={bad} rejected: {smem} B of shared memory > "
-              f"{fsk.MAX_SMEM_BYTES} B")
+        tn = fsk.default_tn(eff, spec.op, n_loc * batch_loc,
+                            gather=gather_fused, partial=partial)
+        tn_source = "default"
     groups, smem, R = fsk.launch_geometry(eff, spec.op, gather_fused, tn, v1,
                                           partial)
     grid_cols = -(-n_loc // tn)
@@ -356,7 +360,7 @@ def _fit_tile(eff: BlockPermPlan, spec: LaunchSpec, n_loc: int,
       f"{groups} thread groups, {smem} B shared memory, {grid_cols} column "
       f"tiles")
     splits = None
-    if fsk.is_row_split(eff, spec.op, gather_fused, v1):
+    if fsk.is_row_split(eff, spec.op, gather_fused, v1, partial):
         splits = R
         tiles = -(-n_loc * batch_loc // tn)
         blocks = eff.kappa * (eff.M // spec.devices) if partial else eff.M

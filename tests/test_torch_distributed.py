@@ -298,15 +298,22 @@ def test_partial_fits_smem_decisions():
                                           shard="row", devices=1))
     chunk = tfsk.MAX_SMEM_BYTES // (4 * huge.s)
     assert (lw.impl, lw.downgrade, lw.tn, lw.smem_bytes) == (
-        "cuda", None, tfsk.BLOCKROW_DEFAULT_TN, 4 * chunk * huge.s)
+        "cuda", None, tfsk.MASKED_PARTIAL_TN, 4 * chunk * huge.s)
     assert lw.smem_bytes <= tfsk.MAX_SMEM_BYTES
     assert treport.counters().get("lowering.downgrade", 0) == before
     assert "impl: 'cuda' -> 'torch'" not in tlow.explain(
         huge, op="blockrow", n=8, device="cuda", shard="row", devices=1)
     # the masked body's tile follows its own model (Br·s words of one
-    # level), not the full FLASHBLOCKROW kernel's κ·Br·s
+    # level, at its own tile), not the single-device FLASHBLOCKROW
+    # kernel's: that one reads S_row's CSR where it lies (no shared
+    # memory, where a block's κ·Br·s words would not fit) at the forward's
+    # tile
     wide = tb.make_plan(65_536, 32_768, kappa=4, block_rows=8192)
-    assert tfsk.blockrow_launch(wide, 64)[1] > tfsk.MAX_SMEM_BYTES
+    assert 4 * wide.kappa * wide.Br * wide.s > tfsk.MAX_SMEM_BYTES
+    one = tlow.lower(wide, tlow.LaunchSpec(op="blockrow", n=1024,
+                                           device="cuda"))
+    assert (one.impl, one.downgrade, one.tn, one.smem_bytes) == (
+        "cuda", None, tfsk.fwd_tn(wide, 1024), 0)
     lw = tlow.lower(wide, tlow.LaunchSpec(op="blockrow", n=1024,
                                           device="cuda", shard="row",
                                           devices=2))

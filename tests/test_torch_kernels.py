@@ -152,14 +152,15 @@ def test_lowering_resolves_per_device():
                                         device="cuda", dtype="bf16"))
     assert (tr.tn, tr.tn_source, tr.dtype) == (64, "explicit", "bfloat16")
     assert tr.plan == pt.with_dtype("bfloat16")
-    # a pinned tall block shrinks the default tile to fit shared memory:
-    # the global forward's (Br, tn) accumulator (the blockperm forward keeps
-    # its sums in registers and never shrinks)
+    # a pinned tall block keeps its default tile: the global forward, like
+    # the blockperm one, runs the row-split kernel on the plan's CSR, each
+    # sum in a register and no shared memory (its old (Br, tn) accumulator
+    # narrowed the tile here)
     big = tb.make_plan(4096, 2048, family="countsketch", s=1, block_rows=1024)
     lw = tlow.lower(big, tlow.LaunchSpec(n=256, device="cuda"))
-    assert lw.tn_source == "default:smem_shrunk"
-    assert lw.tn < tfsk.default_tn(big, "fwd", 256)
-    assert lw.smem_bytes <= tfsk.MAX_SMEM_BYTES
+    assert (lw.tn, lw.tn_source, lw.smem_bytes, lw.downgrade) == (
+        tfsk.fwd_tn(big, 256), "default", 0, None)
+    assert (lw.groups, lw.row_splits) == tfsk.vec_launch(big, lw.tn)
     tall = tb.make_plan(4096, 2048, kappa=1, s=1, block_rows=1024)
     lw = tlow.lower(tall, tlow.LaunchSpec(n=256, device="cuda"))
     assert (lw.tn, lw.tn_source) == (tfsk.fwd_tn(tall, 256), "default")
@@ -371,8 +372,28 @@ def test_gather_lowering_records_and_errors(gathered):
     assert "gather=fused" in cuda.describe()
     cpu = tlow.lower(pt, tlow.LaunchSpec(n=64, gather=True))
     assert (cpu.impl, cpu.gather_fused, cpu.pad_rows) == ("torch", False, 2)
+    # FLASHBLOCKROW runs the row-split kernels on S_row's CSR: the
+    # forward's (no shared memory), the gather's (its block's words staged)
     br = tlow.lower(pt, tlow.LaunchSpec(op="blockrow", n=64, device="cuda"))
-    assert br.smem_bytes == tfsk.blockrow_launch(pt, br.tn)[1]
+    assert (br.tn, br.smem_bytes) == (tfsk.fwd_tn(pt, 64), 0)
+    assert (br.groups, br.row_splits) == tfsk.vec_launch(pt, br.tn)
+    brg = tlow.lower(pt, tlow.LaunchSpec(op="blockrow", n=64, device="cuda",
+                                         gather=True))
+    assert (brg.gather_fused, brg.row_splits) == (
+        True, tfsk.row_splits(pt, brg.tn))
+    assert brg.smem_bytes == 4 * tfsk._csr_block_cap(
+        pt, torch.device("cpu"), brg.row_splits, True) == \
+        4 * pt.Br // brg.row_splits * pt.kappa * pt.s
+    # a gather whose block's CSR words outgrow shared memory (all 65 536
+    # nonzeros of one block of 8 rows) is materialized, and the plain op's
+    # row-split kernel runs on A[row_index]: a recorded downgrade
+    before = treport.counters().get("lowering.downgrade", 0)
+    wide = tb.make_plan(65536, 8, family="countsketch", s=1)
+    lw = tlow.lower(wide, tlow.LaunchSpec(n=64, device="cuda", gather=True))
+    assert (lw.impl, lw.gather_fused, lw.smem_bytes) == ("cuda", False, 0)
+    assert "gather kernel stages 262144 B" in lw.downgrade
+    assert lw.row_splits == tfsk.vec_splits(wide, lw.tn)
+    assert treport.counters().get("lowering.downgrade", 0) == before + 1
     rmap = tlow.row_map_for(pt, idx)
     assert rmap.dtype == torch.int32 and rmap.shape == (pt.d_pad,)
     assert torch.equal(rmap[:190], torch.from_numpy(idx))
@@ -465,8 +486,9 @@ def global_plans():
 
 def test_global_plans_cover_both_layouts(global_plans):
     (_, cs, _, _), (_, gr, _, _) = global_plans
-    assert tfsk.row_chunks_per_block(cs) == 1 and cs.M == 8
-    assert tfsk.row_chunks_per_block(gr) == 2 and gr.M == 2
+    # row chunks (k_pad/s rows each) that meet one output block
+    assert max(1, cs.Br // cs.chunk) == 1 and cs.M == 8
+    assert max(1, gr.Br // gr.chunk) == 2 and gr.M == 2
 
 
 @pytest.mark.parametrize("policy", ["float32", "bfloat16"])
@@ -504,14 +526,15 @@ def test_global_kernels_match_pallas(global_plans):
 
 @pytest.mark.parametrize("op,gather", [("fwd", False), ("fwd", True),
                                        ("transpose", False),
-                                       ("blockrow", False)])
+                                       ("blockrow", False),
+                                       ("blockrow", True)])
 def test_downgrade_record_matches_reference(op, gather):
     """A pinned tall block (Br = 2 048): the reference's fused tile busts
     VMEM, so it sends ``pallas`` to ``pallas_v1`` (and materializes the
     gather); the card's kernels follow their own resource model.  The
-    blockperm forward and its gather keep every sum in a register and run
-    the plan as asked, a documented difference; the transpose and
-    FLASHBLOCKROW fit too.  op, dtype, gather and padding agree with the
+    forwards and FLASHBLOCKROW, with their gathers, keep every sum in a
+    register and run the plan as asked, a documented difference; the
+    transpose fits too.  op, dtype, gather and padding agree with the
     reference's record."""
     pj, pt = _plans(65536, 4096, kappa=4, block_rows=2048)
     spec = dict(op=op, n=1000, gather=gather)
@@ -526,9 +549,12 @@ def test_downgrade_record_matches_reference(op, gather):
     assert "impl: 'cuda' -> 'cuda_v1'" not in tlow.explain(
         pt, device="cuda", **spec)
     assert lw.gather_fused == gather
-    if op == "fwd":          # the row-split forward and gather
+    if op != "transpose":    # the row-split forwards and gathers
         assert lw.row_splits == (tfsk.row_splits(pt, lw.tn) if gather
                                  else tfsk.vec_splits(pt, lw.tn))
+        assert lw.smem_bytes == (4 * tfsk._csr_block_cap(
+            pt, torch.device("cpu"), lw.row_splits, op == "blockrow")
+            if gather else 0) <= tfsk.MAX_SMEM_BYTES
     assert tlow.lower(pt, tlow.LaunchSpec(impl="cuda_v1", device="cuda",
                                           **spec)).impl == "cuda_v1"
 
@@ -783,10 +809,11 @@ _CSR_PLANS = [dict(d=1000, k=96, kappa=4, s=2, seed=5),
                    seed=4)]
 
 
-def _csr_rows(pt):
-    """Per output row, the (level, column, sign) of its CSR entries, in the
-    order the row-split kernels add them."""
-    ptr, ent = tfsk._device_csr(pt, torch.device("cpu"))
+def _csr_rows(pt, rows_pattern=False):
+    """Per output row, the (level, column, sign) of its CSR entries (with
+    ``rows_pattern``, FLASHBLOCKROW's), in the order the row-split kernels
+    add them."""
+    ptr, ent = tfsk._device_csr(pt, torch.device("cpu"), rows_pattern)
     per = 1 if pt.is_global else pt.kappa
     rows = []
     for r in range(pt.k_pad):
@@ -823,11 +850,13 @@ def test_device_csr_is_the_plans_sketch(kw):
     assert sum(map(len, rows)) == pt.nnz_per_col * pt.d_pad
 
 
-def _emulate_row_split(pt, A, v1):
+def _emulate_row_split(pt, A, v1, rows_pattern=False):
     """The row-split kernels' sums in fp32, vectorized over rows and
     columns: each row's CSR entries added one at a time in CSR order from
-    +0 (the gather), or each level's apart and folded in ℓ order (v1)."""
-    rows = _csr_rows(pt)
+    +0, then × scale (the forwards and gathers; FLASHBLOCKROW's CSR and
+    scale with ``rows_pattern``), or each level's apart and folded in ℓ
+    order (v1)."""
+    rows = _csr_rows(pt, rows_pattern)
     levels = pt.M if pt.is_global else pt.kappa
     out = torch.zeros(pt.k_pad, A.shape[1])
     run = torch.zeros_like(out)
@@ -843,7 +872,9 @@ def _emulate_row_split(pt, A, v1):
                     acc[r] = acc[r] + sg * A[c]
         if v1:
             run = run + acc * pt.scale
-    return run if v1 else acc * pt.scale
+    if v1:
+        return run
+    return acc * (tfsk.blockrow_scale(pt) if rows_pattern else pt.scale)
 
 
 @pytest.mark.parametrize("kw", _CSR_PLANS[:2] + _CSR_PLANS[3:4])
@@ -858,6 +889,89 @@ def test_row_split_sum_order_matches_the_plain_versions(kw, rng):
     if not pt.is_global:
         _close(_emulate_row_split(pt, A, False)[: pt.k],
                tref.flashsketch_ref(pt, A), 1e-5)
+
+
+# FLASHBLOCKROW's CSR: κ × s ∈ {1, 2, 4}² with d < d_pad and a power-of-two
+# Bc; Bc = 768 and 48 (true modulo), s = 4 at Bc = 48 (two t of a row that
+# hash to one column); every plan with κ > 1 here has M = κ, and the first
+# one has two ℓ that draw the same h (asserted)
+_BLOCKROW_CSR_PLANS = ([dict(d=1000, k=96, kappa=ka, s=s, seed=5)
+                        for ka in (4, 1, 2) for s in (2, 1, 4)]
+                       + [dict(d=3000, k=64, kappa=4, s=2, seed=7),
+                          dict(d=190, k=48, kappa=4, s=4, seed=2)])
+
+
+@pytest.mark.parametrize("kw", _BLOCKROW_CSR_PLANS)
+def test_blockrow_csr_is_s_row(kw):
+    """The CSR FLASHBLOCKROW's row-split kernels read is S_row: κ·s entries
+    a row in (ℓ, t) order, entry ℓ·s + t at h_ℓ·Bc + hash_mod(hash, Bc)
+    with its sign bit, from the JAX package's hash and wiring, collisions
+    kept; the dense matrix rebuilt from it, scaled, is the plain version's
+    S_row · I exactly and the JAX package's within fp32's 1e-5."""
+    from repro.core import hashing as jhash
+    kw = dict(kw)
+    d, k = kw.pop("d"), kw.pop("k")
+    pj, pt = _plans(d, k, **kw)
+    rows = _csr_rows(pt, True)
+    assert all(len(row) == pt.kappa * pt.s for row in rows)
+    tab = np.asarray(jref.blockrow_wiring(pj))
+    g, r, ell, t = np.meshgrid(np.arange(pt.M), np.arange(pt.Br),
+                               np.arange(pt.kappa), np.arange(pt.s),
+                               indexing="ij")
+    h = tab[ell, g]
+    hsh = np.asarray(jhash.hash_words(np.uint32(pj.seed), np.uint32(0x5EED),
+                                      jnp.asarray(g, jnp.uint32),
+                                      jnp.asarray(h, jnp.uint32),
+                                      jnp.asarray(r, jnp.uint32),
+                                      jnp.asarray(t, jnp.uint32)))
+    hsh = hsh.astype(np.int64)
+    col = h * pt.Bc + np.asarray(jhash.hash_mod(jnp.asarray(hsh, jnp.uint32),
+                                                pt.Bc)).astype(np.int64)
+    sign = np.where(hsh >> 31, -1.0, 1.0)
+    want = [list(zip(ell_r.tolist(), col_r.tolist(), sign_r.tolist()))
+            for ell_r, col_r, sign_r in zip(
+                ell.reshape(pt.k_pad, -1), col.reshape(pt.k_pad, -1),
+                sign.reshape(pt.k_pad, -1))]
+    assert rows == want
+    if kw == _BLOCKROW_CSR_PLANS[0]:
+        assert any(len(set(tab[:, gg])) < pt.kappa for gg in range(pt.M))
+    D = torch.zeros(pt.k_pad, pt.d_pad)
+    for rr, row in enumerate(rows):
+        for _, c, sg in row:
+            D[rr, c] += sg
+    eye = torch.eye(pt.d_pad)
+    got = (D * tfsk.blockrow_scale(pt))[: pt.k]
+    assert torch.equal(got, tref.blockrow_ref(pt, eye))
+    _close(got, jref.blockrow_ref(pj, jnp.eye(pt.d_pad)), 1e-5)
+
+
+@pytest.mark.parametrize("policy", POLICIES)
+def test_csr_sum_order_matches_pallas(policy, gathered, global_plans):
+    """Summed in the row-split kernels' order from their CSR (from +0, then
+    × scale), FLASHBLOCKROW on the zero-padded materialized gather agrees
+    with ``blockrow_pallas`` on it and with ``blockrow_pallas_gather`` on
+    the source, and the global forward with ``flashsketch_pallas``'s global
+    branch (interpret mode), within each policy's exactness_atol."""
+    atol = jp.resolve(policy).exactness_atol
+    pj, pt, A, idx = gathered
+    pj, pt = pj.with_dtype(policy), pt.with_dtype(policy)
+    n = A.shape[1]
+    x = tfsk._stream(pt, torch.from_numpy(A)).float()
+    G = tref.gather_rows(pt, x, tlow.row_map_for(pt, idx))
+    got = _emulate_row_split(pt, G, False, True)[: pt.k]
+    _close(got, jfsk.blockrow_pallas_gather(
+        pj, jnp.asarray(A), jlow.row_map_for(pj, jnp.asarray(idx)),
+        tn=16)[: pt.k, :n], atol)
+    Ap = np.zeros((pt.d_pad, n), np.float32)
+    Ap[: pt.d] = A[idx]
+    _close(got, jfsk.blockrow_pallas(pj, jnp.asarray(Ap), tn=16)[: pt.k, :n],
+           atol)
+    for pj, pt, A, _ in global_plans:
+        pj, pt = pj.with_dtype(policy), pt.with_dtype(policy)
+        x = tfsk._stream(pt, torch.from_numpy(A)).float()
+        _close(_emulate_row_split(pt, x, False)[: pt.k],
+               jfsk.flashsketch_pallas(pj, jnp.asarray(A), tn=64)[: pt.k, :37],
+               atol)
 
 
 @pytest.mark.gpu
@@ -952,3 +1066,52 @@ def test_cuda_vec_forward_and_partial_match_plain(policy, cuda):
             for ell in range(1, p.kappa):
                 Y = Y + parts[ell]
             assert torch.equal(Y * p.scale, S), P
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("policy", ["float32", "bfloat16", "fp8_e4m3_sr"])
+def test_cuda_blockrow_and_global_forced_splits(policy, cuda):
+    """On the card: FLASHBLOCKROW and the global forward (split_vec_kernel
+    on their CSRs) and their gathers (split_fwd_kernel) within the policy's
+    tolerance of their plain versions; each forward the same bits under
+    every row split R; each gather equal to its forward on the zero-padded
+    materialized gather under every R a block fits, in both source
+    layouts; in fp32 S·I == S."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for d, k, kw, n, d_src in [
+            (1000, 96, dict(kappa=4, s=2), 37, 3000),
+            (3000, 64, dict(kappa=2, s=4), 33, 5000),     # Bc = 1 536
+            (4096, 1024, dict(kappa=4, s=2), 64, 109386),
+            (1000, 256, dict(family="countsketch", s=1, block_rows=32), 37,
+             3000),
+            (1000, 128, dict(family="graph", s=4, block_rows=64), 37, 3000)]:
+        p = tb.make_plan(d, k, dtype=policy, **kw)
+        rows = not p.is_global
+        fwd = tfsk.blockrow_fwd if rows else tfsk.flashsketch_fwd
+        gather = tfsk.blockrow_fwd_gather if rows else \
+            tfsk.flashsketch_fwd_gather
+        plain = tref.blockrow_ref if rows else tref.flashsketch_ref
+        A = torch.randn(p.d_pad, n, generator=gen, device=cuda) * 3
+        first = fwd(p, A)
+        want = plain(p, tfsk._stream(p, A).float())
+        assert float((first - want).abs().max()) <= \
+            p.precision.exactness_atol * float(want.abs().max())
+        for R in tfsk.split_allowed(p):
+            assert torch.equal(fwd(p, A, row_splits=R), first), R
+        ri = torch.randperm(d_src, generator=gen, device=cuda)[:d].sort()[0]
+        rmap = tlow.row_map_for(p, ri, cuda)
+        splits = [R for R in tfsk.split_allowed(p) if 4 * tfsk._csr_block_cap(
+            p, cuda, R, rows) <= tfsk.MAX_SMEM_BYTES]
+        for src in (torch.randn(d_src, n, generator=gen, device=cuda),
+                    torch.randn(n, d_src, generator=gen, device=cuda).T):
+            flat = fwd(p, tref.pad_input(p, src[ri]))
+            assert torch.equal(gather(p, src, rmap), flat)
+            for R in splits:
+                assert torch.equal(gather(p, src, rmap, row_splits=R),
+                                   flat), R
+        if policy == "float32":
+            eye = torch.eye(p.d_pad, device=cuda)
+            S = plain(p, eye) if rows else \
+                tb.materialize_sketch_matrix(p, cuda)
+            for R in tfsk.split_allowed(p):
+                assert torch.equal(fwd(p, eye, row_splits=R), S), R

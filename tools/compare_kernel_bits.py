@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Save, or compare bit for bit, the blockperm forward's and the compact
-partial's outputs of one tree of the port on the GPU, and time them.
+"""Save, or compare bit for bit, the outputs of the port's forward kernels
+(the blockperm, FLASHBLOCKROW and global forwards, their gathers and the
+compact partial) of one tree on the GPU, and time them.
 
     PYTHONPATH=<parent>/src python tools/compare_kernel_bits.py \
         --save _checkout/bits
@@ -8,14 +9,25 @@ partial's outputs of one tree of the port on the GPU, and time them.
         --against _checkout/bits
 
 Run from the root of a checkout, DIR inside it (``_checkout/`` is
-gitignored; the outputs take about 0.9 GB); ``PYTHONPATH`` picks the tree
+gitignored; the outputs take about 1.5 GB); ``PYTHONPATH`` picks the tree
 whose ``repro_torch`` runs, so a change to these kernels is held to its
 parent (unpacked beside it) bit for bit on one card. The inputs are made
-on the card from seeded generators: the main plan (d = 65 536, k = 4 096,
-M = 32, Br = 128, Bc = 2 048, κ = 4, s = 2) and a Br = 32, Bc = 8 192 plan
-(d = 65 536, k = 256), n = 1 024, every precision policy. Outputs:
-``flashsketch_fwd`` and ``flashsketch_partial`` (each rank of P = 4, and
-P = 1), at the wrapper's defaults. ``--save`` writes them to DIR;
+on the card from seeded generators, every precision policy, at the
+wrappers' defaults:
+
+  * the main plan (d = 65 536, k = 4 096, M = 32, Br = 128, Bc = 2 048,
+    κ = 4, s = 2) and a Br = 32, Bc = 8 192 plan (d = 65 536, k = 256),
+    n = 1 024: ``flashsketch_fwd`` and ``flashsketch_partial`` (each rank
+    of P = 4, and P = 1); at the main plan also ``blockrow_fwd``;
+  * the GraSS chunk (d = 4 096, k = 1 024, κ = 4, s = 2, n = 64, gathered
+    from d_src = 109 386 rows): ``blockrow_fwd`` on the zero-padded
+    gather and ``blockrow_fwd_gather`` from a row-major source and from
+    the (D, c) view;
+  * the CountSketch (s = 1) and graph (s = 4) plans of the main shape,
+    n = 1 024: the global ``flashsketch_fwd`` and, gathered from 4·d
+    row-major rows, ``flashsketch_fwd_gather``.
+
+``--save`` writes them to DIR;
 ``--against`` holds each to the saved one with ``torch.equal``, prints the
 largest difference where they differ and exits 1 if any does. Both print
 the fp32 times (CUDA events, median of 15 after 3 warm-up calls, host
@@ -35,6 +47,7 @@ POLICIES = ("float32", "bfloat16", "fp8_e4m3", "fp8_e5m2", "fp8_e4m3_sr",
             "fp8_e5m2_sr")
 PLANS = {"main": (65_536, 4096), "wide": (65_536, 256)}
 N = 1024
+GRASS = (109_386, 4096, 1024, 64)          # d_src, d, k, n
 
 
 def cuda_ms(fn, warmup=3, reps=15):
@@ -52,9 +65,15 @@ def cuda_ms(fn, warmup=3, reps=15):
     return statistics.median(times)
 
 
-def outputs(fsk, tables, make_plan):
+def outputs(fsk, tables, make_plan, row_map_for):
     """(name, thunk) of every output compared, and the fp32 thunks timed."""
     out, timed = [], []
+
+    def add(name, fn, pol, time_it=True):
+        out.append((name, fn))
+        if pol == "float32" and time_it:
+            timed.append((name, fn))
+
     for label, (d, k) in PLANS.items():
         base = make_plan(d, k, kappa=4, s=2, seed=0)
         gen = torch.Generator(device="cuda").manual_seed(17)
@@ -76,6 +95,41 @@ def outputs(fsk, tables, make_plan):
                     out.append(item)
                     if pol == "float32" and r == 0:
                         timed.append(item)
+            if label == "main":
+                add(f"{label} {pol} blockrow_fwd",
+                    lambda p=p: fsk.blockrow_fwd(p, A), pol)
+    d_src, d, k, n = GRASS
+    base = make_plan(d, k, kappa=4, s=2, seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    rows = torch.randn(d_src, n, generator=gen, device="cuda")
+    view = torch.randn(n, d_src, generator=gen, device="cuda").T
+    ri = torch.randperm(d_src, generator=gen, device="cuda")[:d].sort()[0]
+    grass_map = row_map_for(base, ri, "cuda")
+    flat = rows[ri]                      # d == d_pad: no padding rows
+    for pol in POLICIES:
+        p = base.with_dtype(pol)
+        add(f"grass {pol} blockrow_fwd",
+            lambda p=p: fsk.blockrow_fwd(p, flat), pol)
+        for layout, src in (("rows", rows), ("view", view)):
+            add(f"grass {pol} blockrow_fwd_gather {layout}",
+                lambda p=p, src=src: fsk.blockrow_fwd_gather(p, src,
+                                                             grass_map),
+                pol, layout == "view")
+    d, k = PLANS["main"]
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    A = torch.randn(d, N, generator=gen, device="cuda") * 3
+    src = torch.randn(4 * d, N, generator=gen, device="cuda")
+    ri = torch.randperm(4 * d, generator=gen, device="cuda")[:d].sort()[0]
+    for fam, s in (("countsketch", 1), ("graph", 4)):
+        base = make_plan(d, k, family=fam, s=s, seed=0)
+        rmap = row_map_for(base, ri, "cuda")
+        for pol in POLICIES:
+            p = base.with_dtype(pol)
+            add(f"{fam} {pol} global fwd",
+                lambda p=p: fsk.flashsketch_fwd(p, A), pol)
+            add(f"{fam} {pol} global gather",
+                lambda p=p, rmap=rmap: fsk.flashsketch_fwd_gather(
+                    p, src, rmap), pol)
     return out, timed
 
 
@@ -91,11 +145,12 @@ def main() -> int:
     from repro_torch.core.blockperm import make_plan
     from repro_torch.distributed.sharded_apply import partial_tables
     from repro_torch.kernels import flashsketch as fsk
+    from repro_torch.kernels.lowering import row_map_for
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=False).stdout.strip()
     print(f"card: {card}; repro_torch from {os.path.dirname(fsk.__file__)}")
-    out, timed = outputs(fsk, partial_tables, make_plan)
+    out, timed = outputs(fsk, partial_tables, make_plan, row_map_for)
     bad = 0
     if args.save:
         os.makedirs(args.save, exist_ok=True)
