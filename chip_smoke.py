@@ -41,9 +41,10 @@ Phases, any failure exits non-zero and prints no result:
      at a bandwidth-sized shape (d_src = 262 144, d = 65 536, n = 1 024,
      k = 4 096), the gathers in both operand layouts; for the row-split
      kernels (the fused, gather-fused and v1 forwards, the compact
-     partial) also their split R or their time over the library's, and
-     for the gather and v1 the time of the kernel they replaced (the v1
-     forward beside the fused forward of the same run);
+     partial, the v1 transpose and FLASHBLOCKROW) also their split R or
+     their time over the library's, and for the gather and v1 the time of
+     the kernel they replaced (the v1 forward beside the fused forward of
+     the same run);
   5. GraSS data attribution at the paper's width (784 → 128 → 64 → 10,
      109 386 parameters; sparse dim 4 096, k ∈ {1024, 2048, 4096}, κ = 4,
      s = 2, chunks of 64; 5 000 train and 500 test examples, m = 50 LDS
@@ -84,9 +85,10 @@ Phases, any failure exits non-zero and prints no result:
      the run.
 
 Phase 2 also holds the three v1 kernels (ragged n with d < d_pad, κ × s ∈
-{1,2,4}², a Br = 2 048 plan, the main plan; the
-v1 forward also under every row split R, with S·I == S at a Br = 2 048
-plan) and
+{1,2,4}², a Br = 2 048 plan, the main plan; each also under every row
+split R: the v1 forward within tolerance with S·I == S at a Br = 2 048
+plan, the v1 transpose and FLASHBLOCKROW the same bits for every R, at the
+main plan too, with Sᵀ·I == Sᵀ) and
 the global forward, transpose and gather (CountSketch and graph plans,
 ragged n, the CountSketch plan of the main shape) to their plain versions
 under all six policies, and at the main shape the plans phase 6 runs
@@ -94,7 +96,9 @@ through them: graph (s = 4, one row chunk per block) and localized (κ = 1,
 also through the fused forward and transpose); with the exact checks S·I == S for v1 and the
 global forward, the adjoint pairs, and global gather == global forward on
 the zero-padded materialized gather; phase 4 times them (v1 at the main
-plan, the global kernels at the CountSketch plan of the main shape).  It
+plan, with the split R, ÷ lib and device time of the v1 transpose and
+FLASHBLOCKROW, the global kernels at the CountSketch plan of the main
+shape).  It
 holds both partial kernels (phase 7's) to their plain version under all
 six policies at the ragged plan, κ × s ∈ {1,2,4}², the main plan and its
 ``plan_for_mesh`` plan (Br = 1 024, tn = 32), the ranks of P ∈ {1, 2, 4}
@@ -151,10 +155,10 @@ KERNEL_INFO = {
         source="src/repro_torch/kernels/csrc/flashsketch_v1.cu",
         replaces="src/repro/kernels/flashsketch.py:883"),
     "flashsketch_transpose_v1": dict(
-        source="src/repro_torch/kernels/csrc/flashsketch_v1.cu",
+        source="src/repro_torch/kernels/csrc/row_split.cuh",
         replaces="src/repro/kernels/flashsketch.py:905"),
     "blockrow_fwd_v1": dict(
-        source="src/repro_torch/kernels/csrc/flashsketch_v1.cu",
+        source="src/repro_torch/kernels/csrc/row_split.cuh",
         replaces="src/repro/kernels/flashsketch.py:927"),
     # both bodies of the row-sharded partial (distributed slice)
     "flashsketch_fwd_partial": dict(
@@ -192,10 +196,12 @@ GRASS_D_SRC, GRASS_D, GRASS_CHUNK, GRASS_K = 109_386, 4096, 64, 1024
 # ms of the kernels the row-split design replaced, as PERF.md records them
 # (NVIDIA H100 80GB HBM3 at a 700 W power limit; a range over two runs):
 # the gather-fused forward and both FLASHBLOCKROW kernels at the GraSS chunk
-# in the (D, c) view, the v1 forward at the main plan, the global forward
+# in the (D, c) view, the v1 kernels at the main plan, the global forward
 # and gather at the CountSketch plan of the main shape
 REPLACED_MS = {"flashsketch_fwd_gather": (0.603, 0.603),
                "flashsketch_fwd_v1": (3.485, 3.485),
+               "flashsketch_transpose_v1": (0.847, 0.883),
+               "blockrow_fwd_v1": (0.139, 0.149),
                "blockrow_fwd": (0.098, 0.101),
                "blockrow_fwd_gather": (0.097, 0.100),
                "flashsketch_fwd_global": (0.331, 0.338),
@@ -651,6 +657,34 @@ def phase_family_kernels(rt, main_plan, n_main):
     for R in fsk.split_allowed(tall):
         check(torch.equal(fsk.flashsketch_fwd_v1(tall, eye, row_splits=R), S),
               f"v1 S·I != S at {tall.describe()} R={R}")
+    # the v1 transpose and FLASHBLOCKROW (split_vec_kernel's v1 mode): the
+    # same bits under every row split R at every policy; Sᵀ·I == Sᵀ under
+    # every R (at the main plan the default R)
+    v1_vec = 0
+    for plan, n in [pn for pn in plans[:11] if not pn[0].is_global] + [
+            (main_plan, n_main)]:
+        A = torch.randn(plan.d_pad, n, generator=gen, device="cuda") * 3
+        Y = torch.randn(plan.k_pad, n, generator=gen, device="cuda") * 3
+        for pol in POLICIES:
+            p = plan.with_dtype(pol)
+            for fn, arg, op in ((fsk.flashsketch_transpose_v1, Y, "transpose"),
+                                (fsk.blockrow_fwd_v1, A, "blockrow")):
+                base = fn(p, arg)
+                for R in fsk.split_allowed(p, op):
+                    check(torch.equal(fn(p, arg, row_splits=R), base),
+                          f"{fn.__name__} {pol} {p.describe()} n={n} R={R}: "
+                          f"bits differ from the default split")
+                    v1_vec += 1
+        del A, Y
+    for plan in (make_plan(512, 64, kappa=4, s=2, seed=3), tall, main_plan):
+        eye = torch.eye(plan.k_pad, device="cuda")
+        St = blockperm.materialize_sketch_matrix(plan, "cuda").T
+        for R in (fsk.split_allowed(plan, "transpose") if plan is not main_plan
+                  else (None,)):
+            check(torch.equal(fsk.flashsketch_transpose_v1(
+                plan, eye, row_splits=R), St),
+                f"v1 Sᵀ·I != Sᵀ at {plan.describe()} R={R}")
+        del eye, St
     forced = 0
     for plan, n in plans[:11]:
         if plan.is_global:
@@ -669,7 +703,11 @@ def phase_family_kernels(rt, main_plan, n_main):
           f"global pair; global gather == global forward on the zero-padded "
           f"materialized gather, both layouts, all policies, "
           f"{len(plans) + 2} plans; v1 within tolerance under every forced "
-          f"R ({forced} launches, all policies)")
+          f"R ({forced} launches, all policies); the v1 transpose and "
+          f"FLASHBLOCKROW the same bits under every forced R ({v1_vec} "
+          f"launches, all policies, the main plan among them) and v1 "
+          f"Sᵀ·I == Sᵀ (torch.equal) under every R at 2 plans, at the "
+          f"default R at the main plan")
     return {name: main_errs[(name, "float32")]
             for name in V1_KERNELS + GLOBAL_KERNELS}
 
@@ -1234,6 +1272,14 @@ def phase_family_timing(rt, main_plan, n, errs):
                   f"library {row['ms'] / row['library_ms']:.2f}; the fused "
                   f"forward at this plan {fused:.4f} ms in this run; "
                   f"{replaced(name)}")
+        elif name in ("flashsketch_transpose_v1", "blockrow_fwd_v1"):
+            op = "transpose" if name == "flashsketch_transpose_v1" \
+                else "blockrow"
+            tn = fsk.fwd_tn(p, n, v1=True)
+            print(f"    row-split R={fsk.vec_splits(p, tn, op, True)}, "
+                  f"tn={tn} (split_vec_kernel, v1 mode); kernel / library "
+                  f"{row['ms'] / row['library_ms']:.2f}; device "
+                  f"{device_ms(w['kernel']):.4f} ms; {replaced(name)}")
         elif name in REPLACED_MS:         # the global forward and gather
             R = (fsk.vec_splits(g, fsk.fwd_tn(g, n))
                  if name == "flashsketch_fwd_global"

@@ -1,6 +1,6 @@
-// The row-split bodies, for Hopper (sm_90a): every forward but the v1
-// FLASHBLOCKROW reads its sparse S from a CSR and sums each output element
-// in a register.  The TPU launchers they replace are in
+// The row-split bodies, for Hopper (sm_90a): every forward, FLASHBLOCKROW
+// and the v1 transpose read their sparse S (Sᵀ) from a CSR and sum each
+// output element in registers.  The TPU launchers they replace are in
 // src/repro/kernels/flashsketch.py.
 //
 //   * split_fwd_kernel: the gather-fused forward Y = S·A[row_map]
@@ -15,9 +15,11 @@
 //     flashsketch_pallas :594, its global branch from _phi_global_tile
 //     :165 included, and blockrow_pallas :711, Φ from _phi_rows_tile :190)
 //     and the compact row-sharded partial (fs_fwd_partial; replaces
-//     _partial_fwd_kernel :378, launcher flashsketch_pallas_partial :736):
-//     16-byte loads of a contiguous A, 4 fp32 (8 bf16, 16 fp8) columns per
-//     thread.
+//     _partial_fwd_kernel :378, launcher flashsketch_pallas_partial :736);
+//     in its v1 mode the v1 transpose X = Σ_ℓ scale·Φᵀ Y of a blockperm
+//     plan on a CSR of Sᵀ and the v1 FLASHBLOCKROW (flashsketch_v1.cu,
+//     fs_transpose_v1 and fs_blockrow_v1; replace :905 and :927): 16-byte
+//     loads of a contiguous A, 4 fp32 (8 bf16, 16 fp8) columns per thread.
 //
 // Why.  One block per (output block g, column tile j) left the card nearly
 // empty where M·⌈n/tn⌉ is small: the GraSS chunk (M = 4, n = 64) launched 4
@@ -51,7 +53,9 @@
 // take 1 for κ (v1: kGlobal); FLASHBLOCKROW's S_row holds κ·s per row in
 // (ℓ, t) order, κ offsets per row, not sorted by column, its collisions
 // (two ℓ that draw one h, two t that hash to one column) kept as entries
-// of their own.
+// of their own; the v1 transpose's Sᵀ (_device_csr_t) holds, for row
+// h·Bc + u of X, κ·s rows of Y in (ℓ, i) order, κ offsets per row (output
+// blocks of Bc rows: the kernels take Bc for Br).
 //
 // Grid (M·R, ⌈n/tn⌉): block (g, ρ) owns the rows [ρ·Br/R, (ρ+1)·Br/R) of
 // output block g.  The gather's threads first copy the sub-range's nonzero
@@ -80,6 +84,9 @@
 // _fwd_kernel_v1 does; a global plan's levels come one after another in the
 // row's column order, each folded when the next begins (a level with no
 // nonzero in the row would add an exact zero, which changes no bit).
+// split_vec_kernel's v1 mode folds the same way, run = fma(L_ℓ, scale,
+// run), every level in turn: the (ℓ, i) and (ℓ, t) orders and the
+// contracted fold of the hashing kernels it replaced.
 //
 // Bound: each row of A read once (the gather: the d mapped rows; the
 // partial: the slab; FLASHBLOCKROW: the rows some nonzero names) and Y
@@ -301,22 +308,56 @@ __device__ __forceinline__ float unpack<__nv_fp8_e5m2>(const uint4& r,
   return unpack_fp8<__nv_fp8_e5m2>(r, j);
 }
 
+// split_vec_kernel's v1 mode: fold the finished level's sum acc into the
+// running output, run = fma(L, scale, run), and start the next from +0.
+template <int kV>
+__device__ __forceinline__ void v1_fold(float (&acc)[kV], float (&run)[kV],
+                                        float scale) {
+#pragma unroll
+  for (int j = 0; j < kV; ++j) {
+    run[j] = fmaf(acc[j], scale, run[j]);
+    acc[j] = 0.f;
+  }
+}
+
+// Before entry e of a row is added: fold, in ℓ order, every level that
+// ends at or before e (level lvl ends at entry bnd; lptr is the row's κ
+// offsets and the next row's first).  e < the row's end, so lvl stays below
+// the row's last level.
+template <int kV>
+__device__ __forceinline__ void v1_enter(int e, int& lvl, int& bnd,
+                                         float (&acc)[kV], float (&run)[kV],
+                                         const int* __restrict__ lptr,
+                                         float scale) {
+  while (e >= bnd) {
+    v1_fold(acc, run, scale);
+    ++lvl;
+    bnd = lptr[lvl + 1];
+  }
+}
+
 // A contiguous (rows, n) A; thread (x, q) of block (p, ρ), column tile j
 // owns the kV = 16/sizeof(T) columns c0 = (j·blockDim.x + x)·kV … and the
 // rows q, q + G, … of the sub-range.  Forward (kPartial false): p = g, the
-// row's κ level segments, ×scale, into row block g of Y (k_pad, n).
+// row's κ level segments, ×scale, into row block g of Y (M·Br, n).
 // Partial: p = ℓ·M + m indexes the (2, κ, M) table [g, h] of the owned
 // pairs (M is M_loc), the row of g sums level ℓ's segment only, each column
 // word read as slab row col + (m − h)·Bc, into row block p of the compact
-// (κ, M·Br, n) output, scale 1.  `vec` says 16-byte loads are aligned
+// (κ, M·Br, n) output, scale 1.  kV1 (the v1 transpose and FLASHBLOCKROW,
+// fp32): each level's segment summed in its own registers from +0, folded
+// into the running output in ℓ order, run = fma(L, scale, run), empty
+// levels included, and run written as it is; the loads of a chunk of
+// kUnrollVec nonzeros stay in flight across the levels' boundaries (a
+// row's segments are contiguous).  `vec` says 16-byte loads are aligned
 // (n % kV == 0 and A 16-byte aligned); a thread past the ragged edge or
 // with vec false loads its columns one by one.
-template <typename T, bool kPartial>
+template <typename T, bool kPartial, bool kV1>
 __global__ void __launch_bounds__(512)
 split_vec_kernel(const T* __restrict__ A, float* __restrict__ Y,
                  const int* __restrict__ ptr, const int* __restrict__ ent,
                  const int* __restrict__ tab, int M, int Br, int Bc,
                  int kappa, long long n, float scale, int R, int vec) {
+  static_assert(!(kPartial && kV1), "v1 has no partial");
   constexpr int kV = 16 / sizeof(T);
   const int G = blockDim.y;
   const int q = threadIdx.y;
@@ -348,6 +389,15 @@ split_vec_kernel(const T* __restrict__ A, float* __restrict__ Y,
     float acc[kV];
 #pragma unroll
     for (int j = 0; j < kV; ++j) acc[j] = 0.f;
+    // kV1: the levels folded so far, acc's level and the entry it ends at
+    [[maybe_unused]] float run[kV];
+    [[maybe_unused]] int lvl = 0, bnd = 0;
+    if constexpr (kV1) {
+#pragma unroll
+      for (int j = 0; j < kV; ++j) run[j] = 0.f;
+      lvl = lo;
+      bnd = ptr[row * kappa + lo + 1];
+    }
     for (int e0 = beg; e0 < end; e0 += kUnrollVec) {
       int w[kUnrollVec];
 #pragma unroll
@@ -364,6 +414,8 @@ split_vec_kernel(const T* __restrict__ A, float* __restrict__ Y,
 #pragma unroll
         for (int k = 0; k < kUnrollVec; ++k) {
           if (e0 + k >= end) break;
+          if constexpr (kV1)
+            v1_enter(e0 + k, lvl, bnd, acc, run, ptr + row * kappa, scale);
 #pragma unroll
           for (int j = 0; j < kV; ++j) {
             const float a = unpack<T>(v[k], j);
@@ -374,6 +426,8 @@ split_vec_kernel(const T* __restrict__ A, float* __restrict__ Y,
 #pragma unroll
         for (int k = 0; k < kUnrollVec; ++k) {
           if (e0 + k >= end) break;
+          if constexpr (kV1)
+            v1_enter(e0 + k, lvl, bnd, acc, run, ptr + row * kappa, scale);
           const T* src = A + ((w[k] >> 1) + off) * n;
 #pragma unroll
           for (int j = 0; j < kV; ++j)
@@ -384,29 +438,37 @@ split_vec_kernel(const T* __restrict__ A, float* __restrict__ Y,
         }
       }
     }
+    if constexpr (kV1) {
+      // the last level and any empty ones after it; run is written × 1,
+      // which is exact
+      for (; lvl < hi; ++lvl) v1_fold(acc, run, scale);
+#pragma unroll
+      for (int j = 0; j < kV; ++j) acc[j] = run[j];
+    }
+    const float mul = kV1 ? 1.f : scale;
     float* dst = Y + (out0 + r) * n + c0;
     if (full && kV % 4 == 0) {
 #pragma unroll
       for (int j = 0; j < kV; j += 4)
         *reinterpret_cast<float4*>(dst + j) =
-            make_float4(acc[j] * scale, acc[j + 1] * scale,
-                        acc[j + 2] * scale, acc[j + 3] * scale);
+            make_float4(acc[j] * mul, acc[j + 1] * mul, acc[j + 2] * mul,
+                        acc[j + 3] * mul);
     } else {
 #pragma unroll
       for (int j = 0; j < kV; ++j)
-        if (c0 + j < n) dst[j] = acc[j] * scale;
+        if (c0 + j < n) dst[j] = acc[j] * mul;
     }
   }
 }
 
-// The forward (kPartial false) or the partial: grid (blocks·R, ⌈n/tn⌉),
-// block (tn·sizeof(T)/16, groups), no shared memory.
-template <typename T, bool kPartial>
+// The forward (kPartial false), the partial, or v1's (kV1): grid
+// (blocks·R, ⌈n/tn⌉), block (tn·sizeof(T)/16, groups), no shared memory.
+template <typename T, bool kPartial, bool kV1 = false>
 int launch_vec(const void* A, void* Y, const void* ptr, const void* ent,
                const void* tab, int M, int Br, int Bc, int kappa, long long n,
                float scale, int tn, int groups, int R, int vec,
                void* stream) {
-  auto kern = split_vec_kernel<T, kPartial>;
+  auto kern = split_vec_kernel<T, kPartial, kV1>;
   const int tx = tn * static_cast<int>(sizeof(T)) / 16;
   const int blocks = kPartial ? kappa * M : M;
   const dim3 grid(static_cast<unsigned int>(blocks * R),

@@ -39,14 +39,16 @@ fp32, on the materialized gather for the gathers) for a CPU tensor.  Each
 launch adds one to the wrapper's entry of ``LAUNCHES``, so a run can show
 that it went through the kernels.
 
-Every forward but the v1 FLASHBLOCKROW runs a row-split body
-(``csrc/row_split.cuh``): each output block's Br rows over R blocks, each
-sum in a register, the nonzeros read from a CSR of S built once per plan
-on the device (``_device_csr``: blockperm, global, or FLASHBLOCKROW's
-S_row).  The fused forward, FLASHBLOCKROW, the global forward and the
-compact partial read A with 16-byte loads, 16/itemsize columns a thread
-(``vec_launch``: R by ``vec_splits``, the tile by ``fwd_tn``); the gathers
-and the v1 forward one column a thread (``row_splits``).
+Every forward, FLASHBLOCKROW and the v1 transpose of a blockperm plan run
+a row-split body (``csrc/row_split.cuh``): each output block's rows over R
+blocks, each sum in registers, the nonzeros read from a CSR built once per
+plan on the device (``_device_csr``: blockperm, global, or FLASHBLOCKROW's
+S_row; ``_device_csr_t``: Sᵀ, output blocks of Bc rows).  The fused
+forward, FLASHBLOCKROW, the global forward, the compact partial and the v1
+transpose and FLASHBLOCKROW read their operand with 16-byte loads,
+16/itemsize columns a thread (``vec_launch``: R by ``vec_splits``, the tile
+by ``fwd_tn``); the gathers and the v1 forward one column a thread
+(``row_splits``).
 
 How the kernels tile the work (``tn`` columns per block, thread groups,
 the chunk of hashed columns held in shared memory, the row split R) is a
@@ -205,55 +207,67 @@ def _stream(plan: BlockPermPlan, operand: torch.Tensor) -> torch.Tensor:
 GATHER_DEFAULT_TN = 64       # the gathers' (one column a thread)
 TRANSPOSE_DEFAULT_TN = 32
 MASKED_PARTIAL_TN = 64       # the masked FLASHBLOCKROW partial's
-V1_DEFAULT_TN = {"fwd": 64, "transpose": 32, "blockrow": 64}
+V1_FWD_TN = 64               # the v1 forward's (one column a thread)
 
 
 def default_tn(plan: BlockPermPlan, op: str, n: int, v1: bool = False,
                gather: bool = False, partial: bool = False) -> int:
     """The column tile a launch of ``op`` over ``n`` columns takes unless
-    asked otherwise: the forwards of ``split_vec_kernel`` (blockperm,
-    global, FLASHBLOCKROW, the compact partial) ``fwd_tn``, the gathers
-    ``GATHER_DEFAULT_TN``, the transpose, the masked partial and v1 their
-    own constants.  Every kernel fits shared memory at its default tile
-    (the transpose's is the narrowest, ``MIN_TN``)."""
-    if v1:
-        return V1_DEFAULT_TN[op]
-    if op == "transpose":
+    asked otherwise: the kernels of ``split_vec_kernel`` (the blockperm,
+    global and FLASHBLOCKROW forwards, the compact partial, the v1
+    transpose of a blockperm plan and the v1 FLASHBLOCKROW) ``fwd_tn``, the
+    gathers ``GATHER_DEFAULT_TN``, the fused and global transposes, the
+    masked partial and the v1 forward their own constants.  Every kernel
+    fits shared memory at its default tile (the transpose's is the
+    narrowest, ``MIN_TN``)."""
+    if op == "transpose" and (plan.is_global or not v1):
         return TRANSPOSE_DEFAULT_TN
+    if v1 and op == "fwd":
+        return V1_FWD_TN
     if partial and op == "blockrow":
         return MASKED_PARTIAL_TN
-    return GATHER_DEFAULT_TN if gather else fwd_tn(plan, n)
+    return GATHER_DEFAULT_TN if gather else fwd_tn(plan, n, v1)
 
 
 def _pow2_floor(x: int) -> int:
     return 1 << (max(1, x).bit_length() - 1)
 
 
-def vec_width(plan: BlockPermPlan) -> int:
-    """Columns of one 16-byte load of the streamed operand: 4 fp32, 8
-    bf16, 16 fp8."""
-    return 16 // plan.stream_itemsize
+def vec_width(plan: BlockPermPlan, v1: bool = False) -> int:
+    """Columns of one 16-byte load of the operand: 4 fp32 (v1's operand is
+    upcast to fp32), 8 bf16, 16 fp8."""
+    return 4 if v1 else 16 // plan.stream_itemsize
 
 
-def fwd_tn(plan: BlockPermPlan, n: int) -> int:
-    """The blockperm forward's column tile, a fixed rule: the widest power
-    of two (32 to ``_FWD_MAX_TN``) whose slice of A, d_pad·tn·itemsize,
-    fits ``_L2_SLICE_BYTES``, so the slice stays in L2 while its κ·s
-    readers run (the tiles run one after another), and no wider than n
+def fwd_tn(plan: BlockPermPlan, n: int, v1: bool = False) -> int:
+    """The tile of ``split_vec_kernel``, a fixed rule: the widest power of
+    two (32 to ``_FWD_MAX_TN``) whose slice of A, d_pad·tn·itemsize (fp32
+    for v1), fits ``_L2_SLICE_BYTES``, so the slice stays in L2 while its
+    κ·s readers run (the tiles run one after another), and no wider than n
     needs.  The main plan (d_pad = 65 536) takes 128 fp32 columns (32
     threads of 16-byte loads a row, a warp's 512 contiguous bytes), 256
-    bf16 or fp8 (32 or 16 threads)."""
-    tn = _pow2_floor(_L2_SLICE_BYTES // (plan.d_pad * plan.stream_itemsize))
+    bf16 or fp8 (32 or 16 threads).  The v1 transpose reads Y, whose
+    k_pad ≤ d_pad rows make a slice no larger."""
+    item = 4 if v1 else plan.stream_itemsize
+    tn = _pow2_floor(_L2_SLICE_BYTES // (plan.d_pad * item))
     return max(MIN_TN, min(_FWD_MAX_TN, tn,
                            1 << (max(n, MIN_TN) - 1).bit_length()))
 
 
+def block_rows(plan: BlockPermPlan, op: str = "fwd") -> int:
+    """Rows of one output block of ``op``: Bc for the transpose (X's
+    blocks), Br otherwise."""
+    return plan.Bc if op == "transpose" else plan.Br
+
+
 @functools.lru_cache(maxsize=256)
-def split_allowed(plan: BlockPermPlan) -> Tuple[int, ...]:
-    """The row splits R the row-split kernels take for ``plan``: the powers
-    of two that divide Br."""
-    return tuple(1 << b for b in range(plan.Br.bit_length())
-                 if plan.Br % (1 << b) == 0)
+def split_allowed(plan: BlockPermPlan, op: str = "fwd") -> Tuple[int, ...]:
+    """The row splits R the row-split kernels of ``op`` take for ``plan``:
+    the powers of two that divide its output block's rows (Br; Bc for the
+    v1 transpose)."""
+    rows = block_rows(plan, op)
+    return tuple(1 << b for b in range(rows.bit_length())
+                 if rows % (1 << b) == 0)
 
 
 def split_launch(plan: BlockPermPlan, tn: int, R: int) -> int:
@@ -278,32 +292,36 @@ def row_splits(plan: BlockPermPlan, tn: int) -> int:
 
 
 @functools.lru_cache(maxsize=1024)
-def vec_splits(plan: BlockPermPlan, tn: int) -> int:
-    """The split R of the fused forward and the compact partial at tile
-    width ``tn``, a fixed rule: one output row per thread row of tn/vec
-    threads, so the fewest R (of ``split_allowed``) whose Br/R rows fit
-    ``_VEC_BLOCK_THREADS`` threads; the main plan (Br = 128, 32 threads a
-    row) takes R = 16, 8 rows a block."""
-    tx = tn // vec_width(plan)
-    allowed = split_allowed(plan)
-    fit = [R for R in allowed if plan.Br // R * tx <= _VEC_BLOCK_THREADS]
+def vec_splits(plan: BlockPermPlan, tn: int, op: str = "fwd",
+               v1: bool = False) -> int:
+    """The split R of ``split_vec_kernel`` at tile width ``tn``, a fixed
+    rule: one output row per thread row of tn/vec threads, so the fewest R
+    (of ``split_allowed``) whose rows/R rows fit ``_VEC_BLOCK_THREADS``
+    threads; the main plan (Br = 128, 32 threads a row) takes R = 16, 8
+    rows a block, its v1 transpose (Bc = 2 048) R = 256."""
+    tx = tn // vec_width(plan, v1)
+    rows = block_rows(plan, op)
+    allowed = split_allowed(plan, op)
+    fit = [R for R in allowed if rows // R * tx <= _VEC_BLOCK_THREADS]
     return fit[0] if fit else allowed[-1]
 
 
-def vec_launch(plan: BlockPermPlan, tn: int,
-               R: Optional[int] = None) -> Tuple[int, int]:
+def vec_launch(plan: BlockPermPlan, tn: int, R: Optional[int] = None,
+               op: str = "fwd", v1: bool = False) -> Tuple[int, int]:
     """(thread groups, row split R) of ``split_vec_kernel`` (the fused,
-    global and FLASHBLOCKROW forwards, the compact partial) at tile width
-    ``tn``: blocks of tn/vec × groups threads, group q owning the rows q,
-    q + G, … of the Br/R, R = ``vec_splits`` unless given (one of
-    ``split_allowed``).  No shared memory: each sum lives in a register and
+    global and FLASHBLOCKROW forwards, the compact partial; with ``v1`` the
+    v1 FLASHBLOCKROW and, for ``op="transpose"``, the v1 transpose) at tile
+    width ``tn``: blocks of tn/vec × groups threads, group q owning the rows
+    q, q + G, … of the rows/R, R = ``vec_splits`` unless given (one of
+    ``split_allowed``).  No shared memory: each sum lives in registers and
     the CSR words are read where they lie."""
-    tx = tn // vec_width(plan)
-    R = R or vec_splits(plan, tn)
-    if R not in split_allowed(plan):
+    tx = tn // vec_width(plan, v1)
+    R = R or vec_splits(plan, tn, op, v1)
+    if R not in split_allowed(plan, op):
         raise ValueError(f"row_splits={R} is not one of "
-                         f"{split_allowed(plan)} for {plan.describe()}")
-    return max(1, min(plan.Br // R, _VEC_BLOCK_THREADS // tx)), R
+                         f"{split_allowed(plan, op)} for {plan.describe()}")
+    return max(1, min(block_rows(plan, op) // R,
+                      _VEC_BLOCK_THREADS // tx)), R
 
 
 def partial_launch(plan: BlockPermPlan, tn: int,
@@ -336,30 +354,16 @@ def transpose_launch(plan: BlockPermPlan,
     return groups, uc, tables + (tile if staged else 0), staged
 
 
-def transpose_v1_launch(plan: BlockPermPlan,
-                        tn: int) -> Tuple[int, int, int]:
-    """(thread groups, columns per chunk or rows per block, shared bytes)
-    of the v1 transpose: the hashed words only, Y is read where it lies."""
-    groups, uc, smem, _ = transpose_launch(plan, tn)
-    if plan.is_global:
-        return groups, uc, smem
-    return groups, uc, 4 * (uc * plan.kappa * plan.s + 2 * plan.kappa)
-
-
-def blockrow_v1_launch(plan: BlockPermPlan, tn: int) -> Tuple[int, int]:
-    """(thread groups, shared bytes) of the v1 FLASHBLOCKROW kernel: each
-    thread hashes its own nonzeros; shared memory holds the κ wiring
-    entries and hash prefixes."""
-    return max(1, min(plan.Br, MAX_THREADS // tn)), 8 * plan.kappa
-
-
 def is_row_split(plan: BlockPermPlan, op: str, gather: bool,
                  v1: bool = False, partial: bool = False) -> bool:
     """Whether the kernel of ``op`` is a row-split one: every forward
     (fused, gather-fused, global and its gather, the compact partial, v1
-    with global plans included) and FLASHBLOCKROW with its gather; not the
-    transposes, the v1 FLASHBLOCKROW or the masked partial."""
-    return op == "fwd" or (op == "blockrow" and not (v1 or partial))
+    with global plans included), FLASHBLOCKROW with its gather and its v1,
+    and the v1 transpose of a blockperm plan; not the fused and global
+    transposes or the masked partial."""
+    if op == "transpose":
+        return v1 and not plan.is_global
+    return not (partial and op == "blockrow")
 
 
 def launch_geometry(plan: BlockPermPlan, op: str, gather: bool, tn: int,
@@ -371,20 +375,16 @@ def launch_geometry(plan: BlockPermPlan, op: str, gather: bool, tn: int,
     kernels, whose only shared memory is a gather's staged CSR words."""
     if partial and op == "blockrow":
         return (*partial_launch(plan, tn, True), 1)
-    if op != "transpose" and not (gather or v1):
-        groups, R = vec_launch(plan, tn)    # also the compact partial
-        return groups, 0, R
-    if is_row_split(plan, op, gather, v1):
+    if not is_row_split(plan, op, gather, v1):      # the transposes
+        groups, _, smem, _ = transpose_launch(plan, tn)
+        return groups, smem, 1
+    if gather or (v1 and op == "fwd"):              # split_fwd_kernel
         R = row_splits(plan, tn)
         smem = 4 * _csr_block_cap(plan, torch.device("cpu"), R,
                                   op == "blockrow") if gather else 0
         return split_launch(plan, tn, R), smem, R
-    if op == "transpose":
-        groups, _, smem = (transpose_v1_launch(plan, tn) if v1
-                           else transpose_launch(plan, tn)[:3])
-    else:
-        groups, smem = blockrow_v1_launch(plan, tn)
-    return groups, smem, 1
+    groups, R = vec_launch(plan, tn, op=op, v1=v1)  # split_vec_kernel
+    return groups, 0, R
 
 
 def _check_launch(plan: BlockPermPlan, operand: torch.Tensor, tn: int,
@@ -518,29 +518,40 @@ def _csr_levels(plan: BlockPermPlan) -> int:
     return 1 if plan.is_global else plan.kappa
 
 
+_VEC_V1_SYMBOLS = {"transpose": "fs_transpose_v1",
+                   "blockrow": "fs_blockrow_v1"}
+
+
 def _launch_vec(plan: BlockPermPlan, x: torch.Tensor, Y: torch.Tensor,
                 tab: Optional[torch.Tensor], tn: int,
-                row_splits_: Optional[int], name: str,
-                rows_pattern: bool = False) -> None:
+                row_splits_: Optional[int], name: str, op: str = "fwd",
+                v1: bool = False) -> None:
     """The C interface of ``split_vec_kernel``: ``fs_fwd`` (a forward,
-    ``tab`` None: the plan's CSR, or with ``rows_pattern`` FLASHBLOCKROW's
-    and its scale) or ``fs_fwd_partial`` (``tab`` the (2, κ, M_loc) pairs,
-    M_loc read from x's rows)."""
-    groups, R = vec_launch(plan, tn, row_splits_)
+    ``tab`` None: the plan's CSR, or for ``op="blockrow"`` FLASHBLOCKROW's
+    and its scale), ``fs_fwd_partial`` (``tab`` the (2, κ, M_loc) pairs,
+    M_loc read from x's rows), or with ``v1`` its v1 mode, fp32:
+    ``fs_blockrow_v1`` on S_row's CSR or ``fs_transpose_v1`` on Sᵀ's
+    (``op="transpose"``, output blocks of Bc rows)."""
+    groups, R = vec_launch(plan, tn, row_splits_, op, v1)
     rows = x.shape[0]
     _check_launch(plan, x, tn, 0, rows, name)
     x = x.contiguous()
     n = x.shape[1]
-    ptr, ent = _device_csr(plan, x.device, rows_pattern)
-    vec = int(n % vec_width(plan) == 0 and x.data_ptr() % 16 == 0)
+    ptr, ent = (_device_csr_t(plan, x.device) if op == "transpose" else
+                _device_csr(plan, x.device, op == "blockrow"))
+    vec = int(n % vec_width(plan, v1) == 0 and x.data_ptr() % 16 == 0)
     # arr, the integers' buffer, stays referenced through the call
     arr, params = _int_params(
         _DTYPE_CODES[x.dtype], plan.M if tab is None else rows // plan.Bc,
-        plan.Br, plan.Bc, _csr_levels(plan), n, tn, groups, R, vec)
+        block_rows(plan, op), plan.Bc, _csr_levels(plan), n, tn, groups, R,
+        vec)
     pointers = [(_P, x.data_ptr()), (_P, Y.data_ptr()), (_P, ptr.data_ptr()),
                 (_P, ent.data_ptr())]
-    if tab is None:
-        scale = blockrow_scale(plan) if rows_pattern else plan.scale
+    scale = blockrow_scale(plan) if op == "blockrow" else plan.scale
+    if v1:
+        _call("flashsketch_v1.cu", _VEC_V1_SYMBOLS[op], x.device, *pointers,
+              (_P, params), (_F, scale))
+    elif tab is None:
         _call("flashsketch_fwd.cu", "fs_fwd", x.device, *pointers,
               (_P, params), (_F, scale))
     else:
@@ -660,6 +671,29 @@ def _device_csr(plan: BlockPermPlan, device: torch.device,
     return ptr.to(torch.int32), ent
 
 
+@functools.lru_cache(maxsize=16)
+def _device_csr_t(plan: BlockPermPlan,
+                  device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sᵀ of a blockperm ``plan`` as a CSR on ``device``, for the v1
+    transpose, built once per plan from the kernels' own hashes and cached
+    like ``_device_csr``: row h·Bc + u of X (column u of input block h)
+    holds its κ·s nonzeros in (ℓ, i) order, level ℓ's s in Y block
+    g_ℓ = π_ℓ⁻¹(h) (the "inverse" table), as words ((g_ℓ·Br + row(g_ℓ, h,
+    u, i)) << 1) | sign bit; ``ptr`` κ offsets a row (s apart) and a final
+    end.  That is the order of the hashing kernel it replaced.  4 bytes a
+    nonzero, κ·s·d_pad in all."""
+    inv = _device_table(plan, "inverse", device).to(torch.int64)
+    h = torch.arange(plan.M, device=device)[:, None, None, None]
+    u = torch.arange(plan.Bc, device=device)[None, :, None, None]
+    g = inv.T[:, None, :, None]                                # (M, 1, κ, 1)
+    i = torch.arange(plan.s, device=device)[None, None, None, :]
+    r, sgn = block_rows_signs(plan, g, h, u, i)                # (M, Bc, κ, s)
+    ent = (((g * plan.Br + r) << 1) | (sgn < 0).to(torch.int64))
+    ptr = torch.arange(plan.d_pad * plan.kappa + 1, dtype=torch.int32,
+                       device=device) * plan.s
+    return ptr, ent.reshape(-1).to(torch.int32)
+
+
 def _blockrow_csr(plan: BlockPermPlan,
                   device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
     """FLASHBLOCKROW's S_row as ``_device_csr`` lays it out: row g·Br + r
@@ -767,7 +801,7 @@ def _blockrow(plan: BlockPermPlan, A: torch.Tensor,
     tn = tn or default_tn(plan, "blockrow", n, gather=row_map is not None)
     Y = torch.empty((plan.k_pad, n), dtype=torch.float32, device=x.device)
     if row_map is None:
-        _launch_vec(plan, x, Y, None, tn, row_splits_, name, True)
+        _launch_vec(plan, x, Y, None, tn, row_splits_, name, "blockrow")
     else:
         _launch_gather(plan, x, Y, row_map, tn, row_splits_, name, True)
     LAUNCHES[name] += 1
@@ -912,10 +946,16 @@ def flashsketch_fwd_v1(plan: BlockPermPlan, A: torch.Tensor, *,
 
 
 def flashsketch_transpose_v1(plan: BlockPermPlan, Y: torch.Tensor, *,
-                             tn: Optional[int] = None) -> torch.Tensor:
+                             tn: Optional[int] = None,
+                             row_splits: Optional[int] = None
+                             ) -> torch.Tensor:
     """X = Sᵀ Y through the v1 kernel (global plans included).  Y must be
-    (k_pad, n); returns (d_pad, n) fp32.  CUDA tensors run the kernel, CPU
-    tensors its plain version ``ref.flashsketch_transpose_v1_ref``."""
+    (k_pad, n); returns (d_pad, n) fp32.  CUDA tensors run the kernel (a
+    blockperm plan's the v1 mode of the row-split body on the CSR of Sᵀ,
+    ``row_splits`` forcing its split R of each Bc-row output block; a
+    global plan's the global transpose summed per level, which has no
+    split), CPU tensors its plain version
+    ``ref.flashsketch_transpose_v1_ref``."""
     if Y.shape[0] != plan.k_pad:
         raise ValueError(f"Y must have k_pad={plan.k_pad} rows, got "
                          f"{Y.shape[0]}")
@@ -924,30 +964,33 @@ def flashsketch_transpose_v1(plan: BlockPermPlan, Y: torch.Tensor, *,
         full = dataclasses.replace(plan, d=plan.d_pad)
         return kref.flashsketch_transpose_v1_ref(full, y)
     _v1_device(y, "flashsketch_transpose_v1")
-    tn = tn or default_tn(plan, "transpose", y.shape[1], v1=True)
-    groups, uc, smem = transpose_v1_launch(plan, tn)
-    _check_launch(plan, y, tn, smem, plan.k_pad, "flashsketch_transpose_v1")
-    y = y.contiguous()
-    X = torch.empty((plan.d_pad, y.shape[1]), dtype=torch.float32,
-                    device=y.device)
+    n = y.shape[1]
+    tn = tn or default_tn(plan, "transpose", n, v1=True)
+    X = torch.empty((plan.d_pad, n), dtype=torch.float32, device=y.device)
     if plan.is_global:       # the global transpose, summed per level
-        _launch_global_transpose(plan, y, X, True, tn, groups, uc, smem)
+        if row_splits is not None:
+            raise ValueError("flashsketch_transpose_v1: a global plan's "
+                             "transpose has no row split")
+        groups, uc, smem, _ = transpose_launch(plan, tn)
+        _check_launch(plan, y, tn, smem, plan.k_pad,
+                      "flashsketch_transpose_v1")
+        _launch_global_transpose(plan, y.contiguous(), X, True, tn, groups,
+                                 uc, smem)
     else:
-        _call("flashsketch_v1.cu", "fs_transpose_v1", y.device,
-              (_P, y.data_ptr()), (_P, X.data_ptr()),
-              (_P, _device_table(plan, "inverse", y.device).data_ptr()),
-              (_I, plan.M), (_I, plan.Br), (_I, plan.Bc), (_I, plan.kappa),
-              (_I, plan.s), (_LL, y.shape[1]), (_U, plan.seed & 0xFFFFFFFF),
-              (_F, plan.scale), *[(_I, v) for v in (tn, groups, uc, smem)])
+        _launch_vec(plan, y, X, None, tn, row_splits,
+                    "flashsketch_transpose_v1", "transpose", True)
     LAUNCHES["flashsketch_transpose_v1"] += 1
     return X
 
 
 def blockrow_fwd_v1(plan: BlockPermPlan, A: torch.Tensor, *,
-                    tn: Optional[int] = None) -> torch.Tensor:
+                    tn: Optional[int] = None,
+                    row_splits: Optional[int] = None) -> torch.Tensor:
     """FLASHBLOCKROW Y = S_row A through the v1 kernel.  A must be
-    (d_pad, n); returns (k_pad, n) fp32.  CUDA tensors run the kernel, CPU
-    tensors its plain version ``ref.blockrow_v1_ref``."""
+    (d_pad, n); returns (k_pad, n) fp32.  CUDA tensors run the v1 mode of
+    the row-split body on S_row's CSR (``row_splits`` forces its split R;
+    checks on the card: the same bits for every R), CPU tensors its plain
+    version ``ref.blockrow_v1_ref``."""
     if A.shape[0] != plan.d_pad:
         raise ValueError(f"A must have d_pad={plan.d_pad} rows, got "
                          f"{A.shape[0]}")
@@ -955,17 +998,10 @@ def blockrow_fwd_v1(plan: BlockPermPlan, A: torch.Tensor, *,
     if A.device.type == "cpu":
         return kref.blockrow_v1_ref(plan, x)
     _v1_device(x, "blockrow_fwd_v1")
-    tn = tn or default_tn(plan, "blockrow", x.shape[1], v1=True)
-    groups, smem = blockrow_v1_launch(plan, tn)
-    _check_launch(plan, x, tn, smem, plan.d_pad, "blockrow_fwd_v1")
-    x = x.contiguous()
-    Y = torch.empty((plan.k_pad, x.shape[1]), dtype=torch.float32,
-                    device=x.device)
-    _call("flashsketch_v1.cu", "fs_blockrow_v1", x.device, (_P, x.data_ptr()),
-          (_P, Y.data_ptr()),
-          (_P, _device_table(plan, "blockrow", x.device).data_ptr()),
-          (_I, plan.M), (_I, plan.Br), (_I, plan.Bc), (_I, plan.kappa),
-          (_I, plan.s), (_LL, x.shape[1]), (_U, plan.seed & 0xFFFFFFFF),
-          (_F, blockrow_scale(plan)), *[(_I, v) for v in (tn, groups, smem)])
+    n = x.shape[1]
+    tn = tn or default_tn(plan, "blockrow", n, v1=True)
+    Y = torch.empty((plan.k_pad, n), dtype=torch.float32, device=x.device)
+    _launch_vec(plan, x, Y, None, tn, row_splits, "blockrow_fwd_v1",
+                "blockrow", True)
     LAUNCHES["blockrow_fwd_v1"] += 1
     return Y

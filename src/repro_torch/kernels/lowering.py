@@ -34,11 +34,12 @@ catches is the card's own):
   2. ``cuda``, the fused ``transpose`` kernel over the limit at the
      narrowest tile (tn = 32) → ``cuda_v1``.
 
-Every forward and FLASHBLOCKROW runs a row-split kernel that keeps each sum
-in a register and uses no shared memory but a gather's staged words, so
-none of them downgrades or narrows its tile: the Br = 2 048 plans the
-reference sends to ``pallas_v1`` run them here, and FLASHBLOCKROW goes to
-``cuda_v1`` only when asked.
+Every forward and FLASHBLOCKROW, and ``cuda_v1``'s transpose of a
+blockperm plan, run a row-split kernel that keeps each sum in registers
+and uses no shared memory but a gather's staged words, so none of them
+downgrades or narrows its tile: the Br = 2 048 plans the reference sends to
+``pallas_v1`` run them here, and FLASHBLOCKROW goes to ``cuda_v1`` only
+when asked.
 
 ``shard`` (``"none" | "row" | "col" | "batch"``, over ``devices`` ranks)
 records a sharded launch and rejects what the reference rejects.
@@ -122,10 +123,11 @@ class Lowering:
     materialized first); ``tn``, ``groups`` and ``smem_bytes`` the CUDA
     launch geometry (``None`` for the plain version), ``row_splits`` the
     split R of a row-split kernel (every forward and its gather, global
-    plans included, FLASHBLOCKROW and its gather, the compact partial and
-    the v1 forward: each output block's Br rows in R sub-ranges, one block
-    each; ``None`` for the transposes, the v1 FLASHBLOCKROW and the masked
-    partial);
+    plans included, FLASHBLOCKROW with its gather and its v1, the compact
+    partial, the v1 forward and the v1 transpose of a blockperm plan: each
+    output block's rows (Br; Bc for the transpose) in R sub-ranges, one
+    block each; ``None`` for the fused and global transposes and the
+    masked partial);
     ``pad_rows`` the zero
     rows added to the operand (none with a fused gather: the kernel zeroes
     the padding rows itself).  Columns are never padded: the kernels mask
@@ -364,11 +366,12 @@ def _fit_tile(eff: BlockPermPlan, spec: LaunchSpec, n_loc: int,
         splits = R
         tiles = -(-n_loc * batch_loc // tn)
         blocks = eff.kappa * (eff.M // spec.devices) if partial else eff.M
-        vec = not (gather_fused or v1)
-        per_row = (f"{tn // fsk.vec_width(eff)} threads of 16-byte loads a "
-                   f"row" if vec else "one row per thread")
-        t(f"row split: R={R} (each output block's {eff.Br} rows in {R} "
-          f"sub-ranges of {eff.Br // R}, {per_row}; grid {blocks}x{R} x "
+        vec = not (gather_fused or (v1 and spec.op == "fwd"))
+        per_row = (f"{tn // fsk.vec_width(eff, v1)} threads of 16-byte loads "
+                   f"a row" if vec else "one row per thread")
+        rows = fsk.block_rows(eff, spec.op)
+        t(f"row split: R={R} (each output block's {rows} rows in {R} "
+          f"sub-ranges of {rows // R}, {per_row}; grid {blocks}x{R} x "
           f"{tiles} = {blocks * R * tiles} blocks; "
           f"{'CSR words staged' if smem else 'CSR words read in place'})")
     return tn, tn_source, groups, smem, grid_cols, splits

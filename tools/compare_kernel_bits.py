@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Save, or compare bit for bit, the outputs of the port's forward kernels
-(the blockperm, FLASHBLOCKROW and global forwards, their gathers and the
-compact partial) of one tree on the GPU, and time them.
+"""Save, or compare bit for bit, the outputs of the port's row-split
+kernels (the blockperm, FLASHBLOCKROW and global forwards, their gathers,
+the compact partial, the v1 transpose and the v1 FLASHBLOCKROW) of one tree
+on the GPU, and time them.
 
     PYTHONPATH=<parent>/src python tools/compare_kernel_bits.py \
         --save _checkout/bits
@@ -9,7 +10,7 @@ compact partial) of one tree on the GPU, and time them.
         --against _checkout/bits
 
 Run from the root of a checkout, DIR inside it (``_checkout/`` is
-gitignored; the outputs take about 1.5 GB); ``PYTHONPATH`` picks the tree
+gitignored; the outputs take about 6.5 GB); ``PYTHONPATH`` picks the tree
 whose ``repro_torch`` runs, so a change to these kernels is held to its
 parent (unpacked beside it) bit for bit on one card. The inputs are made
 on the card from seeded generators, every precision policy, at the
@@ -25,7 +26,12 @@ wrappers' defaults:
     the (D, c) view;
   * the CountSketch (s = 1) and graph (s = 4) plans of the main shape,
     n = 1 024: the global ``flashsketch_fwd`` and, gathered from 4·d
-    row-major rows, ``flashsketch_fwd_gather``.
+    row-major rows, ``flashsketch_fwd_gather``;
+  * ``flashsketch_transpose_v1`` and ``blockrow_fwd_v1`` at the main plan
+    (n = 1 024, the ragged n = 1 000, and n = 37, whose rows are not
+    16-byte aligned: scalar loads) and at the Br = 2 048 plan
+    (``make_plan(65 536, 4 096, kappa=4, block_rows=2048)``, n = 1 024),
+    on each policy's streamed operand.
 
 ``--save`` writes them to DIR;
 ``--against`` holds each to the saved one with ``torch.equal``, prints the
@@ -130,6 +136,20 @@ def outputs(fsk, tables, make_plan, row_map_for):
             add(f"{fam} {pol} global gather",
                 lambda p=p, rmap=rmap: fsk.flashsketch_fwd_gather(
                     p, src, rmap), pol)
+    base, tall = make_plan(d, k, seed=0), make_plan(d, k, block_rows=2048)
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    for label, plan, n in (("main", base, N), ("main", base, 1000),
+                           ("main", base, 37), ("Br=2048", tall, N)):
+        A = torch.randn(plan.d_pad, n, generator=gen, device="cuda") * 3
+        Y = torch.randn(plan.k_pad, n, generator=gen, device="cuda") * 3
+        for pol in POLICIES:
+            p = plan.with_dtype(pol)
+            key = f"{label} {pol} n={n}"
+            add(f"{key} transpose_v1",
+                lambda p=p, Y=Y: fsk.flashsketch_transpose_v1(p, Y),
+                pol, n == N)
+            add(f"{key} blockrow_v1", lambda p=p, A=A: fsk.blockrow_fwd_v1(
+                p, A), pol, n == N)
     return out, timed
 
 
