@@ -22,7 +22,11 @@ Phases, any failure exits non-zero and prints no result:
      graph plans of the main shape): within each policy's tolerance, the
      same bits for every R, S·E == S on slabs E of the identity, and each
      gather == its forward on the materialized gather under every R, both
-     source layouts;
+     source layouts; the fused transpose at the main plan (n, and the
+     ragged 1 000 and 37) on both its routes forced, the staged kernel and
+     the L2 route: the same bits, also under every stage count and three
+     grids of the staged kernel and every tile and row split of the L2
+     route, Sᵀ·I == Sᵀ and the adjoint pair on both;
   3. the main path at the paper's size (d = 65 536, n = 1 024): the
      ``default``, ``fast`` and ``precise`` solver presets on a cond-1e4
      least-squares problem in float64, each solved twice (the first solve
@@ -44,7 +48,8 @@ Phases, any failure exits non-zero and prints no result:
      partial, the v1 transpose and FLASHBLOCKROW) also their split R or
      their time over the library's, and for the gather and v1 the time of
      the kernel they replaced (the v1 forward beside the fused forward of
-     the same run);
+     the same run); the fused transpose on its staged route and, forced,
+     on its L2 route in the same run, each with its device time;
   5. GraSS data attribution at the paper's width (784 → 128 → 64 → 10,
      109 386 parameters; sparse dim 4 096, k ∈ {1024, 2048, 4096}, κ = 4,
      s = 2, chunks of 64; 5 000 train and 500 test examples, m = 50 LDS
@@ -58,8 +63,9 @@ Phases, any failure exits non-zero and prints no result:
      families, one trial (OSE error on U = orth(A), preconditioned-LSQR
      iterations, warm apply µs), the front; a BlockPerm apply at
      Br = 2 048, whose lowering runs the row-split forward with no
-     downgrade (the reference's ``pallas_v1``), and the same apply under
-     ``impl="cuda_v1"``; a backward under ``impl="cuda_v1"``; FLASHBLOCKROW under ``impl="cuda_v1"``;
+     downgrade (the reference's ``pallas_v1``), its transpose, whose
+     lowering takes the L2 route (its stage does not fit shared memory),
+     and the same apply under ``impl="cuda_v1"``; a backward under ``impl="cuda_v1"``; FLASHBLOCKROW under ``impl="cuda_v1"``;
      CountSketch's fused gather (== its apply on the materialized gather)
      and backward; the launch counts of this phase, which must show every
      v1 and global kernel.
@@ -73,7 +79,8 @@ Phases, any failure exits non-zero and prints no result:
      FLASHBLOCKROW) the same bits on every rank (``all_gather``) and for
      every P, and within the policy's tolerance of the single-device
      kernels and of ``impl="torch"``; column- and batch-sharded applies
-     (with a ``row_index`` gather) equal to one device; at P = 2 GraSS
+     (with a ``row_index`` gather) equal to one device; each rank's masked
+     partial the same bits under every row split R; at P = 2 GraSS
      featurize batch-sharded at the paper's width equal to one device,
      with a NaN-poisoned example quarantined once; at P = 4 the paper's
      largest shape (d = 262 144, n = 512, k = 2 048) with per-rank kernel,
@@ -103,13 +110,13 @@ holds both partial kernels (phase 7's) to their plain version under all
 six policies at the ragged plan, κ × s ∈ {1,2,4}², the main plan and its
 ``plan_for_mesh`` plan (Br = 1 024, tn = 32), the ranks of P ∈ {1, 2, 4}
 emulated in turn: the folded partials equal across P, non-owned pairs of
-the masked kernel exact zeros, S·I partials folded == S; and the
+the masked kernel exact zeros, the masked kernel the same bits under every
+row split R, S·I (S_row·I) partials folded == S (S_row); and the
 Br = 2 048 plan (``make_plan(65 536, 4 096, kappa=4, block_rows=2048)``,
 which the reference sends to its jnp oracle) row-sharded at P = 2 through
 the compact kernel, held to the plain partial and to the single-device
-apply; and a masked partial whose level's Br·s words outgrow shared
-memory (Br = 8 192, s = 8: hashed in chunks of whole rows) at P ∈ {1, 2},
-held likewise; phase 4 times
+apply; and a masked partial whose level's Br·s words would outgrow shared
+memory (Br = 8 192, s = 8) at P ∈ {1, 2}, held likewise; phase 4 times
 them at the main plan for one rank of P = 4 (M_loc = 8) and for P = 1,
 beside ``torch.sparse.mm`` of the rank's slice of S.
 
@@ -142,6 +149,10 @@ KERNEL_INFO = {
     "flashsketch_transpose": dict(
         source="src/repro_torch/kernels/csrc/flashsketch_transpose.cu",
         replaces="src/repro/kernels/flashsketch.py:619"),
+    # the fused transpose's L2 route (plans whose stage does not fit)
+    "flashsketch_transpose_l2": dict(
+        source="src/repro_torch/kernels/csrc/row_split.cuh",
+        replaces="src/repro/kernels/flashsketch.py:619"),
     "flashsketch_fwd_gather": dict(
         source="src/repro_torch/kernels/csrc/flashsketch_fwd.cu",
         replaces="src/repro/kernels/flashsketch.py:642"),
@@ -165,7 +176,7 @@ KERNEL_INFO = {
         source="src/repro_torch/kernels/csrc/row_split.cuh",
         replaces="src/repro/kernels/flashsketch.py:736"),
     "blockrow_fwd_partial": dict(
-        source="src/repro_torch/kernels/csrc/flashsketch_blockrow.cu",
+        source="src/repro_torch/kernels/csrc/row_split.cuh",
         replaces="src/repro/kernels/flashsketch.py:736"),
     # the global families' branch (_phi_global_tile) of kernels 1-3
     "flashsketch_fwd_global": dict(
@@ -185,6 +196,7 @@ GRASS_KERNELS = ("flashsketch_fwd_gather", "blockrow_fwd",
 # the kernels of the family tournament's path (phase 6)
 V1_KERNELS = ("flashsketch_fwd_v1", "flashsketch_transpose_v1",
               "blockrow_fwd_v1")
+L2_KERNELS = ("flashsketch_transpose_l2",)
 GLOBAL_KERNELS = ("flashsketch_fwd_global", "flashsketch_transpose_global",
                   "flashsketch_fwd_gather_global")
 # the kernels of the distributed path (phase 7)
@@ -193,12 +205,15 @@ PARTIAL_KERNELS = ("flashsketch_fwd_partial", "blockrow_fwd_partial")
 SPAWN_TIMEOUT_S = 300.0
 # GraSS (paper App. E): 109 386-parameter MLP, sparse dim 4 096, κ = 4, s = 2
 GRASS_D_SRC, GRASS_D, GRASS_CHUNK, GRASS_K = 109_386, 4096, 64, 1024
-# ms of the kernels the row-split design replaced, as PERF.md records them
-# (NVIDIA H100 80GB HBM3 at a 700 W power limit; a range over two runs):
-# the gather-fused forward and both FLASHBLOCKROW kernels at the GraSS chunk
-# in the (D, c) view, the v1 kernels at the main plan, the global forward
-# and gather at the CountSketch plan of the main shape
-REPLACED_MS = {"flashsketch_fwd_gather": (0.603, 0.603),
+# ms of the kernels the row-split and staged designs replaced, as PERF.md
+# records them (NVIDIA H100 80GB HBM3 at a 700 W power limit; a range over
+# two runs): the gather-fused forward and both FLASHBLOCKROW kernels at the
+# GraSS chunk in the (D, c) view, the v1 kernels and the fused transpose at
+# the main plan, the masked partial for one rank of P = 4 there, the global
+# forward and gather at the CountSketch plan of the main shape
+REPLACED_MS = {"flashsketch_transpose": (0.4505, 0.4753),
+               "blockrow_fwd_partial": (0.0622, 0.0862),
+               "flashsketch_fwd_gather": (0.603, 0.603),
                "flashsketch_fwd_v1": (3.485, 3.485),
                "flashsketch_transpose_v1": (0.847, 0.883),
                "blockrow_fwd_v1": (0.139, 0.149),
@@ -211,7 +226,7 @@ REPLACED_MS = {"flashsketch_fwd_gather": (0.603, 0.603),
 def replaced(name):
     """'it replaced a ... ms kernel' for ``name``, from REPLACED_MS."""
     lo, hi = REPLACED_MS[name]
-    ms = f"{lo:.3f}" if lo == hi else f"{lo:.3f}-{hi:.3f}"
+    ms = f"{lo}" if lo == hi else f"{lo}-{hi}"
     return f"it replaced a {ms} ms kernel"
 
 
@@ -365,7 +380,7 @@ def phase_kernels(rt, main_plan, n_main):
     plans = [(make_plan(1000, 96, kappa=4, s=2, seed=1), 37)]   # ragged, d<d_pad
     plans += [(make_plan(4096, 256, kappa=k, s=s, seed=10 * k + s), 100)
               for k in (1, 2, 4) for s in (1, 2, 4)]
-    # κ·Br too large to stage in shared memory: the transpose reads Y itself
+    # κ·Br too large to stage in shared memory: the transpose's L2 route
     plans.append((make_plan(8192, 2048, kappa=8, s=2, seed=5), 64))
     worst = {}
     for plan, n in plans:
@@ -392,6 +407,83 @@ def phase_kernels(rt, main_plan, n_main):
     print(f"  exact: sketch_apply(plan, I) == S (torch.equal); "
           f"<Sx,y>={lhs:.9g} <x,S^T y>={rhs:.9g}")
     return {name: main_errs[(name, "float32")] for name in MAIN_KERNELS}
+
+
+def phase_transpose_routes(rt, main_plan, n):
+    """Phase 2 for the fused transpose's two routes at the main plan, every
+    policy, n and the ragged n = 1 000 and 37 (TMA boxes, 4-byte cp.async
+    and plain loads fill the staged kernel's stages): the staged kernel and
+    the L2 route forced, within the policy's tolerance of the plain version
+    and the same bits; the staged kernel under every stage count that fits
+    and three grids (one block walking every item, 7 blocks, the SMs'),
+    the L2 route at every tile and under every row split of its default
+    tile, all the same bits; Sᵀ·I == Sᵀ and the adjoint pair with the
+    forward on both routes."""
+    fsk, ref, ops = rt["fsk"], rt["ref"], rt["ops"]
+    blockperm = rt["blockperm"]
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    print("phase 2 (fused transpose routes): the staged kernel and its L2 "
+          "route forced at the main plan, every policy")
+    fit = (fsk.MAX_SMEM_BYTES - 128) // (
+        fsk.transpose_stage_bytes(main_plan) + 8)
+    forced, err_l2 = 0, 0.0
+    for nn in (n, 1000, 37):
+        Y = torch.randn(main_plan.k_pad, nn, generator=gen,
+                        device="cuda") * 3
+        for pol in POLICIES:
+            p = main_plan.with_dtype(pol)
+            key = f"{pol} n={nn}"
+            check(fsk.transpose_route(p) == "staged", f"route at {key}")
+            staged = fsk.flashsketch_transpose(p, Y, route="staged")
+            l2 = fsk.flashsketch_transpose(p, Y, route="l2")
+            want = ref.flashsketch_transpose_ref(
+                dataclasses.replace(p, d=p.d_pad), fsk._stream(p, Y).float())
+            _err(staged, want, p, f"staged transpose {key}")
+            e = _err(l2, want, p, f"L2 transpose {key}")
+            if pol == "float32" and nn == n:
+                err_l2 = e
+            check(torch.equal(staged, l2), f"staged != L2 route at {key}")
+            for st in range(1, fit + 1):
+                for blocks in (1, 7, None):
+                    check(torch.equal(fsk.flashsketch_transpose(
+                        p, Y, stages=st, blocks=blocks), staged),
+                        f"staged stages={st} blocks={blocks} at {key}")
+                    forced += 1
+            for tn in (32, 64, 128, 256):
+                check(torch.equal(fsk.flashsketch_transpose(
+                    p, Y, route="l2", tn=tn), staged),
+                    f"L2 route tn={tn} at {key}")
+                forced += 1
+            for R in fsk.split_allowed(p, "transpose"):
+                check(torch.equal(fsk.flashsketch_transpose(
+                    p, Y, route="l2", row_splits=R), staged),
+                    f"L2 route R={R} at {key}")
+                forced += 1
+        del Y
+    eye = torch.eye(main_plan.k_pad, device="cuda")
+    St = blockperm.materialize_sketch_matrix(main_plan, "cuda").T
+    for route in ("staged", "l2"):
+        check(torch.equal(fsk.flashsketch_transpose(main_plan, eye,
+                                                    route=route), St),
+              f"Sᵀ·I != Sᵀ on the {route} route")
+    del eye, St
+    x = torch.randn(main_plan.d, 3, generator=gen, device="cuda")
+    y = torch.randn(main_plan.k, 3, generator=gen, device="cuda")
+    lhs = float((ops.sketch_apply(main_plan, x).double() * y.double()).sum())
+    yp = ref.pad_rows(y, main_plan.k_pad)
+    for route in ("staged", "l2"):
+        Xt = fsk.flashsketch_transpose(main_plan, yp, route=route)
+        rhs = float((x.double() * Xt[:main_plan.d].double()).sum())
+        check(abs(lhs - rhs) <= 1e-5 * max(abs(lhs), 1.0),
+              f"adjoint on the {route} route: {lhs} vs {rhs}")
+    print(f"  {main_plan.describe()}: staged == L2 route (torch.equal) at "
+          f"n in ({n}, 1000, 37), all policies, both within tolerance of "
+          f"the plain version; the same bits under {forced} forced launches "
+          f"(stages 1..{fit} x grids (1, 7, the SMs'), L2 tiles 32-256, L2 "
+          f"R in {fsk.split_allowed(main_plan, 'transpose')}); Sᵀ·I == Sᵀ "
+          f"and <Sx,y> == <x,Sᵀy> on both routes; L2 route fp32 max_abs_err "
+          f"{err_l2:.3e}")
+    return {"flashsketch_transpose_l2": err_l2}
 
 
 def dense_blockrow(rt, plan):
@@ -732,11 +824,12 @@ def compare_partial_kernels(rt, plan, n, gen, shards=(1, 2, 4)):
     policies, in-process (the ranks emulated in turn, no process group),
     on every rank of the largest shard count of ``shards`` that divides M;
     plus the exact checks: non-owned pairs of the masked kernel are exact
-    zeros, and the partials of P shards, summed and folded, are the same
-    bits for every P of ``shards`` dividing M.  Returns the max abs errors
-    by (kernel, policy)."""
+    zeros, the masked kernel is the same bits under every row split R, and
+    the partials of P shards, summed and folded, are the same bits for
+    every P of ``shards`` dividing M.  Returns the max abs errors by
+    (kernel, policy) and the count of forced-R launches."""
     fsk, ref, dist_ = rt["fsk"], rt["ref"], rt["dist"]
-    errs = {}
+    errs, forced = {}, 0
     A = torch.randn(plan.d, n, generator=gen, device="cuda") * 3
     for pol in POLICIES:
         p = plan.with_dtype(pol)
@@ -758,10 +851,16 @@ def compare_partial_kernels(rt, plan, n, gen, shards=(1, 2, 4)):
                     owned = tab[2].bool().repeat_interleave(p.Br, 1)
                     check(bool((got[~owned] == 0).all()),
                           f"{name} {key}: a non-owned pair is not 0")
+                    for R in fsk.split_allowed(p):
+                        check(torch.equal(fsk.flashsketch_partial(
+                            p, slab, tab, rows_pattern=True, row_splits=R),
+                            got), f"{name} P={P} rank {r} {key} R={R}: "
+                            f"bits differ from the default split")
+                        forced += 1
             outs = [sharded_serial(rt, p, A, P, rows) for P in counts]
             check(all(torch.equal(o, outs[0]) for o in outs),
                   f"{name} {key}: folded partials differ across P")
-    return errs
+    return errs, forced
 
 
 def phase_partial_kernels(rt, main_plan, n_main):
@@ -780,9 +879,10 @@ def phase_partial_kernels(rt, main_plan, n_main):
               for k in (1, 2, 4) for s in (1, 2, 4)]
     d, k = main_plan.d, main_plan.k_req
     mesh_plan = dist_.plan_for_mesh(d, k, 4, kappa=4)
-    worst = {}
+    worst, forced = {}, 0
     for plan, n in plans + [(main_plan, n_main), (mesh_plan, n_main)]:
-        errs = compare_partial_kernels(rt, plan, n, gen)
+        errs, f = compare_partial_kernels(rt, plan, n, gen)
+        forced += f
         for key, e in errs.items():
             worst[key] = max(worst.get(key, 0.0), e)
         if plan in (main_plan, mesh_plan):
@@ -806,9 +906,13 @@ def phase_partial_kernels(rt, main_plan, n_main):
     plan = make_plan(512, 64, kappa=4, s=2, seed=3)
     eye = torch.eye(plan.d_pad, device="cuda")
     S = rt["blockperm"].materialize_sketch_matrix(plan, "cuda")
+    S_row = dense_blockrow(rt, plan)
     for P in (1, 2, 4):
         check(torch.equal(sharded_serial(rt, plan, eye, P, False), S[:plan.k]),
               f"S·I partials folded != S at P={P}")
+        check(torch.equal(sharded_serial(rt, plan, eye, P, True),
+                          S_row[:plan.k]),
+              f"S_row·I masked partials folded != S_row at P={P}")
     # the Br = 2 048 plan the reference sends to its jnp oracle: row-sharded
     # at P = 2 through the compact kernel
     f1 = make_plan(d, k, kappa=4, block_rows=2048, seed=0)
@@ -816,7 +920,8 @@ def phase_partial_kernels(rt, main_plan, n_main):
         n=64, device="cuda", shard="row", devices=2))
     check(lw.impl == "cuda" and lw.downgrade is None,
           f"Br=2048 row-sharded lowering {lw.describe()}")
-    f1_errs = compare_partial_kernels(rt, f1, 64, gen, shards=(1, 2))
+    f1_errs, f = compare_partial_kernels(rt, f1, 64, gen, shards=(1, 2))
+    forced += f
     A = torch.randn(d, 64, generator=gen, device="cuda")
     for pol in POLICIES:
         p = f1.with_dtype(pol)
@@ -826,28 +931,32 @@ def phase_partial_kernels(rt, main_plan, n_main):
         print(f"  {p.describe()} P=2 {pol:12s} partial vs plain "
               f"{f1_errs[('flashsketch_fwd_partial', pol)]:.3e}, sharded vs "
               f"the single-device apply {e:.3e}")
-    # a masked partial whose level's Br·s words (65 536) outgrow shared
-    # memory: its kernel hashes them in two chunks of whole rows
+    # a masked partial whose level's Br·s words (65 536) would outgrow
+    # shared memory: the row-split kernel reads S_row's CSR where it lies
     big_rows = make_plan(16_384, 16_384, kappa=2, s=8, block_rows=8192,
                          seed=4)
     lw = rt["lowering"].lower(big_rows, rt["lowering"].LaunchSpec(
         op="blockrow", n=40, device="cuda", shard="row", devices=2))
-    check(lw.impl == "cuda" and lw.downgrade is None
-          and lw.smem_bytes < 4 * big_rows.Br * big_rows.s,
-          f"chunked masked partial lowering {lw.describe()}")
-    chunk_errs = compare_partial_kernels(rt, big_rows, 40, gen, shards=(1, 2))
+    check(lw.impl == "cuda" and lw.downgrade is None and lw.smem_bytes == 0
+          and lw.row_splits == fsk.masked_splits(big_rows, lw.tn),
+          f"tall masked partial lowering {lw.describe()}")
+    chunk_errs, f = compare_partial_kernels(rt, big_rows, 40, gen,
+                                            shards=(1, 2))
+    forced += f
     A = torch.randn(big_rows.d, 40, generator=gen, device="cuda")
     for pol in ("float32", "bfloat16"):
         p = big_rows.with_dtype(pol)
         e = _err(sharded_serial(rt, p, A, 2, True), ops.blockrow_apply(p, A),
                  p, f"chunked masked partial P=2 vs single device {pol}")
-        print(f"  {p.describe()} masked partial in chunks of "
-              f"{lw.smem_bytes // (4 * p.s)} rows, {pol:9s} vs plain "
+        print(f"  {p.describe()} masked partial R={lw.row_splits}, "
+              f"{pol:9s} vs plain "
               f"{chunk_errs[('blockrow_fwd_partial', pol)]:.3e}, P=2 sharded "
               f"vs the single-device apply {e:.3e}")
     print(f"  exact: {len(plans) + 2} plans x 6 policies: folded partials "
           f"equal across P (torch.equal), non-owned masked pairs exact "
-          f"zeros, S·I partials folded == S at P in (1, 2, 4); small plans "
+          f"zeros, the masked partial the same bits under every forced R "
+          f"({forced} launches), S·I partials folded == S and S_row·I "
+          f"masked partials folded == S_row at P in (1, 2, 4); small plans "
           f"worst err "
           f"{ {k: f'{v:.2e}' for k, v in worst.items() if k[1] == 'float32'} }")
     return {name: main_errs[(name, "float32")] for name in PARTIAL_KERNELS}
@@ -1041,6 +1150,14 @@ def phase_timing(rt, plan, n, launches, errs):
             library=lambda: torch.sparse.mm(St, Y),
             bytes=plan.k_pad * n * item + plan.d_pad * n * 4,
             ops=plan.nnz_per_col * plan.d_pad * n),
+        # the same transpose on its L2 route, forced (the route of plans
+        # whose stage does not fit), timed in this run beside the staged one
+        "flashsketch_transpose_l2": dict(
+            kernel=lambda: fsk.flashsketch_transpose(plan, Y, route="l2"),
+            plain=lambda: ref.flashsketch_transpose_ref(full, Y),
+            library=lambda: torch.sparse.mm(St, Y),
+            bytes=plan.k_pad * n * item + plan.d_pad * n * 4,
+            ops=plan.nnz_per_col * plan.d_pad * n),
     }
     print(f"phase 4: timing at {plan.describe()}, n={n}, fp32 stream; "
           f"CUDA events, median of 15 after 3 warm-up calls")
@@ -1057,6 +1174,19 @@ def phase_timing(rt, plan, n, launches, errs):
             tn = fsk.fwd_tn(plan, n)
             split = (f"  [row-split R={fsk.vec_splits(plan, tn)}, tn={tn}; "
                      f"kernel / library {row['ms'] / row['library_ms']:.2f}]")
+        elif name == "flashsketch_transpose":
+            threads, stages, smem = fsk.staged_launch(plan)
+            split = (f"  [staged: {stages} stages of "
+                     f"{fsk.transpose_stage_bytes(plan)} B, {threads} threads "
+                     f"a block, tn={fsk.staged_tn(plan)}; kernel / library "
+                     f"{row['ms'] / row['library_ms']:.2f}; device "
+                     f"{device_ms(w['kernel']):.4f} ms; {replaced(name)}]")
+        elif name == "flashsketch_transpose_l2":
+            tn = fsk.fwd_tn(plan, n)
+            split = (f"  [L2 route forced: R="
+                     f"{fsk.vec_splits(plan, tn, 'transpose')}, tn={tn}; "
+                     f"kernel / library {row['ms'] / row['library_ms']:.2f}; "
+                     f"device {device_ms(w['kernel']):.4f} ms]")
         print(f"  {name:22s} kernel {row['ms']:.4f} ms  plain "
               f"{row['plain_ms']:.4f} ms  bound {row['bound_ms']:.4f} ms "
               f"({row['bound_by']})  library torch.sparse.mm "
@@ -1365,13 +1495,18 @@ def phase_partial_timing(rt, plan, n, errs):
                      bytes=io, ops=ops_)
             lib_err = float((w["library"]() - w["kernel"]()).abs().max())
             row = time_row(name, w, 0, errs[name])
+            tn = fsk.fwd_tn(plan, n)
+            R = fsk.masked_splits(plan, tn) if rows else \
+                fsk.vec_splits(plan, tn)
             print(f"  P={P} (M_loc={M_loc:2d}) {name:24s} kernel "
                   f"{row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  bound "
                   f"{row['bound_ms']:.4f} ms ({row['bound_by']}, "
                   f"{io / 1e6:.1f} MB)  library {row['library_ms']:.4f} ms "
                   f"(|lib - kernel| {lib_err:.2e})  share of bound "
                   f"{row['bound_ms'] / row['ms']:.4f}  kernel / library "
-                  f"{row['ms'] / row['library_ms']:.2f}")
+                  f"{row['ms'] / row['library_ms']:.2f}  [R={R}, tn={tn}; "
+                  f"device {device_ms(w['kernel']):.4f} ms"
+                  f"{'; ' + replaced(name) if rows and P == 4 else ''}]")
             if P == 4:
                 rows_out[name] = row
     for k in before:      # timing launches are not main-path launches
@@ -1386,8 +1521,9 @@ def phase_partial_timing(rt, plan, n, errs):
 def phase_families(rt, main_plan):
     """The family tournament at ``paper_main`` (d = 65 536, n = 1 024,
     k = 4 096, gaussian data, cond 1e4), one trial per family, then the
-    v1 and global entry points a user reaches: the downgraded apply of a
-    Br = 2 048 BlockPerm sketch, a backward under ``impl="cuda_v1"``, a
+    v1, global and L2-route entry points a user reaches: the apply of a
+    Br = 2 048 BlockPerm sketch and its transpose (the L2 route), a
+    backward under ``impl="cuda_v1"``, a
     FLASHBLOCKROW apply under ``impl="cuda_v1"``, and CountSketch's fused
     gather and backward.  Returns the launch counts of the phase."""
     fsk, ref, ops, variants = rt["fsk"], rt["ref"], rt["ops"], rt["variants"]
@@ -1434,6 +1570,15 @@ def phase_families(rt, main_plan):
           "the Br=2048 apply did not lower to the row-split forward")
     Yb = big.apply(A)
     _err(Yb, ref.flashsketch_ref(big.plan, A), big.plan, "Br=2048 apply")
+    # its transpose: one stage (κ row blocks of Y, 1 MiB) does not fit
+    # shared memory, so the lowering takes the L2 route, not cuda_v1
+    lwt = rt["lowering"].lower(big.plan, rt["lowering"].LaunchSpec(
+        op="transpose", n=reg["n"], device="cuda"))
+    print(f"  its transpose: {lwt.describe()}")
+    check(lwt.impl == "cuda" and lwt.downgrade is None and lwt.route == "l2",
+          "the Br=2048 transpose did not lower to the L2 route")
+    _err(ops.sketch_apply_t(big.plan, Yb), ref.flashsketch_transpose_ref(
+        big.plan, Yb), big.plan, "Br=2048 transpose")
     _err(ops.sketch_apply(big.plan, A, "cuda_v1"),
          ref.flashsketch_v1_ref(big.plan, A), big.plan,
          "Br=2048 apply under cuda_v1")
@@ -1459,12 +1604,12 @@ def phase_families(rt, main_plan):
          "CountSketch backward")
     torch.cuda.synchronize()
     launches = dict(fsk.LAUNCHES)
-    print(f"  Br=2048 apply (row-split forward and cuda_v1), cuda_v1 "
-          f"backward (max err {gerr:.3e}), "
+    print(f"  Br=2048 apply (row-split forward and cuda_v1) and transpose "
+          f"(L2 route), cuda_v1 backward (max err {gerr:.3e}), "
           f"blockrow cuda_v1, CountSketch gather == apply (torch.equal) "
           f"and backward: checked")
     print(f"  launch counts over phase 6: {launches}")
-    for name in V1_KERNELS + GLOBAL_KERNELS:
+    for name in V1_KERNELS + GLOBAL_KERNELS + L2_KERNELS:
         check(launches[name] > 0, f"{name} never launched in phase 6")
     return launches
 
@@ -1671,6 +1816,19 @@ def _phase7_checks(rank, world, group, cfg):
                                    group, rows_pattern=rows)
         out["equal"][f"row {key} across ranks"] = _all_equal(Y, group)
         out[key] = Y.cpu().numpy()
+    # this rank's masked partial under every row split R: the same bits
+    # (comparison launches, not counted)
+    slab = D.shard_rows(main_plan, A, rank, world)
+    M_loc = main_plan.M // world
+    tab = D.partial_tables(main_plan, rank * M_loc, M_loc, True, dev)
+    before = dict(fsk.LAUNCHES)
+    base = fsk.flashsketch_partial(main_plan, slab, tab, rows_pattern=True)
+    out["equal"]["masked partial the same bits under every R"] = all(
+        torch.equal(fsk.flashsketch_partial(main_plan, slab, tab,
+                                            rows_pattern=True, row_splits=R),
+                    base) for R in fsk.split_allowed(main_plan))
+    fsk.LAUNCHES.update(before)
+    del slab, base
     out["col"] = D.sketch_apply_colsharded(
         main_plan, D.shard_cols(A, rank, world)).cpu().numpy()
     out["batch"] = D.sketch_apply_batched_sharded(
@@ -1941,6 +2099,8 @@ def main() -> int:
                               SOLVER_PRESETS["default"].sampling_factor))
     try:
         errs = timed("phase 2", phase_kernels, rt, main_plan, n)
+        errs.update(timed("phase 2, fused transpose routes",
+                          phase_transpose_routes, rt, main_plan, n))
         timed("phase 2, row-split forwards", phase_fwd_splits, rt,
               main_plan, n)
         errs.update(timed("phase 2, GraSS kernels", phase_grass_kernels, rt))
@@ -1964,7 +2124,7 @@ def main() -> int:
         for row in rows:
             if row["name"] in GRASS_KERNELS:
                 row["launches"] = grass_launches[row["name"]]
-            if row["name"] in V1_KERNELS + GLOBAL_KERNELS:
+            if row["name"] in V1_KERNELS + GLOBAL_KERNELS + L2_KERNELS:
                 row["launches"] = family_launches[row["name"]]
             if row["name"] in PARTIAL_KERNELS:
                 row["launches"] = dist_launches[row["name"]]

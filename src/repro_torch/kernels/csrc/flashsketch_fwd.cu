@@ -10,11 +10,16 @@
 // graph) both with Φ from _phi_global_tile (:165) and the all-blocks table
 // _global_table (:118); flashsketch.py:711 blockrow_pallas (body
 // _fused_fwd_kernel with Φ from _phi_rows_tile :190) and flashsketch.py:682
-// blockrow_pallas_gather (body _fused_gather_kernel); and the compact body
-// of flashsketch.py:736 flashsketch_pallas_partial, _partial_fwd_kernel
-// (:378).  Plain versions: repro_torch/kernels/ref.py:flashsketch_ref and
-// ref.blockrow_ref on the streamed operand, on its materialized gather
-// (ref.gather_rows), and ref.partial_ref.
+// blockrow_pallas_gather (body _fused_gather_kernel); both bodies of
+// flashsketch.py:736 flashsketch_pallas_partial, the compact
+// _partial_fwd_kernel (:378) and the masked FLASHBLOCKROW
+// _partial_masked_kernel (:422); and, where the staged transpose's tile
+// does not fit shared memory, flashsketch.py:619
+// flashsketch_transpose_pallas (fs_fwd on the CSR of Sᵀ: the transpose's L2
+// route, see flashsketch_transpose.cu).  Plain versions:
+// repro_torch/kernels/ref.py:flashsketch_ref, ref.blockrow_ref and
+// ref.flashsketch_transpose_ref on the streamed operand, on its
+// materialized gather (ref.gather_rows), and ref.partial_ref.
 //
 // What it computes: for output block g, Y[g·Br + r, c] = scale ·
 // Σ_ℓ Σ_u Σ_i [row(g, h_ℓ, u, i) = r] · sign(g, h_ℓ, u, i) · A[h_ℓ·Bc + u, c]
@@ -82,6 +87,21 @@
 // fused forward's bits, which adds level ℓ+1 onto level ℓ's running sum.
 // The CSR is the whole plan's (4 bytes per nonzero on every rank).  Bound:
 // the slab read once plus the compact output written once.
+//
+// Masked partial (the row-sharded FLASHBLOCKROW, fs_blockrow_partial).  The
+// iid wiring is not a permutation, so there is no compact grid of owned
+// pairs: row block p = ℓ·M + g of the (κ, k_pad, n) output covers the full
+// (3, κ, M) table [local block, global h, owned].  An owned pair sums, for
+// each row of g, level ℓ's segment of S_row's CSR (κ·s words a row in
+// (ℓ, t) order, collisions kept), each column read as slab row
+// col + (local − h)·Bc, in t order from +0, unscaled; a pair another rank
+// owns writes exact zeros with the same 16-byte stores.  That is the order
+// of the hashing kernel it replaced (one thread per output element, Br·s
+// words hashed into shared memory in every block and column tile), so the
+// partials are its bits for every P, R and tile, and summed over the ranks
+// and folded in ℓ order the same bits for every P.  Bound: the slab rows
+// some owned nonzero names, read once, plus the whole output written once
+// (most of it: 64 MiB at the main plan, n = 1 024).
 
 #include "row_split.cuh"
 
@@ -153,6 +173,28 @@ int fs_fwd_partial(const void* A, void* Y, const void* ptr, const void* ent,
 #define FS_LAUNCH(T)                                                        \
   fs::launch_vec<T, true>(A, Y, ptr, ent, tab, M, Br, Bc, kappa, p[5], 1.f, \
                           tn, groups, R, vec, stream)
+  FS_DISPATCH(static_cast<int>(p[0]), FS_LAUNCH)
+#undef FS_LAUNCH
+}
+
+// Masked FLASHBLOCKROW partials: Y (κ, k_pad, n) fp32, unscaled, for a
+// slab A (M_loc·Bc, n) of the padded input, both row-major and contiguous;
+// tab is the (3, κ, M) int32 table [local block, global h, owned] on the
+// device; S_row comes as its CSR (ptr, ent: κ level segments a row).  The
+// masked mode of split_vec_kernel: grid (κ·M·R, ⌈n/tn⌉); p = {dtype, M,
+// Br, Bc, κ, n, tn, groups, R, vec} as for fs_fwd, M the plan's.  Launches
+// on `stream` and returns cudaGetLastError() (0 on success).
+int fs_blockrow_partial(const void* A, void* Y, const void* ptr,
+                        const void* ent, const void* tab, const long long* p,
+                        void* stream) {
+  const int M = static_cast<int>(p[1]), Br = static_cast<int>(p[2]);
+  const int Bc = static_cast<int>(p[3]), kappa = static_cast<int>(p[4]);
+  const int tn = static_cast<int>(p[6]), groups = static_cast<int>(p[7]);
+  const int R = static_cast<int>(p[8]), vec = static_cast<int>(p[9]);
+#define FS_LAUNCH(T)                                                        \
+  fs::launch_vec<T, true, false, true>(A, Y, ptr, ent, tab, M, Br, Bc,      \
+                                       kappa, p[5], 1.f, tn, groups, R, vec, \
+                                       stream)
   FS_DISPATCH(static_cast<int>(p[0]), FS_LAUNCH)
 #undef FS_LAUNCH
 }

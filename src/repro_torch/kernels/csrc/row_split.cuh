@@ -15,8 +15,13 @@
 //     flashsketch_pallas :594, its global branch from _phi_global_tile
 //     :165 included, and blockrow_pallas :711, Φ from _phi_rows_tile :190)
 //     and the compact row-sharded partial (fs_fwd_partial; replaces
-//     _partial_fwd_kernel :378, launcher flashsketch_pallas_partial :736);
-//     in its v1 mode the v1 transpose X = Σ_ℓ scale·Φᵀ Y of a blockperm
+//     _partial_fwd_kernel :378, launcher flashsketch_pallas_partial :736)
+//     and, in its masked mode, the masked FLASHBLOCKROW partial
+//     (fs_blockrow_partial; replaces _partial_masked_kernel :422); the
+//     fused transpose X = Sᵀ·Y of a plan whose staged tile does not fit
+//     shared memory (its L2 route: fs_fwd on the CSR of Sᵀ, output blocks
+//     of Bc rows; replaces flashsketch_transpose_pallas :619 there); in its
+//     v1 mode the v1 transpose X = Σ_ℓ scale·Φᵀ Y of a blockperm
 //     plan on a CSR of Sᵀ and the v1 FLASHBLOCKROW (flashsketch_v1.cu,
 //     fs_transpose_v1 and fs_blockrow_v1; replace :905 and :927): 16-byte
 //     loads of a contiguous A, 4 fp32 (8 bf16, 16 fp8) columns per thread.
@@ -55,7 +60,8 @@
 // (two ℓ that draw one h, two t that hash to one column) kept as entries
 // of their own; the v1 transpose's Sᵀ (_device_csr_t) holds, for row
 // h·Bc + u of X, κ·s rows of Y in (ℓ, i) order, κ offsets per row (output
-// blocks of Bc rows: the kernels take Bc for Br).
+// blocks of Bc rows: the kernels take Bc for Br; the fused transpose's L2
+// route sums a row's κ·s words in that order from +0, then × scale).
 //
 // Grid (M·R, ⌈n/tn⌉): block (g, ρ) owns the rows [ρ·Br/R, (ρ+1)·Br/R) of
 // output block g.  The gather's threads first copy the sub-range's nonzero
@@ -77,7 +83,9 @@
 // (a padding row adds an exact zero there; here it adds 0).  The partial
 // sums level ℓ's segment alone, in u order from +0, unscaled: the same bits
 // for every P, M_loc, tn and R, folded in ℓ order by
-// distributed/sharded_apply.py.  v1 sums each level
+// distributed/sharded_apply.py; the masked partial sums level ℓ's segment
+// of S_row in t order from +0, unscaled, the order of the hashing kernel it
+// replaced.  v1 sums each level
 // in its own register, in u order, kLevels levels side by side
 // (independent chains, so their loads overlap), then adds them into the
 // running output in ℓ order, run = run + L_ℓ·scale, as the reference's
@@ -343,7 +351,13 @@ __device__ __forceinline__ void v1_enter(int e, int& lvl, int& bnd,
 // Partial: p = ℓ·M + m indexes the (2, κ, M) table [g, h] of the owned
 // pairs (M is M_loc), the row of g sums level ℓ's segment only, each column
 // word read as slab row col + (m − h)·Bc, into row block p of the compact
-// (κ, M·Br, n) output, scale 1.  kV1 (the v1 transpose and FLASHBLOCKROW,
+// (κ, M·Br, n) output, scale 1.  kMasked (with kPartial: the masked
+// FLASHBLOCKROW partial): p = ℓ·M + g runs over the full (3, κ, M) table
+// [local block, global h, owned] (M is the plan's), the row of g sums level
+// ℓ's segment of S_row's CSR, each word read as slab row
+// col + (local − h)·Bc, into row block p of the (κ, k_pad, n) output; a pair
+// another rank owns sums nothing and writes exact zeros.  kV1 (the v1
+// transpose and FLASHBLOCKROW,
 // fp32): each level's segment summed in its own registers from +0, folded
 // into the running output in ℓ order, run = fma(L, scale, run), empty
 // levels included, and run written as it is; the loads of a chunk of
@@ -351,13 +365,14 @@ __device__ __forceinline__ void v1_enter(int e, int& lvl, int& bnd,
 // row's segments are contiguous).  `vec` says 16-byte loads are aligned
 // (n % kV == 0 and A 16-byte aligned); a thread past the ragged edge or
 // with vec false loads its columns one by one.
-template <typename T, bool kPartial, bool kV1>
+template <typename T, bool kPartial, bool kV1, bool kMasked = false>
 __global__ void __launch_bounds__(512)
 split_vec_kernel(const T* __restrict__ A, float* __restrict__ Y,
                  const int* __restrict__ ptr, const int* __restrict__ ent,
                  const int* __restrict__ tab, int M, int Br, int Bc,
                  int kappa, long long n, float scale, int R, int vec) {
   static_assert(!(kPartial && kV1), "v1 has no partial");
+  static_assert(kPartial || !kMasked, "the masked mode is a partial");
   constexpr int kV = 16 / sizeof(T);
   const int G = blockDim.y;
   const int q = threadIdx.y;
@@ -366,10 +381,17 @@ split_vec_kernel(const T* __restrict__ A, float* __restrict__ Y,
   const int rho = blockIdx.x - p * R;
   int g = p, lo = 0, hi = kappa;
   long long off = 0;                      // column word -> row of A
+  [[maybe_unused]] bool owned = true;
   if constexpr (kPartial) {
     const int ell = p / M;
-    g = tab[p];
-    off = static_cast<long long>(p - ell * M - tab[kappa * M + p]) * Bc;
+    if constexpr (kMasked) {
+      g = p - ell * M;
+      owned = tab[2 * kappa * M + p] != 0;
+      off = static_cast<long long>(tab[p] - tab[kappa * M + p]) * Bc;
+    } else {
+      g = tab[p];
+      off = static_cast<long long>(p - ell * M - tab[kappa * M + p]) * Bc;
+    }
     lo = ell;
     hi = ell + 1;
   }
@@ -384,8 +406,11 @@ split_vec_kernel(const T* __restrict__ A, float* __restrict__ Y,
 
   for (int r = q; r < br; r += G) {
     const long long row = row0 + r;
-    const int beg = ptr[row * kappa + lo];
-    const int end = ptr[row * kappa + hi];
+    int beg = 0, end = 0;                 // an unowned pair: exact zeros
+    if (!kMasked || owned) {
+      beg = ptr[row * kappa + lo];
+      end = ptr[row * kappa + hi];
+    }
     float acc[kV];
 #pragma unroll
     for (int j = 0; j < kV; ++j) acc[j] = 0.f;
@@ -461,14 +486,15 @@ split_vec_kernel(const T* __restrict__ A, float* __restrict__ Y,
   }
 }
 
-// The forward (kPartial false), the partial, or v1's (kV1): grid
-// (blocks·R, ⌈n/tn⌉), block (tn·sizeof(T)/16, groups), no shared memory.
-template <typename T, bool kPartial, bool kV1 = false>
+// The forward (kPartial false), the partial (kMasked: the masked one), or
+// v1's (kV1): grid (blocks·R, ⌈n/tn⌉), blocks M, or κ·M for a partial,
+// block (tn·sizeof(T)/16, groups), no shared memory.
+template <typename T, bool kPartial, bool kV1 = false, bool kMasked = false>
 int launch_vec(const void* A, void* Y, const void* ptr, const void* ent,
                const void* tab, int M, int Br, int Bc, int kappa, long long n,
                float scale, int tn, int groups, int R, int vec,
                void* stream) {
-  auto kern = split_vec_kernel<T, kPartial, kV1>;
+  auto kern = split_vec_kernel<T, kPartial, kV1, kMasked>;
   const int tx = tn * static_cast<int>(sizeof(T)) / 16;
   const int blocks = kPartial ? kappa * M : M;
   const dim3 grid(static_cast<unsigned int>(blocks * R),

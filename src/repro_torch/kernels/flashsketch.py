@@ -5,7 +5,9 @@ hand for ``sm_90a`` (sources in ``csrc/``, built by ``build.py``):
 
   * ``flashsketch_fwd``        — ``Y = S·A``   (replaces ``flashsketch_pallas``)
   * ``flashsketch_transpose``  — ``X = Sᵀ·Y``  (replaces
-    ``flashsketch_transpose_pallas``)
+    ``flashsketch_transpose_pallas``): the staged kernel, or where its tile
+    does not fit shared memory the L2 route, counted as
+    ``flashsketch_transpose_l2``
   * ``flashsketch_fwd_gather`` — ``Y = S·A[row_map]`` in one launch
     (replaces ``flashsketch_pallas_gather``)
   * ``blockrow_fwd``           — FLASHBLOCKROW ``Y = S_row·A`` (replaces
@@ -20,7 +22,7 @@ hand for ``sm_90a`` (sources in ``csrc/``, built by ``build.py``):
     slab, for the row-sharded apply (replaces
     ``flashsketch_pallas_partial``); it counts as ``flashsketch_fwd_partial``
     (the compact body) or ``blockrow_fwd_partial`` (the masked
-    FLASHBLOCKROW body)
+    FLASHBLOCKROW body), both the row-split body
 
 The global families (CountSketch, sparse graph: κ = M plans) run behind
 the same wrappers and count as ``*_global`` launches: the forward and its
@@ -39,20 +41,25 @@ fp32, on the materialized gather for the gathers) for a CPU tensor.  Each
 launch adds one to the wrapper's entry of ``LAUNCHES``, so a run can show
 that it went through the kernels.
 
-Every forward, FLASHBLOCKROW and the v1 transpose of a blockperm plan run
-a row-split body (``csrc/row_split.cuh``): each output block's rows over R
-blocks, each sum in registers, the nonzeros read from a CSR built once per
-plan on the device (``_device_csr``: blockperm, global, or FLASHBLOCKROW's
-S_row; ``_device_csr_t``: Sᵀ, output blocks of Bc rows).  The fused
-forward, FLASHBLOCKROW, the global forward, the compact partial and the v1
-transpose and FLASHBLOCKROW read their operand with 16-byte loads,
-16/itemsize columns a thread (``vec_launch``: R by ``vec_splits``, the tile
-by ``fwd_tn``); the gathers and the v1 forward one column a thread
-(``row_splits``).
+Every forward, FLASHBLOCKROW, both partials and the v1 transpose of a
+blockperm plan run a row-split body (``csrc/row_split.cuh``): each output
+block's rows over R blocks, each sum in registers, the nonzeros read from a
+CSR built once per plan on the device (``_device_csr``: blockperm, global,
+or FLASHBLOCKROW's S_row; ``_device_csr_t``: Sᵀ, output blocks of Bc
+rows).  The fused forward, FLASHBLOCKROW, the global forward, both
+partials and the v1 transpose and FLASHBLOCKROW read their operand with
+16-byte loads, 16/itemsize columns a thread (``vec_launch``: R by
+``vec_splits``, the tile by ``fwd_tn``); the gathers and the v1 forward one
+column a thread (``row_splits``).  The fused transpose of a blockperm plan
+stages its κ row blocks of Y in shared memory, 128 bytes of each row at a
+time, through a ring of asynchronous copies and reads Sᵀ's CSR with
+tile-local words (``staged_launch``; ``csrc/flashsketch_transpose.cu``);
+a plan whose stage does not fit shared memory runs the L2 route,
+``split_vec_kernel`` on Sᵀ's CSR (``transpose_route``).
 
 How the kernels tile the work (``tn`` columns per block, thread groups,
-the chunk of hashed columns held in shared memory, the row split R) is a
-launch choice made here; the plan geometry is not.
+the row split R, the transpose's route and stages) is a launch choice
+made here; the plan geometry is not.
 """
 from __future__ import annotations
 
@@ -76,6 +83,7 @@ from repro_torch.kernels import ref as kref
 # Launch counts of the CUDA kernels, by wrapper name: one per launch.
 LAUNCHES: Dict[str, int] = {
     "flashsketch_fwd": 0, "flashsketch_transpose": 0,
+    "flashsketch_transpose_l2": 0,
     "flashsketch_fwd_gather": 0, "blockrow_fwd": 0, "blockrow_fwd_gather": 0,
     "flashsketch_fwd_v1": 0, "flashsketch_transpose_v1": 0,
     "blockrow_fwd_v1": 0, "flashsketch_fwd_global": 0,
@@ -88,17 +96,22 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1,
 
 # Shared memory a block may use on the H100 (227 KB).
 MAX_SMEM_BYTES = 232_448
-# Packed (row, sign) words a block hashes into shared memory at a time.
-_TRANSPOSE_ENTRIES = 2048
-# Shared memory the transpose may give its staged tile of Y.
-_TRANSPOSE_TILE_BYTES = 160 * 1024
-# Threads a transpose block gives to one column (strided over rows u).
+# Global transposes: threads a block gives to one column (strided over
+# rows u), and rows u per block.
 _TRANSPOSE_GROUPS = 8
-# Global transposes: rows u per block.
 _GLOBAL_TRANSPOSE_ROWS = 256
+# The staged transpose (csrc/flashsketch_transpose.cu): bytes of a staged
+# row of Y (8 threads of 16-byte loads), the ring's stages, the threads of
+# a block by stream itemsize (8 a row; its kStagedThreads), the most rows
+# of one TMA box, and the shared bytes beside the stages (alignment slack,
+# one 8-byte mbarrier a stage).
+TRANSPOSE_STAGE_ROW = 128
+TRANSPOSE_STAGES = 2
+_STAGED_THREADS = {4: 1024, 2: 512, 1: 512}
+_TMA_BOX_ROWS = 256
+_STAGED_SLACK = 128
 MAX_THREADS = 1024
-# The narrowest column tile (one warp); the lowering's downgrade ladder
-# asks whether the transpose fits shared memory there.
+# The narrowest column tile of split_vec_kernel (``fwd_tn``).
 MIN_TN = 32
 # Row-split kernels (csrc/row_split.cuh): the most threads of a block (its
 # __launch_bounds__).
@@ -110,6 +123,8 @@ _SPLIT_MAX_THREADS = 512
 _L2_SLICE_BYTES = 32 << 20
 _FWD_MAX_TN = 256
 _VEC_BLOCK_THREADS = 256
+# The masked FLASHBLOCKROW partial: rows a thread sums in series.
+_MASKED_ROWS = 4
 
 
 def reset_launch_counts() -> None:
@@ -205,27 +220,26 @@ def _stream(plan: BlockPermPlan, operand: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 GATHER_DEFAULT_TN = 64       # the gathers' (one column a thread)
-TRANSPOSE_DEFAULT_TN = 32
-MASKED_PARTIAL_TN = 64       # the masked FLASHBLOCKROW partial's
+TRANSPOSE_DEFAULT_TN = 32   # the global transpose's
 V1_FWD_TN = 64               # the v1 forward's (one column a thread)
 
 
 def default_tn(plan: BlockPermPlan, op: str, n: int, v1: bool = False,
-               gather: bool = False, partial: bool = False) -> int:
+               gather: bool = False) -> int:
     """The column tile a launch of ``op`` over ``n`` columns takes unless
     asked otherwise: the kernels of ``split_vec_kernel`` (the blockperm,
-    global and FLASHBLOCKROW forwards, the compact partial, the v1
-    transpose of a blockperm plan and the v1 FLASHBLOCKROW) ``fwd_tn``, the
-    gathers ``GATHER_DEFAULT_TN``, the fused and global transposes, the
-    masked partial and the v1 forward their own constants.  Every kernel
-    fits shared memory at its default tile (the transpose's is the
-    narrowest, ``MIN_TN``)."""
-    if op == "transpose" and (plan.is_global or not v1):
+    global and FLASHBLOCKROW forwards, both partials, the fused transpose's
+    L2 route, the v1 transpose of a blockperm plan and the v1
+    FLASHBLOCKROW) ``fwd_tn``, the staged transpose 128 bytes of Y
+    (``staged_tn``), the gathers ``GATHER_DEFAULT_TN``, the global
+    transpose and the v1 forward their own constants.  Every kernel fits
+    shared memory at its default tile."""
+    if op == "transpose" and plan.is_global:
         return TRANSPOSE_DEFAULT_TN
+    if op == "transpose" and not v1 and transpose_route(plan) == "staged":
+        return staged_tn(plan)
     if v1 and op == "fwd":
         return V1_FWD_TN
-    if partial and op == "blockrow":
-        return MASKED_PARTIAL_TN
     return GATHER_DEFAULT_TN if gather else fwd_tn(plan, n, v1)
 
 
@@ -324,46 +338,82 @@ def vec_launch(plan: BlockPermPlan, tn: int, R: Optional[int] = None,
                       _VEC_BLOCK_THREADS // tx)), R
 
 
-def partial_launch(plan: BlockPermPlan, tn: int,
-                   rows_pattern: bool = False) -> Tuple[int, int]:
-    """(thread groups, shared bytes) of the partial kernel at tile width
-    ``tn``: the compact one is the forward's (``vec_launch``: no shared
-    memory), the masked FLASHBLOCKROW one hashes the Br·s words of its
-    level into shared memory as many whole rows at a time as
-    ``MAX_SMEM_BYTES`` holds (all Br where they fit).  Both run every
-    plan."""
-    if rows_pattern:
-        chunk = min(plan.Br, MAX_SMEM_BYTES // (4 * plan.s))
-        return max(1, min(plan.Br, MAX_THREADS // tn)), 4 * chunk * plan.s
-    return vec_launch(plan, tn)[0], 0
+def masked_splits(plan: BlockPermPlan, tn: int) -> int:
+    """The split R of the masked FLASHBLOCKROW partial at tile width
+    ``tn``: the forward's R (``vec_splits``) over ``_MASKED_ROWS``, at
+    least 1, so each thread sums that many rows in series.  Three pairs in
+    four of a P = 4 rank write only zeros, and fewer, larger blocks write
+    them faster (``benchmarks/torch_route_sweep.py`` times every R)."""
+    return max(1, vec_splits(plan, tn) // _MASKED_ROWS)
 
 
-def transpose_launch(plan: BlockPermPlan,
-                     tn: int) -> Tuple[int, int, int, bool]:
-    """(thread groups, hashed columns per chunk, shared bytes, staged) of the
-    transpose kernel at tile width ``tn``: ``staged`` when the block's
-    (κ·Br, tn) tile of Y fits shared memory beside the tables."""
+def transpose_launch(plan: BlockPermPlan, tn: int) -> Tuple[int, int, int]:
+    """(thread groups, rows u per block, shared bytes) of the global
+    transpose at tile width ``tn``: the s hashed words of each of its rows
+    u in shared memory."""
     groups = max(1, min(_TRANSPOSE_GROUPS, MAX_THREADS // tn))
-    if plan.is_global:        # the s words of each of uc rows u
-        return groups, _GLOBAL_TRANSPOSE_ROWS, \
-            4 * _GLOBAL_TRANSPOSE_ROWS * plan.s, False
-    uc = max(1, _TRANSPOSE_ENTRIES // (plan.kappa * plan.s))
-    tables = (4 * (uc * plan.kappa * plan.s + 2 * plan.kappa) + 15) // 16 * 16
-    tile = plan.kappa * plan.Br * tn * plan.stream_itemsize
-    staged = tile <= _TRANSPOSE_TILE_BYTES
-    return groups, uc, tables + (tile if staged else 0), staged
+    return groups, _GLOBAL_TRANSPOSE_ROWS, 4 * _GLOBAL_TRANSPOSE_ROWS * plan.s
+
+
+def staged_tn(plan: BlockPermPlan) -> int:
+    """The staged transpose's column tile: 128 bytes of a row of Y, 32
+    fp32, 64 bf16 or 128 fp8 columns."""
+    return TRANSPOSE_STAGE_ROW // plan.stream_itemsize
+
+
+def transpose_stage_bytes(plan: BlockPermPlan) -> int:
+    """Bytes of one stage of the staged transpose: the κ row blocks of Y,
+    (κ·Br, 128 B); 64 KiB at the main plan for every stream type."""
+    return plan.kappa * plan.Br * TRANSPOSE_STAGE_ROW
+
+
+def _staged_smem(plan: BlockPermPlan, stages: int) -> int:
+    return _STAGED_SLACK + stages * (transpose_stage_bytes(plan) + 8)
+
+
+def transpose_route(plan: BlockPermPlan, tn: Optional[int] = None) -> str:
+    """Which kernel runs the fused transpose of a blockperm plan:
+    ``"staged"`` where one stage fits ``MAX_SMEM_BYTES`` (and ``tn`` is its
+    tile, or ``None``), else ``"l2"``, ``split_vec_kernel`` on the CSR of
+    Sᵀ at tile ``tn`` (the Br = 2 048 plan: a stage would be 1 MiB).  Both
+    give the same bits."""
+    fits = _staged_smem(plan, 1) <= MAX_SMEM_BYTES
+    return "staged" if fits and tn in (None, staged_tn(plan)) else "l2"
+
+
+def staged_launch(plan: BlockPermPlan,
+                  stages: Optional[int] = None) -> Tuple[int, int, int]:
+    """(threads, stages, shared bytes) of the staged transpose: blocks of
+    ``_STAGED_THREADS`` by itemsize (8 a staged row, 16 bytes each), a ring
+    of
+    ``TRANSPOSE_STAGES`` stages or as many as fit (at least one), or
+    ``stages`` if given (each check on the card: the same bits)."""
+    fit = (MAX_SMEM_BYTES - _STAGED_SLACK) // (transpose_stage_bytes(plan) + 8)
+    if fit < 1:
+        raise ValueError(f"the staged transpose needs "
+                         f"{_staged_smem(plan, 1)} B of shared memory for "
+                         f"one stage (> {MAX_SMEM_BYTES} B) at "
+                         f"{plan.describe()}; its route is 'l2'")
+    stages = stages or min(TRANSPOSE_STAGES, fit)
+    if not 1 <= stages <= fit:
+        raise ValueError(f"stages={stages}: 1 to {fit} fit shared memory at "
+                         f"{plan.describe()}")
+    return (_STAGED_THREADS[plan.stream_itemsize], stages,
+            _staged_smem(plan, stages))
 
 
 def is_row_split(plan: BlockPermPlan, op: str, gather: bool,
-                 v1: bool = False, partial: bool = False) -> bool:
+                 v1: bool = False, partial: bool = False,
+                 tn: Optional[int] = None) -> bool:
     """Whether the kernel of ``op`` is a row-split one: every forward
-    (fused, gather-fused, global and its gather, the compact partial, v1
-    with global plans included), FLASHBLOCKROW with its gather and its v1,
-    and the v1 transpose of a blockperm plan; not the fused and global
-    transposes or the masked partial."""
+    (fused, gather-fused, global and its gather, both partials, v1 with
+    global plans included), FLASHBLOCKROW with its gather and its v1, the
+    v1 transpose of a blockperm plan and the fused transpose's L2 route at
+    tile ``tn``; not the staged and global transposes."""
     if op == "transpose":
-        return v1 and not plan.is_global
-    return not (partial and op == "blockrow")
+        return not plan.is_global and (
+            v1 or transpose_route(plan, tn) == "l2")
+    return True
 
 
 def launch_geometry(plan: BlockPermPlan, op: str, gather: bool, tn: int,
@@ -372,18 +422,22 @@ def launch_geometry(plan: BlockPermPlan, op: str, gather: bool, tn: int,
     """(thread groups, shared bytes, row split R) of the kernel of ``op``
     at tile width ``tn``: the fused one (with its gather), the v1 one, or
     the row-sharded partial one (``partial``); R = 1 but for the row-split
-    kernels, whose only shared memory is a gather's staged CSR words."""
-    if partial and op == "blockrow":
-        return (*partial_launch(plan, tn, True), 1)
-    if not is_row_split(plan, op, gather, v1):      # the transposes
-        groups, _, smem, _ = transpose_launch(plan, tn)
-        return groups, smem, 1
+    kernels, whose only shared memory is a gather's staged CSR words.  The
+    staged transpose's groups are its threads' rows (threads / 8)."""
+    if not is_row_split(plan, op, gather, v1, partial, tn):
+        if plan.is_global:                          # the global transpose
+            groups, _, smem = transpose_launch(plan, tn)
+            return groups, smem, 1
+        threads, _, smem = staged_launch(plan)      # the staged transpose
+        return threads * 16 // TRANSPOSE_STAGE_ROW, smem, 1
     if gather or (v1 and op == "fwd"):              # split_fwd_kernel
         R = row_splits(plan, tn)
         smem = 4 * _csr_block_cap(plan, torch.device("cpu"), R,
                                   op == "blockrow") if gather else 0
         return split_launch(plan, tn, R), smem, R
-    groups, R = vec_launch(plan, tn, op=op, v1=v1)  # split_vec_kernel
+    # split_vec_kernel; the masked partial at its own split
+    R = masked_splits(plan, tn) if partial and op == "blockrow" else None
+    groups, R = vec_launch(plan, tn, R, op, v1)
     return groups, 0, R
 
 
@@ -404,8 +458,7 @@ def _check_launch(plan: BlockPermPlan, operand: torch.Tensor, tn: int,
         raise NotImplementedError(
             f"{name}: {smem} B of shared memory at tn={tn} exceeds the "
             f"{MAX_SMEM_BYTES} B a block may use (Br={plan.Br}); the "
-            f"lowering materializes such a gather and sends such a "
-            f"transpose to the v1 kernel (impl='cuda_v1')")
+            f"lowering materializes such a gather")
     if -(-operand.shape[1] // tn) > 65535:
         raise ValueError(f"{name}: n={operand.shape[1]} needs more than "
                          f"65535 column tiles at tn={tn}")
@@ -454,18 +507,6 @@ def _call(source: str, symbol: str, device: torch.device, *args) -> None:
 
 _P, _I, _LL, _U, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_uint, ctypes.c_float)
-
-
-def _launch(source: str, symbol: str, plan: BlockPermPlan, x: torch.Tensor,
-            out: torch.Tensor, tab: torch.Tensor, tn: int,
-            *geometry: int) -> None:
-    """The forward's and transpose's C interface: pointers, dtype, plan
-    geometry, n, seed, scale, then ``tn`` and ``geometry`` as ints."""
-    _call(source, symbol, x.device, (_P, x.data_ptr()), (_P, out.data_ptr()),
-          (_P, tab.data_ptr()), (_I, _DTYPE_CODES[x.dtype]), (_I, plan.M),
-          (_I, plan.Br), (_I, plan.Bc), (_I, plan.kappa), (_I, plan.s),
-          (_LL, x.shape[1]), (_U, plan.seed & 0xFFFFFFFF), (_F, plan.scale),
-          *[(_I, v) for v in (tn, *geometry)])
 
 
 # ---------------------------------------------------------------------------
@@ -527,11 +568,13 @@ def _launch_vec(plan: BlockPermPlan, x: torch.Tensor, Y: torch.Tensor,
                 row_splits_: Optional[int], name: str, op: str = "fwd",
                 v1: bool = False) -> None:
     """The C interface of ``split_vec_kernel``: ``fs_fwd`` (a forward,
-    ``tab`` None: the plan's CSR, or for ``op="blockrow"`` FLASHBLOCKROW's
-    and its scale), ``fs_fwd_partial`` (``tab`` the (2, κ, M_loc) pairs,
-    M_loc read from x's rows), or with ``v1`` its v1 mode, fp32:
-    ``fs_blockrow_v1`` on S_row's CSR or ``fs_transpose_v1`` on Sᵀ's
-    (``op="transpose"``, output blocks of Bc rows)."""
+    ``tab`` None: the plan's CSR, for ``op="blockrow"`` FLASHBLOCKROW's and
+    its scale, for ``op="transpose"`` Sᵀ's, output blocks of Bc rows: the
+    fused transpose's L2 route), ``fs_fwd_partial`` (``tab`` the (2, κ,
+    M_loc) pairs, M_loc read from x's rows), ``fs_blockrow_partial``
+    (``op="blockrow"`` and ``tab`` the (3, κ, M) masked table), or with
+    ``v1`` its v1 mode, fp32: ``fs_blockrow_v1`` on S_row's CSR or
+    ``fs_transpose_v1`` on Sᵀ's."""
     groups, R = vec_launch(plan, tn, row_splits_, op, v1)
     rows = x.shape[0]
     _check_launch(plan, x, tn, 0, rows, name)
@@ -540,9 +583,10 @@ def _launch_vec(plan: BlockPermPlan, x: torch.Tensor, Y: torch.Tensor,
     ptr, ent = (_device_csr_t(plan, x.device) if op == "transpose" else
                 _device_csr(plan, x.device, op == "blockrow"))
     vec = int(n % vec_width(plan, v1) == 0 and x.data_ptr() % 16 == 0)
+    compact = tab is not None and op != "blockrow"
     # arr, the integers' buffer, stays referenced through the call
     arr, params = _int_params(
-        _DTYPE_CODES[x.dtype], plan.M if tab is None else rows // plan.Bc,
+        _DTYPE_CODES[x.dtype], rows // plan.Bc if compact else plan.M,
         block_rows(plan, op), plan.Bc, _csr_levels(plan), n, tn, groups, R,
         vec)
     pointers = [(_P, x.data_ptr()), (_P, Y.data_ptr()), (_P, ptr.data_ptr()),
@@ -555,19 +599,74 @@ def _launch_vec(plan: BlockPermPlan, x: torch.Tensor, Y: torch.Tensor,
         _call("flashsketch_fwd.cu", "fs_fwd", x.device, *pointers,
               (_P, params), (_F, scale))
     else:
-        _call("flashsketch_fwd.cu", "fs_fwd_partial", x.device, *pointers,
-              (_P, tab.data_ptr()), (_P, params))
+        _call("flashsketch_fwd.cu",
+              "fs_fwd_partial" if compact else "fs_blockrow_partial",
+              x.device, *pointers, (_P, tab.data_ptr()), (_P, params))
+
+
+def _tma_box_rows(Br: int) -> int:
+    """Rows of one TMA box: the largest divisor of Br of at most 256, so a
+    level's boxes tile its Br rows exactly."""
+    return max(b for b in range(1, min(Br, _TMA_BOX_ROWS) + 1) if Br % b == 0)
+
+
+def _staged_copy_mode(y: torch.Tensor) -> int:
+    """How the staged transpose fills a stage from Y: 0 TMA boxes (Y
+    16-byte aligned and its row pitch a multiple of 16 bytes), 1 cp.async
+    of 4-byte words (both 4-byte aligned), 2 plain loads."""
+    pitch, base = y.shape[1] * y.element_size(), y.data_ptr()
+    if pitch % 16 == 0 and base % 16 == 0:
+        return 0
+    return 1 if pitch % 4 == 0 and base % 4 == 0 else 2
+
+
+def _launch_staged(plan: BlockPermPlan, y: torch.Tensor, X: torch.Tensor,
+                   stages: Optional[int], blocks: Optional[int]) -> None:
+    """The C interface of the staged transpose (``fs_transpose``):
+    ``stages`` and ``blocks`` (the grid; ``None``: the SMs times the blocks
+    resident on each) force its ring and its walk (checks on the card)."""
+    threads, stages, smem = staged_launch(plan, stages)
+    if blocks is not None and blocks < 1:
+        raise ValueError(f"blocks must be >= 1, got {blocks}")
+    _check_launch(plan, y, staged_tn(plan), smem, plan.k_pad,
+                  "flashsketch_transpose")
+    _, ent = _device_csr_t(plan, y.device, tile_local=True)
+    itab = _device_table(plan, "inverse", y.device)
+    # arr, the integers' buffer, stays referenced through the call
+    arr, params = _int_params(
+        _DTYPE_CODES[y.dtype], plan.M, plan.Br, plan.Bc, plan.kappa, plan.s,
+        y.shape[1], threads, stages, _tma_box_rows(plan.Br), blocks or 0,
+        smem, _staged_copy_mode(y))
+    _call("flashsketch_transpose.cu", "fs_transpose", y.device,
+          (_P, y.data_ptr()), (_P, X.data_ptr()), (_P, itab.data_ptr()),
+          (_P, ent.data_ptr()), (_P, params), (_F, plan.scale))
+
+
+_TRANSPOSE_ROUTES = ("staged", "l2")
 
 
 def flashsketch_transpose(plan: BlockPermPlan, Y: torch.Tensor, *,
-                          tn: Optional[int] = None) -> torch.Tensor:
+                          tn: Optional[int] = None,
+                          route: Optional[str] = None,
+                          row_splits: Optional[int] = None,
+                          stages: Optional[int] = None,
+                          blocks: Optional[int] = None) -> torch.Tensor:
     """X = Sᵀ Y.  Y must be (k_pad, n); returns (d_pad, n) fp32 on Y's
-    device.  CUDA tensors run the CUDA kernel (the global kernel for a
-    global plan), CPU tensors its plain version; ragged n is handled in
-    the kernel."""
+    device.  CUDA tensors run a CUDA kernel, CPU tensors its plain version;
+    ragged n is handled in the kernel.  A global plan runs the global
+    kernel.  A blockperm plan runs ``route`` (``None``:
+    ``transpose_route(plan, tn)``): ``"staged"``, its κ row blocks of Y
+    staged in shared memory at tile ``staged_tn`` (``stages`` forces its
+    ring, ``blocks`` its grid), counted as ``flashsketch_transpose``, or
+    ``"l2"``, ``split_vec_kernel`` on the CSR of Sᵀ at tile ``tn``
+    (``row_splits`` forces its split R), counted as
+    ``flashsketch_transpose_l2``.  Both routes give the same bits."""
     if Y.shape[0] != plan.k_pad:
         raise ValueError(f"Y must have k_pad={plan.k_pad} rows, got "
                          f"{Y.shape[0]}")
+    if route not in (None,) + _TRANSPOSE_ROUTES:
+        raise ValueError(f"route must be one of {_TRANSPOSE_ROUTES}, got "
+                         f"{route!r}")
     y = _stream(plan, Y)
     if Y.device.type == "cpu":
         # the plain version strips the padding rows; ask it for all d_pad
@@ -575,20 +674,35 @@ def flashsketch_transpose(plan: BlockPermPlan, Y: torch.Tensor, *,
         return kref.flashsketch_transpose_ref(full, y.to(torch.float32))
     if Y.device.type != "cuda":
         raise ValueError(f"no FlashSketch kernel for device {Y.device}")
-    tn = tn or default_tn(plan, "transpose", y.shape[1])
-    groups, uc, smem, staged = transpose_launch(plan, tn)
-    _check_launch(plan, y, tn, smem, plan.k_pad, "flashsketch_transpose")
-    y = y.contiguous()
-    X = torch.empty((plan.d_pad, y.shape[1]), dtype=torch.float32,
-                    device=y.device)
+    n = y.shape[1]
+    X = torch.empty((plan.d_pad, n), dtype=torch.float32, device=y.device)
     if plan.is_global:
-        _launch_global_transpose(plan, y, X, False, tn, groups, uc, smem)
+        if route is not None:
+            raise ValueError("flashsketch_transpose: a global plan has one "
+                             "kernel, no route")
+        tn = tn or TRANSPOSE_DEFAULT_TN
+        groups, uc, smem = transpose_launch(plan, tn)
+        _check_launch(plan, y, tn, smem, plan.k_pad, "flashsketch_transpose")
+        _launch_global_transpose(plan, y.contiguous(), X, False, tn, groups,
+                                 uc, smem)
         LAUNCHES["flashsketch_transpose_global"] += 1
         return X
-    _launch("flashsketch_transpose.cu", "fs_transpose", plan, y, X,
-            _device_table(plan, "inverse", y.device), tn, groups, uc,
-            int(staged), smem)
-    LAUNCHES["flashsketch_transpose"] += 1
+    route = route or transpose_route(plan, tn)
+    if route == "staged":
+        if tn not in (None, staged_tn(plan)) or row_splits is not None:
+            raise ValueError(f"flashsketch_transpose: the staged route's "
+                             f"tile is {staged_tn(plan)} columns and it has "
+                             f"no row split (got tn={tn}, "
+                             f"row_splits={row_splits})")
+        _launch_staged(plan, y.contiguous(), X, stages, blocks)
+        LAUNCHES["flashsketch_transpose"] += 1
+        return X
+    if stages is not None or blocks is not None:
+        raise ValueError("flashsketch_transpose: stages and blocks are the "
+                         "staged route's")
+    _launch_vec(plan, y, X, None, tn or fwd_tn(plan, n), row_splits,
+                "flashsketch_transpose", "transpose")
+    LAUNCHES["flashsketch_transpose_l2"] += 1
     return X
 
 
@@ -672,26 +786,36 @@ def _device_csr(plan: BlockPermPlan, device: torch.device,
 
 
 @functools.lru_cache(maxsize=16)
-def _device_csr_t(plan: BlockPermPlan,
-                  device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Sᵀ of a blockperm ``plan`` as a CSR on ``device``, for the v1
-    transpose, built once per plan from the kernels' own hashes and cached
-    like ``_device_csr``: row h·Bc + u of X (column u of input block h)
-    holds its κ·s nonzeros in (ℓ, i) order, level ℓ's s in Y block
+def _device_csr_t(plan: BlockPermPlan, device: torch.device,
+                  tile_local: bool = False
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sᵀ of a blockperm ``plan`` as a CSR on ``device``, for the
+    transposes, built once per plan from the kernels' own hashes and
+    cached like ``_device_csr``: row h·Bc + u of X (column u of input block
+    h) holds its κ·s nonzeros in (ℓ, i) order, level ℓ's s in Y block
     g_ℓ = π_ℓ⁻¹(h) (the "inverse" table), as words ((g_ℓ·Br + row(g_ℓ, h,
-    u, i)) << 1) | sign bit; ``ptr`` κ offsets a row (s apart) and a final
-    end.  That is the order of the hashing kernel it replaced.  4 bytes a
-    nonzero, κ·s·d_pad in all."""
+    u, i)) << 1) | sign bit, int32 (the v1 transpose's and the L2
+    route's), or with ``tile_local`` ((ℓ·Br + row) << 1) | sign bit, the
+    row of the staged transpose's (κ·Br, 128 B) tile, int16 (a stage that
+    fits shared memory has fewer than 2**14 rows); ``ptr`` κ offsets a row
+    (s apart) and a final end.  That is the order of the hashing kernels
+    they replaced.  4 (2) bytes a nonzero, κ·s·d_pad in all."""
+    if tile_local and 2 * plan.kappa * plan.Br > 2**15:
+        raise ValueError(f"tile-local words of {plan.describe()} need more "
+                         f"than 16 bits: its stage does not fit shared "
+                         f"memory")
     inv = _device_table(plan, "inverse", device).to(torch.int64)
     h = torch.arange(plan.M, device=device)[:, None, None, None]
     u = torch.arange(plan.Bc, device=device)[None, :, None, None]
     g = inv.T[:, None, :, None]                                # (M, 1, κ, 1)
     i = torch.arange(plan.s, device=device)[None, None, None, :]
     r, sgn = block_rows_signs(plan, g, h, u, i)                # (M, Bc, κ, s)
-    ent = (((g * plan.Br + r) << 1) | (sgn < 0).to(torch.int64))
+    block = (torch.arange(plan.kappa, device=device)[None, None, :, None]
+             if tile_local else g)
+    ent = (((block * plan.Br + r) << 1) | (sgn < 0).to(torch.int64))
     ptr = torch.arange(plan.d_pad * plan.kappa + 1, dtype=torch.int32,
                        device=device) * plan.s
-    return ptr, ent.reshape(-1).to(torch.int32)
+    return ptr, ent.reshape(-1).to(torch.int16 if tile_local else torch.int32)
 
 
 def _blockrow_csr(plan: BlockPermPlan,
@@ -835,7 +959,8 @@ def blockrow_fwd_gather(plan: BlockPermPlan, A: torch.Tensor,
 
 def flashsketch_partial(plan: BlockPermPlan, A_local: torch.Tensor,
                         tables: torch.Tensor, *, tn: Optional[int] = None,
-                        rows_pattern: bool = False) -> torch.Tensor:
+                        rows_pattern: bool = False,
+                        row_splits: Optional[int] = None) -> torch.Tensor:
     """Unscaled per-ℓ partial sketch of one contiguous block slab.
 
     ``A_local`` is the ``(M_loc·Bc, n)`` slab of the padded input a rank
@@ -848,11 +973,12 @@ def flashsketch_partial(plan: BlockPermPlan, A_local: torch.Tensor,
     ``tables[0, ℓ, m]``), or with ``rows_pattern`` the global
     ``(κ, k_pad, n)`` with exact zeros at the pairs another rank owns.
     Summed over the ranks and folded in ℓ order it is ``S·A / scale``.
-    CUDA tensors run the CUDA kernel (``tn=None`` takes the forward's tile
-    or ``MASKED_PARTIAL_TN``; the compact one is the forward's row-split
-    kernel on the plan's CSR), CPU tensors its plain version
-    ``ref.partial_ref``.  A global plan has no partial: every input block
-    feeds every output block.
+    CUDA tensors run the forward's row-split kernel (``tn=None`` takes its
+    tile; ``row_splits`` forces its split R, checks on the card: the same
+    bits for every R) on the plan's CSR, or S_row's in its masked mode
+    (R from ``masked_splits``), CPU
+    tensors its plain version ``ref.partial_ref``.  A global plan has no
+    partial: every input block feeds every output block.
     """
     if plan.is_global:
         raise ValueError(f"flashsketch_partial: global family "
@@ -875,25 +1001,15 @@ def flashsketch_partial(plan: BlockPermPlan, A_local: torch.Tensor,
         raise ValueError(f"no partial kernel for device {A_local.device}")
     name = "blockrow_fwd_partial" if rows_pattern else \
         "flashsketch_fwd_partial"
-    tn = tn or default_tn(plan, "blockrow" if rows_pattern else "fwd", n,
-                          partial=True)
     tab = tables.to(device=x.device, dtype=torch.int32).contiguous()
-    if not rows_pattern:
-        Y = torch.empty((plan.kappa, M_loc * plan.Br, n), dtype=torch.float32,
-                        device=x.device)
-        _launch_vec(plan, x, Y, tab, tn, None, name)
-        LAUNCHES[name] += 1
-        return Y
-    groups, smem = partial_launch(plan, tn, rows_pattern)
-    _check_launch(plan, x, tn, smem, rows_loc, name)
-    x = x.contiguous()
-    Y = torch.empty((plan.kappa, plan.k_pad, n), dtype=torch.float32,
+    rows_out = plan.k_pad if rows_pattern else M_loc * plan.Br
+    Y = torch.empty((plan.kappa, rows_out, n), dtype=torch.float32,
                     device=x.device)
-    _call("flashsketch_blockrow.cu", "fs_blockrow_partial", x.device,
-          (_P, x.data_ptr()), (_P, Y.data_ptr()), (_P, tab.data_ptr()),
-          (_I, _DTYPE_CODES[x.dtype]), (_I, plan.M), (_I, plan.Br),
-          (_I, plan.Bc), (_I, plan.kappa), (_I, plan.s), (_LL, n),
-          (_U, plan.seed & 0xFFFFFFFF), (_I, tn), (_I, groups), (_I, smem))
+    tn = tn or fwd_tn(plan, n)
+    if rows_pattern:
+        row_splits = row_splits or masked_splits(plan, tn)
+    _launch_vec(plan, x, Y, tab, tn, row_splits, name,
+                "blockrow" if rows_pattern else "fwd")
     LAUNCHES[name] += 1
     return Y
 
@@ -971,7 +1087,7 @@ def flashsketch_transpose_v1(plan: BlockPermPlan, Y: torch.Tensor, *,
         if row_splits is not None:
             raise ValueError("flashsketch_transpose_v1: a global plan's "
                              "transpose has no row split")
-        groups, uc, smem, _ = transpose_launch(plan, tn)
+        groups, uc, smem = transpose_launch(plan, tn)
         _check_launch(plan, y, tn, smem, plan.k_pad,
                       "flashsketch_transpose_v1")
         _launch_global_transpose(plan, y.contiguous(), X, True, tn, groups,

@@ -23,32 +23,34 @@ is materialized first); ``"torch"`` runs the plain version on the
 operand's device, and with a gather materializes ``A[row_index]`` first
 (``gather_fused=False``).
 
-The downgrade ladder, each step recorded in ``Lowering.downgrade`` and the
-health counter ``lowering.downgrade``, decided from the geometry before any
+The downgrade ladder, recorded in ``Lowering.downgrade`` and the health
+counter ``lowering.downgrade``, decided from the geometry before any
 launch, as the reference decides it from its VMEM budget (which plans it
-catches is the card's own):
-
-  1. ``cuda`` + gather, the gather kernel's staged CSR words (the most
-     nonzeros of one block of its row split, at the tile it runs) over the
-     block's limit → materialize the gather and continue as the plain op;
-  2. ``cuda``, the fused ``transpose`` kernel over the limit at the
-     narrowest tile (tn = 32) → ``cuda_v1``.
+catches is the card's own), has one step: ``cuda`` + gather, the gather
+kernel's staged CSR words (the most nonzeros of one block of its row
+split, at the tile it runs) over the block's limit → materialize the
+gather and continue as the plain op.
 
 Every forward and FLASHBLOCKROW, and ``cuda_v1``'s transpose of a
 blockperm plan, run a row-split kernel that keeps each sum in registers
 and uses no shared memory but a gather's staged words, so none of them
 downgrades or narrows its tile: the Br = 2 048 plans the reference sends to
 ``pallas_v1`` run them here, and FLASHBLOCKROW goes to ``cuda_v1`` only
-when asked.
+when asked.  The fused transpose of a blockperm plan runs one of two
+kernels, recorded in ``Lowering.route``: ``"staged"`` (its κ row blocks of
+Y in shared memory, 128 bytes of each row at a time) where one stage
+fits, else ``"l2"`` (the row-split kernel on the CSR of Sᵀ, R recorded);
+an explicit ``tn`` other than the staged tile runs the L2 route at that
+tile.  Both give the same bits, so the transpose goes to ``cuda_v1`` only
+when asked too.
 
 ``shard`` (``"none" | "row" | "col" | "batch"``, over ``devices`` ranks)
 records a sharded launch and rejects what the reference rejects.
 ``"row"`` is the per-rank partial of ``distributed.sketch_apply_sharded``:
 ``fwd`` or ``blockrow`` only, ``P | M``, no gather, no ``cuda_v1`` (there is
-no v1 partial).  Both partial kernels run every plan: the compact one is
-the forward's row-split kernel (no shared memory), the masked
-FLASHBLOCKROW one hashes its level's words into shared memory a bounded
-chunk of rows at a time.  The reference's predicate is the TPU's VMEM
+no v1 partial).  Both partial kernels run every plan: they are the
+forward's row-split kernel (no shared memory), the masked FLASHBLOCKROW one
+on S_row's CSR over the full (κ, M) grid of pairs.  The reference's predicate is the TPU's VMEM
 budget for the (Br, Bc) Φ tile, so ``plan_for_mesh(262_144, 1024, 8,
 kappa=2)`` (Br = 128, Bc = 32 768) and ``make_plan(65_536, 4096, kappa=4,
 block_rows=2048)`` go to the reference's jnp oracle and run the partial
@@ -123,11 +125,12 @@ class Lowering:
     materialized first); ``tn``, ``groups`` and ``smem_bytes`` the CUDA
     launch geometry (``None`` for the plain version), ``row_splits`` the
     split R of a row-split kernel (every forward and its gather, global
-    plans included, FLASHBLOCKROW with its gather and its v1, the compact
-    partial, the v1 forward and the v1 transpose of a blockperm plan: each
-    output block's rows (Br; Bc for the transpose) in R sub-ranges, one
-    block each; ``None`` for the fused and global transposes and the
-    masked partial);
+    plans included, FLASHBLOCKROW with its gather and its v1, both
+    partials, the v1 forward, the v1 transpose of a blockperm plan and the
+    fused transpose's L2 route: each output block's rows (Br; Bc for the
+    transpose) in R sub-ranges, one block each; ``None`` for the staged and
+    global transposes); ``route`` the fused transpose's kernel for a
+    blockperm plan on the card (``"staged"`` or ``"l2"``, else ``None``);
     ``pad_rows`` the zero
     rows added to the operand (none with a fused gather: the kernel zeroes
     the padding rows itself).  Columns are never padded: the kernels mask
@@ -155,6 +158,7 @@ class Lowering:
     shard: str = "none"
     devices: int = 1
     row_splits: Optional[int] = None
+    route: Optional[str] = None
 
     def describe(self) -> str:
         bits = [self.op, f"impl={self.impl}"]
@@ -171,6 +175,8 @@ class Lowering:
                  f"dtype={self.dtype}", f"n={self.n}"]
         if self.smem_bytes is not None:
             bits.append(f"groups={self.groups}, smem={self.smem_bytes}B")
+        if self.route is not None:
+            bits.append(f"route={self.route}")
         if self.row_splits is not None:
             bits.append(f"R={self.row_splits}")
         if self.downgrade:
@@ -301,19 +307,10 @@ def _lower(plan: BlockPermPlan, spec: LaunchSpec,
             t("gather: fused in-kernel (rows read through row_map)")
         else:
             t("gather: materialized A[row_index] (plain version)")
-    if impl == "cuda" and spec.op == "transpose" and (
-            smem := fsk.launch_geometry(eff, spec.op, False, fsk.MIN_TN)[1]
-    ) > fsk.MAX_SMEM_BYTES:
-        downgrades.append(
-            f"shared memory: the fused {spec.op!r} kernel needs {smem} B at "
-            f"tn={fsk.MIN_TN} > {fsk.MAX_SMEM_BYTES} B — cuda_v1, the v1 "
-            f"revisiting kernel")
-        t(f"impl: 'cuda' -> 'cuda_v1' ({downgrades[-1]})")
-        impl = "cuda_v1"
     downgrade = "; ".join(downgrades) or None
     pad_rows = (eff.d_pad - eff.d
                 if spec.op != "transpose" and not gather_fused else 0)
-    splits = None
+    splits = route = None
     if impl == "torch":
         t("torch: plain version (no tiling, no shared memory)")
         tn = groups = smem = grid_cols = None
@@ -322,6 +319,9 @@ def _lower(plan: BlockPermPlan, spec: LaunchSpec,
         tn, tn_source, groups, smem, grid_cols, splits = _fit_tile(
             eff, spec, n_loc, batch_loc, gather_fused, impl == "cuda_v1",
             False, t)
+        if impl == "cuda" and spec.op == "transpose" and not eff.is_global:
+            route = fsk.transpose_route(eff, tn)
+            t(_route_line(eff, route, tn))
     if spec.batch > 1:
         t(f"batch: {spec.batch} matrices folded into the column axis")
     t(f"pad: rows +{pad_rows}, cols +0 (the ragged column edge is masked "
@@ -336,7 +336,20 @@ def _lower(plan: BlockPermPlan, spec: LaunchSpec,
         pad_rows=pad_rows, gather=spec.gather, gather_fused=gather_fused,
         batch=spec.batch, downgrade=downgrade, shard=spec.shard,
         devices=spec.devices if spec.shard != "none" else 1,
-        row_splits=splits)
+        row_splits=splits, route=route)
+
+
+def _route_line(eff: BlockPermPlan, route: str, tn: int) -> str:
+    stage = fsk.transpose_stage_bytes(eff)
+    if route == "staged":
+        threads, stages, _ = fsk.staged_launch(eff)
+        return (f"transpose route: staged ({stages} stage(s) of {stage} B, "
+                f"the κ row blocks of Y, 128 bytes of each row; {threads} "
+                f"threads a block, the grid sized to the SMs)")
+    why = (f"one stage needs {stage} B > {fsk.MAX_SMEM_BYTES} B"
+           if fsk.transpose_route(eff) == "l2" else
+           f"tn={tn} is not the staged tile {fsk.staged_tn(eff)}")
+    return f"transpose route: l2 ({why}; the row-split kernel on Sᵀ's CSR)"
 
 
 def _fit_tile(eff: BlockPermPlan, spec: LaunchSpec, n_loc: int,
@@ -353,7 +366,7 @@ def _fit_tile(eff: BlockPermPlan, spec: LaunchSpec, n_loc: int,
         tn_source = "v1_default"
     else:
         tn = fsk.default_tn(eff, spec.op, n_loc * batch_loc,
-                            gather=gather_fused, partial=partial)
+                            gather=gather_fused)
         tn_source = "default"
     groups, smem, R = fsk.launch_geometry(eff, spec.op, gather_fused, tn, v1,
                                           partial)
@@ -362,10 +375,15 @@ def _fit_tile(eff: BlockPermPlan, spec: LaunchSpec, n_loc: int,
       f"{groups} thread groups, {smem} B shared memory, {grid_cols} column "
       f"tiles")
     splits = None
-    if fsk.is_row_split(eff, spec.op, gather_fused, v1, partial):
+    if fsk.is_row_split(eff, spec.op, gather_fused, v1, partial, tn):
         splits = R
         tiles = -(-n_loc * batch_loc // tn)
-        blocks = eff.kappa * (eff.M // spec.devices) if partial else eff.M
+        if not partial:
+            blocks = eff.M
+        elif spec.op == "blockrow":       # the masked partial: every pair
+            blocks = eff.kappa * eff.M
+        else:                             # the compact one: owned pairs
+            blocks = eff.kappa * (eff.M // spec.devices)
         vec = not (gather_fused or (v1 and spec.op == "fwd"))
         per_row = (f"{tn // fsk.vec_width(eff, v1)} threads of 16-byte loads "
                    f"a row" if vec else "one row per thread")
@@ -489,9 +507,10 @@ def execute(lw: Lowering, operand: torch.Tensor,
     v1 = lw.impl == "cuda_v1"
     if lw.op == "transpose":
         Y = kref.pad_rows(operand, plan.k_pad)
-        kernel = (fsk.flashsketch_transpose_v1 if v1
-                  else fsk.flashsketch_transpose)
-        return kernel(plan, Y, tn=lw.tn)[: plan.d, :n]
+        if v1:
+            return fsk.flashsketch_transpose_v1(plan, Y, tn=lw.tn)[:plan.d, :n]
+        return fsk.flashsketch_transpose(plan, Y, tn=lw.tn,
+                                         route=lw.route)[: plan.d, :n]
     kernel = {("fwd", False): fsk.flashsketch_fwd,
               ("fwd", True): fsk.flashsketch_fwd_v1,
               ("blockrow", False): fsk.blockrow_fwd,

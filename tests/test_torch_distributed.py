@@ -247,11 +247,10 @@ def test_partial_fits_smem_decisions():
     """The card's budget, not the TPU's: the reference sends
     plan_for_mesh(262_144, 1024, 8, kappa=2) (Br = 128, Bc = 32 768) and
     the Br = 2 048 plan to its jnp oracle; the port runs the partial
-    kernel on both and on every plan: the compact partial is the forward's
-    row-split kernel (no (Br, tn) accumulator, no shared memory), and the
-    masked FLASHBLOCKROW partial hashes its level's Br·s words into shared
-    memory as many whole rows at a time as fit.  No row-sharded lowering
-    downgrades or raises."""
+    kernel on both and on every plan: both partials are the forward's
+    row-split kernel (no (Br, tn) accumulator, no shared memory), the
+    masked FLASHBLOCKROW one on S_row's CSR over the full (κ, M) grid of
+    pairs.  No row-sharded lowering downgrades or raises."""
     pj = jdist.plan_for_mesh(262_144, 1024, 8, kappa=2)
     pt = tdist.plan_for_mesh(262_144, 1024, 8, kappa=2)
     assert (pt.Br, pt.Bc) == (128, 32_768)
@@ -280,34 +279,33 @@ def test_partial_fits_smem_decisions():
                                          devices=2))
     assert (lw.impl, lw.downgrade, lw.tn, lw.row_splits, lw.groups) == (
         "cuda", None, 64, 128, 16)
-    assert lw.smem_bytes == tfsk.partial_launch(big, 64)[1] == 0
+    assert lw.smem_bytes == tfsk.launch_geometry(
+        big, "fwd", False, 64, partial=True)[1] == 0
     assert "shard=rowx2" in lw.describe() and "R=128" in lw.describe()
     assert tlow.lower(big, tlow.LaunchSpec(
         n=64, device="cuda", shard="row", devices=2, impl="torch")).impl \
         == "torch"
     lw = tlow.lower(big, tlow.LaunchSpec(op="blockrow", n=64, device="cuda",
                                          shard="row", devices=2))
-    assert (lw.impl, lw.downgrade, lw.smem_bytes) == (
-        "cuda", None, 4 * big.Br * big.s)
-    # a masked partial whose level's Br·s words outgrow shared memory
-    # (Br = 65 536, s = 1) hashes them in chunks of whole rows: the
-    # lowering gives it the kernel at the largest chunk, no downgrade
+    assert (lw.impl, lw.downgrade, lw.smem_bytes, lw.row_splits) == (
+        "cuda", None, 0, tfsk.masked_splits(big, 64))
+    # a masked partial whose level's Br·s words would outgrow shared memory
+    # (Br = 65 536, s = 1): the row-split kernel reads S_row's CSR where it
+    # lies, at the forward's tile, no downgrade
     huge = tb.make_plan(131_072, 65_536, kappa=1, s=1, block_rows=65_536)
     assert 4 * huge.Br * huge.s > tfsk.MAX_SMEM_BYTES
     lw = tlow.lower(huge, tlow.LaunchSpec(op="blockrow", n=8, device="cuda",
                                           shard="row", devices=1))
-    chunk = tfsk.MAX_SMEM_BYTES // (4 * huge.s)
     assert (lw.impl, lw.downgrade, lw.tn, lw.smem_bytes) == (
-        "cuda", None, tfsk.MASKED_PARTIAL_TN, 4 * chunk * huge.s)
-    assert lw.smem_bytes <= tfsk.MAX_SMEM_BYTES
+        "cuda", None, tfsk.fwd_tn(huge, 8), 0)
+    assert lw.row_splits == tfsk.masked_splits(huge, lw.tn)
     assert treport.counters().get("lowering.downgrade", 0) == before
     assert "impl: 'cuda' -> 'torch'" not in tlow.explain(
         huge, op="blockrow", n=8, device="cuda", shard="row", devices=1)
-    # the masked body's tile follows its own model (Br·s words of one
-    # level, at its own tile), not the single-device FLASHBLOCKROW
-    # kernel's: that one reads S_row's CSR where it lies (no shared
-    # memory, where a block's κ·Br·s words would not fit) at the forward's
-    # tile
+    # the masked body runs the single-device FLASHBLOCKROW kernel's body:
+    # both read S_row's CSR where it lies (no shared memory, where a block's
+    # κ·Br·s words would not fit) at the forward's tile, the masked one with
+    # more rows a thread (its pairs another rank owns write only zeros)
     wide = tb.make_plan(65_536, 32_768, kappa=4, block_rows=8192)
     assert 4 * wide.kappa * wide.Br * wide.s > tfsk.MAX_SMEM_BYTES
     one = tlow.lower(wide, tlow.LaunchSpec(op="blockrow", n=1024,
@@ -317,23 +315,92 @@ def test_partial_fits_smem_decisions():
     lw = tlow.lower(wide, tlow.LaunchSpec(op="blockrow", n=1024,
                                           device="cuda", shard="row",
                                           devices=2))
-    assert (lw.tn, lw.tn_source, lw.smem_bytes) == (
-        64, "default", tfsk.partial_launch(wide, 64, True)[1])
-    assert lw.smem_bytes == 4 * wide.Br * wide.s
+    assert (lw.tn, lw.tn_source, lw.smem_bytes) == (one.tn, "default", 0)
+    assert lw.row_splits == tfsk.masked_splits(wide, one.tn) == max(
+        1, one.row_splits // 4)
+    assert (lw.groups, 0, lw.row_splits) == tfsk.launch_geometry(
+        wide, "blockrow", False, one.tn, partial=True)
 
 
 @pytest.mark.parametrize("s,Br", [(1, 65_536), (4, 16_384), (8, 8192),
                                   (2, 128)])
 def test_masked_partial_chunks_whole_rows(s, Br):
-    """The masked partial's shared memory: whole rows of s words, as many
-    as fit ``MAX_SMEM_BYTES`` (all Br where they fit), never over it."""
+    """The masked partial's record: the forward's row-split body, each
+    output block's Br rows in R whole sub-ranges (R = ``masked_splits``,
+    the forward's ``vec_splits`` over 4: four rows a thread, in blocks of at
+    most 256 threads), the full (κ, M) grid of pairs, no shared memory at
+    any Br·s."""
     plan = tb.make_plan(4 * Br, 2 * Br, kappa=2, s=s, block_rows=Br)
-    groups, smem = tfsk.partial_launch(plan, 64, True)
-    chunk = smem // (4 * s)
-    assert smem == 4 * chunk * s <= tfsk.MAX_SMEM_BYTES
-    assert chunk == min(Br, tfsk.MAX_SMEM_BYTES // (4 * s)) >= 1
-    assert (chunk == Br) == (4 * Br * s <= tfsk.MAX_SMEM_BYTES)
-    assert groups == min(Br, tfsk.MAX_THREADS // 64)
+    lw = tlow.lower(plan, tlow.LaunchSpec(op="blockrow", n=64, device="cuda",
+                                          shard="row", devices=plan.M))
+    tn = tfsk.fwd_tn(plan, 64)
+    R = tfsk.masked_splits(plan, tn)
+    assert R == max(1, tfsk.vec_splits(plan, tn) // 4)
+    assert (lw.impl, lw.downgrade, lw.tn, lw.smem_bytes, lw.row_splits) == (
+        "cuda", None, tn, 0, R)
+    assert Br % R == 0 and R in tfsk.split_allowed(plan)
+    assert tfsk.launch_geometry(plan, "blockrow", False, tn,
+                                partial=True) == (lw.groups, 0, R)
+    assert lw.groups * (tn // tfsk.vec_width(plan)) <= 256
+    tiles = -(-64 // tn)
+    blocks = plan.kappa * plan.M * R * tiles
+    assert f"grid {plan.kappa * plan.M}x{R} x {tiles} = {blocks} blocks" in \
+        tlow.explain(plan, op="blockrow", n=64, device="cuda", shard="row",
+                     devices=plan.M)
+
+
+def _masked_partial_emulated(pt, slab, tab):
+    """The masked partial kernel's sums: pair p = ℓ·M + g of the (3, κ, M)
+    table [local, h, owned] sums, for each row of g, level ℓ's segment of
+    S_row's CSR in t order from +0, unscaled, each word read as slab row
+    col + (local − h)·Bc; a pair another rank owns is exact zeros."""
+    ptr, ent = tfsk._device_csr(pt, torch.device("cpu"), True)
+    assert torch.equal(ptr, torch.arange(pt.k_pad * pt.kappa + 1,
+                                         dtype=torch.int32) * pt.s)
+    W = ent.long().reshape(pt.M, pt.Br, pt.kappa, pt.s)
+    out = torch.zeros(pt.kappa, pt.M, pt.Br, slab.shape[1])
+    for ell in range(pt.kappa):
+        for g in range(pt.M):
+            local, h, owned = (int(v) for v in tab[:, ell, g])
+            if not owned:
+                continue
+            acc = torch.zeros(pt.Br, slab.shape[1])
+            for t in range(pt.s):
+                w = W[g, :, ell, t]
+                a = slab[(w >> 1) + (local - h) * pt.Bc]
+                acc = acc + torch.where((w & 1 == 1)[:, None], -a, a)
+            out[ell, g] = acc
+    return out.reshape(pt.kappa, pt.k_pad, -1)
+
+
+@pytest.mark.parametrize("P", [1, 2, 4])
+def test_masked_partial_csr_segments_sum_order(P, rng):
+    """The masked FLASHBLOCKROW partial, summed as its kernel sums it from
+    S_row's CSR at the (3, κ, M) table's offsets (a plan whose iid wiring
+    draws one h twice): on integer-valued slabs, where every order gives
+    the same fp32 sum, torch.equal to ``ref.partial_ref(rows_pattern=True)``
+    on every rank, exact zeros included; on normal data within fp32's 1e-5
+    of the JAX package's local partial."""
+    pj, pt = _plans(500, 128, kappa=4, s=2, block_rows=16, seed=5)
+    h_of = torch.from_numpy(tfsk._blockrow_table(pt))
+    assert any(len(set(h_of[:, g].tolist())) < pt.kappa
+               for g in range(pt.M))                 # a collision of ℓ
+    M_loc = pt.M // P
+    ints = torch.from_numpy(rng.integers(-8, 9, size=(pt.d_pad, 5))).float()
+    A = rng.normal(size=(pt.d_pad, 5)).astype(np.float32)
+    for r in range(P):
+        lo = r * M_loc
+        rows = slice(lo * pt.Bc, (lo + M_loc) * pt.Bc)
+        tab = tdist.partial_tables(pt, lo, M_loc, True)
+        got = _masked_partial_emulated(pt, ints[rows], tab)
+        assert torch.equal(got, tref.partial_ref(pt, ints[rows], tab, True))
+        got = _masked_partial_emulated(pt, torch.from_numpy(A[rows]), tab)
+        want = jdist.local_partial_apply(pj, jnp.asarray(A[rows]), lo,
+                                         impl="xla", rows_pattern=True)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                                   rtol=1e-5)
+        owned = tab[2].bool().repeat_interleave(pt.Br, 1)
+        assert bool((got[~owned] == 0).all())
 
 
 def test_partial_wrapper_rejects_global_plans():
@@ -612,3 +679,8 @@ def test_cuda_partial_kernels_match_plain(policy, cuda):
                 if rows:
                     owned = tab[2].bool().repeat_interleave(p.Br, 1)
                     assert bool((kern[~owned] == 0).all())
+                    # the masked partial: the same bits under every split R
+                    for R in tfsk.split_allowed(p):
+                        assert torch.equal(tfsk.flashsketch_partial(
+                            p, slab, tab, rows_pattern=True, row_splits=R),
+                            kern), R

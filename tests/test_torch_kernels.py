@@ -9,6 +9,9 @@ card and skip without one (run them there with
 ``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_kernels.py``).
 """
 import dataclasses
+import os
+import subprocess
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -232,11 +235,13 @@ def test_cuda_kernels_match_plain(policy, cuda):
     for d, k, kw, n in [(1000, 96, dict(kappa=4, s=2), 37),
                         (4096, 256, dict(kappa=2, s=4), 100),
                         (2048, 128, dict(kappa=1, s=1), 64),
-                        (8192, 2048, dict(kappa=8, s=2), 64)]:  # unstaged
+                        (8192, 2048, dict(kappa=8, s=2), 64)]:  # L2 route
         p = tb.make_plan(d, k, dtype=policy, **kw)
         atol = p.precision.exactness_atol
         A = torch.randn(p.d_pad, n, generator=gen, device=cuda)
         Y = torch.randn(p.k_pad, n, generator=gen, device=cuda)
+        route = tfsk.transpose_route(p)
+        assert (route == "l2") == (d == 8192)
         before = dict(tfsk.LAUNCHES)
         got = tfsk.flashsketch_fwd(p, A)
         want = tref.flashsketch_ref(p, tfsk._stream(p, A).float())
@@ -249,7 +254,15 @@ def test_cuda_kernels_match_plain(policy, cuda):
             want.abs().max())
         assert {k: tfsk.LAUNCHES[k] - before[k] for k in before} == {
             **dict.fromkeys(before, 0), "flashsketch_fwd": 1,
-            "flashsketch_transpose": 1}
+            "flashsketch_transpose" if route == "staged" else
+            "flashsketch_transpose_l2": 1}
+        if route == "staged":    # the routes forced: the same bits
+            assert torch.equal(tfsk.flashsketch_transpose(p, Y, route="l2"),
+                               got)
+            for stages in (1, 2):
+                for blocks in (1, 3, None):
+                    assert torch.equal(tfsk.flashsketch_transpose(
+                        p, Y, stages=stages, blocks=blocks), got)
 
 
 @pytest.mark.gpu
@@ -769,7 +782,8 @@ def test_vec_geometry_forward_and_partial_main_plan(dtype, tn, R, groups):
                                             shard="row", devices=4))
     assert (part.tn, part.row_splits, part.groups, part.smem_bytes) == (
         tn, R, groups, 0)
-    assert tfsk.partial_launch(main, tn) == (groups, 0)
+    assert tfsk.launch_geometry(main, "fwd", False, tn, partial=True) == (
+        groups, 0, R)
     tiles = 1024 // tn
     assert f"grid 32x{R} x {tiles} = {32 * R * tiles} blocks" in \
         tlow.explain(main, n=1024, device="cuda", dtype=dtype, shard="row",
@@ -972,6 +986,163 @@ def test_csr_sum_order_matches_pallas(policy, gathered, global_plans):
         _close(_emulate_row_split(pt, x, False)[: pt.k],
                jfsk.flashsketch_pallas(pj, jnp.asarray(A), tn=64)[: pt.k, :37],
                atol)
+
+
+# ---------------------------------------------------------------------------
+# the fused transpose: the staged kernel and its L2 route
+# ---------------------------------------------------------------------------
+
+def _sum_words(W, Y, scale):
+    """A transpose kernel's sums in fp32 from (rows, κ·s) words into Y's
+    rows: each row's terms added from +0 in word order, then × scale."""
+    col, neg = W >> 1, (W & 1) == 1
+    acc = torch.zeros(W.shape[0], Y.shape[1])
+    for e in range(W.shape[1]):
+        a = Y[col[:, e]]
+        acc = acc + torch.where(neg[:, e, None], -a, a)
+    return acc * torch.tensor(scale, dtype=torch.float32)
+
+
+def _hashed_transpose_words(pt):
+    """The words of the hashing kernel the staged transpose replaced, in
+    its loop order: for row h·Bc + u of X, (ℓ, i), g_ℓ = π_ℓ⁻¹(h) from the
+    JAX package's inverse table, ((g_ℓ·Br + row(g_ℓ, h, u, i)) << 1) | sign
+    hashed one level and nonzero at a time; (d_pad, κ·s) int64."""
+    inv = np.asarray(jfsk._inv_neighbor_table(
+        jb.make_plan(pt.d, pt.k_req, kappa=pt.kappa, s=pt.s, seed=pt.seed)))
+    u = torch.arange(pt.Bc)
+    W = torch.empty(pt.d_pad, pt.kappa * pt.s, dtype=torch.int64)
+    for h in range(pt.M):
+        for ell in range(pt.kappa):
+            g = int(inv[ell, h])
+            for i in range(pt.s):
+                r, sgn = tb.block_rows_signs(pt, g, h, u, i)
+                W[h * pt.Bc + u, ell * pt.s + i] = \
+                    ((g * pt.Br + r) << 1) | (sgn < 0).to(torch.int64)
+    return W
+
+
+@pytest.mark.parametrize("policy", POLICIES)
+def test_transpose_routes_sum_order(policy, ragged):
+    """Both routes of the fused transpose sum a row of X in the (ℓ, i) order
+    of the hashing kernel they replaced, from +0, then × scale: the L2
+    route on the CSR of Sᵀ (words g_ℓ·Br + row into Y), the staged route
+    on its tile-local words (ℓ·Br + row into the (κ·Br, tn) tile of Y
+    blocks g_ℓ); each torch.equal to the sum over the hashed words, and
+    within the policy's exactness_atol of the JAX package's Pallas
+    transpose (interpret mode) at the ragged n."""
+    pj, pt, _, Y = ragged
+    p = pt.with_dtype(policy)
+    cpu = torch.device("cpu")
+    y = tfsk._stream(p, tref.pad_rows(torch.from_numpy(Y), p.k_pad)).float()
+    ks = p.kappa * p.s
+    want = _sum_words(_hashed_transpose_words(p), y, p.scale)
+    ptr, ent = tfsk._device_csr_t(p, cpu)
+    assert torch.equal(ptr, torch.arange(p.d_pad * p.kappa + 1,
+                                         dtype=torch.int32) * p.s)
+    assert torch.equal(_sum_words(ent.long().reshape(-1, ks), y, p.scale),
+                       want)
+    local = tfsk._device_csr_t(p, cpu, tile_local=True)[1].long()
+    local = local.reshape(p.M, p.Bc, ks)
+    inv = tfsk._inv_neighbor_table(p)
+    staged = torch.empty_like(want)
+    for h in range(p.M):
+        tile = torch.cat([y[int(g) * p.Br:(int(g) + 1) * p.Br]
+                          for g in inv[:, h]])
+        assert int(local[h].max()) >> 1 < p.kappa * p.Br
+        staged[h * p.Bc:(h + 1) * p.Bc] = _sum_words(local[h], tile, p.scale)
+    assert torch.equal(staged, want)
+    _close(staged[:1000], jops.sketch_apply_t(
+        pj.with_dtype(policy), jnp.asarray(Y), impl="pallas", tn=16),
+        jp.resolve(policy).exactness_atol)
+
+
+@pytest.mark.parametrize("d,k,kw,route", [
+    (65536, 4096, {}, "staged"),                    # the main plan, 64 KiB
+    (65536, 4096, dict(dtype="fp8_e4m3"), "staged"),
+    (4096, 1024, dict(kappa=4, s=2), "staged"),     # 128 KiB: one stage
+    (1000, 96, dict(kappa=4, s=2), "staged"),
+    (8192, 2048, dict(kappa=8, s=2), "l2"),         # 256 KiB
+    (65536, 4096, dict(kappa=4, block_rows=2048), "l2")])   # 1 MiB
+def test_transpose_route_geometry(d, k, kw, route):
+    """The fused transpose runs the staged kernel exactly where one stage,
+    the κ row blocks of Y at 128 bytes a row, fits ``MAX_SMEM_BYTES``, in a
+    ring of two stages where two fit, at the tile of 128 bytes; elsewhere
+    (the Br = 2 048 plan) its L2 route, the row-split kernel on the CSR of
+    Sᵀ, R recorded; an explicit tile other than the staged one takes the
+    L2 route there.  No policy and no n downgrades to cuda_v1."""
+    pt = tb.make_plan(d, k, **kw)
+    stage = pt.kappa * pt.Br * 128
+    assert tfsk.transpose_stage_bytes(pt) == stage
+    fit = (tfsk.MAX_SMEM_BYTES - 128) // (stage + 8)
+    assert (fit >= 1) == (route == "staged") == (
+        tfsk.transpose_route(pt) == "staged")
+    for pol in POLICIES:
+        p = pt.with_dtype(pol)
+        for n in (1024, 37):
+            spec = dict(op="transpose", n=n, device="cuda", dtype=pol)
+            lw = tlow.lower(pt, tlow.LaunchSpec(**spec))
+            assert (lw.impl, lw.downgrade, lw.route) == ("cuda", None, route)
+            assert f"route={route}" in lw.describe()
+            assert "cuda_v1" not in tlow.explain(pt, **spec)
+            if route == "l2":
+                assert (lw.tn, lw.smem_bytes) == (tfsk.fwd_tn(p, n), 0)
+                assert (lw.groups, lw.row_splits) == tfsk.vec_launch(
+                    p, lw.tn, op="transpose")
+                continue
+            threads, stages, smem = tfsk.staged_launch(p)
+            assert lw.tn == tfsk.staged_tn(p) == 128 // p.stream_itemsize
+            assert (lw.smem_bytes, lw.row_splits) == (smem, None)
+            assert stages == min(2, fit) and threads == 8 * lw.groups
+            assert smem == 128 + stages * (stage + 8) <= tfsk.MAX_SMEM_BYTES
+    if route == "l2":
+        with pytest.raises(ValueError, match="route is 'l2'"):
+            tfsk.staged_launch(pt)
+        return
+    assert tfsk.staged_launch(pt, fit)[2] <= tfsk.MAX_SMEM_BYTES
+    with pytest.raises(ValueError, match=f"stages={fit + 1}"):
+        tfsk.staged_launch(pt, fit + 1)
+    other = tlow.lower(pt, tlow.LaunchSpec(op="transpose", n=1024, tn=256,
+                                           device="cuda"))
+    assert (other.route, other.tn, other.smem_bytes) == ("l2", 256, 0)
+    assert other.row_splits == tfsk.vec_splits(pt, 256, "transpose")
+    # a TMA box tiles a level's Br rows: at most 256 of them
+    assert pt.Br % tfsk._tma_box_rows(pt.Br) == 0
+    assert tfsk._tma_box_rows(pt.Br) == min(pt.Br, 256)
+
+
+def test_route_sweep_fails_without_a_card(tmp_path):
+    """``benchmarks/torch_route_sweep.py`` times the transpose's stages and
+    routes and the masked partial's splits on the card only: without one
+    it exits non-zero and writes nothing."""
+    if torch.cuda.is_available():
+        pytest.skip("on a card the sweep runs (README's chip command)")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = tmp_path / "sweep.json"
+    res = subprocess.run(
+        [sys.executable, "-m", "benchmarks.torch_route_sweep", "--out",
+         str(out)], cwd=root, capture_output=True, text=True, timeout=120,
+        env=dict(os.environ, PYTHONPATH="src"))
+    assert res.returncode == 2 and "no CUDA device" in res.stderr
+    assert not out.exists()
+
+
+def test_transpose_copy_modes_and_route_arguments():
+    """How a stage is filled: TMA where Y's rows are 16-byte aligned, 4-byte
+    cp.async where they are 4-byte aligned, plain loads otherwise; the
+    wrapper refuses a route it does not have and the staged route's
+    options on the L2 route (the CPU path checks them too)."""
+    for dtype, n, mode in ((torch.float32, 1024, 0), (torch.float32, 37, 1),
+                           (torch.bfloat16, 1000, 0), (torch.bfloat16, 38, 1),
+                           (torch.bfloat16, 37, 2), (torch.uint8, 1000, 1),
+                           (torch.uint8, 37, 2)):
+        assert tfsk._staged_copy_mode(torch.zeros(4, n, dtype=dtype)) == mode
+    assert tfsk._staged_copy_mode(torch.zeros(4, 65)[:, 1:]) == 1
+    assert tfsk._tma_box_rows(768) == 256 and tfsk._tma_box_rows(96) == 96
+    assert tfsk._tma_box_rows(640) == 160
+    pt = tb.make_plan(256, 64)
+    with pytest.raises(ValueError, match="route must be"):
+        tfsk.flashsketch_transpose(pt, torch.zeros(pt.k_pad, 3), route="v1")
 
 
 @pytest.mark.gpu

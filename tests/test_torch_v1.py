@@ -182,10 +182,18 @@ def test_v1_lowering_records_the_row_split(d, k, kw, n, tn, geometry):
         assert f"R={R}" in lw.describe()
         assert f"row split: R={R} (each output block's {rows} rows" in \
             tlow.explain(pt, op=op, n=n, device="cuda", impl="cuda_v1")
-    # the fused transpose keeps its own grid; so does a global plan's v1
+    # the fused transpose: the staged kernel (no row split) where one stage
+    # fits shared memory, else its L2 route, the row-split kernel of the
+    # same tile rule on the CSR of Sᵀ, unscaled levels summed as one; never
+    # cuda_v1
     fused = tlow.lower(pt, tlow.LaunchSpec(op="transpose", n=n,
                                            device="cuda"))
-    assert fused.impl == "cuda" and fused.row_splits is None
+    assert fused.impl == "cuda" and fused.downgrade is None
+    if fused.route == "staged":
+        assert fused.row_splits is None
+    else:
+        assert pt.Br == 2048 and fused.row_splits == tfsk.vec_splits(
+            pt, fused.tn, "transpose")
 
 
 def test_v1_geometry_rules_and_global_transpose():
@@ -203,7 +211,7 @@ def test_v1_geometry_rules_and_global_transpose():
     g = tb.make_plan(1000, 256, family="countsketch", s=1, block_rows=32)
     lw = tlow.lower(g, tlow.LaunchSpec(op="transpose", n=37, device="cuda",
                                        impl="cuda_v1"))
-    groups, _, smem, _ = tfsk.transpose_launch(g, tfsk.TRANSPOSE_DEFAULT_TN)
+    groups, _, smem = tfsk.transpose_launch(g, tfsk.TRANSPOSE_DEFAULT_TN)
     assert (lw.impl, lw.row_splits, lw.tn, lw.groups, lw.smem_bytes) == (
         "cuda_v1", None, tfsk.TRANSPOSE_DEFAULT_TN, groups, smem)
     assert not tfsk.is_row_split(g, "transpose", False, True)

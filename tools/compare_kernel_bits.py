@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Save, or compare bit for bit, the outputs of the port's row-split
-kernels (the blockperm, FLASHBLOCKROW and global forwards, their gathers,
-the compact partial, the v1 transpose and the v1 FLASHBLOCKROW) of one tree
-on the GPU, and time them.
+"""Save, or compare bit for bit, the outputs of the port's row-split and
+staged kernels (the blockperm, FLASHBLOCKROW and global forwards, their
+gathers, both partials, the fused transpose, the v1 transpose and the v1
+FLASHBLOCKROW) of one tree on the GPU, and time them.
 
     PYTHONPATH=<parent>/src python tools/compare_kernel_bits.py \
         --save _checkout/bits
@@ -10,7 +10,7 @@ on the GPU, and time them.
         --against _checkout/bits
 
 Run from the root of a checkout, DIR inside it (``_checkout/`` is
-gitignored; the outputs take about 6.5 GB); ``PYTHONPATH`` picks the tree
+gitignored; the outputs take about 9 GB); ``PYTHONPATH`` picks the tree
 whose ``repro_torch`` runs, so a change to these kernels is held to its
 parent (unpacked beside it) bit for bit on one card. The inputs are made
 on the card from seeded generators, every precision policy, at the
@@ -31,13 +31,19 @@ wrappers' defaults:
     (n = 1 024, the ragged n = 1 000, and n = 37, whose rows are not
     16-byte aligned: scalar loads) and at the Br = 2 048 plan
     (``make_plan(65 536, 4 096, kappa=4, block_rows=2048)``, n = 1 024),
-    on each policy's streamed operand.
+    on each policy's streamed operand;
+  * ``flashsketch_transpose`` at the main plan (n = 1 024, 1 000, 37), the
+    Br = 2 048 plan (n = 1 024) and ``make_plan(8192, 2048, kappa=8, s=2)``
+    (n = 64), and the masked FLASHBLOCKROW ``flashsketch_partial`` (each
+    rank of P = 4, and P = 1) at the main plan and the Br = 32 plan,
+    n = 1 024.
 
 ``--save`` writes them to DIR;
 ``--against`` holds each to the saved one with ``torch.equal``, prints the
 largest difference where they differ and exits 1 if any does. Both print
 the fp32 times (CUDA events, median of 15 after 3 warm-up calls, host
-dispatch included) and the card's name and power limit.
+dispatch included; the device time from ``torch.profiler`` beside them)
+and the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -69,6 +75,20 @@ def cuda_ms(fn, warmup=3, reps=15):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, reps=20):
+    """The kernels' own time per call of ``fn`` (``torch.profiler``)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) \
+        / reps / 1e3
 
 
 def outputs(fsk, tables, make_plan, row_map_for):
@@ -150,6 +170,36 @@ def outputs(fsk, tables, make_plan, row_map_for):
                 pol, n == N)
             add(f"{key} blockrow_v1", lambda p=p, A=A: fsk.blockrow_fwd_v1(
                 p, A), pol, n == N)
+    # the fused transpose (the staged kernel, or its L2 route where a stage
+    # does not fit: the Br = 2 048 and the κ = 8, Br = 256 plans)
+    wide8 = make_plan(8192, 2048, kappa=8, s=2, seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    for label, plan, n in (("main", base, N), ("main", base, 1000),
+                           ("main", base, 37), ("Br=2048", tall, N),
+                           ("kappa=8", wide8, 64)):
+        Y = torch.randn(plan.k_pad, n, generator=gen, device="cuda") * 3
+        for pol in POLICIES:
+            p = plan.with_dtype(pol)
+            add(f"{label} {pol} n={n} transpose",
+                lambda p=p, Y=Y: fsk.flashsketch_transpose(p, Y), pol,
+                label == "main" and n == N)
+    # the masked FLASHBLOCKROW partial, each rank of P = 4 and P = 1
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    for label, (d, k) in PLANS.items():
+        plan = make_plan(d, k, kappa=4, s=2, seed=0)
+        A = torch.randn(plan.d_pad, N, generator=gen, device="cuda") * 3
+        for pol in POLICIES:
+            p = plan.with_dtype(pol)
+            for P in (4, 1):
+                M_loc = p.M // P
+                for r in range(P):
+                    tab = tables(p, r * M_loc, M_loc, True, "cuda")
+                    slab = A[r * M_loc * p.Bc:(r + 1) * M_loc * p.Bc]
+                    add(f"{label} {pol} masked partial P={P} rank {r}",
+                        lambda p=p, slab=slab, tab=tab:
+                        fsk.flashsketch_partial(p, slab, tab,
+                                                rows_pattern=True),
+                        pol, label == "main" and r == 0)
     return out, timed
 
 
@@ -194,7 +244,8 @@ def main() -> int:
         print(f"compared {len(out)} outputs bit for bit: "
               f"{len(out) - bad} equal, {bad} differ")
     for name, fn in timed:
-        print(f"time {name}: {cuda_ms(fn):.4f} ms")
+        print(f"time {name}: {cuda_ms(fn):.4f} ms (device "
+              f"{device_ms(fn):.4f} ms)")
     return 1 if bad else 0
 
 
