@@ -88,8 +88,29 @@ Phases, any failure exits non-zero and prints no result:
      distributed solve of phase 3's problem with the main plan and with
      the default ``plan_for_mesh`` plan, each within ``10·cond·tol`` of
      ``torch.linalg.lstsq``; the launch counts of the phase (all ranks),
-     which must show both partial kernels.  A failure in any rank fails
-     the run.
+     which must show both partial kernels; at P = 4 also the guarded
+     distributed solve (``guard=True``: the replica guard over an
+     ``all_gather`` of SA, the finite and condition guards), healthy in
+     one attempt, x the same bits on every rank and as the unguarded
+     solve.  A failure in any rank fails the run.
+  8. the tuner, the cost model and the health guards, after every path
+     above ran on the fixed rules: ``tune.autotune`` of every variant at
+     all six policies on a small plan (every candidate's output
+     ``torch.equal`` to the rule's), then timed at the main plan (``fwd``
+     fp32 and bf16, ``transpose``, ``blockrow``), at the GraSS chunk
+     (``blockrow``; ``fwd_gather`` and ``blockrow_gather`` in the (D, c)
+     view) and at the CountSketch plan of the main shape (``fwd``,
+     ``fwd_gather``), each
+     candidate's (tn, R) with its events and device time, the winner
+     beside the rule; ``save_cache`` / ``load_cache`` and the main path's
+     entry point running the loaded (tn, R) (a spy on the wrapper, the
+     launch count, the rule's bits); ``roofline.hw`` against the card's
+     properties and ``engine.cost_of``'s bound and modeled time beside
+     every kernel of the kernels line (its bound within 1 % of the
+     line's); the ``default`` preset with ``guard=True`` at the main size
+     (healthy in one attempt, x the unguarded solve's bits, its extra wall
+     time), once with ``probe=True``, an adversarial input on the card
+     recovered in ≥ 2 attempts, and the injector suite on the card.
 
 Phase 2 also holds the three v1 kernels (ragged n with d < d_pad, κ × s ∈
 {1,2,4}², a Br = 2 048 plan, the main plan; each also under every row
@@ -1916,7 +1937,30 @@ def _phase7_checks(rank, world, group, cfg):
                 converged=res.converged, err=err, wall_s=wall,
                 plan=res.lowering.plan.describe(),
                 lowering=res.lowering.describe())
+            if label == "main plan":
+                x_main = res.x
         secs["solves"] = time.perf_counter() - t_step
+        # the guarded solve (the replica guard, an all_gather of SA; the
+        # finite and condition guards; a redraw-only ladder) beside the
+        # unguarded one, both warm
+        walls = {}
+        for guard in (False, True):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = D.dist_sketch_precondition_lstsq(
+                A_loc, b_loc, plan=main_plan, tol=cfg["tol"], guard=guard)
+            torch.cuda.synchronize()
+            walls[guard] = time.perf_counter() - t0
+        h = res.health
+        out["equal"]["guarded solve x across ranks"] = _all_equal(res.x)
+        out["equal"]["guarded solve x == unguarded"] = torch.equal(res.x,
+                                                                   x_main)
+        out["equal"]["guarded solve healthy, one attempt"] = \
+            h.status == "healthy" and h.attempts == 1 and res.converged
+        out["guarded"] = dict(status=h.status, attempts=h.attempts,
+                              wall_s=walls[True], plain_s=walls[False],
+                              findings=[f.describe() for f in h.findings])
+        secs["guarded solve"] = time.perf_counter() - t0
     return out
 
 
@@ -2036,10 +2080,291 @@ def phase_distributed(rt, main_plan, n, cond, big, grass_state):
                       f"{sol['wall_s']:.3f} s {sol['lowering']}")
                 check(sol["converged"] and sol["err"] <= 10 * cond *
                       cfg["tol"], f"P=4 solve {label}: {sol}")
+            g = o["guarded"]
+            print(f"  P=4 guarded solve (main plan): {g['status']}, "
+                  f"{g['attempts']} attempt(s), x the same bits on every "
+                  f"rank and as the unguarded solve; wall "
+                  f"{g['wall_s']:.3f} s against {g['plain_s']:.3f} s "
+                  f"unguarded, both warm; {g['findings']}")
     print(f"  launch counts over phase 7 (all ranks): {launches}")
     for name in PARTIAL_KERNELS:
         check(launches[name] > 0, f"{name} never launched in phase 7")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the tuner, the cost model and the health guards.
+# ---------------------------------------------------------------------------
+
+def graph_ms(fn, reps=10):
+    """Device ms per call of ``fn``: ``reps`` calls captured in one CUDA
+    graph and replayed (median of 5 replays, CUDA events), so the host's
+    dispatch does not count; the graph's outputs are freed after."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    del graph
+    torch.cuda.empty_cache()
+    return statistics.median(times) / reps
+
+
+def tune_shape(rt, plan, n, variant, label):
+    """Autotune one variant at one shape on the card; print every
+    candidate's (tn, R), events time (the tuner's, one call at a time) and
+    device time (``graph_ms``) and the winner against the rule (the first
+    candidate); every candidate the rule's bits."""
+    tune = rt["tune"]
+    trials = []
+    win = tune.autotune(plan, n, variant, warmup=2, iters=10, trials=trials)
+    run = tune.launcher(plan, n, variant)
+    dev = [graph_ms(lambda t=t: run(t["tn"], t["row_splits"]))
+           for t in trials]
+    rule = trials[0]
+    wdev = next(d for t, d in zip(trials, dev)
+                if (t["tn"], t["row_splits"]) == (win.tn, win.row_splits))
+    print(f"  {label} {variant} ({plan.dtype}, n={n}): {len(trials)} "
+          f"candidates; rule tn={rule['tn']} R={rule['row_splits']} "
+          f"{rule['time_us']:.1f} us (device {dev[0] * 1e3:.1f}); winner "
+          f"tn={win.tn} R={win.row_splits} {win.time_us:.1f} us (device "
+          f"{wdev * 1e3:.1f}): {win.time_us / rule['time_us']:.3f} of the "
+          f"rule's events time, {wdev / dev[0]:.3f} of its device time; "
+          f"fastest device time "
+          f"{min(dev) * 1e3:.1f} us at {trials[dev.index(min(dev))]['tn']}, "
+          f"{trials[dev.index(min(dev))]['row_splits']}")
+    print("    " + "; ".join(
+        f"({t['tn']},{t['row_splits']}{',' + t['route'] if t['route'] else ''})"
+        f" {t['time_us']:.1f}/{d * 1e3:.1f}"
+        for t, d in zip(trials, dev)) + "  [events/device us]")
+    bad = [t for t in trials if not t["equal"]]
+    check(not bad, f"{label} {variant}: candidates not the rule's bits: {bad}")
+    rule["device_us"], win_dev = dev[0] * 1e3, wdev * 1e3
+    return win, rule, trials, win_dev
+
+
+def phase_tuner(rt, main_plan, n):
+    """The tuner on the card: every candidate of every variant the rule's
+    bits at every policy on a small plan (ragged n); the four main-plan
+    tunings, three at the GraSS chunk and two at the CountSketch plan of
+    the main shape timed; the cache saved, cleared
+    and loaded, and a loaded winner's (tn, R) run by the main path's
+    entry point.  Returns the rows PERF.md keeps."""
+    tune, lowering, ops, fsk = rt["tune"], rt["lowering"], rt["ops"], \
+        rt["fsk"]
+    make_plan = rt["blockperm"].make_plan
+    before = dict(fsk.LAUNCHES)
+    tune.clear_cache()
+    small = make_plan(1000, 256, kappa=4, s=2, seed=3)
+    count = 0
+    for pol in POLICIES:
+        p = small.with_dtype(pol)
+        for variant in tune.VARIANTS:
+            trials = []
+            tune.autotune(p, 200, variant, warmup=0, iters=1, trials=trials)
+            bad = [t for t in trials if not t["equal"]]
+            check(not bad, f"small plan {pol} {variant}: {bad}")
+            count += len(trials)
+    print(f"phase 8 (tuner): {count} candidates at {small.describe()}, "
+          f"n=200, all six policies, every variant: each the rule's bits "
+          f"(torch.equal)")
+    tune.clear_cache()
+    out = {}
+    for plan, variant in ((main_plan, "fwd"),
+                          (main_plan.with_dtype("bfloat16"), "fwd"),
+                          (main_plan, "transpose"), (main_plan, "blockrow")):
+        out[(variant, plan.dtype)] = tune_shape(rt, plan, n, variant,
+                                                "main plan")
+    gplan = make_plan(GRASS_D, GRASS_K, kappa=4, s=2, seed=0)
+    for variant in ("blockrow", "fwd_gather", "blockrow_gather"):
+        out[(variant, "chunk")] = tune_shape(rt, gplan, GRASS_CHUNK,
+                                             variant, "GraSS chunk (D, c)")
+    cs = make_plan(main_plan.d, main_plan.k_req, family="countsketch", s=1,
+                   seed=0)
+    for variant in ("fwd", "fwd_gather"):
+        out[(variant, "countsketch")] = tune_shape(rt, cs, n, variant,
+                                                   "CountSketch plan")
+    # persistence: save, clear, load; the loaded winners reach the lowering
+    # and the main path's entry point runs the loaded (tn, R)
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "winners.json")
+        saved = tune.save_cache(path)
+        tune.clear_cache()
+        kept = tune.load_cache(path)
+    check(kept == saved == len(out), f"saved {saved}, loaded {kept} "
+          f"entries")
+    win = out[("fwd", "float32")][0]
+    lw = lowering.lower(main_plan, lowering.LaunchSpec(n=n, device="cuda"))
+    R_run = win.row_splits or fsk.vec_splits(main_plan, win.tn)
+    check(lw.tn_source == "loaded" and lw.tn == win.tn
+          and lw.row_splits == R_run, f"loaded lowering {lw.describe()}")
+    seen = []
+    orig = fsk.flashsketch_fwd
+
+    def spy(plan, A, **kw):
+        seen.append(kw)
+        return orig(plan, A, **kw)
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    A = torch.randn(main_plan.d, n, generator=gen, device="cuda")
+    fsk.flashsketch_fwd = spy
+    try:
+        fsk.reset_launch_counts()
+        Y = ops.sketch_apply(main_plan, A)
+        launched = fsk.LAUNCHES["flashsketch_fwd"]
+    finally:
+        fsk.flashsketch_fwd = orig
+    check(launched == 1 and seen == [dict(tn=win.tn, row_splits=R_run)],
+          f"the loaded winner did not run: {seen}, {launched} launches")
+    tune.clear_cache()
+    check(torch.equal(Y, ops.sketch_apply(main_plan, A)),
+          "the loaded winner's output != the rule's")
+    tw = out[("transpose", "float32")][0]
+    print(f"  saved and loaded {kept} winners; the main plan's forward "
+          f"lowers to {lw.describe()} and ops.sketch_apply ran "
+          f"flashsketch_fwd(tn={win.tn}, row_splits={R_run}) once, the "
+          f"rule's bits; the transpose's winner tn={tw.tn} "
+          f"R={tw.row_splits} ({'L2 route' if tw.row_splits else 'staged'})")
+    for k in before:      # tuning launches are not main-path launches
+        fsk.LAUNCHES[k] = before[k]
+    return out
+
+
+def phase_cost_model(rt, main_plan, n, rows):
+    """``hw`` against the card's properties; the cost model's bound and
+    modeled time of every kernel of the kernels line beside its measured
+    time, and its bound within 1 % of the line's (the same work)."""
+    hw, sm, lowering = rt["hw"], rt["sketch_model"], rt["lowering"]
+    make_plan = rt["blockperm"].make_plan
+    props = torch.cuda.get_device_properties(0)
+    l2 = getattr(props, "L2_cache_size", None)
+    smem = getattr(props, "shared_memory_per_block_optin", None)
+    print(f"phase 8 (cost model): hw SMs {hw.SMS} / card "
+          f"{props.multi_processor_count}; L2 {hw.L2_BYTES} / {l2} B; "
+          f"shared memory a block {hw.MAX_SMEM_BYTES} / {smem} B")
+    check(props.multi_processor_count == hw.SMS, "SM count")
+    check(l2 in (None, hw.L2_BYTES), "L2 size")
+    check(smem in (None, hw.MAX_SMEM_BYTES), "shared memory a block")
+    gplan = make_plan(GRASS_D, GRASS_K, kappa=4, s=2, seed=0)
+    cs = make_plan(main_plan.d, main_plan.k_req, family="countsketch", s=1,
+                   seed=0)
+
+    def lw(plan, n_, **kw):
+        return lowering.lower(plan, lowering.LaunchSpec(n=n_, device="cuda",
+                                                        **kw))
+    costs = {
+        "flashsketch_fwd": sm.cost_of(lw(main_plan, n)),
+        "flashsketch_transpose": sm.cost_of(lw(main_plan, n, op="transpose")),
+        "flashsketch_transpose_l2": sm.kernel_cost(
+            main_plan, n, variant="transpose", route="l2"),
+        "flashsketch_fwd_gather": sm.cost_of(lw(gplan, GRASS_CHUNK,
+                                                gather=True)),
+        "blockrow_fwd": sm.cost_of(lw(gplan, GRASS_CHUNK, op="blockrow")),
+        "blockrow_fwd_gather": sm.cost_of(lw(gplan, GRASS_CHUNK,
+                                             op="blockrow", gather=True)),
+        "flashsketch_fwd_v1": sm.cost_of(lw(main_plan, n, impl="cuda_v1")),
+        "flashsketch_transpose_v1": sm.cost_of(lw(
+            main_plan, n, op="transpose", impl="cuda_v1")),
+        "blockrow_fwd_v1": sm.cost_of(lw(main_plan, n, op="blockrow",
+                                         impl="cuda_v1")),
+        "flashsketch_fwd_partial": sm.cost_of(lw(main_plan, n, shard="row",
+                                                 devices=4)),
+        "blockrow_fwd_partial": sm.cost_of(lw(main_plan, n, op="blockrow",
+                                              shard="row", devices=4)),
+        "flashsketch_fwd_global": sm.cost_of(lw(cs, n)),
+        "flashsketch_transpose_global": sm.cost_of(lw(cs, n,
+                                                      op="transpose")),
+        "flashsketch_fwd_gather_global": sm.cost_of(lw(cs, n, gather=True)),
+    }
+    for row in rows:
+        kc = costs[row["name"]]
+        print(f"  {row['name']:30s} measured {row['ms']:.4f} ms  bound "
+              f"{row['bound_ms']:.5f} ms, cost_of {kc.bound_us / 1e3:.5f} "
+              f"({kc.bound_by})  modeled kernel {kc.kernel_us / 1e3:.4f} ms "
+              f"(hbm {kc.memory_s * 1e3:.4f}, l2 {kc.l2_s * 1e3:.4f})"
+              f"{f', all-reduce {kc.collective_s * 1e3:.3f} ms' if kc.collective_bytes else ''}"
+              f"  measured / modeled kernel "
+              f"{row['ms'] / (kc.kernel_us / 1e3):.2f}")
+        check(abs(kc.bound_us / 1e3 - row["bound_ms"])
+              <= 0.01 * row["bound_ms"],
+              f"{row['name']}: cost_of bound {kc.bound_us} us vs "
+              f"{row['bound_ms']} ms")
+
+
+def phase_health(rt, main_plan, d, n, cond):
+    """The guarded solves on the card: the ``default`` preset with
+    ``guard=True`` at the main size (healthy, one attempt, x the unguarded
+    solve's bits, its extra wall time), once more with the OSE probe, the
+    adversarial input at a small plan (recovered in ≥ 2 attempts), and the
+    injector suite on the card."""
+    solvers, inject, presets = rt["solvers"], rt["inject"], rt["presets"]
+    make_plan = rt["blockperm"].make_plan
+    A, b = make_ls_problem(d, n, cond)
+    pre = presets["default"]
+    kw = dict(k=rt["solver_sketch_rows"](n, pre.sampling_factor),
+              kappa=pre.kappa, s=pre.s, dtype=pre.dtype,
+              factorization=pre.factorization, method=pre.method,
+              tol=pre.tol, max_iters=pre.max_iters, device="cuda")
+    walls = {}
+    res = {}
+    for guard in (False, True, False, True):      # in turns, warm second
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res[guard] = solvers.sketch_precondition_lstsq(A, b, guard=guard,
+                                                       **kw)
+        torch.cuda.synchronize()
+        walls.setdefault(guard, []).append(time.perf_counter() - t)
+    g, u = res[True], res[False]
+    h = g.health
+    print(f"phase 8 (health): default preset at d={d}, n={n}, cond "
+          f"{cond:g}, float64: guarded {h.status}, {h.attempts} attempt(s), "
+          f"converged {g.converged} ({g.iterations} iterations, relres "
+          f"{g.relres:.3e}); wall guarded {walls[True]} s, unguarded "
+          f"{walls[False]} s: the guards add "
+          f"{(walls[True][1] - walls[False][1]) * 1e3:.3f} ms warm")
+    check(h.status == "healthy" and h.attempts == 1 and g.converged,
+          f"guarded default solve: {h.describe()}")
+    check(torch.equal(g.x, u.x), "guarded x != unguarded x")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    p = solvers.sketch_precondition_lstsq(A, b, guard=True, probe=True, **kw)
+    torch.cuda.synchronize()
+    probe = [f for f in p.health.findings if f.guard == "ose_probe"]
+    print(f"  with probe=True: {p.health.status}, {p.health.attempts} "
+          f"attempt(s), {probe[0].describe()}; wall "
+          f"{time.perf_counter() - t:.3f} s")
+    check(p.health.status != "failed" and p.converged and
+          len(probe) == 1, f"probed solve: {p.health.describe()}")
+    plan = make_plan(512, 64, kappa=1, s=1, seed=0)
+    Aa = inject.adversarial_input(plan, 8, seed=0, device="cuda")
+    ba = Aa @ torch.ones(8, device="cuda")
+    ra = solvers.sketch_precondition_lstsq(
+        Aa, ba, k=plan.k_req, kappa=1, s=1, seed=0, guard=True, probe=True,
+        tol=1e-5, device="cuda")
+    print(f"  adversarial input at {plan.describe()}: {ra.health.status} "
+          f"after {ra.health.attempts} attempts ({ra.health.actions}), "
+          f"relres {ra.relres:.2e}")
+    check(ra.health.attempts >= 2 and ra.health.status != "failed"
+          and ra.converged, f"adversarial: {ra.health.describe()}")
+    rc = inject.run_injector_suite(device="cuda", verbose=False)
+    print(f"  injector suite on the card: exit {rc}; counters "
+          f"{rt['report'].summarize_counters(max_items=100)}")
+    check(rc == 0, "the injector suite failed on the card")
 
 
 def main() -> int:
@@ -2060,8 +2385,11 @@ def main() -> int:
         from repro_torch.core import blockperm, hashing, variants, wiring
         from repro_torch.distributed.sharded_apply import _fold_scale_truncate
         from repro_torch.distributed.spawn import run_ranks
-        from repro_torch.kernels import build, lowering, ops, ref
+        from repro_torch.kernels import build, lowering, ops, ref, tune
         from repro_torch.kernels import flashsketch as fsk
+        from repro_torch.health import inject
+        from repro_torch.health import report as health_report
+        from repro_torch.roofline import hw, sketch_model
     except ImportError as exc:
         print(f"chip_smoke: the port is not beside this script ({exc})",
               file=sys.stderr)
@@ -2071,7 +2399,9 @@ def main() -> int:
               lowering=lowering, grass=grass, mlp=mlp, lds=lds,
               grass_cfg=GRASS, variants=variants, pareto=pareto,
               dist=distributed, fold=_fold_scale_truncate,
-              run_ranks=run_ranks)
+              run_ranks=run_ranks, tune=tune, hw=hw,
+              sketch_model=sketch_model, inject=inject, report=health_report,
+              solver_sketch_rows=solver_sketch_rows)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2128,6 +2458,17 @@ def main() -> int:
                 row["launches"] = family_launches[row["name"]]
             if row["name"] in PARTIAL_KERNELS:
                 row["launches"] = dist_launches[row["name"]]
+        tuned = timed("phase 8, tuner", phase_tuner, rt, main_plan, n)
+        timed("phase 8, cost model", phase_cost_model, rt, main_plan, n,
+              rows)
+        timed("phase 8, health", phase_health, rt, main_plan, d, n, 1e4)
+        print("tuned: " + json.dumps({
+            f"{v}/{dt}": dict(rule=[r["tn"], r["row_splits"],
+                                    round(r["time_us"], 2),
+                                    round(r["device_us"], 2)],
+                              winner=[w.tn, w.row_splits,
+                                      round(w.time_us, 2), round(wd, 2)])
+            for (v, dt), (w, r, _, wd) in tuned.items()}))
         torch.cuda.synchronize()
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)

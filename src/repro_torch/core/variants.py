@@ -26,11 +26,16 @@ plain PyTorch ops, as the reference leaves them to XLA.
 Same sketch: the hash-built families (SJLT, SRHT, the plan families) build
 the reference's S bit for bit.  The dense families draw S from a
 ``torch.Generator`` seeded with ``seed``, which cannot reproduce JAX's
-PRNG; ``from_reference(S)`` carries the reference's S across.  The TPU
-cost model waits for ROADMAP queue 1 item 8 (``cost_model`` raises).
+PRNG; ``from_reference(S)`` carries the reference's S across.
+
+``cost_model(n)``: the dense, SJLT and SRHT families keep the reference's
+formulas (flops and bytes of their plain ops); the kernel families are
+priced by ``roofline.sketch_model.cost_of`` on the lowering of a width-n
+apply on the card (its floor bytes, two flops an add).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Dict, Optional
 
@@ -42,12 +47,23 @@ from repro_torch.core.blockperm import (FAMILY_DEFAULT_S, BlockPermPlan,
                                         make_plan)
 from repro_torch.kernels import lowering as klowering
 from repro_torch.kernels import ops as kops
+from repro_torch.roofline import sketch_model
 
 SJLT_TAG = 0x5117
 SRHT_SIGN_TAG = 0xFAD
 SRHT_ROW_TAG = 0x5A3
 # Nonzero slots of SJLT's row-grouped layout summed per gather.
 _SJLT_SLOTS = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class CostModel:
+    """Cost terms of one application Y = S A (fp32): the reference's
+    record."""
+
+    flops: float           # useful MACs·2
+    hbm_bytes: float       # A reads + Y writes + S reads (if materialized)
+    materializes_S: bool
 
 
 class SketchBase:
@@ -87,10 +103,16 @@ class SketchBase:
         return Y.reshape(Y.shape[0], -1, n).movedim(1, 0).reshape(
             *batch, Y.shape[0], n)
 
-    def cost_model(self, n: int):
-        raise NotImplementedError(
-            "the cost model is re-derived for Hopper with the tuner "
-            "(ROADMAP queue 1, item 8)")
+    def cost_model(self, n: int) -> CostModel:
+        """The kernel families' terms: ``sketch_model.cost_of`` on the
+        lowering of a width-``n`` apply on the card (the floor's bytes, a
+        multiply-add by ±1 per nonzero per column)."""
+        lw = self.lowering_for(n, device="cuda")
+        if lw is None:
+            raise NotImplementedError(f"{self.name} has no cost model")
+        kc = sketch_model.cost_of(lw)
+        return CostModel(flops=2.0 * kc.alu_ops, hbm_bytes=kc.hbm_bytes,
+                         materializes_S=False)
 
     def lowering_for(self, n: int, **spec_kwargs):
         """The ``kernels.lowering.Lowering`` of a width-``n`` apply, or
@@ -127,6 +149,12 @@ class _DenseSketch(SketchBase):
         S = self._on("_S", A.device)
         dt = torch.promote_types(S.dtype, A.dtype)
         return S.to(dt) @ A.to(dt)
+
+    def cost_model(self, n: int) -> CostModel:
+        return CostModel(
+            flops=2.0 * self.k * self.d * n,
+            hbm_bytes=4.0 * (self.d * n + self.k * n + self.k * self.d),
+            materializes_S=True)
 
 
 class DenseGaussianSketch(_DenseSketch):
@@ -193,6 +221,14 @@ class SJLTSketch(SketchBase):
             Y = Y + (sgn[:, l0:l1, None].to(dt) * Aext[src[:, l0:l1]]).sum(1)
         return Y / math.sqrt(self.s)
 
+    def cost_model(self, n: int) -> CostModel:
+        # a global scatter: every input element issues s read-modify-writes
+        return CostModel(
+            flops=2.0 * self.s * self.d * n,
+            hbm_bytes=4.0 * (self.d * n + 2.0 * self.s * self.d * n
+                             + self.k * n),
+            materializes_S=True)
+
 
 class SRHTSketch(SketchBase):
     """Subsampled randomized Hadamard transform: P·H·D (FWHT-based), signs
@@ -232,6 +268,14 @@ class SRHTSketch(SketchBase):
         HDx = self.fwht(signs[:, None].to(dt) * Ap).reshape(self.d_pad, n)
         scale = 1.0 / math.sqrt(self.k * self.d_pad)
         return HDx[self._on("_rows", A.device)] * math.sqrt(self.d_pad) * scale
+
+    def cost_model(self, n: int) -> CostModel:
+        # log₂(d) butterfly passes, each reading and writing (d_pad, n)
+        logd = max(1, int(math.log2(self.d_pad)))
+        return CostModel(
+            flops=2.0 * self.d_pad * logd * n,
+            hbm_bytes=4.0 * (2.0 * self.d_pad * n * logd + self.k * n),
+            materializes_S=False)
 
 
 class BlockPermSketch(SketchBase):

@@ -90,6 +90,7 @@ def dist_sketch_precondition_lstsq(
     max_iters: int = 100,
     impl: str = "auto",
     guard: bool = False,
+    policy: Optional[object] = None,
 ) -> SolveResult:
     """Solve ``min_x ||A x - b||`` by distributed sketch-and-precondition.
 
@@ -106,15 +107,18 @@ def dist_sketch_precondition_lstsq(
         with d the sum of the ranks' rows.
       k, kappa, s, seed, dtype, sampling_factor, factorization, tol,
         max_iters, impl: as in ``solvers.sketch_precondition_lstsq``.
-      guard: the health guards; not ported yet (raises).
+      guard: before iterating, check the all-reduced ``SA`` the same bits
+        on every rank (``guards.replica_consistency_guard`` over an
+        ``all_gather``, once per draw: any deviation is a corrupted
+        contribution), and the finite and condition guards on ``R``; a
+        ``failed`` verdict redraws the sketch (``RedrawPolicy`` seeds,
+        redraws only: a structural bump cannot repair a corrupted
+        collective).  The report lands on ``.health``.
+      policy: a ``health.policy.RedrawPolicy`` (guarded path only).
 
     Returns:
       ``SolveResult`` with x replicated on every rank.
     """
-    if guard:
-        raise NotImplementedError(
-            "guard=True needs the health guards and redraw policy, which "
-            "wait for the health slice (ROADMAP queue 1, item 9)")
     rank, world = rank_world(group)
     n = A_local.shape[1]
     rows = torch.tensor([A_local.shape[0]], dtype=torch.int64,
@@ -132,9 +136,54 @@ def dist_sketch_precondition_lstsq(
             f"{L} (plan.d_pad / P) it must hold rows [{rank * L}, "
             f"{rank * L + want})")
     Ap, bp = _pad_rows_to(A_local, b_local, L)
-    # 1-2. sketch (all-reduced partials, replicated SA), factor
-    SA = sketch_apply_sharded(plan, Ap.to(torch.float32), group, impl=impl)
-    R = ops.triangular_factor(SA, factorization).to(b_local.dtype)
+
+    def sketch_and_factor(p):
+        # 1-2. sketch (all-reduced partials, replicated SA), factor
+        SA = sketch_apply_sharded(p, Ap.to(torch.float32), group, impl=impl)
+        return SA, ops.triangular_factor(SA, factorization)
+
+    rpt = None
+    if not guard:
+        _, R = sketch_and_factor(plan)
+    else:
+        from repro_torch.health import guards
+        from repro_torch.health import report as health_report
+        from repro_torch.health.policy import RedrawPolicy
+
+        pol = policy if policy is not None else RedrawPolicy()
+        rpt = health_report.HealthReport(op="dist_sketch_precondition_lstsq")
+
+        def check(SA, R):
+            findings = [
+                guards.replica_consistency_guard(
+                    guards.replica_arrays(SA, group), "SA"),
+                guards.finite_guard(SA, "SA"),
+                guards.finite_guard(R, "R"),
+                guards.r_condition_guard(R, "R"),
+            ]
+            for f in findings:
+                rpt.add(f)
+            return health_report.worst_status(*[f.status for f in findings])
+
+        for attempt in pol.attempts(seed=plan.seed, kappa=plan.kappa,
+                                    sampling_factor=sampling_factor):
+            p = plan if attempt.index == 0 else plan_for_mesh(
+                d, plan.k_req, world, kappa=plan.kappa, s=plan.s,
+                seed=attempt.seed, dtype=dtype)
+            pol.record(attempt)
+            if attempt.index > 0:
+                rpt.act(attempt.describe())
+            rpt.attempts += 1
+            SA, R = sketch_and_factor(p)
+            if pol.accepts(check(SA, R)):
+                break
+            # the ladder here is redraws only: stop once they are spent
+            if attempt.index >= pol.max_redraws:
+                rpt.act("escalation_budget_exhausted")
+                health_report.record("policy.budget_exhausted")
+                break
+        plan = p
+    R = R.to(b_local.dtype)
     # 3. iterate with sharded products and norms
     matvec, rmatvec, row_norm = sharded_matvec_ops(Ap, group)
     res = lsqr_operator(matvec, rmatvec, bp, nvars=n, R=R, tol=tol,
@@ -142,4 +191,5 @@ def dist_sketch_precondition_lstsq(
     res.lowering = lowering.lower(plan, lowering.LaunchSpec(
         op="fwd", n=n, impl=impl, device=A_local.device.type, shard="row",
         devices=world))
+    res.health = rpt
     return res

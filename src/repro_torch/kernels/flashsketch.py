@@ -404,39 +404,43 @@ def staged_launch(plan: BlockPermPlan,
 
 def is_row_split(plan: BlockPermPlan, op: str, gather: bool,
                  v1: bool = False, partial: bool = False,
-                 tn: Optional[int] = None) -> bool:
+                 tn: Optional[int] = None, R: Optional[int] = None) -> bool:
     """Whether the kernel of ``op`` is a row-split one: every forward
     (fused, gather-fused, global and its gather, both partials, v1 with
     global plans included), FLASHBLOCKROW with its gather and its v1, the
     v1 transpose of a blockperm plan and the fused transpose's L2 route at
-    tile ``tn``; not the staged and global transposes."""
+    tile ``tn`` (or wherever a split ``R`` is forced on it); not the
+    staged and global transposes."""
     if op == "transpose":
         return not plan.is_global and (
-            v1 or transpose_route(plan, tn) == "l2")
+            v1 or R is not None or transpose_route(plan, tn) == "l2")
     return True
 
 
 def launch_geometry(plan: BlockPermPlan, op: str, gather: bool, tn: int,
-                    v1: bool = False,
-                    partial: bool = False) -> Tuple[int, int, int]:
+                    v1: bool = False, partial: bool = False,
+                    R: Optional[int] = None) -> Tuple[int, int, int]:
     """(thread groups, shared bytes, row split R) of the kernel of ``op``
     at tile width ``tn``: the fused one (with its gather), the v1 one, or
     the row-sharded partial one (``partial``); R = 1 but for the row-split
-    kernels, whose only shared memory is a gather's staged CSR words.  The
-    staged transpose's groups are its threads' rows (threads / 8)."""
-    if not is_row_split(plan, op, gather, v1, partial, tn):
+    kernels, whose only shared memory is a gather's staged CSR words, and
+    whose split is the rule's unless ``R`` forces one (a tuned launch; on
+    the fused transpose it forces the L2 route).  The staged transpose's
+    groups are its threads' rows (threads / 8)."""
+    if not is_row_split(plan, op, gather, v1, partial, tn, R):
         if plan.is_global:                          # the global transpose
             groups, _, smem = transpose_launch(plan, tn)
             return groups, smem, 1
         threads, _, smem = staged_launch(plan)      # the staged transpose
         return threads * 16 // TRANSPOSE_STAGE_ROW, smem, 1
     if gather or (v1 and op == "fwd"):              # split_fwd_kernel
-        R = row_splits(plan, tn)
+        R = R or row_splits(plan, tn)
         smem = 4 * _csr_block_cap(plan, torch.device("cpu"), R,
                                   op == "blockrow") if gather else 0
         return split_launch(plan, tn, R), smem, R
     # split_vec_kernel; the masked partial at its own split
-    R = masked_splits(plan, tn) if partial and op == "blockrow" else None
+    if R is None and partial and op == "blockrow":
+        R = masked_splits(plan, tn)
     groups, R = vec_launch(plan, tn, R, op, v1)
     return groups, 0, R
 

@@ -4,8 +4,10 @@ Every launch decision of one sketch apply lives in one frozen record:
 
   * ``lower(plan, spec) -> Lowering`` resolves a ``LaunchSpec`` (op, n,
     impl, tile, dtype override, operand device) into the record: which
-    implementation runs, the column tile and where it came from, the
-    kernel's thread groups and shared memory, and the padding;
+    implementation runs, the column tile and where it came from (the
+    explicit one, a tuned or loaded winner of ``kernels.tune`` with its
+    row split, or the kernel's rule), the kernel's thread groups and
+    shared memory, and the padding; memoized per tuner generation;
   * ``execute(lowering, operand)`` runs it;
   * ``explain(plan, ...)`` prints the decision trace and the process-wide
     health counters.
@@ -60,8 +62,8 @@ run the single-device kernels on each rank's slab.
 from __future__ import annotations
 
 import dataclasses
-import functools
-from typing import List, Optional, Tuple
+import threading
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -70,6 +72,7 @@ from repro_torch.core.blockperm import BlockPermPlan
 from repro_torch.health import report as health_report
 from repro_torch.kernels import flashsketch as fsk
 from repro_torch.kernels import ref as kref
+from repro_torch.kernels import tune
 
 OPS = ("fwd", "transpose", "blockrow")
 GATHER_OPS = ("fwd", "blockrow")
@@ -160,6 +163,33 @@ class Lowering:
     row_splits: Optional[int] = None
     route: Optional[str] = None
 
+    @property
+    def n_loc(self) -> int:
+        """One rank's columns (``n/P`` column-sharded, else ``n``)."""
+        return self.n // self.devices if self.shard == "col" else self.n
+
+    @property
+    def batch_loc(self) -> int:
+        """One rank's folded matrices (``batch/P`` batch-sharded)."""
+        return (self.batch // self.devices if self.shard == "batch"
+                else self.batch)
+
+    @property
+    def n_eff(self) -> int:
+        """The columns one rank's launch runs: ``n_loc·batch_loc``."""
+        return self.n_loc * self.batch_loc
+
+    @property
+    def version(self) -> str:
+        """The kernel generation of the launch, for the cost model
+        (``cuda_v1`` is v1; the plain version models the fused kernel)."""
+        return "v1" if self.impl == "cuda_v1" else "v2"
+
+    @property
+    def variant(self) -> str:
+        """The tuner's shape-class name of the kernel that runs."""
+        return self.op + ("_gather" if self.gather_fused else "")
+
     def describe(self) -> str:
         bits = [self.op, f"impl={self.impl}"]
         if self.impl != self.impl_requested:
@@ -247,11 +277,34 @@ def _validate(plan: BlockPermPlan, spec: LaunchSpec) -> None:
                          f"B={spec.batch}")
 
 
-def _gather_smem(eff: BlockPermPlan, spec: LaunchSpec, n: int) -> int:
-    """Shared bytes of the gather kernel of ``spec.op`` at the tile it
-    would run (the explicit one or its default): its block's CSR words."""
-    tn = spec.tn or fsk.default_tn(eff, spec.op, n, gather=True)
-    return fsk.launch_geometry(eff, spec.op, True, tn)[1]
+def _resolve_tile(eff: BlockPermPlan, spec: LaunchSpec, n_loc: int,
+                  batch_loc: int, gather: bool, v1: bool, partial: bool
+                  ) -> Tuple[int, str, Optional[int]]:
+    """(tn, its source, forced R or ``None``): the explicit tile, the v1
+    rule, a tuned or loaded winner of the shape class (``tune.lookup``:
+    the fused kernels but the global transpose; the partials and v1 keep
+    their rules, as the reference tunes its v2 kernels only), or the
+    kernel's rule."""
+    if spec.tn is not None:
+        return spec.tn, "explicit", None
+    if v1:
+        return (fsk.default_tn(eff, spec.op, n_loc * batch_loc, v1=True),
+                "v1_default", None)
+    if not partial and not (spec.op == "transpose" and eff.is_global):
+        variant = spec.op + ("_gather" if gather else "")
+        hit = tune.lookup(eff, n_loc, variant, batch_loc, spec.device)
+        if hit is not None and hit.source in ("tuned", "loaded"):
+            return hit.tn, hit.source, hit.row_splits
+    return (fsk.default_tn(eff, spec.op, n_loc * batch_loc, gather=gather),
+            "default", None)
+
+
+def _gather_smem(eff: BlockPermPlan, spec: LaunchSpec, n_loc: int,
+                 batch_loc: int) -> int:
+    """Shared bytes of the gather kernel of ``spec.op`` at the tile and
+    split it would run: its block's CSR words."""
+    tn, _, R = _resolve_tile(eff, spec, n_loc, batch_loc, True, False, False)
+    return fsk.launch_geometry(eff, spec.op, True, tn, R=R)[1]
 
 
 def _lower(plan: BlockPermPlan, spec: LaunchSpec,
@@ -295,7 +348,7 @@ def _lower(plan: BlockPermPlan, spec: LaunchSpec,
                 "A[row_index]")
             t(f"gather: materialized ({downgrades[-1]})")
         elif impl == "cuda" and (smem := _gather_smem(
-                eff, spec, n_loc * batch_loc)) > fsk.MAX_SMEM_BYTES:
+                eff, spec, n_loc, batch_loc)) > fsk.MAX_SMEM_BYTES:
             downgrades.append(
                 f"shared memory: the {spec.op!r} gather kernel stages {smem} "
                 f"B of CSR words > {fsk.MAX_SMEM_BYTES} B — "
@@ -316,12 +369,13 @@ def _lower(plan: BlockPermPlan, spec: LaunchSpec,
         tn = groups = smem = grid_cols = None
         tn_source = "n/a"
     else:
-        tn, tn_source, groups, smem, grid_cols, splits = _fit_tile(
+        tn, tn_source, groups, smem, grid_cols, splits, forced = _fit_tile(
             eff, spec, n_loc, batch_loc, gather_fused, impl == "cuda_v1",
             False, t)
         if impl == "cuda" and spec.op == "transpose" and not eff.is_global:
-            route = fsk.transpose_route(eff, tn)
-            t(_route_line(eff, route, tn))
+            route = ("l2" if forced is not None
+                     else fsk.transpose_route(eff, tn))
+            t(_route_line(eff, route, tn, forced is not None))
     if spec.batch > 1:
         t(f"batch: {spec.batch} matrices folded into the column axis")
     t(f"pad: rows +{pad_rows}, cols +0 (the ragged column edge is masked "
@@ -339,7 +393,8 @@ def _lower(plan: BlockPermPlan, spec: LaunchSpec,
         row_splits=splits, route=route)
 
 
-def _route_line(eff: BlockPermPlan, route: str, tn: int) -> str:
+def _route_line(eff: BlockPermPlan, route: str, tn: int,
+                forced: bool = False) -> str:
     stage = fsk.transpose_stage_bytes(eff)
     if route == "staged":
         threads, stages, _ = fsk.staged_launch(eff)
@@ -348,34 +403,32 @@ def _route_line(eff: BlockPermPlan, route: str, tn: int) -> str:
                 f"threads a block, the grid sized to the SMs)")
     why = (f"one stage needs {stage} B > {fsk.MAX_SMEM_BYTES} B"
            if fsk.transpose_route(eff) == "l2" else
+           "a tuned row split" if forced else
            f"tn={tn} is not the staged tile {fsk.staged_tn(eff)}")
     return f"transpose route: l2 ({why}; the row-split kernel on Sᵀ's CSR)"
 
 
 def _fit_tile(eff: BlockPermPlan, spec: LaunchSpec, n_loc: int,
               batch_loc: int, gather_fused: bool, v1: bool, partial: bool,
-              t) -> Tuple[int, str, int, int, int, Optional[int]]:
+              t) -> Tuple[int, str, int, int, int, Optional[int],
+                          Optional[int]]:
     """(tn, its source, thread groups, shared bytes, column tiles, row
     split R or ``None``) of the kernel the lowering chose: the explicit
-    tile, the v1 default, or the kernel's default (every kernel fits shared
-    memory there); R for a row-split kernel."""
-    if spec.tn is not None:
-        tn, tn_source = spec.tn, "explicit"
-    elif v1:
-        tn = fsk.default_tn(eff, spec.op, n_loc * batch_loc, v1=True)
-        tn_source = "v1_default"
-    else:
-        tn = fsk.default_tn(eff, spec.op, n_loc * batch_loc,
-                            gather=gather_fused)
-        tn_source = "default"
+    tile, the v1 default, a tuned or loaded winner (tile and split), or
+    the kernel's default (every kernel fits shared memory there); R for a
+    row-split kernel; and the split a winner forces, or ``None``."""
+    tn, tn_source, forced = _resolve_tile(eff, spec, n_loc, batch_loc,
+                                          gather_fused, v1, partial)
     groups, smem, R = fsk.launch_geometry(eff, spec.op, gather_fused, tn, v1,
-                                          partial)
+                                          partial, R=forced)
     grid_cols = -(-n_loc // tn)
-    t(f"tn: {tn} ({tn_source}); {'partial kernel, ' if partial else ''}"
+    t(f"tn: {tn} ({tn_source}"
+      f"{', R=' + str(forced) if forced else ''}); "
+      f"{'partial kernel, ' if partial else ''}"
       f"{groups} thread groups, {smem} B shared memory, {grid_cols} column "
       f"tiles")
     splits = None
-    if fsk.is_row_split(eff, spec.op, gather_fused, v1, partial, tn):
+    if fsk.is_row_split(eff, spec.op, gather_fused, v1, partial, tn, forced):
         splits = R
         tiles = -(-n_loc * batch_loc // tn)
         if not partial:
@@ -392,7 +445,7 @@ def _fit_tile(eff: BlockPermPlan, spec: LaunchSpec, n_loc: int,
           f"sub-ranges of {rows // R}, {per_row}; grid {blocks}x{R} x "
           f"{tiles} = {blocks * R * tiles} blocks; "
           f"{'CSR words staged' if smem else 'CSR words read in place'})")
-    return tn, tn_source, groups, smem, grid_cols, splits
+    return tn, tn_source, groups, smem, grid_cols, splits, forced
 
 
 def _lower_row(eff: BlockPermPlan, spec: LaunchSpec, impl: str,
@@ -407,7 +460,7 @@ def _lower_row(eff: BlockPermPlan, spec: LaunchSpec, impl: str,
     if impl == "torch":
         t("torch: plain partial (no tiling, no shared memory)")
     else:
-        tn, tn_source, groups, smem, grid_cols, splits = _fit_tile(
+        tn, tn_source, groups, smem, grid_cols, splits, _ = _fit_tile(
             eff, spec, spec.n, 1, False, False, True, t)
     t("pad: rows +0 (the slab is cut from the padded input), cols +0")
     return Lowering(
@@ -418,12 +471,55 @@ def _lower_row(eff: BlockPermPlan, spec: LaunchSpec, impl: str,
         row_splits=splits)
 
 
+_LOWERING_CACHE: Dict[Tuple, Lowering] = {}
+# the tuner-cache generation the memoized records were resolved against; a
+# mismatch flushes the memo wholesale (the counter is monotone, so an older
+# generation's records can never be valid again)
+_CACHE_GEN: int = -1
+# serializes the generation check, flush and get/insert: threads that
+# lower at once must not resurrect a stale tile across a flush
+_MEMO_LOCK = threading.RLock()
+# records kept at most; a full memo is flushed (a job that lowers more
+# shapes re-resolves them)
+_MEMO_MAX = 1024
 
-@functools.lru_cache(maxsize=1024)
+
 def lower(plan: BlockPermPlan, spec: LaunchSpec) -> Lowering:
-    """Resolve a launch request into a frozen ``Lowering`` record
-    (memoized: plan and spec are frozen and hashable)."""
-    return _lower(plan, spec, None)
+    """Resolve a launch request into a frozen ``Lowering`` record.
+
+    Memoized process-wide on (plan, spec, the tuner's backend tag); a
+    tuned or loaded winner bumps ``tune.cache_generation()``, which
+    flushes the memo, so a stale tile is never served.
+    """
+    global _CACHE_GEN
+    key = (plan, spec, tune.backend_tag(spec.device))
+    with _MEMO_LOCK:
+        gen = tune.cache_generation()
+        if gen != _CACHE_GEN:
+            _LOWERING_CACHE.clear()
+            _CACHE_GEN = gen
+        hit = _LOWERING_CACHE.get(key)
+    if hit is not None:
+        return hit
+    hit = _lower(plan, spec, None)      # pure; safe outside the lock
+    with _MEMO_LOCK:
+        # memoize only against the generation it was resolved under: a
+        # tuner mutation mid-resolve serves the result but does not cache it
+        if tune.cache_generation() == gen and _CACHE_GEN == gen:
+            if len(_LOWERING_CACHE) >= _MEMO_MAX:
+                _LOWERING_CACHE.clear()
+            _LOWERING_CACHE[key] = hit
+    return hit
+
+
+def clear_lowering_cache() -> None:
+    with _MEMO_LOCK:
+        _LOWERING_CACHE.clear()
+
+
+def lowering_cache_size() -> int:
+    with _MEMO_LOCK:
+        return len(_LOWERING_CACHE)
 
 
 def explain(plan: BlockPermPlan, spec: Optional[LaunchSpec] = None,
@@ -493,8 +589,9 @@ def execute(lw: Lowering, operand: torch.Tensor,
                 f"...))")
         if lw.gather_fused:
             rmap = row_map_for(plan, row_index, operand.device)
-            return _GATHER_KERNELS[lw.op](plan, operand, rmap,
-                                          tn=lw.tn)[: plan.k, :n]
+            return _GATHER_KERNELS[lw.op](
+                plan, operand, rmap, tn=lw.tn,
+                row_splits=lw.row_splits)[: plan.k, :n]
         # the explicit materialize-then-plain path
         operand = operand[torch.as_tensor(row_index, device=operand.device,
                                           dtype=torch.int64)]
@@ -508,11 +605,14 @@ def execute(lw: Lowering, operand: torch.Tensor,
     if lw.op == "transpose":
         Y = kref.pad_rows(operand, plan.k_pad)
         if v1:
-            return fsk.flashsketch_transpose_v1(plan, Y, tn=lw.tn)[:plan.d, :n]
-        return fsk.flashsketch_transpose(plan, Y, tn=lw.tn,
-                                         route=lw.route)[: plan.d, :n]
+            return fsk.flashsketch_transpose_v1(
+                plan, Y, tn=lw.tn, row_splits=lw.row_splits)[:plan.d, :n]
+        return fsk.flashsketch_transpose(
+            plan, Y, tn=lw.tn, route=lw.route,
+            row_splits=lw.row_splits)[: plan.d, :n]
     kernel = {("fwd", False): fsk.flashsketch_fwd,
               ("fwd", True): fsk.flashsketch_fwd_v1,
               ("blockrow", False): fsk.blockrow_fwd,
               ("blockrow", True): fsk.blockrow_fwd_v1}[lw.op, v1]
-    return kernel(plan, kref.pad_input(plan, operand), tn=lw.tn)[: plan.k, :n]
+    return kernel(plan, kref.pad_input(plan, operand), tn=lw.tn,
+                  row_splits=lw.row_splits)[: plan.k, :n]

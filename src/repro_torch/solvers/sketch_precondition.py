@@ -41,6 +41,8 @@ class SolveResult:
       lowering:   the ``kernels.lowering.Lowering`` record of the sketch
                   launch that built the preconditioner (``None`` when the
                   solve never sketched).
+      health:     the ``health.report.HealthReport`` of a guarded solve
+                  (``None`` unguarded).
     """
 
     x: torch.Tensor
@@ -48,6 +50,7 @@ class SolveResult:
     relres: float
     converged: bool
     lowering: Optional[object] = None
+    health: Optional[object] = None
 
 
 def resolve_device(device) -> torch.device:
@@ -275,6 +278,15 @@ def _run_iteration(A, b, R, method, tol, max_iters) -> SolveResult:
     raise ValueError(f"method must be 'lsqr' or 'cg', got {method!r}")
 
 
+def _diverged(res: SolveResult) -> bool:
+    """Mid-solve divergence: the restarted chunks stopped without converging
+    at a residual no better than x = 0 (or NaN): the preconditioner hurt,
+    not merely underperformed."""
+    import math
+    return (not res.converged
+            and (not math.isfinite(res.relres) or res.relres >= 1.0))
+
+
 def sketch_precondition_lstsq(
     A,
     b,
@@ -294,6 +306,8 @@ def sketch_precondition_lstsq(
     max_iters: int = 100,
     impl: str = "auto",
     guard: bool = False,
+    policy: Optional[object] = None,
+    probe: bool = False,
     device="cuda",
 ) -> SolveResult:
     """Solve ``min_x ||A x - b||`` by sketch-and-precondition.
@@ -310,17 +324,22 @@ def sketch_precondition_lstsq(
       factorization: "qr" | "chol"; method: "lsqr" | "cg".
       tol / max_iters: iteration stopping rule.
       impl: kernel dispatch for the sketch ("auto" | "cuda" | "torch").
-      guard: the health guards; not ported yet (raises).
+      guard: judge every draw with the guards (``health.guards``: finite
+        and isometry on SA, finite and condition on R, the plan's own
+        precision bands) and climb the ``RedrawPolicy`` ladder on a
+        ``failed`` verdict (redraw the seed, bump κ, bump the sampling
+        factor); a diverging iteration re-sketches once more.  Each guard
+        reads values (a host synchronisation); the report lands on
+        ``.health``.  A healthy first draw gives the unguarded result bit
+        for bit.
+      policy: a ``health.policy.RedrawPolicy`` (guarded path only).
+      probe: with ``guard``, also run the O(d·n²) OSE probe per attempt.
       device: where to run, ``"cuda"`` by default; without a card it
         raises.  ``"cpu"`` runs the plain PyTorch path.
 
     Returns:
       ``SolveResult``.
     """
-    if guard:
-        raise NotImplementedError(
-            "guard=True needs the health guards and redraw policy, which "
-            "wait for the health slice (ROADMAP queue 1, item 9)")
     A = as_device_tensor(A, device)
     b = as_device_tensor(b, device)
     d, n = A.shape
@@ -328,18 +347,99 @@ def sketch_precondition_lstsq(
         dtype = precision_mod.canonical(precision)
     if s is None:
         s = FAMILY_DEFAULT_S.get(family, 2)
-    if plan is None:
-        if family != "blockperm":
-            from repro_torch.solvers.multisketch import (derive_seed,
-                                                         family_stream)
-            seed = derive_seed(seed, 0, 0, stream=family_stream(family))
-        plan = make_plan(d, k or default_sketch_rows(n, sampling_factor),
-                         kappa=kappa, s=s, seed=seed, dtype=dtype,
-                         family=family)
-    _, R = ops.sketch_qr(plan, A.to(torch.float32), impl,
-                         factorization=factorization)
+    if plan is None and family != "blockperm":
+        from repro_torch.solvers.multisketch import (derive_seed,
+                                                     family_stream)
+        seed = derive_seed(seed, 0, 0, stream=family_stream(family))
+    if not guard:
+        if plan is None:
+            plan = make_plan(d, k or default_sketch_rows(n, sampling_factor),
+                             kappa=kappa, s=s, seed=seed, dtype=dtype,
+                             family=family)
+        _, R = ops.sketch_qr(plan, A.to(torch.float32), impl,
+                             factorization=factorization)
+        res = _run_iteration(A, b, R.to(b.dtype), method, tol, max_iters)
+        res.lowering = lowering.lower(plan, lowering.LaunchSpec(
+            op="fwd", n=n, impl=impl, device=A.device.type))
+        return res
+
+    # ---- guarded path: every guard reads values ---------------------------
+    from repro_torch.health import guards
+    from repro_torch.health import report as health_report
+    from repro_torch.health.policy import RedrawPolicy
+    from repro_torch.solvers.multisketch import derive_seed, family_stream
+
+    pol = policy if policy is not None else RedrawPolicy()
+    rpt = health_report.HealthReport(op="sketch_precondition_lstsq")
+    A32 = A.to(torch.float32)
+    base_seed = plan.seed if plan is not None else seed
+    base_kappa = plan.kappa if plan is not None else kappa
+    base_s = plan.s if plan is not None else s
+    base_k = plan.k_req if plan is not None else k
+    base_family = plan.family if plan is not None else family
+
+    def draw_and_check(p):
+        """Sketch, factor and the guards' verdict for one attempt's plan,
+        judged against the plan's own precision bands."""
+        SA, R = ops.sketch_qr(p, A32, impl, factorization=factorization)
+        findings = [guards.finite_guard(SA, "SA"),
+                    guards.isometry_guard(A32, SA, "SA",
+                                          **p.precision.isometry_band()),
+                    guards.finite_guard(R, "R"),
+                    guards.r_condition_guard(R, "R")]
+        if probe:
+            findings.append(guards.ose_probe(p, A32, impl=impl,
+                                             **p.precision.ose_band()))
+        for f in findings:
+            rpt.add(f)
+        return R, health_report.worst_status(*[f.status for f in findings])
+
+    accepted = None          # (plan, R)
+    best = None              # the least-bad draw, if the budget runs out
+    best_rank = len(health_report.STATUS_ORDER)
+    for attempt in pol.attempts(seed=base_seed, kappa=base_kappa,
+                                sampling_factor=sampling_factor):
+        if attempt.index == 0 and plan is not None:
+            p = plan
+        else:
+            p = pol.plan_for(attempt, d, n, s=base_s, dtype=dtype, k=base_k,
+                             family=base_family)
+        pol.record(attempt)
+        if attempt.index > 0:
+            rpt.act(attempt.describe())
+        rpt.attempts += 1
+        R, verdict = draw_and_check(p)
+        rank = health_report.STATUS_ORDER.index(verdict)
+        if rank < best_rank:
+            best, best_rank = (p, R), rank
+        if pol.accepts(verdict):
+            accepted = (p, R)
+            break
+    if accepted is None:
+        # every rung failed: go on with the least-bad draw, and say so
+        accepted = best
+        rpt.act("escalation_budget_exhausted")
+        health_report.record("policy.budget_exhausted")
+    p, R = accepted
     res = _run_iteration(A, b, R.to(b.dtype), method, tol, max_iters)
-    res.lowering = lowering.lower(plan, lowering.LaunchSpec(
+
+    # a diverging iteration on an accepted factor: the draw was bad in a way
+    # the cheap guards missed; re-draw from a disjoint seed stream
+    restarts = 0
+    while _diverged(res) and restarts < pol.max_resketch_restarts:
+        restarts += 1
+        new_seed = derive_seed(p.seed, pol.budget + restarts, 3,
+                               stream=family_stream(p.family))
+        p = make_plan(d, p.k_req, kappa=p.kappa, s=p.s, seed=new_seed,
+                      dtype=dtype, family=p.family)
+        rpt.act(f"resketch_restart(seed={new_seed})")
+        health_report.record("policy.resketch_restart")
+        R, _ = draw_and_check(p)
+        rpt.attempts += 1
+        res = _run_iteration(A, b, R.to(b.dtype), method, tol, max_iters)
+
+    res.health = rpt
+    res.lowering = lowering.lower(p, lowering.LaunchSpec(
         op="fwd", n=n, impl=impl, device=A.device.type))
     return res
 

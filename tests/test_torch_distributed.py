@@ -505,9 +505,11 @@ def test_dist_solver_single_rank_and_guard(rng):
     assert full.iterations == want.iterations
     np.testing.assert_allclose(full.x.numpy(), np.asarray(want.x),
                                atol=1e-4, rtol=1e-4)
-    with pytest.raises(NotImplementedError, match="health slice"):
-        tdist.dist_sketch_precondition_lstsq(torch.from_numpy(A),
-                                             torch.from_numpy(b), guard=True)
+    guarded = tdist.dist_sketch_precondition_lstsq(
+        torch.from_numpy(A), torch.from_numpy(b), tol=1e-5, guard=True)
+    assert guarded.health.status == "healthy" and torch.equal(
+        guarded.x, tdist.dist_sketch_precondition_lstsq(
+            torch.from_numpy(A), torch.from_numpy(b), tol=1e-5).x)
     with pytest.raises(ValueError, match="must hold rows"):
         tdist.dist_sketch_precondition_lstsq(
             torch.from_numpy(A), torch.from_numpy(b[:-1]))

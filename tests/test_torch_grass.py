@@ -283,8 +283,8 @@ def test_ported_families(rng):
         assert out.shape == (3, sk.k, 4)
         np.testing.assert_allclose(out[1].numpy(), sk.apply(A[1]).numpy(),
                                    atol=1e-5, rtol=1e-5)
-        with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-            sk.cost_model(4)
+        cm = sk.cost_model(4)          # every family has a cost model now
+        assert cm.flops > 0 and cm.hbm_bytes > 0
     assert tvariants.BlockRowSketch.unbiased is False
     assert tvariants.make_sketch("blockperm_fp8", 300, 64).plan.dtype == \
         "fp8_e4m3_sr"

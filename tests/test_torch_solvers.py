@@ -149,8 +149,8 @@ def test_family_and_precision_knobs_match_reference(problem):
 # ---------------------------------------------------------------------------
 
 def test_port_imports_neither_jax_nor_reference():
-    """Every module of repro_torch, chip_smoke.py and the port's benches
-    import with the top-level names ``jax`` and ``repro`` blocked."""
+    """Every module of repro_torch, chip_smoke.py, the port's benches and
+    tools import with the top-level names ``jax`` and ``repro`` blocked."""
     script = textwrap.dedent(f"""
         import importlib, importlib.util, pkgutil, sys
         BLOCKED = ("jax", "jaxlib", "repro")
@@ -172,7 +172,9 @@ def test_port_imports_neither_jax_nor_reference():
         for script in ("chip_smoke.py", "benchmarks/torch_grass_bench.py",
                        "benchmarks/torch_kernel_bench.py",
                        "benchmarks/torch_pareto_bench.py",
-                       "benchmarks/torch_dist_bench.py"):
+                       "benchmarks/torch_dist_bench.py",
+                       "tools/torch_explain_lowering.py",
+                       "tools/torch_hw_probe.py"):
             spec = importlib.util.spec_from_file_location(
                 "script", {ROOT!r} + "/" + script)
             spec.loader.exec_module(importlib.util.module_from_spec(spec))
@@ -184,7 +186,7 @@ def test_port_imports_neither_jax_nor_reference():
                          text=True, timeout=120, cwd=ROOT,
                          env={**os.environ, "PYTHONPATH": ""})
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 28
+    assert int(out.stdout.split()[-1]) >= 37
 
 
 @pytest.mark.parametrize("entry", ["sketch_precondition_lstsq",
@@ -206,6 +208,11 @@ def test_entry_points_default_to_cuda(entry, problem, monkeypatch):
 
 
 def test_guard_waits_for_health_slice(problem):
-    with pytest.raises(NotImplementedError):
-        tsolvers.sketch_precondition_lstsq(*problem, guard=True,
-                                           device="cpu")
+    """The health slice is ported: the guarded solve runs, judges its first
+    draw healthy and returns the unguarded solve's x bit for bit."""
+    guarded = tsolvers.sketch_precondition_lstsq(*problem, guard=True,
+                                                 device="cpu")
+    plain = tsolvers.sketch_precondition_lstsq(*problem, device="cpu")
+    assert guarded.health.attempts == 1
+    assert guarded.health.status == "healthy"
+    assert torch.equal(guarded.x, plain.x) and plain.health is None

@@ -114,3 +114,33 @@ def dist_checks(rank, world, state):
     out["replicated"]["grass"] = _replicated(feats)
     out["grass"] = dict(feats=feats.numpy(), quarantined=pipe.quarantined)
     return out
+
+
+def guard_checks(rank, world):
+    """The distributed guards on this rank: the replica guard over an
+    ``all_gather`` of a replicated tensor, clean and with rank 1's copy
+    corrupted in each ``corrupt_replica`` mode; and the guarded solve
+    against the unguarded one.  One CPU thread, as ``dist_checks``."""
+    from repro_torch.health import guards, inject
+    torch.set_num_threads(1)
+    base = torch.from_numpy(
+        np.random.default_rng(1).normal(size=(6, 4)).astype(np.float32))
+    status = {"clean": guards.replica_consistency_guard(
+        guards.replica_arrays(base), "SA").status}
+    for mode in ("zero", "permute", "scale"):
+        mine = inject.corrupt_replica([base] * world, slot=1, mode=mode,
+                                      seed=3)[rank]
+        status[mode] = guards.replica_consistency_guard(
+            guards.replica_arrays(mine), "SA").status
+    data = inputs()
+    A = shard_rows(solve_plan(world), torch.from_numpy(data["As"]), rank,
+                   world)
+    b = shard_rows(solve_plan(world), torch.from_numpy(data["bs"])[:, None],
+                   rank, world)[:, 0]
+    plain = dist_sketch_precondition_lstsq(A, b, tol=1e-5)
+    res = dist_sketch_precondition_lstsq(A, b, tol=1e-5, guard=True)
+    return dict(status=status, health=res.health.status,
+                attempts=res.health.attempts,
+                guards=[f.guard for f in res.health.findings],
+                x_equal=bool(torch.equal(res.x, plain.x)),
+                x_replicated=_replicated(res.x), x=res.x.numpy())
