@@ -111,6 +111,28 @@ Phases, any failure exits non-zero and prints no result:
      (healthy in one attempt, x the unguarded solve's bits, its extra wall
      time), once with ``probe=True``, an adversarial input on the card
      recovered in ≥ 2 attempts, and the injector suite on the card.
+  9. the sketch server (``repro_torch.serving``) at the main plan, requests
+     of n = 128 fp32 columns (32 MiB), groups of at most 8 (a full group
+     folds to n = 1 024), queue bound 32: a group of 8 is one launch of
+     the row-split forward (a loaded winner of the batched shape class,
+     its R not the rule's, reaching the launch: a spy on the wrapper) and
+     another seed one of its own, each coalesced result ``torch.equal`` to
+     its own launch; one warm guarded group's wall time split (launch,
+     guards, the rest; the launch's device time by part under
+     ``torch.profiler``; the stack, fold, kernel and the guards' own
+     kernels by CUDA events); backpressure driving the
+     degrade ladder to each level 1–4 (fp32, bf16, fp8 with stochastic
+     rounding, fp8 on the κ = 2 plan), each level's group through the CUDA
+     kernel within its policy's tolerance of the plain version, timed
+     beside level 1; a NaN operand failed in one attempt, the annihilated
+     direction of the κ = 1, s = 1 plan recovered by redraw, the breaker
+     tripped and recovered in virtual time; phase 3's problem as a guarded
+     solve request, x ``torch.equal`` to the direct call's and within
+     ``10·cond·tol`` of ``torch.linalg.lstsq``; the threaded server under
+     2 s of Poisson arrivals with faults (no lost response, no silent
+     failure, p50 and p99); ``benchmarks/torch_serve_bench.py``'s
+     guarded and unguarded runs of one schedule (p50, p99, throughput,
+     the guarded overhead).  Its launches are added to row 1's count.
 
 Phase 2 also holds the three v1 kernels (ragged n with d < d_pad, κ × s ∈
 {1,2,4}², a Br = 2 048 plan, the main plan; each also under every row
@@ -2367,6 +2389,509 @@ def phase_health(rt, main_plan, d, n, cond):
     check(rc == 0, "the injector suite failed on the card")
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the sketch server at the main plan.
+# ---------------------------------------------------------------------------
+
+# requests of n = 128 fp32 columns (32 MiB at d = 65 536), groups of 8: a
+# full group folds to n = 1 024, the shape phase 4 times row 1 at
+SERVE_N, SERVE_BATCH = 128, 8
+# the solve request: phase 3's problem (n = 1 024)
+SERVE_SOLVE_N = 1024
+
+
+class LaunchTally:
+    """The serving path's launches: ``run(fn)`` adds what ``fn`` launched;
+    the launches that compare or time a kernel run outside it."""
+
+    def __init__(self, fsk):
+        self.fsk = fsk
+        self.counts = {k: 0 for k in fsk.LAUNCHES}
+
+    def run(self, fn, *args, **kwargs):
+        before = dict(self.fsk.LAUNCHES)
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            for k in before:
+                self.counts[k] += self.fsk.LAUNCHES[k] - before[k]
+
+
+def serve_group(sv, srv, tally, operands, params, tenant="t", **req_kw):
+    """Submit one request per operand, run one step past the window, and
+    return the responses (submission order)."""
+    tickets = [srv.submit(sv.SketchRequest(tenant, "sketch", A,
+                                           dict(params), **req_kw))
+               for A in operands]
+    srv.clock.advance(2 * srv.batcher.batch_wait_s)
+    tally.run(srv.run_pending)
+    return [t if not isinstance(t, int) else srv.poll(t) for t in tickets]
+
+
+def _spy_fwd(fsk, seen):
+    """Replace ``flashsketch_fwd`` by a spy recording each call's (plan,
+    columns, kwargs); returns the original, to put back."""
+    orig = fsk.flashsketch_fwd
+
+    def spy(plan, A, **kw):
+        seen.append((plan, A.shape[1], kw))
+        return orig(plan, A, **kw)
+    fsk.flashsketch_fwd = spy
+    return orig
+
+
+def _max_rel_err(got, want):
+    return float((got - want).abs().max()) / max(
+        float(want.abs().max()), 1e-30)
+
+
+def serve_coalescing(rt, srv_kw, params, pool, tally):
+    """A group of 8 of one (tenant, plan) and one request of another seed:
+    two launches; a loaded winner of the batched class (an R not the
+    rule's) reaches the launch; each coalesced result ``torch.equal`` to
+    its own launch."""
+    sv, fsk, ops, tune, lowering = rt["serving"], rt["fsk"], rt["ops"], \
+        rt["tune"], rt["lowering"]
+    srv = sv.SketchServer(**srv_kw)
+    plan = srv.plans.resolve("t", params)
+    rule = lowering.lower(plan, lowering.LaunchSpec(
+        n=SERVE_N, device="cuda", batch=SERVE_BATCH))
+    R_win = next(R for R in (2 * rule.row_splits, rule.row_splits // 2)
+                 if R in fsk.split_allowed(plan))
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "winners.json")
+        key = tune.cache_key(plan, SERVE_N, "fwd", "cuda",
+                             batch=SERVE_BATCH)
+        with open(path, "w") as f:
+            json.dump({json.dumps(list(key)): dataclasses.asdict(
+                tune.TuneResult(tn=rule.tn, row_splits=R_win, time_us=1.0,
+                                source="tuned"))}, f)
+        check(tune.load_cache(path) == 1, "the batched winner did not load")
+    group_lw = lowering.lower(plan, lowering.LaunchSpec(
+        n=SERVE_N, device="cuda", batch=SERVE_BATCH))
+    seen = []
+    orig = _spy_fwd(fsk, seen)
+    before = dict(fsk.LAUNCHES)
+    try:
+        tickets = [srv.submit(sv.SketchRequest("t", "sketch", A,
+                                               dict(params)))
+                   for A in pool]
+        tickets.append(srv.submit(sv.SketchRequest(
+            "t", "sketch", pool[0], dict(params, seed=params["seed"] + 1))))
+        srv.clock.advance(2 * srv.batcher.batch_wait_s)
+        tally.run(srv.run_pending)
+    finally:
+        fsk.flashsketch_fwd = orig
+    launched = fsk.LAUNCHES["flashsketch_fwd"] - before["flashsketch_fwd"]
+    resps = [srv.poll(t) for t in tickets]
+    tune.clear_cache()
+    calls = [(p.seed, n_, kw) for p, n_, kw in seen]
+    print(f"phase 9 (serving): coalescing at {plan.describe()}, requests of "
+          f"n={SERVE_N} fp32 ({plan.d * SERVE_N * 4 >> 20} MiB), max_batch "
+          f"{SERVE_BATCH}: the group lowers to {group_lw.describe()} (the "
+          f"rule's: tn={rule.tn}, R={rule.row_splits}); flashsketch_fwd "
+          f"calls {calls}, {launched} launches")
+    check(launched == 2 and len(calls) == 2, f"{launched} launches, {calls}")
+    check(calls[0] == (params["seed"], SERVE_N * SERVE_BATCH,
+                       dict(tn=group_lw.tn, row_splits=R_win))
+          and group_lw.tn_source == "loaded",
+          f"the batched winner's (tn, R) did not reach the launch: {calls}")
+    check(calls[1][:2] == (params["seed"] + 1, SERVE_N),
+          f"the other seed's launch: {calls[1]}")
+    check([r.batch_size for r in resps] == [SERVE_BATCH] * SERVE_BATCH + [1]
+          and all(r.status == "ok" for r in resps),
+          f"{[(r.status, r.batch_size) for r in resps]}")
+    for r, A in zip(resps, pool):
+        check(r.result.is_cuda and torch.equal(r.result,
+                                               ops.sketch_apply(plan, A)),
+              "a coalesced result != its own launch")
+    print(f"  each of the 8 coalesced results torch.equal to "
+          f"ops.sketch_apply(plan, A_j) (rule tn={rule.tn}, R="
+          f"{rule.row_splits} at n={SERVE_N}) on the card; the other seed "
+          f"launched on its own")
+
+
+def serve_profile(rt, srv_kw, params, pool, tally):
+    """One warm guarded group of 8: host wall split into the launch (stack,
+    fold, kernel; synchronised), the guards and the rest; device time by
+    kernel under ``torch.profiler``; the stack, fold and kernel each timed
+    with CUDA events."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    sv, fsk, ops, lowering = rt["serving"], rt["fsk"], rt["ops"], \
+        rt["lowering"]
+    srv = sv.SketchServer(**srv_kw)
+    host = {"launch": 0.0, "guards": 0.0}
+    timed_, guard_ = srv._timed, srv._guard_slice
+
+    def timed_spy(*a, **kw):
+        t = time.perf_counter()
+        try:
+            return timed_(*a, **kw)
+        finally:
+            host["launch"] += time.perf_counter() - t
+
+    def guard_spy(*a, **kw):
+        t = time.perf_counter()
+        try:
+            return guard_(*a, **kw)
+        finally:
+            host["guards"] += time.perf_counter() - t
+    srv._timed, srv._guard_slice = timed_spy, guard_spy
+    walls = []
+    for _ in range(3):                     # the first is the warm-up
+        host.update(launch=0.0, guards=0.0)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        resps = serve_group(sv, srv, tally, pool, params)
+        walls.append(time.perf_counter() - t)
+        check(all(r.status == "ok" for r in resps), "profiled group")
+    split = dict(host)
+    # a session that follows earlier ones in the process missed its first
+    # kernels and received kernels of earlier sessions: a throwaway
+    # session goes first, then one traced but discarded step (the
+    # schedule's warm-up), and of the second group's step only the
+    # launch's three kernels are read, by name
+    with profile(activities=[ProfilerActivity.CUDA]):
+        torch.cuda.synchronize()
+    traced = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: traced.append(
+                     p.key_averages())) as prof:
+        for _ in range(2):
+            serve_group(sv, srv, tally, pool, params)
+            torch.cuda.synchronize()
+            prof.step()
+    parts = {"stack": "CatArrayBatchedCopy", "fold": "direct_copy",
+             "kernel": "split_vec_kernel"}
+    dev = dict.fromkeys(parts, 0.0)
+    for e in (traced[0] if traced else []):
+        for part, key in parts.items():
+            if (e.device_type == torch.autograd.DeviceType.CUDA
+                    and key in e.key):
+                dev[part] += e.self_device_time_total / 1e3
+    wall = walls[-1] * 1e3
+    print(f"  guarded group of {SERVE_BATCH} (warm, host clock): wall "
+          f"{wall:.3f} ms (runs {[round(w * 1e3, 3) for w in walls]}): "
+          f"launch {split['launch'] * 1e3:.3f} ms (stack + fold + kernel, "
+          f"synchronised), guards {split['guards'] * 1e3:.3f} ms "
+          f"({SERVE_BATCH} requests x 3 host reads), the rest "
+          f"{wall - (split['launch'] + split['guards']) * 1e3:.3f} ms "
+          f"(submit, batching, slicing, responses)")
+    if min(dev.values()) == 0:
+        print(f"  the launch's device time by part: the profiler missed a "
+              f"part ({dev}; not measured)")
+        dev = None
+    else:
+        print("  the launch's device time by part (torch.profiler, one "
+              "group): " + ", ".join(f"{k} {v:.4f} ms"
+                                     for k, v in dev.items()))
+    # the two copies of the whole batch, the kernel, and the guards' own
+    # kernels back to back (their host reads left out), by CUDA events
+    plan = srv.plans.resolve("t", params)
+    lw = lowering.lower(plan, lowering.LaunchSpec(
+        n=SERVE_N, device="cuda", batch=SERVE_BATCH))
+    stacked = torch.stack(pool)
+    flat = stacked.movedim(0, 1).reshape(plan.d, -1)
+    before = dict(fsk.LAUNCHES)
+    Y = ops.sketch_apply_batched(plan, stacked)
+
+    def guard_kernels():
+        for A, Yj in zip(pool, Y):
+            torch.isfinite(Yj).sum()
+            torch.linalg.norm(A)
+            torch.linalg.norm(Yj)
+    ms = dict(
+        stack=cuda_ms(lambda: torch.stack(pool)),
+        fold=cuda_ms(lambda: stacked.movedim(0, 1).reshape(plan.d, -1)),
+        kernel=cuda_ms(lambda: fsk.flashsketch_fwd(
+            plan, flat, tn=lw.tn, row_splits=lw.row_splits)),
+        group=cuda_ms(lambda: ops.sketch_apply_batched(
+            plan, torch.stack(pool))),
+        guard_kernels=cuda_ms(guard_kernels))
+    fsk.LAUNCHES.update(before)           # timing launches are not served
+    print("  CUDA events (median of 15): " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in ms.items()) +
+        f"; the stack and the fold each copy the whole batch "
+        f"({SERVE_BATCH * plan.d * SERVE_N * 4 >> 20} MiB)")
+    return dict(wall_ms=wall, launch_ms=split["launch"] * 1e3,
+                guards_ms=split["guards"] * 1e3, device=dev, events=ms)
+
+
+def serve_rungs(rt, srv_kw, params, pool, tally):
+    """Backpressure driven to each level of the ladder; each level's
+    first group runs the CUDA kernel at its rung (fp32, bf16, fp8 with
+    stochastic rounding, fp8 on the κ-halved plan), within the policy's
+    tolerance of the plain version of the same plan and dtype; its group
+    time (CUDA events) beside fp32's."""
+    sv, fsk, ops, report = rt["serving"], rt["fsk"], rt["ops"], rt["report"]
+    depth = {1: 16, 2: 24, 3: 28, 4: 32}     # of max_queue = 32
+    want = {1: ("float32", 4, "ok"), 2: ("bfloat16", 4, "degraded"),
+            3: ("fp8_e4m3_sr", 4, "degraded"),
+            4: ("fp8_e4m3_sr", 2, "degraded")}
+    rungs = {1: ("batch_wait",), 2: ("batch_wait", "dtype"),
+             3: ("batch_wait", "dtype"),
+             4: ("batch_wait", "dtype", "lowering")}
+    out = {}
+    for level, q in depth.items():
+        srv = sv.SketchServer(**srv_kw)
+        report.reset_counters()
+        tickets = [srv.submit(sv.SketchRequest("t", "sketch",
+                                               pool[i % len(pool)],
+                                               dict(params)))
+                   for i in range(q)]
+        seen = []
+        orig = _spy_fwd(fsk, seen)
+        try:
+            tally.run(srv.run_pending)      # one group, at this level
+        finally:
+            fsk.flashsketch_fwd = orig
+        check(srv.ladder.level == level, f"ladder at {srv.ladder.level}, "
+              f"not {level}, at depth {q}")
+        first = [srv.poll(t) for t in tickets[:SERVE_BATCH]]
+        check(all(r is not None for r in first), "the first group")
+        tally.run(srv.drain)
+        dtype, kappa, status = want[level]
+        eff = seen[0][0] if seen else None
+        check(len(seen) == 1 and eff.dtype == dtype and eff.kappa == kappa,
+              f"level {level}: the kernel ran {[(p.dtype, p.kappa) for p, _, _ in seen]}")
+        errs = []
+        for r, A in zip(first, pool):
+            plain = ops.sketch_apply(eff, A, impl="torch")
+            errs.append(_max_rel_err(r.result, plain))
+            check(r.status == status, f"level {level}: {r.status}")
+        atol = eff.precision.exactness_atol
+        counters = {k: v for k, v in report.counters().items()
+                    if k.startswith("serve.")}
+        before = dict(fsk.LAUNCHES)
+        ms = cuda_ms(lambda: ops.sketch_apply_batched(
+            eff, torch.stack(pool)), warmup=1,
+            reps=5 if eff.precision.is_fp8 else 15)
+        fsk.LAUNCHES.update(before)       # timing launches are not served
+        out[level] = dict(dtype=dtype, kappa=kappa, ms=ms,
+                          max_rel_err=max(errs))
+        print(f"  ladder level {level} (depth {q}/32): {dtype}, "
+              f"kappa={kappa}, {first[0].status}; findings "
+              f"{[(f.target, f.status) for f in first[0].health.findings if f.guard == 'degrade']}; "
+              f"max err / max|plain| {max(errs):.3e} (atol {atol:g}); "
+              f"group {ms:.4f} ms (events), {ms / out[1]['ms']:.2f}x "
+              f"level 1's; counters {counters}")
+        check(max(errs) <= atol, f"level {level}: error {max(errs)} > "
+              f"{atol}")
+        check(counters.get("serve.ladder.up", 0) >= 1
+              and all(counters.get(f"serve.degrade.{t}", 0) >= 1
+                      for t in rungs[level]),
+              f"level {level}: counters {counters}")
+    return out
+
+
+def serve_faults(rt, srv_kw, params, pool, tally, adv):
+    """A NaN-poisoned operand fails fast; the annihilated direction of the
+    κ = 1, s = 1 plan recovers by redraw; the breaker trips and recovers in
+    virtual time; the reference's adversarial operand at n = 128 is
+    printed with its verdict."""
+    sv, inject, report = rt["serving"], rt["inject"], rt["report"]
+    srv = sv.SketchServer(**srv_kw)
+    report.reset_counters()
+    r = serve_group(sv, srv, tally, [inject.inject_nan(pool[0], count=2,
+                                                   seed=1)], params)[0]
+    print(f"  NaN operand: {r.status}, {r.attempts} attempt(s), "
+          f"{r.health.actions}")
+    check(r.status == "failed" and r.attempts == 1
+          and "unrecoverable_operand" in r.health.actions, "NaN operand")
+    adv_params, A_adv = adv
+    r = serve_group(sv, srv, tally, [A_adv], adv_params)[0]
+    print(f"  annihilated direction of "
+          f"{srv.plans.resolve('t', adv_params).describe()} (n=1): "
+          f"{r.status}, {r.attempts} attempts, {r.health.actions}")
+    check(r.status == "degraded" and r.attempts >= 2
+          and bool(torch.isfinite(r.result).all()), "adversarial input")
+    plan = srv.plans.resolve("t", adv_params)
+    A128 = inject.adversarial_input(plan, SERVE_N, seed=3, device="cuda")
+    r = serve_group(sv, srv, tally, [A128], adv_params)[0]
+    iso = [f for f in r.health.findings if f.guard == "isometry"]
+    print(f"  the injector's adversarial operand at n={SERVE_N} (column 0 "
+          f"annihilated, noise 1e-3): {r.status}, flagged {r.flagged}, "
+          f"isometry ratio {iso[0].value:.4f} (a Frobenius check sees one "
+          f"annihilated column of {SERVE_N} as a "
+          f"{abs(1 - iso[0].value):.3f} deviation)")
+    bsrv = sv.SketchServer(**dict(srv_kw, breaker=sv.CircuitBreaker(
+        fail_threshold=2, cooldown_s=1.0)))
+    report.reset_counters()
+    for _ in range(2):
+        serve_group(sv, bsrv, tally, [A_adv], adv_params)
+    tripped = {s["state"] for s in bsrv.breaker.snapshot().values()}
+    r = serve_group(sv, bsrv, tally, [A_adv], adv_params, deadline_s=100.0)[0]
+    suppressed = r.attempts == 1 and any(f.guard == "breaker"
+                                         for f in r.health.findings)
+    bsrv.clock.advance(2.0)
+    r2 = serve_group(sv, bsrv, tally, [pool[0][:, :1]], adv_params)[0]
+    closed = {s["state"] for s in bsrv.breaker.snapshot().values()}
+    c = report.counters()
+    print(f"  breaker: {tripped} after two failed first draws, then "
+          f"{r.status} in {r.attempts} attempt (retries suppressed: "
+          f"{suppressed}); after the 1 s cool-down (virtual) {r2.status}, "
+          f"{closed}; counters trip/half_open/close "
+          f"{c.get('serve.breaker.trip')}/{c.get('serve.breaker.half_open')}"
+          f"/{c.get('serve.breaker.close')}")
+    check(tripped == {"open"} and suppressed and r2.status == "ok"
+          and closed == {"closed"} and c.get("serve.breaker.trip") == 1
+          and c.get("serve.breaker.half_open") == 1
+          and c.get("serve.breaker.close") == 1, "breaker trip/recover")
+
+
+def serve_solve(rt, srv_kw, d, cond, tally):
+    """Phase 3's problem at n = 1 024 as a guarded solve request: x
+    ``torch.equal`` to a direct call with the same plan and policy, and
+    within ``10·cond·tol`` of ``torch.linalg.lstsq``."""
+    sv, solvers, presets = rt["serving"], rt["solvers"], rt["presets"]
+    n = SERVE_SOLVE_N
+    pre = presets["default"]
+    A, b = make_ls_problem(d, n, cond)
+    x_ref = torch.linalg.lstsq(A, b[:, None]).solution[:, 0]
+    params = dict(d=d, k=rt["solver_sketch_rows"](n, pre.sampling_factor),
+                  kappa=pre.kappa, s=pre.s, seed=0, dtype=pre.dtype)
+    kw = dict(factorization=pre.factorization, method=pre.method,
+              tol=pre.tol, max_iters=pre.max_iters)
+    srv = sv.SketchServer(**srv_kw)
+    t = srv.submit(sv.SketchRequest("t", "solve", A, params, rhs=b,
+                                    solver_kwargs=kw))
+    srv.clock.advance(2 * srv.batcher.batch_wait_s)
+    tally.run(srv.run_pending)
+    r = srv.poll(t)
+    direct = solvers.sketch_precondition_lstsq(
+        A, b, srv.plans.resolve("t", params), guard=True,
+        policy=sv.SERVE_POLICY, device="cuda", **kw)
+    res = r.result
+    err = float(torch.linalg.vector_norm(res.x - x_ref)
+                / torch.linalg.vector_norm(x_ref))
+    print(f"  solve request (d={d}, n={n}, cond {cond:g}, float64, guarded): "
+          f"{r.status}, {res.iterations} iterations, relres "
+          f"{res.relres:.3e}, |x-x_lstsq|/|x_lstsq| {err:.3e} (bound "
+          f"{10 * cond * pre.tol:.0e}); x == the direct call's: "
+          f"{torch.equal(res.x, direct.x)}; latency {r.latency_s * 1e3:.3f} "
+          f"ms")
+    check(r.status == "ok" and res.converged, f"solve: {r.status}")
+    check(torch.equal(res.x, direct.x), "served x != the direct call's x")
+    check(err <= 10 * cond * pre.tol, f"solve error {err}")
+
+
+def serve_threaded(rt, params, pool, tally, adv):
+    """The threaded server under 2 s of Poisson arrivals (200 per s) at the
+    main plan, launch/serve.py's faults woven in: every seventh request
+    NaN-poisoned, every seventh the annihilated direction; no lost
+    response, no silent failure."""
+    sv, cli, inject = rt["serving"], rt["serve_cli"], rt["inject"]
+    adv_params, A_adv = adv
+
+    def draw(i):
+        if i % 7 == 3:
+            return (inject.inject_nan(pool[i % len(pool)], count=2, seed=i),
+                    params, "nan")
+        if i % 7 == 5:
+            return A_adv, adv_params, "adversarial"
+        return pool[i % len(pool)], params, None
+
+    def run():
+        with sv.ThreadedServer(max_batch=SERVE_BATCH, batch_wait_s=0.002,
+                               max_queue=4 * SERVE_BATCH,
+                               device="cuda") as srv:
+            out = cli.poisson_load(srv, draw, rps=200.0, duration_s=2.0,
+                                   seed=0, timeout_s=60.0)
+            return out + (srv.stats(),)
+    try:
+        responses, faulty, stats = tally.run(run)
+    except TimeoutError as exc:
+        raise SmokeFailure(f"threaded server lost a response: {exc}")
+    lat = sorted(r.latency_s for r in responses if r.served)
+    statuses = {}
+    for r in responses:
+        statuses[r.status] = statuses.get(r.status, 0) + 1
+    silent = cli.silent_failures(responses, faulty)
+    sizes = sorted({r.batch_size for r in responses})
+    p50 = lat[len(lat) // 2] * 1e3
+    p99 = lat[min(len(lat) - 1, int(len(lat) * 0.99))] * 1e3
+    print(f"  threaded server, Poisson 200/s for 2 s (wall clock): "
+          f"{len(responses)} responses {statuses}, batch sizes {sizes}; "
+          f"{len(faulty)} faults, silent failures {len(silent)}; latency "
+          f"p50 {p50:.3f} ms p99 {p99:.3f} ms; breakers "
+          f"{stats['breakers']}")
+    check(all(r is not None for r in responses), "lost responses")
+    check(not silent, f"silent failures: {silent}")
+    return dict(p50_ms=p50, p99_ms=p99, statuses=statuses)
+
+
+def serve_bench_twin(rt, d, k, tally):
+    """``benchmarks/torch_serve_bench.py``'s virtual-time harness at the
+    main plan: the guarded and unguarded runs of one Poisson schedule
+    (200 per s, 400 requests, deadline 1 s).  Fails on lost responses or
+    an ``ok`` result that is not finite; prints the 25 % gate's verdict
+    (the bench's own gate, not this phase's)."""
+    bench = rt["serve_bench"]
+    tally.run(bench.warmup, d=d, n=SERVE_N, k=k, device="cuda")
+    res = {}
+    for guard in (False, True):
+        try:
+            r = tally.run(bench.run_load, d=d, n=SERVE_N, k=k, rps=200.0,
+                          count=400, guard=guard, seed=0, deadline_s=1.0,
+                          device="cuda")
+        except RuntimeError as exc:
+            raise SmokeFailure(f"bench twin: {exc}")
+        res[guard] = r
+        print(f"  bench twin guard={guard}: p50 {r['p50_ms']:.3f} ms p99 "
+              f"{r['p99_ms']:.3f} ms, {r['throughput_rps']:.1f} served/s "
+              f"(virtual), {r['statuses']}")
+        check(not r["silent_ok_nonfinite"], f"bench twin: non-finite ok "
+              f"results {r['silent_ok_nonfinite']}")
+    over = (res[True]["p99_ms"] - res[False]["p99_ms"]) / res[False]["p99_ms"]
+    print(f"  bench twin: guarded p99 overhead {over * 100:+.1f}% (the "
+          f"bench's gate is <= 25%: {'held' if over <= 0.25 else 'missed'})")
+    return dict(p99_overhead=over, guarded=res[True]["p99_ms"],
+                unguarded=res[False]["p99_ms"])
+
+
+def phase_serving(rt, main_plan, d, cond):
+    """The sketch server at the main plan: coalescing (and a batched
+    winner's R at the launch), a profiled guarded group, every rung of the
+    ladder, the faults, a solve request, the threaded server under
+    Poisson load, and the bench twin.  Returns the served launches."""
+    fsk, inject = rt["fsk"], rt["inject"]
+    sv = rt["serving"]
+    fsk.reset_launch_counts()
+    tally = LaunchTally(fsk)
+    params = dict(d=d, k=main_plan.k_req, kappa=main_plan.kappa,
+                  s=main_plan.s, seed=main_plan.seed)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    pool = [torch.randn(d, SERVE_N, generator=gen, device="cuda")
+            for _ in range(SERVE_BATCH)]
+    srv_kw = dict(clock=sv.ManualClock(), max_batch=SERVE_BATCH,
+                  batch_wait_s=0.01, max_queue=4 * SERVE_BATCH,
+                  device="cuda")
+
+    def fresh():
+        return dict(srv_kw, clock=sv.ManualClock())
+    adv_params = dict(params, kappa=1, s=1)
+    adv_plan = rt["blockperm"].make_plan(d, main_plan.k_req, kappa=1, s=1,
+                                         seed=main_plan.seed)
+    adv = (adv_params, inject.adversarial_input(adv_plan, 1, seed=0,
+                                                device="cuda"))
+    serve_coalescing(rt, fresh(), params, pool, tally)
+    prof = serve_profile(rt, fresh(), params, pool, tally)
+    rungs = serve_rungs(rt, fresh(), params, pool, tally)
+    serve_faults(rt, fresh(), params, pool, tally, adv)
+    serve_solve(rt, fresh(), d, cond, tally)
+    threaded = serve_threaded(rt, params, pool, tally, adv)
+    bench = serve_bench_twin(rt, d, main_plan.k_req, tally)
+    launches = {k: v for k, v in tally.counts.items() if v}
+    print(f"  launch counts over phase 9 (served, not the comparisons): "
+          f"{launches}")
+    check(launches.get("flashsketch_fwd", 0) > 0,
+          "flashsketch_fwd never launched in phase 9")
+    print("serving: " + json.dumps(dict(
+        profile=prof, rungs=rungs, threaded=threaded, bench=bench)))
+    return tally.counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2390,6 +2915,9 @@ def main() -> int:
         from repro_torch.health import inject
         from repro_torch.health import report as health_report
         from repro_torch.roofline import hw, sketch_model
+        from repro_torch import serving
+        from repro_torch.launch import serve as serve_cli
+        from benchmarks import torch_serve_bench as serve_bench
     except ImportError as exc:
         print(f"chip_smoke: the port is not beside this script ({exc})",
               file=sys.stderr)
@@ -2401,7 +2929,8 @@ def main() -> int:
               dist=distributed, fold=_fold_scale_truncate,
               run_ranks=run_ranks, tune=tune, hw=hw,
               sketch_model=sketch_model, inject=inject, report=health_report,
-              solver_sketch_rows=solver_sketch_rows)
+              solver_sketch_rows=solver_sketch_rows, serving=serving,
+              serve_cli=serve_cli, serve_bench=serve_bench)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2462,6 +2991,10 @@ def main() -> int:
         timed("phase 8, cost model", phase_cost_model, rt, main_plan, n,
               rows)
         timed("phase 8, health", phase_health, rt, main_plan, d, n, 1e4)
+        served = timed("phase 9", phase_serving, rt, main_plan, d, 1e4)
+        for row in rows:
+            if row["name"] == "flashsketch_fwd":
+                row["launches"] += served["flashsketch_fwd"]
         print("tuned: " + json.dumps({
             f"{v}/{dt}": dict(rule=[r["tn"], r["row_splits"],
                                     round(r["time_us"], 2),

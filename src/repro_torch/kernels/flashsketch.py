@@ -67,6 +67,7 @@ import ctypes
 import dataclasses
 import functools
 import math
+import threading
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -469,6 +470,9 @@ def _check_launch(plan: BlockPermPlan, operand: torch.Tensor, tn: int,
 
 
 _SYMBOLS: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
+# guards the first call of each symbol: two threads must not set one
+# symbol's argtypes while the other calls it
+_SYMBOLS_LOCK = threading.Lock()
 
 
 def _current_stream(device: torch.device) -> int:
@@ -496,10 +500,13 @@ def _call(source: str, symbol: str, device: torch.device, *args) -> None:
     The argument types are set at the symbol's first call."""
     fn = _SYMBOLS.get((source, symbol))
     if fn is None:
-        fn = getattr(build.load(source), symbol)
-        fn.argtypes = [t for t, _ in args] + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _SYMBOLS[source, symbol] = fn
+        with _SYMBOLS_LOCK:
+            fn = _SYMBOLS.get((source, symbol))
+            if fn is None:
+                fn = getattr(build.load(source), symbol)
+                fn.argtypes = [t for t, _ in args] + [ctypes.c_void_p]
+                fn.restype = ctypes.c_int
+                _SYMBOLS[source, symbol] = fn
     err = fn(*[v for _, v in args], _current_stream(device))
     if err != 0:
         lib = build.load(source)

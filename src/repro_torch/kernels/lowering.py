@@ -93,6 +93,9 @@ class LaunchSpec:
       impl: ``"auto" | "cuda" | "cuda_v1" | "torch"`` (see the module
         docstring).
       tn: column-tile width of the CUDA kernel, or ``None`` for its default.
+      row_splits: the row split R of an explicit ``tn`` (a batched
+        lowering's (tn, R) passed on); ``None`` takes the kernel's rule at
+        that tile.
       dtype: streaming-precision policy override; ``None`` keeps the plan's.
       device: device type of the operand, ``"cuda"`` or ``"cpu"``.
       gather: fuse the ``row_index`` gather into the kernel's loads
@@ -114,6 +117,7 @@ class LaunchSpec:
     batch: int = 1
     shard: str = "none"
     devices: int = 1
+    row_splits: Optional[int] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -234,6 +238,10 @@ def _validate(plan: BlockPermPlan, spec: LaunchSpec) -> None:
         raise ValueError(f"n must be >= 1, got {spec.n}")
     if spec.tn is not None and spec.tn < 1:
         raise ValueError(f"tn must be >= 1, got {spec.tn}")
+    if spec.row_splits is not None and (spec.tn is None
+                                        or spec.row_splits < 1):
+        raise ValueError(f"row_splits={spec.row_splits} needs an explicit tn "
+                         f"and must be >= 1")
     if spec.device not in ("cuda", "cpu"):
         raise ValueError(f"device must be 'cuda' or 'cpu', got "
                          f"{spec.device!r}")
@@ -280,13 +288,13 @@ def _validate(plan: BlockPermPlan, spec: LaunchSpec) -> None:
 def _resolve_tile(eff: BlockPermPlan, spec: LaunchSpec, n_loc: int,
                   batch_loc: int, gather: bool, v1: bool, partial: bool
                   ) -> Tuple[int, str, Optional[int]]:
-    """(tn, its source, forced R or ``None``): the explicit tile, the v1
-    rule, a tuned or loaded winner of the shape class (``tune.lookup``:
-    the fused kernels but the global transpose; the partials and v1 keep
-    their rules, as the reference tunes its v2 kernels only), or the
-    kernel's rule."""
+    """(tn, its source, forced R or ``None``): the explicit tile with its
+    explicit R, the v1 rule, a tuned or loaded winner of the shape class
+    (``tune.lookup``: the fused kernels but the global transpose; the
+    partials and v1 keep their rules, as the reference tunes its v2
+    kernels only), or the kernel's rule."""
     if spec.tn is not None:
-        return spec.tn, "explicit", None
+        return spec.tn, "explicit", spec.row_splits
     if v1:
         return (fsk.default_tn(eff, spec.op, n_loc * batch_loc, v1=True),
                 "v1_default", None)

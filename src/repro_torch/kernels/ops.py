@@ -35,27 +35,29 @@ from repro_torch.kernels import lowering
 
 def _run(plan: BlockPermPlan, op: str, X: torch.Tensor, impl: str,
          tn: Optional[int], dtype: Optional[str],
-         row_index=None) -> torch.Tensor:
+         row_index=None, row_splits: Optional[int] = None) -> torch.Tensor:
     lw = lowering.lower(plan, lowering.LaunchSpec(
         op=op, n=X.shape[1], impl=impl, tn=tn, dtype=dtype,
-        device=X.device.type, gather=row_index is not None))
+        device=X.device.type, gather=row_index is not None,
+        row_splits=row_splits))
     return lowering.execute(lw, X, row_index=row_index)
 
 
 class _SketchApply(torch.autograd.Function):
-    """``Y = S A``; backward ``Sᵀ dY`` (the transpose kernel)."""
+    """``Y = S A``; backward ``Sᵀ dY`` (the transpose kernel at the
+    forward's tile; the forward's R is not the transpose's)."""
 
     @staticmethod
-    def forward(ctx, A, plan, impl, tn, dtype):
+    def forward(ctx, A, plan, impl, tn, dtype, row_splits=None):
         ctx.args = (plan, impl, tn, dtype)
         ctx.in_dtype = A.dtype
-        return _run(plan, "fwd", A, impl, tn, dtype)
+        return _run(plan, "fwd", A, impl, tn, dtype, row_splits=row_splits)
 
     @staticmethod
     def backward(ctx, dY):
         plan, impl, tn, dtype = ctx.args
         dA = _run(plan, "transpose", dY, impl, tn, dtype)
-        return dA.to(ctx.in_dtype), None, None, None, None
+        return dA.to(ctx.in_dtype), None, None, None, None, None
 
 
 class _SketchApplyT(torch.autograd.Function):
@@ -80,24 +82,25 @@ class _SketchApplyIndexed(torch.autograd.Function):
     into rows ``row_index`` of a zero ``(d_src, n)`` cotangent."""
 
     @staticmethod
-    def forward(ctx, A, row_index, plan, impl, tn, dtype):
+    def forward(ctx, A, row_index, plan, impl, tn, dtype, row_splits=None):
         ctx.args = (plan, impl, tn, dtype)
         ctx.in_dtype = A.dtype
         ctx.row_index = row_index
         ctx.d_src = A.shape[0]
-        return _run(plan, "fwd", A, impl, tn, dtype, row_index)
+        return _run(plan, "fwd", A, impl, tn, dtype, row_index, row_splits)
 
     @staticmethod
     def backward(ctx, dY):
         plan, impl, tn, dtype = ctx.args
         dA = sketch_apply_t(plan, dY, impl, tn, dtype,
                             row_index=ctx.row_index, d_src=ctx.d_src)
-        return dA.to(ctx.in_dtype), None, None, None, None, None
+        return dA.to(ctx.in_dtype), None, None, None, None, None, None
 
 
 def sketch_apply(plan: BlockPermPlan, A: torch.Tensor, impl: str = "auto",
                  tn: Optional[int] = None, dtype: Optional[str] = None, *,
-                 row_index=None) -> torch.Tensor:
+                 row_index=None,
+                 row_splits: Optional[int] = None) -> torch.Tensor:
     """Apply the sketch: ``Y = S A`` (or ``S A[row_index, :]``, fused).
 
     Args:
@@ -114,14 +117,17 @@ def sketch_apply(plan: BlockPermPlan, A: torch.Tensor, impl: str = "auto",
       dtype: streaming-precision override; ``None`` keeps the plan's.
       row_index: optional ``(plan.d,)`` int rows of A; the gather is fused
         into the kernel's loads (no ``A[row_index]`` intermediate).
+      row_splits: the row split R of an explicit ``tn`` (the batched entry
+        points pass their lowering's (tn, R) on); ``None`` for the rule's.
 
     Returns:
       ``(k, n)`` fp32 tensor on A's device, differentiable in ``A`` (the
       gradient of the indexed apply lands back at the masked rows).
     """
     if row_index is None:
-        return _SketchApply.apply(A, plan, impl, tn, dtype)
-    return _SketchApplyIndexed.apply(A, row_index, plan, impl, tn, dtype)
+        return _SketchApply.apply(A, plan, impl, tn, dtype, row_splits)
+    return _SketchApplyIndexed.apply(A, row_index, plan, impl, tn, dtype,
+                                     row_splits)
 
 
 def sketch_apply_t(plan: BlockPermPlan, Y: torch.Tensor, impl: str = "auto",
@@ -174,16 +180,20 @@ def blockrow_apply(plan: BlockPermPlan, A: torch.Tensor, impl: str = "auto",
         return _run(plan, "blockrow", A, impl, tn, dtype, row_index)
 
 
-def _batched_tn(plan: BlockPermPlan, n: int, impl: str, tn: Optional[int],
-                dtype: Optional[str], n_batch: int, gather: bool,
-                device: torch.device) -> Optional[int]:
-    """The tile of one batch-aware lowering, shared by the two batch entry
-    points so both resolve the identical launch."""
+def _batched_tile(plan: BlockPermPlan, n: int, impl: str,
+                  tn: Optional[int], dtype: Optional[str], n_batch: int,
+                  gather: bool, device: torch.device
+                  ) -> Tuple[Optional[int], Optional[int]]:
+    """The (tn, R) of one batch-aware lowering, shared by the two batch
+    entry points so both resolve the identical launch: a tuned or loaded
+    winner of the batched shape class carries its R into the launch; an
+    explicit ``tn`` runs with the rule's R at that tile."""
     if tn is not None:
-        return tn
-    return lowering.lower(plan, lowering.LaunchSpec(
+        return tn, None
+    lw = lowering.lower(plan, lowering.LaunchSpec(
         op="fwd", n=n, impl=impl, dtype=dtype, device=device.type,
-        gather=gather, batch=n_batch)).tn
+        gather=gather, batch=n_batch))
+    return lw.tn, lw.row_splits
 
 
 def sketch_vectors(plan: BlockPermPlan, x: torch.Tensor, impl: str = "auto",
@@ -195,12 +205,14 @@ def sketch_vectors(plan: BlockPermPlan, x: torch.Tensor, impl: str = "auto",
     stack of raw per-example gradients whose sparsification is fused into
     the sketch).  The batch is folded into the column axis of one
     ``sketch_apply`` launch, on the ``(d, batch)`` view of ``x`` (no
-    copy).  Returns ``(..., k)`` with ``y[..., :] = S x[..., :]``.
+    copy), at the (tn, R) of the batched shape class.  Returns ``(..., k)``
+    with ``y[..., :] = S x[..., :]``.
     """
     flat = x.reshape(-1, x.shape[-1])                          # (n, d)
-    tn = _batched_tn(plan, 1, impl, tn, dtype, flat.shape[0],
-                     row_index is not None, x.device)
-    Y = sketch_apply(plan, flat.T, impl, tn, dtype, row_index=row_index)
+    tn, R = _batched_tile(plan, 1, impl, tn, dtype, flat.shape[0],
+                          row_index is not None, x.device)
+    Y = sketch_apply(plan, flat.T, impl, tn, dtype, row_index=row_index,
+                     row_splits=R)
     return Y.T.reshape(*x.shape[:-1], plan.k)
 
 
@@ -211,10 +223,10 @@ def sketch_apply_batched(plan: BlockPermPlan, A: torch.Tensor,
     """Apply S to a stack of matrices ``(..., d, n)`` in ONE launch.
 
     The batch axes are folded into the column axis (S acts on the row axis
-    only): a ``(B, d, n)`` stack is one launch on a ``(d, B·n)`` operand.
-    ``row_index`` (shared by every batch element) fuses the gather as in
-    ``sketch_apply``.  Returns ``(..., k, n)`` with ``out[b] = S @ A[b]``,
-    differentiable in A.
+    only): a ``(B, d, n)`` stack is one launch on a ``(d, B·n)`` operand,
+    at the (tn, R) of the batched shape class unless ``tn`` is given.  ``row_index`` (shared by every batch
+    element) fuses the gather as in ``sketch_apply``.  Returns
+    ``(..., k, n)`` with ``out[b] = S @ A[b]``, differentiable in A.
     """
     if A.dim() < 2:
         raise ValueError(f"A must be at least 2-D (d, n), got shape "
@@ -224,10 +236,11 @@ def sketch_apply_batched(plan: BlockPermPlan, A: torch.Tensor,
     n_batch = 1
     for b in batch:
         n_batch *= b
-    tn = _batched_tn(plan, n, impl, tn, dtype, n_batch,
-                     row_index is not None, A.device)
+    tn, R = _batched_tile(plan, n, impl, tn, dtype, n_batch,
+                          row_index is not None, A.device)
     flat = A.reshape(-1, d, n).movedim(0, 1).reshape(d, -1)    # (d, B·n)
-    Y = sketch_apply(plan, flat, impl, tn, dtype, row_index=row_index)
+    Y = sketch_apply(plan, flat, impl, tn, dtype, row_index=row_index,
+                     row_splits=R)
     Y = Y.reshape(plan.k, -1, n).movedim(1, 0)                 # (B, k, n)
     return Y.reshape(*batch, plan.k, n)
 

@@ -173,6 +173,7 @@ def test_port_imports_neither_jax_nor_reference():
                        "benchmarks/torch_kernel_bench.py",
                        "benchmarks/torch_pareto_bench.py",
                        "benchmarks/torch_dist_bench.py",
+                       "benchmarks/torch_serve_bench.py",
                        "tools/torch_explain_lowering.py",
                        "tools/torch_hw_probe.py"):
             spec = importlib.util.spec_from_file_location(

@@ -285,6 +285,67 @@ def test_loaded_winner_reaches_lower_and_execute(tmp_path, monkeypatch):
     assert tlow.lower(plan, spec) == before
 
 
+@pytest.mark.parametrize("entry", ["sketch_apply_batched", "sketch_vectors",
+                                   "explicit"])
+def test_batched_winner_r_reaches_the_launch(tmp_path, monkeypatch, entry):
+    """A loaded winner of a BATCHED shape class whose R is not the rule's
+    runs with that R: the batched entry points carry the batched
+    lowering's (tn, R) into the launch, and an explicit (tn, R) given to
+    ``sketch_apply`` on the folded operand is passed on as given.  The lowering is resolved as for the card (the record is
+    moved to the CPU to execute, as above), so the wrapper's kwargs are
+    the launch's."""
+    from repro_torch.kernels import ops as tops
+    plan = tb.make_plan(1000, 256, kappa=4, s=2, seed=3)
+    n, B = (1, 24) if entry == "sketch_vectors" else (40, 3)
+    rule_tn = tfsk.default_tn(plan, "fwd", n * B)
+    R = next(r for r in tfsk.split_allowed(plan)
+             if r != tfsk.vec_splits(plan, 64))
+    _load(tmp_path, {ttune.cache_key(plan, n, "fwd", batch=B):
+                     ttune.TuneResult(tn=64, row_splits=R, time_us=1.0,
+                                      source="tuned")})
+    assert 64 != rule_tn or R != tfsk.vec_splits(plan, rule_tn)
+    real_lower = tlow.lower
+
+    def lower_as_card(p, spec):
+        lw = real_lower(p, dataclasses.replace(spec, device="cuda"))
+        return dataclasses.replace(lw, device="cpu")
+    monkeypatch.setattr(tlow, "lower", lower_as_card)
+    seen, executed = [], []
+    real_fwd, real_execute = tfsk.flashsketch_fwd, tlow.execute
+
+    def spy(*a, **kw):
+        seen.append(kw)
+        return real_fwd(*a, **kw)
+
+    def execute_spy(lw, *a, **kw):
+        executed.append(lw)
+        return real_execute(lw, *a, **kw)
+    monkeypatch.setattr(tfsk, "flashsketch_fwd", spy)
+    monkeypatch.setattr(tlow, "execute", execute_spy)
+    rng = np.random.default_rng(0)
+    if entry == "sketch_vectors":
+        x = torch.from_numpy(rng.normal(size=(B, plan.d)).astype(np.float32))
+        out = tops.sketch_vectors(plan, x)
+        want = tops.sketch_apply(plan, x.T).T
+        tn, R_run = 64, R
+    else:
+        A = torch.from_numpy(
+            rng.normal(size=(B, plan.d, n)).astype(np.float32))
+        if entry == "explicit":
+            flat = A.movedim(0, 1).reshape(plan.d, -1)
+            out = tops.sketch_apply(plan, flat, tn=32, row_splits=2)
+            out = out.reshape(plan.k, B, n).movedim(1, 0)
+        else:
+            out = tops.sketch_apply_batched(plan, A)
+        want = torch.stack([tops.sketch_apply(plan, a) for a in A])
+        tn, R_run = (32, 2) if entry == "explicit" else (64, R)
+    assert seen[0] == dict(tn=tn, row_splits=R_run)
+    lw = executed[0]
+    assert (lw.tn, lw.row_splits, lw.tn_source) == (tn, R_run, "explicit")
+    # the bits do not move with (tn, R): the plain version on the CPU
+    assert torch.equal(out, want)
+
+
 def test_partials_and_v1_keep_their_rules(tmp_path):
     plan = tb.make_plan(1000, 256, kappa=4, s=2, seed=3)
     _load(tmp_path, {ttune.cache_key(plan, 64, "fwd"): ttune.TuneResult(
