@@ -133,6 +133,25 @@ Phases, any failure exits non-zero and prints no result:
      failure, p50 and p99); ``benchmarks/torch_serve_bench.py``'s
      guarded and unguarded runs of one schedule (p50, p99, throughput,
      the guarded overhead).  Its launches are added to row 1's count.
+ 10. the trainer (``repro_torch.train``) at the full width and depth of
+     qwen3-0.6b (28 layers, d_model 1 024, 16 heads, GQA kv 8, head_dim
+     128, d_ff 3 072, vocab 151 936; bf16 weights, f32 optimizer state),
+     ``launch/train.py``'s defaults (batch 4, seq 128, lr 3e-3) with
+     ``--grad-compress 8``, random weights from a seed, 12 steps through
+     ``Trainer.fit``: exactly 10 forward and 10 transpose launches a step
+     (the five n = 1 plans of the ten compressed leaves), no call of a
+     plain version, every loss finite and the mean of the last three below
+     the first; the checkpoint of step 12 restored into a fresh Trainer,
+     every tensor ``torch.equal`` to the live state, and its first loss
+     equal to the live run's at step 12 bit for bit; the step's host wall
+     split into forward+backward, compression and optimizer; the CSR bytes
+     held and the peak memory; at each of the five plans the n = 1 forward
+     and transpose within fp32's ``exactness_atol`` of their plain
+     versions, the adjoint identity in fp64 at the embedding's plan, each
+     launch's CUDA-event time beside ``engine.cost_of``'s bound and
+     ``torch.sparse.mm`` of S (Sᵀ) in CSR at n = 1; ``compress_gradients``
+     on the card held to the CPU for three steps of the roll at the smoke
+     config.  Its launches are added to rows 1 and 2.
 
 Phase 2 also holds the three v1 kernels (ragged n with d < d_pad, κ × s ∈
 {1,2,4}², a Br = 2 048 plan, the main plan; each also under every row
@@ -2892,6 +2911,456 @@ def phase_serving(rt, main_plan, d, cond):
     return tally.counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the trainer at the full width of qwen3-0.6b.
+# ---------------------------------------------------------------------------
+
+# launch/train.py's defaults with --grad-compress 8; 12 steps, the
+# checkpoint at step 12, one resumed step.  The synthetic stream draws its
+# tokens from the first TRAIN_DATA_VOCAB ids of the 151 936 (the model and
+# its head stay at full width): over all of them its bigrams show no trend
+# in 20 steps, the loss staying within batch-to-batch noise of 12.08 at
+# every learning rate tried, compressed or not (PERF.md §6;
+# tools/torch_train_sweep.py).
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_RATIO = "qwen3-0.6b", 4, 128, 8
+TRAIN_STEPS, TRAIN_LR, TRAIN_DATA_VOCAB = 12, 3e-3, 4096
+
+
+class StepClock:
+    """Spies on one trainer's step, the compression and the optimizer:
+    each synchronises the card before and after, so a step's host wall
+    splits into forward+backward (the rest), compression and optimizer.
+    Records the peak memory before and after the first step."""
+
+    def __init__(self, trainer, ts):
+        self.rows, self.mem, self.part = [], None, {}
+        self._ts = ts
+        self._orig = (ts.gc.compress_gradients, ts.adamw.apply_updates)
+        step_fn = trainer.step_fn
+
+        def timed_part(name, fn):
+            def spy(*args, **kwargs):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                self.part[name] = time.perf_counter() - t
+                return out
+            return spy
+
+        def step(*args):
+            before = torch.cuda.max_memory_allocated()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = step_fn(*args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            if self.mem is None:
+                self.mem = (before, torch.cuda.max_memory_allocated())
+            self.rows.append(dict(wall=wall, **self.part))
+            return out
+        trainer.step_fn = step
+        ts.gc.compress_gradients = timed_part("compress", self._orig[0])
+        ts.adamw.apply_updates = timed_part("optimizer", self._orig[1])
+
+    def close(self):
+        self._ts.gc.compress_gradients, self._ts.adamw.apply_updates = \
+            self._orig
+
+
+def spy_plain(rt, calls):
+    """Count every call of a plain version (``ref.*_ref``, also through the
+    lowering's table of them); returns a function that puts them back."""
+    ref, oracles = rt["ref"], rt["lowering"]._ORACLES
+    orig = {name: getattr(ref, name) for name in dir(ref)
+            if name.endswith("_ref") and callable(getattr(ref, name))}
+    orig_oracles = dict(oracles)
+
+    def wrap(name, fn):
+        def spy(*args, **kwargs):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*args, **kwargs)
+        return spy
+    for name, fn in orig.items():
+        setattr(ref, name, wrap(name, fn))
+    for op, fn in orig_oracles.items():
+        oracles[op] = wrap(fn.__name__, fn)
+
+    def restore():
+        for name, fn in orig.items():
+            setattr(ref, name, fn)
+        oracles.update(orig_oracles)
+    return restore
+
+
+def csr_library(rt, plan, transpose=False):
+    """S (Sᵀ) of ``plan`` as a ``torch.sparse`` CSR tensor on the card, from
+    the kernels' own CSR (S's: ``_device_csr``; Sᵀ's: an uncached
+    ``_device_csr_t``), columns sorted within each row, in chunks of rows:
+    the yardstick ``torch.sparse.mm`` multiplies with; the port never calls
+    it."""
+    fsk = rt["fsk"]
+    dev = torch.device("cuda", torch.cuda.current_device())
+    if transpose:
+        ptr, ent = fsk._device_csr_t.__wrapped__(plan, dev)
+        shape = (plan.d_pad, plan.k_pad)
+    else:
+        ptr, ent = fsk._device_csr(plan, dev, False)
+        shape = (plan.k_pad, plan.d_pad)
+    crow = ptr[::plan.kappa].contiguous()
+    col = torch.empty_like(ent)
+    val = torch.empty(ent.shape, dtype=torch.float32, device=dev)
+    rows_per = max(1, (1 << 26) // max(1, ent.numel() // shape[0]))
+    for r0 in range(0, shape[0], rows_per):
+        r1 = min(shape[0], r0 + rows_per)
+        a, b = int(crow[r0]), int(crow[r1])
+        e = ent[a:b].to(torch.int64)
+        row = torch.repeat_interleave(
+            torch.arange(r1 - r0, device=dev),
+            (crow[r0 + 1:r1 + 1] - crow[r0:r1]).to(torch.int64))
+        order = torch.argsort(row * shape[1] + (e >> 1))
+        e = e[order]
+        col[a:b] = (e >> 1).to(torch.int32)
+        val[a:b] = torch.where((e & 1).bool(), -plan.scale, plan.scale)
+        del e, row, order
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)   # beta-state notices
+        return torch.sparse_csr_tensor(crow, col, val, shape)
+
+
+def train_plans(rt, params, comp):
+    """The distinct plans of the compressed leaves of ``params``, with the
+    leaves each serves, largest first."""
+    leaves = {}
+    for path, p in rt["tree"].leaves_with_path(params):
+        plan = rt["gc"].plan_for_leaf(comp, p.numel())
+        if plan is not None:
+            leaves.setdefault(plan, []).append(".".join(path))
+    return sorted(leaves.items(), key=lambda kv: -kv[0].d_pad)
+
+
+def train_live(rt, cfg, opt, data_cfg, comp, ckpt_dir):
+    """The live run: ``Trainer.fit`` for TRAIN_STEPS steps with a
+    checkpoint at the last; its launches and plain-version calls counted,
+    its steps timed.  Returns (trainer, fit's output, clock, launches)."""
+    fsk = rt["fsk"]
+    tcfg = rt["trainer"].TrainerConfig(
+        total_steps=TRAIN_STEPS, ckpt_every=TRAIN_STEPS, ckpt_dir=ckpt_dir,
+        log_every=4)
+    trainer = rt["trainer"].Trainer(cfg, opt, tcfg, data_cfg, compress=comp,
+                                    device="cuda")
+    clock = StepClock(trainer, rt["train_step"])
+    calls = {}
+    restore_plain = spy_plain(rt, calls)
+    torch.cuda.reset_peak_memory_stats()
+    fsk.reset_launch_counts()
+    try:
+        out = trainer.fit()
+        torch.cuda.synchronize()
+    finally:
+        restore_plain()
+        clock.close()
+    launches = dict(fsk.LAUNCHES)
+    shown = {k: v for k, v in launches.items() if v}
+    print(f"  launch counts over the {TRAIN_STEPS} steps of Trainer.fit: "
+          f"{shown}; plain-version calls: {calls or 0}")
+    for name in MAIN_KERNELS:
+        check(launches[name] == 10 * TRAIN_STEPS,
+              f"{name}: {launches[name]} launches, not 10 a step")
+    check(sum(launches.values()) == 20 * TRAIN_STEPS,
+          f"launches other than the forward and transpose: {shown}")
+    check(not calls, f"a plain version ran on the main path: {calls}")
+    losses = out["losses"]
+    print(f"  losses: {[round(x, 4) for x in losses]}")
+    check(len(losses) == TRAIN_STEPS and all(math.isfinite(x)
+                                             for x in losses),
+          "a loss is not finite")
+    check(statistics.fmean(losses[-3:]) < losses[0],
+          f"loss did not fall: first {losses[0]}, last three "
+          f"{losses[-3:]}")
+    return trainer, out, clock, launches
+
+
+def train_resume(rt, cfg, opt, data_cfg, comp, ckpt_dir, live, out):
+    """The checkpoint of step TRAIN_STEPS restored into a fresh Trainer:
+    every tensor equal to the live state, and its first step's loss the
+    live run's at that step, bit for bit."""
+    tr = rt["tree"]
+    tcfg = rt["trainer"].TrainerConfig(total_steps=TRAIN_STEPS + 1,
+                                       ckpt_dir=ckpt_dir)
+    logs = []
+    fresh = rt["trainer"].Trainer(cfg, opt, tcfg, data_cfg, compress=comp,
+                                  log_fn=logs.append, device="cuda")
+    t = time.perf_counter()
+    params, opt_state, err, start = fresh.maybe_restore(*fresh.init_state())
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t
+    check(start == TRAIN_STEPS, f"resumed at step {start}")
+    saved = {"params": out["final_params"], "opt": out["final_opt"],
+             "err": out["final_err"]}
+    got = {"params": params, "opt": opt_state, "err": err}
+    pairs = list(zip(tr.leaves_with_path(got), tr.leaves_with_path(saved)))
+    for (pa, a), (pb, b) in pairs:
+        check(pa == pb and a.dtype == b.dtype and a.device == b.device
+              and torch.equal(a, b), f"restored {tr.keystr(pa)} differs")
+    _, _, _, m = fresh.step_fn(params, opt_state, err,
+                               fresh.batch(TRAIN_STEPS))
+    resumed = float(m["loss"])
+    _, _, _, m = live.step_fn(out["final_params"], out["final_opt"],
+                              out["final_err"], live.batch(TRAIN_STEPS))
+    live_loss = float(m["loss"])
+    print(f"  checkpoint of step {TRAIN_STEPS}: {len(pairs)} tensors "
+          f"restored torch.equal ({restore_s:.1f} s with the fresh "
+          f"trainer's init); resumed loss {resumed!r}, live loss "
+          f"{live_loss!r}; {logs}")
+    check(resumed == live_loss, "the resumed loss is not the live one")
+
+
+def train_profile(rt, trainer, out):
+    """One more warm step of the live run under ``torch.profiler``: the
+    device's busy time against the step's host wall, and the device time
+    of the sketch kernels, the other kernels by name, largest first."""
+    from torch.profiler import ProfilerActivity, profile
+    fsk = rt["fsk"]
+    before = dict(fsk.LAUNCHES)
+    args = (out["final_params"], out["final_opt"], out["final_err"],
+            trainer.batch(TRAIN_STEPS + 1))
+    with profile(activities=[ProfilerActivity.CUDA]):    # a throwaway
+        torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        trainer.step_fn(*args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    for k in before:
+        fsk.LAUNCHES[k] = before[k]
+    kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    busy = sum(ms for _, ms, _ in kernels)
+    sketch = sum(ms for k, ms, _ in kernels
+                 if "split_vec_kernel" in k or "staged_transpose" in k)
+    print(f"  one profiled step: host wall {wall * 1e3:.1f} ms, device busy "
+          f"{busy:.1f} ms (idle share {1 - busy / (wall * 1e3):.2f}); the "
+          f"sketch kernels {sketch:.1f} ms; {len(kernels)} kernel names, "
+          f"{sum(c for _, _, c in kernels)} launches; largest:")
+    for key, ms, count in sorted(kernels, key=lambda r: -r[1])[:8]:
+        print(f"    {ms:8.2f} ms  {count:5d}x  {key[:90]}")
+    return dict(wall_ms=wall * 1e3, busy_ms=busy, sketch_ms=sketch,
+                kernel_launches=sum(c for _, _, c in kernels))
+
+
+def train_kernels(rt, plans):
+    """At each plan of the compressed leaves: the n = 1 forward and
+    transpose against their plain versions (fp32 exactness_atol ×
+    max|plain|), the adjoint identity in fp64 at the largest plan, and
+    each kernel's CUDA-event time beside cost_of's bound and the library's
+    torch.sparse.mm of S (Sᵀ) at n = 1."""
+    fsk, ref = rt["fsk"], rt["ref"]
+    sm, lowering = rt["sketch_model"], rt["lowering"]
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    before = dict(fsk.LAUNCHES)
+    rows = {}
+    def plain_ms(fn, *args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+    for plan, leaves in plans:
+        A = torch.randn(plan.d_pad, 1, generator=gen, device="cuda")
+        Y = torch.randn(plan.k_pad, 1, generator=gen, device="cuda")
+        y = fsk.flashsketch_fwd(plan, A)
+        x = fsk.flashsketch_transpose(plan, Y)
+        want, p_fwd = plain_ms(ref.flashsketch_ref, plan, A)
+        e_fwd = _err(y, want, plan, f"n = 1 fwd {plan.describe()}")
+        full = dataclasses.replace(plan, d=plan.d_pad)
+        want, p_t = plain_ms(ref.flashsketch_transpose_ref, full, Y)
+        e_t = _err(x, want, plan, f"n = 1 transpose {plan.describe()}")
+        del want
+        plain = {"fwd": p_fwd, "transpose": p_t}
+        cost = {op: sm.cost_of(lowering.lower(plan, lowering.LaunchSpec(
+            op=op, n=1, device="cuda"))) for op in ("fwd", "transpose")}
+        ms = {"fwd": cuda_ms(lambda: fsk.flashsketch_fwd(plan, A)),
+              "transpose": cuda_ms(lambda: fsk.flashsketch_transpose(plan,
+                                                                     Y))}
+        S = csr_library(rt, plan)
+        lib = {"fwd": cuda_ms(lambda: torch.sparse.mm(S, A))}
+        lib_err = float((torch.sparse.mm(S, A) - y).abs().max())
+        del S
+        St = csr_library(rt, plan, transpose=True)
+        lib["transpose"] = cuda_ms(lambda: torch.sparse.mm(St, Y))
+        lib_err = max(lib_err,
+                      float((torch.sparse.mm(St, Y) - x).abs().max()))
+        del St
+        torch.cuda.empty_cache()
+        print(f"  {plan.describe()} ({', '.join(leaves)}): max abs err fwd "
+              f"{e_fwd:.2e}, transpose {e_t:.2e} against the plain versions; "
+              f"|library - kernel| {lib_err:.2e}")
+        for op, name in (("fwd", "flashsketch_fwd"),
+                         ("transpose", "flashsketch_transpose")):
+            bound = cost[op].bound_us / 1e3
+            route = (f"; route {fsk.transpose_route(plan)}"
+                     if op == "transpose" else "")
+            print(f"    {name:22s} n = 1: kernel {ms[op]:.4f} ms, bound "
+                  f"{bound:.4f} ms ({cost[op].bound_by}, cost_of), "
+                  f"{ms[op] / bound:.1f}x bound; torch.sparse.mm "
+                  f"{lib[op]:.4f} ms (kernel / library "
+                  f"{ms[op] / lib[op]:.2f}); plain {plain[op]:.1f} ms (one "
+                  f"call){route}")
+        rows[plan.d_pad] = dict(
+            ms=ms, library_ms=lib, plain_ms=plain, err=[e_fwd, e_t],
+            bound_ms={op: cost[op].bound_us / 1e3 for op in cost})
+    # the chunked CSR builds against one chunk, at the wk plan (235 M
+    # nonzeros, 30 chunks of S's build)
+    wk = next(p for p, leaves in plans if "blocks.attn.wk" in leaves)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    chunked = (fsk._device_csr(wk, dev, False)
+               + fsk._device_csr_t(wk, dev, tile_local=True))
+    chunk_entries = fsk._CSR_CHUNK_ENTRIES
+    fsk._CSR_CHUNK_ENTRIES = 2**31
+    try:
+        whole = (fsk._device_csr.__wrapped__(wk, dev, False)
+                 + fsk._device_csr_t.__wrapped__(wk, dev, True))
+    finally:
+        fsk._CSR_CHUNK_ENTRIES = chunk_entries
+    check(all(a.dtype == b.dtype and torch.equal(a, b)
+              for a, b in zip(chunked, whole)),
+          f"chunked CSRs of {wk.describe()} differ from one chunk's")
+    print(f"  the CSRs of S and S^T at {wk.describe()} built in chunks of "
+          f"{chunk_entries} entries: torch.equal to one chunk's build")
+    del chunked, whole
+    torch.cuda.empty_cache()
+    big = plans[0][0]
+    g = torch.randn(big.d_pad, 1, generator=gen, device="cuda")
+    y = fsk.flashsketch_fwd(big, g)
+    x = fsk.flashsketch_transpose(big, y)
+    lhs = float((y.double() ** 2).sum())
+    rhs = float((g.double() * x.double()).sum())
+    rel = abs(lhs - rhs) / abs(lhs)
+    print(f"  adjoint at {big.describe()}: <S g, S g> {lhs!r}, "
+          f"<g, S^T S g> {rhs!r}, relative {rel:.2e} (fp64 sums)")
+    check(rel <= 1e-6, f"adjoint identity at the embedding's plan: {rel}")
+    for k in before:      # checks and timing are not main-path launches
+        fsk.LAUNCHES[k] = before[k]
+    return rows
+
+
+def train_compress_cpu(rt):
+    """``compress_gradients`` on the card held to the CPU (the plain
+    versions) at the smoke config, three steps of the roll, each side's
+    error state carried: ĝ and the error within fp32's exactness_atol ×
+    max|CPU ĝ|."""
+    gc, tr, fsk = rt["gc"], rt["tree"], rt["fsk"]
+    cfg = rt["smoke_config"](rt["get_arch"](TRAIN_ARCH))
+    comp = gc.CompressConfig(ratio=TRAIN_RATIO)
+    atol = rt["precision"].POLICIES["float32"].exactness_atol
+    before = dict(fsk.LAUNCHES)
+    gen = torch.Generator().manual_seed(11)
+    shapes = rt["lm"].DecoderLM(cfg).init(seed=0, device="cpu")
+    g_cpu = tr.tree_map(lambda p: torch.randn(p.shape, generator=gen),
+                        shapes)
+    g_gpu = tr.tree_map(lambda t: t.to("cuda"), g_cpu)
+    e_cpu, e_gpu = gc.init_error_state(g_cpu), gc.init_error_state(g_gpu)
+    worst = 0.0
+    for step in range(3):
+        h_cpu, e_cpu = gc.compress_gradients(comp, g_cpu, e_cpu, step=step)
+        h_gpu, e_gpu = gc.compress_gradients(comp, g_gpu, e_gpu, step=step)
+        for (path, a), b, ea, eb in zip(
+                tr.leaves_with_path(h_gpu), tr.leaves(h_cpu),
+                tr.leaves(e_gpu), tr.leaves(e_cpu)):
+            scale = max(float(b.abs().max()), 1e-30)
+            err = max(float((a.cpu() - b).abs().max()),
+                      float((ea.cpu() - eb).abs().max()))
+            worst = max(worst, err / scale)
+            check(err <= atol * scale, f"compress step {step} "
+                  f"{tr.keystr(path)}: card vs CPU {err} (max|g| {scale})")
+    launched = sum(fsk.LAUNCHES[k] - before[k] for k in before)
+    for k in before:
+        fsk.LAUNCHES[k] = before[k]
+    print(f"  compress_gradients at {cfg.name} smoke (ratio "
+          f"{TRAIN_RATIO}), steps 0-2 of the roll: card (CUDA kernels, "
+          f"{launched} launches) against the CPU (plain versions), within "
+          f"{worst:.2e} x max|g_hat| (tolerance {atol})")
+    check(launched > 0, "compress_gradients launched no kernel on the card")
+
+
+def phase_training(rt):
+    """qwen3-0.6b trained on the card at full width with sketched gradient
+    compression (the module docstring, phase 10).  Returns the launch
+    counts of the live run."""
+    cfg = rt["get_arch"](TRAIN_ARCH)
+    opt = rt["adamw"].AdamWConfig(
+        lr=TRAIN_LR, warmup_steps=max(5, TRAIN_STEPS // 20),
+        total_steps=TRAIN_STEPS, state_dtype=cfg.optstate_dtype)
+    data_cfg = rt["pipeline"].DataConfig(
+        vocab_size=TRAIN_DATA_VOCAB, global_batch=TRAIN_BATCH,
+        seq_len=TRAIN_SEQ, seed=0)
+    comp = rt["gc"].CompressConfig(ratio=TRAIN_RATIO)
+    torch.cuda.empty_cache()
+    print(f"phase 10: {cfg.name} at full width ({cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.n_heads} heads, kv "
+          f"{cfg.n_kv_heads}, head_dim {cfg.resolved_head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}; {cfg.param_dtype} weights, "
+          f"{cfg.optstate_dtype} optimizer state), batch {TRAIN_BATCH} x "
+          f"seq {TRAIN_SEQ}, lr {TRAIN_LR}, --grad-compress {TRAIN_RATIO}, "
+          f"{TRAIN_STEPS} steps; tokens drawn from the first "
+          f"{TRAIN_DATA_VOCAB} ids")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt_dir:
+        live, out, clock, launches = train_live(rt, cfg, opt, data_cfg, comp,
+                                                ckpt_dir)
+        plans = train_plans(rt, out["final_params"], comp)
+        n_params = sum(p.numel() for p in rt["tree"].leaves(
+            out["final_params"]))
+        print(f"  {n_params:,} parameters; {len(plans)} plans of "
+              f"{sum(len(v) for _, v in plans)} compressed leaves, each "
+              f"sketched (forward) and decompressed (transpose) at n = 1:")
+        for plan, leaves in plans:
+            print(f"    {plan.describe()}: {', '.join(leaves)}")
+        check(sum(len(v) for _, v in plans) == 10,
+              "the tree does not compress 10 leaves")
+        rest = clock.rows[1:]
+        wall, comp_s, opt_s = (statistics.median(r[k] for r in rest)
+                               for k in ("wall", "compress", "optimizer"))
+        print(f"  step host wall (synchronised), median of steps 1-"
+              f"{TRAIN_STEPS - 1}: {wall * 1e3:.1f} ms = forward+backward "
+              f"{(wall - comp_s - opt_s) * 1e3:.1f} + compression "
+              f"{comp_s * 1e3:.1f} + optimizer {opt_s * 1e3:.1f}; step 0 "
+              f"(the CSRs built) {clock.rows[0]['wall'] * 1e3:.1f} ms, of "
+              f"which compression {clock.rows[0]['compress'] * 1e3:.1f}; "
+              f"fit {out['wall_s']:.1f} s with the checkpoint")
+        dev = torch.device("cuda", torch.cuda.current_device())
+        fsk = rt["fsk"]
+        csr = sum(t.numel() * t.element_size() for plan, _ in plans
+                  for t in fsk._device_csr(plan, dev, False)
+                  + fsk._device_csr_t(plan, dev, tile_local=True))
+        mem0, mem1 = clock.mem
+        total = torch.cuda.get_device_properties(0).total_memory
+        print(f"  CSR bytes held: {csr:,} ({csr / 2**30:.2f} GiB); "
+              f"max_memory_allocated before the first step {mem0:,} "
+              f"({mem0 / 2**30:.2f} GiB), after it {mem1:,} "
+              f"({mem1 / 2**30:.2f} GiB), over the run "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, of "
+              f"{total / 2**30:.1f} GiB")
+        train_resume(rt, cfg, opt, data_cfg, comp, ckpt_dir, live, out)
+        profiled = train_profile(rt, live, out)
+        del live, out
+    torch.cuda.empty_cache()
+    rows = train_kernels(rt, plans)
+    train_compress_cpu(rt)
+    print("training: " + json.dumps(dict(
+        step_ms=dict(wall=wall * 1e3, compress=comp_s * 1e3,
+                     optimizer=opt_s * 1e3,
+                     fwd_bwd=(wall - comp_s - opt_s) * 1e3),
+        first_step_ms=clock.rows[0]["wall"] * 1e3, profiled=profiled,
+        csr_bytes=csr,
+        max_memory_allocated=[mem0, mem1], n1=rows)))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2918,6 +3387,15 @@ def main() -> int:
         from repro_torch import serving
         from repro_torch.launch import serve as serve_cli
         from benchmarks import torch_serve_bench as serve_bench
+        from repro_torch import tree as tree_mod
+        from repro_torch.configs.base import smoke_config
+        from repro_torch.configs.registry import get_arch
+        from repro_torch.core import precision
+        from repro_torch.data import pipeline
+        from repro_torch.models import lm
+        from repro_torch.optim import adamw
+        from repro_torch.optim import grad_compress as gc
+        from repro_torch.train import train_step, trainer
     except ImportError as exc:
         print(f"chip_smoke: the port is not beside this script ({exc})",
               file=sys.stderr)
@@ -2930,7 +3408,10 @@ def main() -> int:
               run_ranks=run_ranks, tune=tune, hw=hw,
               sketch_model=sketch_model, inject=inject, report=health_report,
               solver_sketch_rows=solver_sketch_rows, serving=serving,
-              serve_cli=serve_cli, serve_bench=serve_bench)
+              serve_cli=serve_cli, serve_bench=serve_bench,
+              tree=tree_mod, smoke_config=smoke_config, get_arch=get_arch,
+              precision=precision, pipeline=pipeline, lm=lm, adamw=adamw,
+              gc=gc, train_step=train_step, trainer=trainer)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2995,6 +3476,10 @@ def main() -> int:
         for row in rows:
             if row["name"] == "flashsketch_fwd":
                 row["launches"] += served["flashsketch_fwd"]
+        trained = timed("phase 10", phase_training, rt)
+        for row in rows:
+            if row["name"] in MAIN_KERNELS:
+                row["launches"] += trained[row["name"]]
         print("tuned: " + json.dumps({
             f"{v}/{dt}": dict(rule=[r["tn"], r["row_splits"],
                                     round(r["time_us"], 2),

@@ -747,6 +747,28 @@ def _split_geometry(plan: BlockPermPlan, tn: int, row_splits_: Optional[int],
     return R, split_launch(plan, tn, R)
 
 
+# Entries of one chunk of a CSR build: its int64 temporaries (rows, columns,
+# keys, the sort's permutation) stay near 256 MiB each, whatever the plan.
+_CSR_CHUNK_ENTRIES = 1 << 25
+_INT32_MAX = 2**31 - 1
+
+
+def _check_int32(plan: BlockPermPlan, nnz: int, word_max: int,
+                 what: str) -> None:
+    """Raise where a CSR's int32 ``ptr`` (its last entry is ``nnz``) or its
+    words (at most ``word_max``) would wrap."""
+    if nnz > _INT32_MAX or word_max > _INT32_MAX:
+        raise ValueError(
+            f"{what} of {plan.describe()}: {nnz} nonzeros and words up to "
+            f"{word_max} do not fit the kernels' int32 ptr and words "
+            f"(limit {_INT32_MAX})")
+
+
+def _chunk_blocks(plan: BlockPermPlan, per_block: int) -> int:
+    """Blocks of a CSR build's chunk: ``per_block`` entries each."""
+    return max(1, min(plan.M, _CSR_CHUNK_ENTRIES // per_block))
+
+
 @functools.lru_cache(maxsize=16)
 def _device_csr(plan: BlockPermPlan, device: torch.device,
                 rows_pattern: bool = False
@@ -760,9 +782,17 @@ def _device_csr(plan: BlockPermPlan, device: torch.device,
     entries are sorted by (ℓ, u) (the global level is column / Bc), a
     FLASHBLOCKROW row's are in (ℓ, t) order, not sorted by column, and
     keep their collisions (two ℓ that draw one h, two t that hash to one
-    column): the order and the terms of the kernels they replaced."""
+    column): the order and the terms of the kernels they replaced.  A
+    blockperm S is built in chunks of output blocks g (a row of block g
+    holds entries of g only, so each chunk sorted alone gives the global
+    order, ``ptr`` stitched from the chunks' counts), so its int64
+    temporaries stay within ``_CSR_CHUNK_ENTRIES``; a plan whose ``ptr`` or
+    words would pass int32 raises."""
     if rows_pattern:
         return _blockrow_csr(plan, device)
+    _check_int32(plan, plan.s * plan.d_pad * (1 if plan.is_global
+                                              else plan.kappa),
+                 2 * plan.d_pad - 1, "the CSR of S")
     if plan.is_global:
         u = torch.arange(plan.d_pad, dtype=torch.int64, device=device)
         rows, cols, negs = [], [], []
@@ -772,28 +802,38 @@ def _device_csr(plan: BlockPermPlan, device: torch.device,
             cols.append(u)
             negs.append(sgn < 0)
         row, col, neg = torch.cat(rows), torch.cat(cols), torch.cat(negs)
-        seg, nseg = row, plan.k_pad
-    else:
-        tab = _device_table(plan, "fwd", device).to(torch.int64)
-        g = torch.arange(plan.M, device=device)[:, None, None]
-        u = torch.arange(plan.Bc, device=device)[None, :, None]
-        i = torch.arange(plan.s, device=device)[None, None, :]
+        order = torch.argsort(row * plan.d_pad + col)
+        ent = ((col << 1) | neg.to(torch.int64))[order].to(torch.int32)
+        counts = torch.bincount(row, minlength=plan.k_pad)
+        ptr = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+        return ptr.to(torch.int32), ent
+    tab = _device_table(plan, "fwd", device).to(torch.int64)
+    u = torch.arange(plan.Bc, device=device)[None, :, None]
+    i = torch.arange(plan.s, device=device)[None, None, :]
+    segs_per_block = plan.Br * plan.kappa
+    step = _chunk_blocks(plan, plan.kappa * plan.Bc * plan.s)
+    ents, counts = [], []
+    for g0 in range(0, plan.M, step):
+        g1 = min(plan.M, g0 + step)
+        g = torch.arange(g0, g1, device=device)[:, None, None]
         rows, cols, negs, segs = [], [], [], []
         for ell in range(plan.kappa):
-            h = tab[ell][:, None, None]
+            h = tab[ell, g0:g1][:, None, None]
             r, sgn = block_rows_signs(plan, g, h, u, i)
             row = (g * plan.Br + r).reshape(-1)
-            rows.append(row)
             cols.append((h * plan.Bc + u).expand_as(r).reshape(-1))
             negs.append((sgn < 0).reshape(-1))
-            segs.append(row * plan.kappa + ell)
-        row, col, neg = torch.cat(rows), torch.cat(cols), torch.cat(negs)
-        seg, nseg = torch.cat(segs), plan.k_pad * plan.kappa
-    order = torch.argsort(seg * plan.d_pad + col)
-    ent = ((col << 1) | neg.to(torch.int64))[order].to(torch.int32)
-    counts = torch.bincount(seg, minlength=nseg)
+            segs.append(row * plan.kappa + ell - g0 * segs_per_block)
+        col, neg, seg = torch.cat(cols), torch.cat(negs), torch.cat(segs)
+        order = torch.argsort(seg * plan.d_pad + col)
+        ents.append(((col << 1) | neg.to(torch.int64))[order]
+                    .to(torch.int32))
+        counts.append(torch.bincount(
+            seg, minlength=(g1 - g0) * segs_per_block))
+        del col, neg, seg, order, cols, negs, segs
+    counts = torch.cat(counts)
     ptr = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
-    return ptr.to(torch.int32), ent
+    return ptr.to(torch.int32), torch.cat(ents)
 
 
 @functools.lru_cache(maxsize=16)
@@ -810,23 +850,34 @@ def _device_csr_t(plan: BlockPermPlan, device: torch.device,
     row of the staged transpose's (κ·Br, 128 B) tile, int16 (a stage that
     fits shared memory has fewer than 2**14 rows); ``ptr`` κ offsets a row
     (s apart) and a final end.  That is the order of the hashing kernels
-    they replaced.  4 (2) bytes a nonzero, κ·s·d_pad in all."""
+    they replaced.  4 (2) bytes a nonzero, κ·s·d_pad in all, built in
+    chunks of input blocks h (``_CSR_CHUNK_ENTRIES``); a plan whose ``ptr``
+    or words would pass int32 raises."""
     if tile_local and 2 * plan.kappa * plan.Br > 2**15:
         raise ValueError(f"tile-local words of {plan.describe()} need more "
                          f"than 16 bits: its stage does not fit shared "
                          f"memory")
+    _check_int32(plan, plan.kappa * plan.s * plan.d_pad, 2 * plan.k_pad - 1,
+                 "the CSR of Sᵀ")
     inv = _device_table(plan, "inverse", device).to(torch.int64)
-    h = torch.arange(plan.M, device=device)[:, None, None, None]
     u = torch.arange(plan.Bc, device=device)[None, :, None, None]
-    g = inv.T[:, None, :, None]                                # (M, 1, κ, 1)
     i = torch.arange(plan.s, device=device)[None, None, None, :]
-    r, sgn = block_rows_signs(plan, g, h, u, i)                # (M, Bc, κ, s)
-    block = (torch.arange(plan.kappa, device=device)[None, None, :, None]
-             if tile_local else g)
-    ent = (((block * plan.Br + r) << 1) | (sgn < 0).to(torch.int64))
+    level = torch.arange(plan.kappa, device=device)[None, None, :, None]
+    step = _chunk_blocks(plan, plan.kappa * plan.Bc * plan.s)
+    ents = []
+    for h0 in range(0, plan.M, step):
+        h1 = min(plan.M, h0 + step)
+        h = torch.arange(h0, h1, device=device)[:, None, None, None]
+        g = inv.T[h0:h1, None, :, None]                        # (m, 1, κ, 1)
+        r, sgn = block_rows_signs(plan, g, h, u, i)            # (m, Bc, κ, s)
+        block = level if tile_local else g
+        ent = (((block * plan.Br + r) << 1) | (sgn < 0).to(torch.int64))
+        ents.append(ent.reshape(-1).to(torch.int16 if tile_local
+                                       else torch.int32))
+        del r, sgn, ent
     ptr = torch.arange(plan.d_pad * plan.kappa + 1, dtype=torch.int32,
                        device=device) * plan.s
-    return ptr, ent.reshape(-1).to(torch.int16 if tile_local else torch.int32)
+    return ptr, torch.cat(ents)
 
 
 def _blockrow_csr(plan: BlockPermPlan,
@@ -836,6 +887,8 @@ def _blockrow_csr(plan: BlockPermPlan,
     order, h_ℓ from the iid wiring (``ref.blockrow_wiring``), the hash
     hash_words(seed, 0x5EED, g, h, r, t): col = hash_mod(hash, Bc), the
     sign bit 31.  4 bytes a nonzero, κ·s·k_pad in all."""
+    _check_int32(plan, plan.kappa * plan.s * plan.k_pad, 2 * plan.d_pad - 1,
+                 "the CSR of S_row")
     tab = _device_table(plan, "blockrow", device).to(torch.int64)
     h = tab.T[:, None, :, None]                                # (M, 1, κ, 1)
     g = torch.arange(plan.M, device=device)[:, None, None, None]

@@ -46,23 +46,38 @@ def pad_rows(Y: torch.Tensor, rows: int) -> torch.Tensor:
     return torch.nn.functional.pad(Y, (0, 0, 0, rows - Y.shape[0]))
 
 
-def _phi_all_blocks(plan: BlockPermPlan, h_of_g: torch.Tensor) -> torch.Tensor:
-    """Φ for all output blocks at once: (M, Br, Bc), entries ±1/0
-    (unscaled).  ``h_of_g``: (M,) input block feeding each output block for
-    one permutation level ℓ."""
+# The plain versions build Φ of every output block of a level at once; a
+# plan whose Φ of one level passes this many bytes goes through its output
+# blocks in chunks of at most that size (the same products, batched over
+# fewer blocks).
+PHI_CHUNK_BYTES = 1 << 30
+
+
+def _block_chunks(plan: BlockPermPlan):
+    """(g0, g1) ranges of output blocks whose Φ fits PHI_CHUNK_BYTES."""
+    step = max(1, PHI_CHUNK_BYTES // (plan.Br * plan.Bc * 4))
+    return [(g0, min(plan.M, g0 + step)) for g0 in range(0, plan.M, step)]
+
+
+def _phi_all_blocks(plan: BlockPermPlan, h_of_g: torch.Tensor,
+                    g0: int = 0) -> torch.Tensor:
+    """Φ for output blocks g0, g0+1, … at once: (len(h_of_g), Br, Bc),
+    entries ±1/0 (unscaled).  ``h_of_g``: the input block feeding each of
+    those output blocks for one permutation level ℓ."""
     dev = h_of_g.device
-    g = torch.arange(plan.M, dtype=torch.int64, device=dev)[:, None]
+    g = torch.arange(g0, g0 + h_of_g.shape[0], dtype=torch.int64,
+                     device=dev)[:, None]
     u = torch.arange(plan.Bc, dtype=torch.int64, device=dev)[None, :]
-    r_iota = torch.arange(plan.Br, dtype=torch.int64, device=dev)
-    phi = torch.zeros((plan.M, plan.Br, plan.Bc), dtype=torch.float32,
-                      device=dev)
+    phi = torch.zeros((h_of_g.shape[0], plan.Br, plan.Bc),
+                      dtype=torch.float32, device=dev)
     chunk = plan.chunk
     for i in range(plan.s):
         hsh = hashing.hash_words(plan.seed, g, h_of_g[:, None], u, i)
-        rows = i * chunk + hashing.hash_mod(hsh, chunk)           # (M, Bc)
-        signs = hashing.hash_to_unit_sign(hsh)                    # (M, Bc)
-        onehot = (r_iota[None, :, None] == rows[:, None, :]).to(torch.float32)
-        phi = phi + onehot * signs[:, None, :]
+        rows = i * chunk + hashing.hash_mod(hsh, chunk)           # (m, Bc)
+        signs = hashing.hash_to_unit_sign(hsh)                    # (m, Bc)
+        # nonzero i of column u lands in rows [i·chunk, (i+1)·chunk): one
+        # entry per (i, u), none shared, so Φ is written, not summed
+        phi.scatter_(1, rows[:, None, :], signs[:, None, :].to(torch.float32))
     return phi
 
 
@@ -127,11 +142,12 @@ def _fwd_levels(plan: BlockPermPlan, A: torch.Tensor,
     Y_blocks = torch.zeros((plan.M, plan.Br, n), dtype=torch.float32,
                            device=A.device)
     for ell in range(plan.kappa):
-        h_of_g = pi[ell]
-        phi = _phi_all_blocks(plan, h_of_g)                       # (M, Br, Bc)
-        contrib = torch.bmm(phi, A_blocks[h_of_g])
-        Y_blocks = Y_blocks + (contrib * plan.scale if per_level
-                               else contrib)
+        for g0, g1 in _block_chunks(plan):
+            h_of_g = pi[ell, g0:g1]
+            phi = _phi_all_blocks(plan, h_of_g, g0)               # (m, Br, Bc)
+            contrib = torch.bmm(phi, A_blocks[h_of_g])
+            Y_blocks[g0:g1] = Y_blocks[g0:g1] + (
+                contrib * plan.scale if per_level else contrib)
     Y = Y_blocks.reshape(plan.k_pad, n)
     return (Y if per_level else Y * plan.scale)[: plan.k]
 
@@ -147,11 +163,12 @@ def _transpose_levels(plan: BlockPermPlan, Y: torch.Tensor,
     X_blocks = torch.zeros((plan.M, plan.Bc, n), dtype=torch.float32,
                            device=Y.device)
     for ell in range(plan.kappa):
-        h_of_g = pi[ell]
-        phi = _phi_all_blocks(plan, h_of_g)                       # (M, Br, Bc)
-        contrib = torch.bmm(phi.transpose(1, 2), Y_blocks)        # (M, Bc, n)
-        X_blocks = X_blocks.index_add(
-            0, h_of_g, contrib * plan.scale if per_level else contrib)
+        for g0, g1 in _block_chunks(plan):
+            h_of_g = pi[ell, g0:g1]
+            phi = _phi_all_blocks(plan, h_of_g, g0)               # (m, Br, Bc)
+            contrib = torch.bmm(phi.transpose(1, 2), Y_blocks[g0:g1])
+            X_blocks.index_add_(
+                0, h_of_g, contrib * plan.scale if per_level else contrib)
     X = X_blocks.reshape(plan.d_pad, n)
     return (X if per_level else X * plan.scale)[: plan.d]
 

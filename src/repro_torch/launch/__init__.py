@@ -1,1 +1,1 @@
-"""Command-line entry points of the port (``repro_torch.launch.serve``)."""
+"""Command-line entry points of the port (``repro_torch.launch.serve``, ``repro_torch.launch.train``)."""

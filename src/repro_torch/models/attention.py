@@ -1,0 +1,122 @@
+"""GQA attention, the training and prefill half (port of
+``repro/models/attention.py``).
+
+Written in torch ops as the reference writes it in jnp, with its casts:
+scores in f32 (the bf16 products summed in f32, the reference's
+``preferred_element_type``), the max and exp in f32, the unnormalized
+probabilities cast to v's dtype for the PV product, then scaled by the
+inverse sum.  It is not a Pallas kernel in the reference, so no kernel
+replaces it; a library attention call would change the numerics.  The
+sharding constraints of the reference are no-ops on one card and are
+dropped.  The KV cache and ``decode_attention`` belong to the decode
+path, not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers
+
+
+def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype,
+                   stack: Sequence[int] = ()):
+    hd = cfg.resolved_head_dim
+    p = {
+        "wq": layers.dense_init(gen, cfg.d_model, cfg.n_heads * hd, dtype,
+                                stack=stack),
+        "wk": layers.dense_init(gen, cfg.d_model, cfg.n_kv_heads * hd, dtype,
+                                stack=stack),
+        "wv": layers.dense_init(gen, cfg.d_model, cfg.n_kv_heads * hd, dtype,
+                                stack=stack),
+        "wo": layers.dense_init(gen, cfg.n_heads * hd, cfg.d_model, dtype,
+                                stack=stack),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = layers.ones_init(hd, stack, gen.device)
+        p["k_norm"] = layers.ones_init(hd, stack, gen.device)
+    return p
+
+
+def _project_qkv(params, cfg: ModelConfig, x, positions):
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = (x @ params["wq"]).reshape(B, S, cfg.n_heads, hd)
+    k = (x @ params["wk"]).reshape(B, S, cfg.n_kv_heads, hd)
+    v = (x @ params["wv"]).reshape(B, S, cfg.n_kv_heads, hd)
+    if cfg.qk_norm:
+        q = layers.rms_norm(q, params["q_norm"])
+        k = layers.rms_norm(k, params["k_norm"])
+    q = layers.apply_rope(q, positions, cfg.rope_theta)
+    k = layers.apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+Q_CHUNK = 1024   # q-block size for the chunked-softmax path
+
+
+def _sdpa_dense(q, k, v, causal: bool, q_offset: int = 0):
+    """One q-block of grouped SDPA. q: (B,S,Hkv,G,hd); k/v: (B,Skv,Hkv,hd).
+
+    The 1/√hd scale is folded into q; the max and exp run in f32, the
+    unnormalized probabilities are cast to v's dtype for the PV product and
+    the inverse sum is applied to the output (the reference's order).
+    """
+    B, S, Hkv, G, hd = q.shape
+    qs = (q.to(torch.float32) * (1.0 / np.sqrt(hd))).to(q.dtype)
+    scores = torch.einsum("bshgd,bthd->bhgst", qs.to(torch.float32),
+                          k.to(torch.float32))
+    if causal:
+        qp = q_offset + torch.arange(S, device=q.device)
+        kp = torch.arange(k.shape[1], device=q.device)
+        mask = qp[:, None] >= kp[None, :]                        # (S, Skv)
+        scores = torch.where(mask[None, None, None], scores, -1e30)
+    m = torch.amax(scores, dim=-1, keepdim=True).detach()
+    p_un = torch.exp(scores - m)                                 # f32
+    denom = torch.sum(p_un, dim=-1)                              # (B,Hkv,G,S)
+    out = torch.einsum("bhgst,bthd->bshgd", p_un.to(v.dtype), v)
+    inv = (1.0 / torch.clamp(denom, min=1e-30)).permute(0, 3, 1, 2)[..., None]
+    out = out * inv.to(v.dtype)
+    return out.to(v.dtype).reshape(B, S, Hkv * G, hd)
+
+
+def _sdpa(q, k, v, causal: bool):
+    """Grouped scaled-dot-product attention with q-block chunking.
+
+    q: (B, S, H, hd); k/v: (B, Skv, Hkv, hd).  H = G * Hkv.  For S >
+    Q_CHUNK (and a multiple of it) the q axis runs in static blocks, each
+    causal block attending only to its kv prefix, so the (S, Skv) scores
+    never exist at once.
+    """
+    B, S, H, hd = q.shape
+    Hkv = k.shape[2]
+    G = H // Hkv
+    qg = q.reshape(B, S, Hkv, G, hd)
+    if S <= Q_CHUNK or S % Q_CHUNK != 0:
+        return _sdpa_dense(qg, k, v, causal)
+    outs = []
+    for off in range(0, S, Q_CHUNK):
+        q_blk = qg[:, off:off + Q_CHUNK]
+        if causal:
+            k_blk = k[:, :off + Q_CHUNK]
+            v_blk = v[:, :off + Q_CHUNK]
+        else:
+            k_blk, v_blk = k, v
+        outs.append(_sdpa_dense(q_blk, k_blk, v_blk, causal, q_offset=off))
+    return torch.cat(outs, dim=1).reshape(B, S, H, hd)
+
+
+def attention_apply(params, cfg: ModelConfig, x, *, positions=None):
+    """Causal self-attention for training and prefill. x: (B, S, D) ->
+    (B, S, D).  (The reference's cross-attention, ``kv_src``, serves the
+    VLM family and waits for it.)"""
+    B, S, _ = x.shape
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32, device=x.device)[None]
+    q, k, v = _project_qkv(params, cfg, x, positions)
+    out = _sdpa(q, k, v, causal=True)
+    hd = cfg.resolved_head_dim
+    return out.reshape(B, S, cfg.n_heads * hd) @ params["wo"]
