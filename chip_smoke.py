@@ -152,6 +152,21 @@ Phases, any failure exits non-zero and prints no result:
      ``torch.sparse.mm`` of S (Sᵀ) in CSR at n = 1; ``compress_gradients``
      on the card held to the CPU for three steps of the roll at the smoke
      config.  Its launches are added to rows 1 and 2.
+ 11. the moe, ssm, hybrid, encdec and vlm families at every width of
+     their config files, depth cut (``FAMILY_CUTS``), batch 4, seq 128,
+     lr 3e-3, ratio 8, the earlier phases' CSRs cleared first:
+     qwen3-moe-30b-a3b (1 layer) through ``Trainer.fit`` for 6 steps with
+     its checkpoint restored into a fresh Trainer after the live one is
+     freed, the resumed loss ``torch.equal`` to the live one; rwkv6-7b (1
+     layer), zamba2-7b (6) and seamless-m4t-large-v2 (1 + 1) compressed
+     and llama-3.2-vision-11b (5) uncompressed through ``build_train_step``
+     on ``make_train_batch`` batches; each family's launches (one forward
+     and one transpose a compressed leaf and step, nothing else, no plain
+     version), losses (finite), step split, CSR bytes and peak memory; at
+     the moe embedding's plan (2.68 G nonzeros, past int32) the n = 1
+     kernels against their plain versions, ``cost_of``'s bound,
+     ``torch.sparse.mm`` and the adjoint identity.  Its launches are
+     added to rows 1 and 2.
 
 Phase 2 also holds the three v1 kernels (ragged n with d < d_pad, κ × s ∈
 {1,2,4}², a Br = 2 048 plan, the main plan; each also under every row
@@ -188,6 +203,7 @@ last is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 from __future__ import annotations
 
 import dataclasses
+import gc as pygc
 import json
 import math
 import os
@@ -196,6 +212,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 import warnings
 
 import torch
@@ -2994,11 +3011,15 @@ def spy_plain(rt, calls):
 
 
 def csr_library(rt, plan, transpose=False):
-    """S (Sᵀ) of ``plan`` as a ``torch.sparse`` CSR tensor on the card, from
-    the kernels' own CSR (S's: ``_device_csr``; Sᵀ's: an uncached
-    ``_device_csr_t``), columns sorted within each row, in chunks of rows:
-    the yardstick ``torch.sparse.mm`` multiplies with; the port never calls
-    it."""
+    """S (Sᵀ) of ``plan`` as ``torch.sparse`` CSR tensors on the card, bands
+    of consecutive rows of at most 2**30 nonzeros each with int32 indices
+    (on the H100, cuSPARSE's SpMM failed with an internal error on the
+    int64 CSR of 2.68 G nonzeros and on an int32 band of 2.15 G; one of
+    1.34 G ran), from the kernels' own CSR (S's:
+    ``_device_csr``; Sᵀ's: an uncached ``_device_csr_t``), columns sorted
+    within each row, built in chunks of rows: the yardstick
+    ``torch.sparse.mm`` multiplies with, band by band; the port never
+    calls it."""
     fsk = rt["fsk"]
     dev = torch.device("cuda", torch.cuda.current_device())
     if transpose:
@@ -3008,24 +3029,59 @@ def csr_library(rt, plan, transpose=False):
         ptr, ent = fsk._device_csr(plan, dev, False)
         shape = (plan.k_pad, plan.d_pad)
     crow = ptr[::plan.kappa].contiguous()
-    col = torch.empty_like(ent)
-    val = torch.empty(ent.shape, dtype=torch.float32, device=dev)
-    rows_per = max(1, (1 << 26) // max(1, ent.numel() // shape[0]))
-    for r0 in range(0, shape[0], rows_per):
-        r1 = min(shape[0], r0 + rows_per)
-        a, b = int(crow[r0]), int(crow[r1])
+    del ptr
+    limit = 2**30
+    bands, r0 = [], 0
+    while r0 < shape[0]:
+        r1 = int(torch.searchsorted(crow, crow[r0] + limit, right=True)) - 1
+        r1 = min(shape[0], max(r1, r0 + 1))
+        bands.append(_csr_band(plan, ent, crow, r0, r1, shape[1], dev))
+        r0 = r1
+    return bands
+
+
+def _csr_band(plan, ent, crow, r0, r1, cols, dev):
+    """Rows [r0, r1) of the CSR (``ent``, ``crow``) as a torch.sparse CSR
+    tensor with int32 indices and ±scale values."""
+    base, end = int(crow[r0]), int(crow[r1])
+    bcrow = (crow[r0:r1 + 1] - base).to(torch.int32)
+    col = torch.empty(end - base, dtype=torch.int32, device=dev)
+    val = torch.empty(end - base, dtype=torch.float32, device=dev)
+    rows_per = max(1, (1 << 26) // max(1, (end - base) // (r1 - r0)))
+    for q0 in range(r0, r1, rows_per):
+        q1 = min(r1, q0 + rows_per)
+        a, b = int(crow[q0]), int(crow[q1])
         e = ent[a:b].to(torch.int64)
-        row = torch.repeat_interleave(
-            torch.arange(r1 - r0, device=dev),
-            (crow[r0 + 1:r1 + 1] - crow[r0:r1]).to(torch.int64))
-        order = torch.argsort(row * shape[1] + (e >> 1))
+        row = torch.repeat_interleave(torch.arange(q1 - q0, device=dev),
+                                      crow[q0 + 1:q1 + 1] - crow[q0:q1])
+        order = torch.argsort(row * cols + (e >> 1))
         e = e[order]
-        col[a:b] = (e >> 1).to(torch.int32)
-        val[a:b] = torch.where((e & 1).bool(), -plan.scale, plan.scale)
+        col[a - base:b - base] = (e >> 1).to(torch.int32)
+        val[a - base:b - base] = torch.where((e & 1).bool(), -plan.scale,
+                                             plan.scale)
         del e, row, order
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", UserWarning)   # beta-state notices
-        return torch.sparse_csr_tensor(crow, col, val, shape)
+        return torch.sparse_csr_tensor(bcrow, col, val, (r1 - r0, cols))
+
+
+def sparse_mm(bands, operand):
+    """``torch.sparse.mm`` of each band of S by ``operand``, stacked."""
+    if len(bands) == 1:
+        return torch.sparse.mm(bands[0], operand)
+    return torch.cat([torch.sparse.mm(b, operand) for b in bands])
+
+
+def csr_bytes(rt, plans):
+    """Bytes of the CSRs the training path holds for ``plans``: S's (int32
+    words, int64 ptr) and the staged transpose's tile-local Sᵀ (int16
+    words, no ptr)."""
+    fsk = rt["fsk"]
+    dev = torch.device("cuda", torch.cuda.current_device())
+    return sum(t.numel() * t.element_size() for plan, _ in plans
+               for t in fsk._device_csr(plan, dev, False)
+               + fsk._device_csr_t(plan, dev, tile_local=True)
+               if t is not None)
 
 
 def train_plans(rt, params, comp):
@@ -3153,12 +3209,44 @@ def train_profile(rt, trainer, out):
                 kernel_launches=sum(c for _, _, c in kernels))
 
 
-def train_kernels(rt, plans):
+def clear_csr_caches(rt):
+    """Drop every cached per-plan CSR and table (each lru_cache's
+    cache_clear) and return the memory to the card."""
+    fsk = rt["fsk"]
+    for cached in (fsk._device_csr, fsk._device_csr_t, fsk._device_table,
+                   fsk._csr_block_cap):
+        cached.cache_clear()
+    torch.cuda.empty_cache()
+
+
+def library_ms(rt, plan, operand, transpose, free_csrs):
+    """``torch.sparse.mm`` of S (Sᵀ) in CSR by ``operand``, band by band
+    (``csr_library``): (CUDA-event ms, result), or (None, None) where the
+    CSR does not fit the card beside what it holds (the yardstick only:
+    the port never calls it).  With ``free_csrs`` the kernels' cached
+    CSRs are dropped first.  Returns also the number of bands."""
+    if free_csrs:
+        clear_csr_caches(rt)
+    try:
+        S = csr_library(rt, plan, transpose=transpose)
+        out = sparse_mm(S, operand)
+        ms = cuda_ms(lambda: sparse_mm(S, operand))
+        bands = len(S)
+    except torch.cuda.OutOfMemoryError:
+        S = out = ms = bands = None
+    del S
+    torch.cuda.empty_cache()
+    return ms, out, bands
+
+
+def train_kernels(rt, plans, free_csrs=False):
     """At each plan of the compressed leaves: the n = 1 forward and
     transpose against their plain versions (fp32 exactness_atol ×
     max|plain|), the adjoint identity in fp64 at the largest plan, and
     each kernel's CUDA-event time beside cost_of's bound and the library's
-    torch.sparse.mm of S (Sᵀ) at n = 1."""
+    torch.sparse.mm of S (Sᵀ) at n = 1 (with ``free_csrs``, after the
+    kernels' CSRs are dropped: the library's int64 CSR of a plan past
+    int32 does not fit beside them)."""
     fsk, ref = rt["fsk"], rt["ref"]
     sm, lowering = rt["sketch_model"], rt["lowering"]
     gen = torch.Generator(device="cuda").manual_seed(10)
@@ -3187,16 +3275,13 @@ def train_kernels(rt, plans):
         ms = {"fwd": cuda_ms(lambda: fsk.flashsketch_fwd(plan, A)),
               "transpose": cuda_ms(lambda: fsk.flashsketch_transpose(plan,
                                                                      Y))}
-        S = csr_library(rt, plan)
-        lib = {"fwd": cuda_ms(lambda: torch.sparse.mm(S, A))}
-        lib_err = float((torch.sparse.mm(S, A) - y).abs().max())
-        del S
-        St = csr_library(rt, plan, transpose=True)
-        lib["transpose"] = cuda_ms(lambda: torch.sparse.mm(St, Y))
-        lib_err = max(lib_err,
-                      float((torch.sparse.mm(St, Y) - x).abs().max()))
-        del St
-        torch.cuda.empty_cache()
+        lib, lib_err, bands = {}, 0.0, {}
+        for op, operand, mine in (("fwd", A, y), ("transpose", Y, x)):
+            lib[op], out, bands[op] = library_ms(
+                rt, plan, operand, op == "transpose", free_csrs)
+            if out is not None:
+                lib_err = max(lib_err, float((out - mine).abs().max()))
+            del out
         print(f"  {plan.describe()} ({', '.join(leaves)}): max abs err fwd "
               f"{e_fwd:.2e}, transpose {e_t:.2e} against the plain versions; "
               f"|library - kernel| {lib_err:.2e}")
@@ -3205,35 +3290,16 @@ def train_kernels(rt, plans):
             bound = cost[op].bound_us / 1e3
             route = (f"; route {fsk.transpose_route(plan)}"
                      if op == "transpose" else "")
+            library = ("does not fit the card" if lib[op] is None else
+                       f"{lib[op]:.4f} ms in {bands[op]} int32 band(s) "
+                       f"(kernel / library {ms[op] / lib[op]:.2f})")
             print(f"    {name:22s} n = 1: kernel {ms[op]:.4f} ms, bound "
                   f"{bound:.4f} ms ({cost[op].bound_by}, cost_of), "
                   f"{ms[op] / bound:.1f}x bound; torch.sparse.mm "
-                  f"{lib[op]:.4f} ms (kernel / library "
-                  f"{ms[op] / lib[op]:.2f}); plain {plain[op]:.1f} ms (one "
-                  f"call){route}")
+                  f"{library}; plain {plain[op]:.1f} ms (one call){route}")
         rows[plan.d_pad] = dict(
             ms=ms, library_ms=lib, plain_ms=plain, err=[e_fwd, e_t],
             bound_ms={op: cost[op].bound_us / 1e3 for op in cost})
-    # the chunked CSR builds against one chunk, at the wk plan (235 M
-    # nonzeros, 30 chunks of S's build)
-    wk = next(p for p, leaves in plans if "blocks.attn.wk" in leaves)
-    dev = torch.device("cuda", torch.cuda.current_device())
-    chunked = (fsk._device_csr(wk, dev, False)
-               + fsk._device_csr_t(wk, dev, tile_local=True))
-    chunk_entries = fsk._CSR_CHUNK_ENTRIES
-    fsk._CSR_CHUNK_ENTRIES = 2**31
-    try:
-        whole = (fsk._device_csr.__wrapped__(wk, dev, False)
-                 + fsk._device_csr_t.__wrapped__(wk, dev, True))
-    finally:
-        fsk._CSR_CHUNK_ENTRIES = chunk_entries
-    check(all(a.dtype == b.dtype and torch.equal(a, b)
-              for a, b in zip(chunked, whole)),
-          f"chunked CSRs of {wk.describe()} differ from one chunk's")
-    print(f"  the CSRs of S and S^T at {wk.describe()} built in chunks of "
-          f"{chunk_entries} entries: torch.equal to one chunk's build")
-    del chunked, whole
-    torch.cuda.empty_cache()
     big = plans[0][0]
     g = torch.randn(big.d_pad, 1, generator=gen, device="cuda")
     y = fsk.flashsketch_fwd(big, g)
@@ -3247,6 +3313,33 @@ def train_kernels(rt, plans):
     for k in before:      # checks and timing are not main-path launches
         fsk.LAUNCHES[k] = before[k]
     return rows
+
+
+def train_chunked_csr(rt, plans):
+    """The CSRs of S and the tile-local Sᵀ at the wk plan built in chunks
+    of ``_CSR_CHUNK_ENTRIES`` against one chunk's build: torch.equal."""
+    fsk = rt["fsk"]
+    # the chunked CSR builds against one chunk, at the wk plan (235 M
+    # nonzeros, 30 chunks of S's build)
+    wk = next(p for p, leaves in plans if "blocks.attn.wk" in leaves)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    chunked = (fsk._device_csr(wk, dev, False)
+               + fsk._device_csr_t(wk, dev, tile_local=True))
+    chunk_entries = fsk._CSR_CHUNK_ENTRIES
+    fsk._CSR_CHUNK_ENTRIES = 2**31
+    try:
+        whole = (fsk._device_csr.__wrapped__(wk, dev, False)
+                 + fsk._device_csr_t.__wrapped__(wk, dev, True))
+    finally:
+        fsk._CSR_CHUNK_ENTRIES = chunk_entries
+    check(all((a is None and b is None) or (a.dtype == b.dtype
+                                            and torch.equal(a, b))
+              for a, b in zip(chunked, whole)),
+          f"chunked CSRs of {wk.describe()} differ from one chunk's")
+    print(f"  the CSRs of S and S^T at {wk.describe()} built in chunks of "
+          f"{chunk_entries} entries: torch.equal to one chunk's build")
+    del chunked, whole
+    torch.cuda.empty_cache()
 
 
 def train_compress_cpu(rt):
@@ -3334,9 +3427,7 @@ def phase_training(rt):
               f"fit {out['wall_s']:.1f} s with the checkpoint")
         dev = torch.device("cuda", torch.cuda.current_device())
         fsk = rt["fsk"]
-        csr = sum(t.numel() * t.element_size() for plan, _ in plans
-                  for t in fsk._device_csr(plan, dev, False)
-                  + fsk._device_csr_t(plan, dev, tile_local=True))
+        csr = csr_bytes(rt, plans)
         mem0, mem1 = clock.mem
         total = torch.cuda.get_device_properties(0).total_memory
         print(f"  CSR bytes held: {csr:,} ({csr / 2**30:.2f} GiB); "
@@ -3350,6 +3441,7 @@ def phase_training(rt):
         del live, out
     torch.cuda.empty_cache()
     rows = train_kernels(rt, plans)
+    train_chunked_csr(rt, plans)
     train_compress_cpu(rt)
     print("training: " + json.dumps(dict(
         step_ms=dict(wall=wall * 1e3, compress=comp_s * 1e3,
@@ -3361,10 +3453,243 @@ def phase_training(rt):
     return launches
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device available", file=sys.stderr)
-        return 2
+# ---------------------------------------------------------------------------
+# Phase 11: the moe, ssm, hybrid, encdec and vlm families at full width.
+# ---------------------------------------------------------------------------
+
+# (config, its depth cut, compressed, steps): every width of the config
+# file kept, the depth cut to the least that shows the family's structure
+# (one moe layer; one RWKV6 layer; one zamba2 super-block of six Mamba2
+# layers and the shared block; one encoder and one decoder layer; one vlm
+# group of four self layers and the cross layer).  The vlm trains
+# uncompressed: its eight plans' CSRs (about 46 GB) and its state (34 GB)
+# pass the card's 80 GB together.  Batch, seq, lr and ratio are phase 10's.
+FAMILY_CUTS = (
+    ("qwen3-moe-30b-a3b", dict(n_layers=1), True, 6),
+    ("rwkv6-7b", dict(n_layers=1), True, 3),
+    ("zamba2-7b", dict(n_layers=6), True, 3),
+    ("seamless-m4t-large-v2", dict(n_layers=1, encoder_layers=1), True, 3),
+    ("llama-3.2-vision-11b", dict(n_layers=5), False, 2),
+)
+
+
+def family_config(rt, name, cut):
+    cfg = dataclasses.replace(rt["get_arch"](name), **cut)
+    full = rt["get_arch"](name)
+    print(f"  {name} ({cfg.family}): every width of its config file "
+          f"(d_model {cfg.d_model}, {cfg.n_heads} heads, kv "
+          f"{cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}); "
+          f"depth cut: " + ", ".join(f"{k} {getattr(full, k)} -> {v}"
+                                     for k, v in cut.items()))
+    return cfg
+
+
+def family_opt(rt, cfg, steps):
+    return rt["adamw"].AdamWConfig(
+        lr=TRAIN_LR, warmup_steps=max(5, steps // 20), total_steps=steps,
+        state_dtype=cfg.optstate_dtype)
+
+
+def family_report(rt, name, clock, losses, launches, plans, comp):
+    """Print one family's launches, losses, step split, peak memory and
+    CSR bytes, and check them: every loss finite; where compressed, one
+    forward and one transpose launch a compressed leaf and step, nothing
+    else launched.  Returns its summary."""
+    steps = len(losses)
+    shown = {k: v for k, v in launches.items() if v}
+    n_leaves = sum(len(v) for _, v in plans)
+    print(f"    launches over {steps} steps: {shown}; losses "
+          f"{[round(x, 4) for x in losses]}")
+    check(all(math.isfinite(x) for x in losses), f"{name}: a loss is not "
+          f"finite: {losses}")
+    if comp is not None:
+        check(n_leaves > 0, f"{name}: no leaf compressed")
+        for kname in MAIN_KERNELS:
+            check(launches[kname] == n_leaves * steps,
+                  f"{name}: {kname} {launches[kname]} launches, not "
+                  f"{n_leaves} a step")
+    check(sum(launches.values()) == 2 * n_leaves * steps,
+          f"{name}: launches other than the n = 1 forward and transpose: "
+          f"{shown}")
+    rest = clock.rows[1:] or clock.rows
+    wall, comp_s, opt_s = (statistics.median(r.get(k, 0.0) for r in rest)
+                           for k in ("wall", "compress", "optimizer"))
+    csr = csr_bytes(rt, plans)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"    step host wall (synchronised), median of steps 1-"
+          f"{steps - 1}: {wall * 1e3:.1f} ms = forward+backward "
+          f"{(wall - comp_s - opt_s) * 1e3:.1f} + compression "
+          f"{comp_s * 1e3:.1f} + optimizer {opt_s * 1e3:.1f}; step 0 "
+          f"{clock.rows[0]['wall'] * 1e3:.1f} ms (compression "
+          f"{clock.rows[0].get('compress', 0.0) * 1e3:.1f}"
+          f"{', the CSRs built' if plans else ''}); {len(plans)} plans of "
+          f"{n_leaves} compressed leaves, "
+          f"CSRs {csr:,} bytes ({csr / 2**30:.2f} GiB); "
+          f"max_memory_allocated {peak:,} ({peak / 2**30:.2f} GiB)")
+    for plan, leaves in plans:
+        print(f"      {plan.describe()}: {', '.join(leaves)}")
+    return dict(steps=steps, losses=losses, launches=shown,
+                step_ms=dict(wall=wall * 1e3, compress=comp_s * 1e3,
+                             optimizer=opt_s * 1e3,
+                             fwd_bwd=(wall - comp_s - opt_s) * 1e3),
+                first_step_ms=clock.rows[0]["wall"] * 1e3,
+                leaves=n_leaves, plans=len(plans), csr_bytes=csr,
+                max_memory_allocated=peak)
+
+
+def family_trainer(rt, name, cfg, comp, steps):
+    """The main config of the phase through ``Trainer.fit``, as phase 10
+    runs qwen3-0.6b: ``steps`` steps with the checkpoint at the last; the
+    live run's loss at the next step; then, the live trainer freed, the
+    checkpoint restored into a fresh Trainer whose first loss must be
+    torch.equal to the live one.  Returns (summary, launches, plans)."""
+    fsk, tmod = rt["fsk"], rt["trainer"]
+    opt = family_opt(rt, cfg, steps)
+    data_cfg = rt["pipeline"].DataConfig(
+        vocab_size=TRAIN_DATA_VOCAB, global_batch=TRAIN_BATCH,
+        seq_len=TRAIN_SEQ, seed=0)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt_dir:
+        tcfg = tmod.TrainerConfig(total_steps=steps, ckpt_every=steps,
+                                  ckpt_dir=ckpt_dir, log_every=steps)
+        live = tmod.Trainer(cfg, opt, tcfg, data_cfg, compress=comp,
+                            log_fn=lambda line: None, device="cuda")
+        clock = StepClock(live, rt["train_step"])
+        calls = {}
+        restore_plain = spy_plain(rt, calls)
+        torch.cuda.reset_peak_memory_stats()
+        fsk.reset_launch_counts()
+        try:
+            out = live.fit()
+            torch.cuda.synchronize()
+        finally:
+            restore_plain()
+            clock.close()
+        launches = dict(fsk.LAUNCHES)
+        check(not calls, f"{name}: a plain version ran: {calls}")
+        plans = train_plans(rt, out["final_params"], comp)
+        summary = family_report(rt, name, clock, out["losses"], launches,
+                                plans, comp)
+        _, _, _, m = live.step_fn(out["final_params"], out["final_opt"],
+                                  out["final_err"], live.batch(steps))
+        live_loss = m["loss"].detach().clone()
+        t = time.perf_counter()
+        del live, out, m, clock
+        pygc.collect()
+        torch.cuda.empty_cache()
+        freed = torch.cuda.memory_allocated()
+        fresh = tmod.Trainer(cfg, opt, dataclasses.replace(
+            tcfg, total_steps=steps + 1), data_cfg, compress=comp,
+            log_fn=lambda line: None, device="cuda")
+        params, opt_state, err, start = fresh.maybe_restore(
+            *fresh.init_state())
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        check(start == steps, f"{name}: resumed at step {start}")
+        _, _, _, m = fresh.step_fn(params, opt_state, err,
+                                   fresh.batch(steps))
+        resumed = m["loss"].detach()
+        print(f"    the live trainer freed ({freed:,} bytes still "
+              f"allocated, the CSRs among them); the checkpoint of step "
+              f"{steps} restored into a fresh Trainer in {restore_s:.1f} s; "
+              f"resumed loss {float(resumed)!r}, live loss "
+              f"{float(live_loss)!r}")
+        check(torch.equal(resumed, live_loss),
+              f"{name}: the resumed loss is not the live one")
+        del fresh, params, opt_state, err, m
+    for k in launches:    # the resumed and live extra steps are checks
+        fsk.LAUNCHES[k] = launches[k]
+    summary.update(restore_s=restore_s, resumed_loss=float(resumed))
+    return summary, launches, plans
+
+
+def family_steps(rt, name, cfg, comp, steps):
+    """``steps`` steps of ``build_train_step`` on ``make_train_batch``
+    batches (tokens, labels and the family's modality stub; the reference's
+    Trainer feeds tokens and labels only).  Returns (summary, launches,
+    plans)."""
+    fsk, factory = rt["fsk"], rt["factory"]
+    step_fn, model = rt["train_step"].build_train_step(
+        cfg, family_opt(rt, cfg, steps), comp)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(seed=0, device="cuda")
+    opt_state = rt["adamw"].init_state(params, family_opt(rt, cfg, steps))
+    err = rt["gc"].init_error_state(params) if comp else {}
+    holder = types.SimpleNamespace(step_fn=step_fn)
+    clock = StepClock(holder, rt["train_step"])
+    calls = {}
+    restore_plain = spy_plain(rt, calls)
+    fsk.reset_launch_counts()
+    losses = []
+    try:
+        for step in range(steps):
+            batch = factory.make_train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ,
+                                             seed=step, device="cuda")
+            params, opt_state, err, m = holder.step_fn(params, opt_state,
+                                                       err, batch)
+            losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+    finally:
+        restore_plain()
+        clock.close()
+    launches = dict(fsk.LAUNCHES)
+    check(not calls, f"{name}: a plain version ran: {calls}")
+    plans = train_plans(rt, params, comp) if comp else []
+    summary = family_report(rt, name, clock, losses, launches, plans, comp)
+    return summary, launches, plans
+
+
+def phase_families_train(rt):
+    """The moe, ssm, hybrid, encdec and vlm families trained on the card
+    at full width (the module docstring, phase 11).  Returns the launch
+    counts of the phase's training runs."""
+    comp = rt["gc"].CompressConfig(ratio=TRAIN_RATIO)
+    total = {k: 0 for k in rt["fsk"].LAUNCHES}
+    summaries, embed = {}, None
+    pygc.collect()
+    clear_csr_caches(rt)              # the earlier phases' plans
+    print(f"phase 11: five families at full width, batch {TRAIN_BATCH} x "
+          f"seq {TRAIN_SEQ}, lr {TRAIN_LR}, --grad-compress {TRAIN_RATIO} "
+          f"(the vlm uncompressed); {torch.cuda.memory_allocated():,} "
+          f"bytes allocated before it")
+    for name, cut, compressed, steps in FAMILY_CUTS:
+        t = time.perf_counter()
+        cfg = family_config(rt, name, cut)
+        run = family_trainer if name == FAMILY_CUTS[0][0] else family_steps
+        summary, launches, plans = run(rt, name, cfg,
+                                       comp if compressed else None, steps)
+        for k, v in launches.items():
+            total[k] += v
+        if name == FAMILY_CUTS[0][0]:
+            check(summary["leaves"] == 10 and summary["plans"] == 5,
+                  f"{name}: {summary['leaves']} leaves in "
+                  f"{summary['plans']} plans, not 10 in 5")
+            embed = next((p, v) for p, v in plans if "embed" in v)
+            check(embed[0].kappa * embed[0].s * embed[0].d_pad > 2**31 - 1,
+                  f"the embedding's plan {embed[0].describe()} is not past "
+                  f"int32")
+        del plans
+        pygc.collect()
+        clear_csr_caches(rt)
+        summary["wall_s"] = time.perf_counter() - t
+        summaries[name] = summary
+        print(f"    [{name}: {summary['wall_s']:.1f} s]")
+    plan, leaves = embed
+    print(f"  the n = 1 kernels at the embedding's plan of {FAMILY_CUTS[0][0]}"
+          f" ({plan.kappa * plan.s * plan.d_pad:,} nonzeros, past int32; "
+          f"the trainers freed):")
+    rows = train_kernels(rt, [embed], free_csrs=True)
+    clear_csr_caches(rt)
+    print("families: " + json.dumps(dict(families=summaries, n1=rows)))
+    return total
+
+
+class PortMissing(Exception):
+    pass
+
+
+def load_runtime():
+    """The port's modules this script drives, by name (``rt``); raises
+    PortMissing where the port is not beside this script."""
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, os.path.join(root, "src"))
     sys.path.insert(0, root)
@@ -3392,26 +3717,40 @@ def main() -> int:
         from repro_torch.configs.registry import get_arch
         from repro_torch.core import precision
         from repro_torch.data import pipeline
-        from repro_torch.models import lm
+        from repro_torch.models import factory, lm
         from repro_torch.optim import adamw
         from repro_torch.optim import grad_compress as gc
         from repro_torch.train import train_step, trainer
     except ImportError as exc:
+        raise PortMissing(str(exc)) from exc
+    return dict(solvers=solvers, presets=SOLVER_PRESETS, blockperm=blockperm,
+                wiring=wiring, hashing=hashing, ops=ops, ref=ref, fsk=fsk,
+                lowering=lowering, grass=grass, mlp=mlp, lds=lds,
+                grass_cfg=GRASS, variants=variants, pareto=pareto,
+                dist=distributed, fold=_fold_scale_truncate,
+                run_ranks=run_ranks, tune=tune, hw=hw,
+                sketch_model=sketch_model, inject=inject, report=health_report,
+                solver_sketch_rows=solver_sketch_rows, serving=serving,
+                serve_cli=serve_cli, serve_bench=serve_bench,
+                tree=tree_mod, smoke_config=smoke_config, get_arch=get_arch,
+                precision=precision, pipeline=pipeline, lm=lm, adamw=adamw,
+                gc=gc, train_step=train_step, trainer=trainer,
+                factory=factory, build=build, paper_config=CONFIG)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    try:
+        rt = load_runtime()
+    except PortMissing as exc:
         print(f"chip_smoke: the port is not beside this script ({exc})",
               file=sys.stderr)
         return 3
-    rt = dict(solvers=solvers, presets=SOLVER_PRESETS, blockperm=blockperm,
-              wiring=wiring, hashing=hashing, ops=ops, ref=ref, fsk=fsk,
-              lowering=lowering, grass=grass, mlp=mlp, lds=lds,
-              grass_cfg=GRASS, variants=variants, pareto=pareto,
-              dist=distributed, fold=_fold_scale_truncate,
-              run_ranks=run_ranks, tune=tune, hw=hw,
-              sketch_model=sketch_model, inject=inject, report=health_report,
-              solver_sketch_rows=solver_sketch_rows, serving=serving,
-              serve_cli=serve_cli, serve_bench=serve_bench,
-              tree=tree_mod, smoke_config=smoke_config, get_arch=get_arch,
-              precision=precision, pipeline=pipeline, lm=lm, adamw=adamw,
-              gc=gc, train_step=train_step, trainer=trainer)
+    build, blockperm = rt["build"], rt["blockperm"]
+    CONFIG, SOLVER_PRESETS = rt["paper_config"], rt["presets"]
+    solver_sketch_rows = rt["solver_sketch_rows"]
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3477,9 +3816,11 @@ def main() -> int:
             if row["name"] == "flashsketch_fwd":
                 row["launches"] += served["flashsketch_fwd"]
         trained = timed("phase 10", phase_training, rt)
+        families = timed("phase 11", phase_families_train, rt)
         for row in rows:
             if row["name"] in MAIN_KERNELS:
-                row["launches"] += trained[row["name"]]
+                row["launches"] += trained[row["name"]] + \
+                    families[row["name"]]
         print("tuned: " + json.dumps({
             f"{v}/{dt}": dict(rule=[r["tn"], r["row_splits"],
                                     round(r["time_us"], 2),

@@ -43,23 +43,23 @@
 // per element of A, far below the fp32 rate: the kernel is bound by bytes.
 //
 // Design.  The TPU kernel holds the dense stacked Φ* (Br, κ·Bc) in VMEM; at
-// the main plan that is 4 MiB, and a block here has at most 227 KB of
-// shared memory.  Every entry point runs a row-split body of row_split.cuh,
-// which reads S from a CSR built once per plan on the card
-// (kernels/flashsketch.py:_device_csr: the blockperm, global or
-// FLASHBLOCKROW one) and keeps every sum in a register: the forward and
-// the partial split_vec_kernel, 16-byte loads of A, 4 fp32 (8 bf16, 16
-// fp8) columns a thread, so a CSR word and its address arithmetic are paid
-// once per 16 bytes and a warp's request covers 256-512 contiguous bytes;
-// the gather split_fwd_kernel, one column a thread through explicit
-// strides.  The integer `kappa` the C interface takes is the CSR's `ptr`
-// entries per row: κ for a blockperm or FLASHBLOCKROW plan (one segment
-// per level), 1 for a global plan (one segment per row).  Each output
-// element gets its adds in its CSR order from +0, then × scale: (ℓ, u) for
-// blockperm and global plans (a global row's columns ascending, the (u, i)
-// order of the global kernel this body replaced), (ℓ, t) for FLASHBLOCKROW
-// (the order of the hashing kernel it replaced, collisions kept); see
-// row_split.cuh for the grid, the sum order and what bounds it.
+// the main plan that is 4 MiB, and a block here has at most 227 KB of shared
+// memory.  Every entry point runs a row-split body of row_split.cuh, which
+// reads S from a CSR (64-bit row offsets, 32-bit words) built once per plan
+// on the card (kernels/flashsketch.py:_device_csr: the blockperm, global or
+// FLASHBLOCKROW one) and keeps every sum in a register: the forward and the
+// partial split_vec_kernel, 16-byte loads of A, 4 fp32 (8 bf16, 16 fp8)
+// columns a thread, so a CSR word and its address arithmetic are paid once
+// per 16 bytes and a warp's request covers 256-512 contiguous bytes; the
+// gather split_fwd_kernel, one column a thread through explicit strides.  The
+// integer `kappa` the C interface takes is the CSR's `ptr` entries per row:
+// κ for a blockperm or FLASHBLOCKROW plan (one segment per level), 1 for a
+// global plan (one segment per row).  Each output element gets its adds in
+// its CSR order from +0, then × scale: (ℓ, u) for blockperm and global plans
+// (a global row's columns ascending, the (u, i) order of the global kernel
+// this body replaced), (ℓ, t) for FLASHBLOCKROW (the order of the hashing
+// kernel it replaced, collisions kept); see row_split.cuh for the grid, the
+// sum order and what bounds it.
 //
 // Gather (the GraSS sparsify→sketch step, fs_fwd_gather).  Row u of input
 // block h is read from source row row_map[h·Bc + u] of A (d_src, n)
@@ -108,7 +108,7 @@
 extern "C" {
 
 // Y (k_pad, n) fp32 = S · A (d_pad, n), both row-major and contiguous; S
-// comes as a CSR (ptr, ent: see row_split.cuh), the plan's or
+// comes as a CSR (ptr int64, ent int32: see row_split.cuh), the plan's or
 // FLASHBLOCKROW's, with its scale.  The row-split body split_vec_kernel:
 // grid (M·R, ⌈n/tn⌉), block (tn·itemsize/16, groups).  The integers come
 // in one array, p = {dtype, M, Br, Bc, κ, n, tn, groups, R, vec}, built

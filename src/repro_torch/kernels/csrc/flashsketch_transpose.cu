@@ -293,7 +293,9 @@ staged_transpose_kernel(const __grid_constant__ CUtensorMap tmap,
     const long long item = first + t;
     const long long h = item / tiles;
     const long long c0 = (item - h * tiles) * kTn + x * kV;
-    const unsigned short* rows = ent + h * Bc * ks;
+    // 64-bit offsets: κ·s·d_pad words may pass 2^31 (h is a long long)
+    const unsigned short* rows =
+        ent + h * static_cast<long long>(Bc) * ks;
     Words next;                               // the next row's first words
     if (c0 < n && u0 < Bc)
       next.load(rows + static_cast<long long>(u0) * ks, ks, wvec);

@@ -72,12 +72,12 @@ int launch_v1_vec(const void* A, void* Y, const void* ptr, const void* ent,
 extern "C" {
 
 // Y (k_pad, n) fp32 = S · A (d_pad, n) fp32, both row-major and contiguous;
-// S comes as the plan's CSR (ptr, ent: see row_split.cuh), level segments
-// per row for a blockperm plan, the κ = M levels of a global plan told apart
-// by column.  The row-split body: grid (M·R, ⌈n/tn⌉), block (tn, groups).
-// The integers come in one array, p = {global, M, Br, Bc, κ, n, tn, groups,
-// R}, built once per launch shape by the caller.  Launches on `stream` and
-// returns cudaGetLastError() (0 on success).
+// S comes as the plan's CSR (ptr int64, ent int32: see row_split.cuh), level
+// segments per row for a blockperm plan, the κ = M levels of a global plan
+// told apart by column.  The row-split body: grid (M·R, ⌈n/tn⌉), block (tn,
+// groups).  The integers come in one array, p = {global, M, Br, Bc, κ, n, tn,
+// groups, R}, built once per launch shape by the caller.  Launches on
+// `stream` and returns cudaGetLastError() (0 on success).
 int fs_fwd_v1(const void* A, void* Y, const void* ptr, const void* ent,
               const long long* p, float scale, void* stream) {
   const int M = static_cast<int>(p[1]), Br = static_cast<int>(p[2]);

@@ -119,13 +119,17 @@ constexpr int kPerLevel = 2;   // and nonzeros of each in flight at once
 
 // ptr: blockperm, κ offsets per row (level segments) and a final end, so row
 // r's nonzeros are [ptr[r·κ], ptr[(r+1)·κ]); global, one offset per row.
+// The offsets are 64-bit: a plan may hold more than 2^31 − 1 nonzeros (a
+// 335 M-column gradient leaf at ratio 8 holds 2.7 G); the words stay 32-bit
+// ((column << 1) | sign, columns below 2^30).
 // Shared memory (the gather): the block's nonzeros, `cap` ints (the most
 // any block of this plan and split has), their columns read through
 // row_map.
 template <typename T, bool kGather, bool kV1, bool kGlobal>
 __global__ void __launch_bounds__(512)
 split_fwd_kernel(const T* __restrict__ A, float* __restrict__ Y,
-                 const int* __restrict__ ptr, const int* __restrict__ ent,
+                 const long long* __restrict__ ptr,
+                 const int* __restrict__ ent,
                  const int* __restrict__ row_map, int Br, int Bc, int kappa,
                  long long n, long long rs, long long cs, int d, int d_src,
                  float scale, int R) {
@@ -146,10 +150,11 @@ split_fwd_kernel(const T* __restrict__ A, float* __restrict__ Y,
   // the gather: the block's nonzeros, in CSR order, staged by every thread
   // with their columns read through row_map, (source row << 1) | sign, -1
   // for a padding row; v1 reads the plan's words where they lie
-  const int base = kGather ? ptr[row0 * stride] : 0;
+  // (a block's count fits an int once base is subtracted: it is staged)
+  const long long base = kGather ? ptr[row0 * stride] : 0;
   const int* nzw = ent;
   if constexpr (kGather) {
-    const int count = ptr[(row0 + br) * stride] - base;
+    const int count = static_cast<int>(ptr[(row0 + br) * stride] - base);
     for (int i = tid; i < count; i += tn * G) {
       const int w = ent[base + i];
       const int col = w >> 1;
@@ -174,7 +179,7 @@ split_fwd_kernel(const T* __restrict__ A, float* __restrict__ Y,
       // the κ level segments of the row, kLevels side by side
       float run = 0.f;
       for (int l0 = 0; l0 < kappa; l0 += kLevels) {
-        int e[kLevels], end[kLevels];
+        long long e[kLevels], end[kLevels];
         float L[kLevels];
 #pragma unroll
         for (int j = 0; j < kLevels; ++j) {
@@ -215,12 +220,12 @@ split_fwd_kernel(const T* __restrict__ A, float* __restrict__ Y,
       }
       out = run;
     } else {
-      const int beg = ptr[row * stride] - base;
-      const int end = ptr[(row + 1) * stride] - base;
+      const long long beg = ptr[row * stride] - base;
+      const long long end = ptr[(row + 1) * stride] - base;
       float a = 0.f;
       float run = 0.f;
       int cur = -1;                            // kV1 && kGlobal: the level
-      for (int e0 = beg; e0 < end; e0 += kUnrollNz) {
+      for (long long e0 = beg; e0 < end; e0 += kUnrollNz) {
         int w[kUnrollNz];
         float v[kUnrollNz];
 #pragma unroll
@@ -268,7 +273,7 @@ int launch_split(const void* A, void* Y, const void* ptr, const void* ent,
   const dim3 block(tn, groups);
   kern<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(A), static_cast<float*>(Y),
-      static_cast<const int*>(ptr), static_cast<const int*>(ent),
+      static_cast<const long long*>(ptr), static_cast<const int*>(ent),
       static_cast<const int*>(row_map), Br, Bc, kappa, n, rs, cs, d, d_src,
       scale, R);
   return static_cast<int>(cudaGetLastError());
@@ -333,9 +338,10 @@ __device__ __forceinline__ void v1_fold(float (&acc)[kV], float (&run)[kV],
 // offsets and the next row's first).  e < the row's end, so lvl stays below
 // the row's last level.
 template <int kV>
-__device__ __forceinline__ void v1_enter(int e, int& lvl, int& bnd,
-                                         float (&acc)[kV], float (&run)[kV],
-                                         const int* __restrict__ lptr,
+__device__ __forceinline__ void v1_enter(long long e, int& lvl,
+                                         long long& bnd, float (&acc)[kV],
+                                         float (&run)[kV],
+                                         const long long* __restrict__ lptr,
                                          float scale) {
   while (e >= bnd) {
     v1_fold(acc, run, scale);
@@ -368,7 +374,8 @@ __device__ __forceinline__ void v1_enter(int e, int& lvl, int& bnd,
 template <typename T, bool kPartial, bool kV1, bool kMasked = false>
 __global__ void __launch_bounds__(512)
 split_vec_kernel(const T* __restrict__ A, float* __restrict__ Y,
-                 const int* __restrict__ ptr, const int* __restrict__ ent,
+                 const long long* __restrict__ ptr,
+                 const int* __restrict__ ent,
                  const int* __restrict__ tab, int M, int Br, int Bc,
                  int kappa, long long n, float scale, int R, int vec) {
   static_assert(!(kPartial && kV1), "v1 has no partial");
@@ -406,7 +413,7 @@ split_vec_kernel(const T* __restrict__ A, float* __restrict__ Y,
 
   for (int r = q; r < br; r += G) {
     const long long row = row0 + r;
-    int beg = 0, end = 0;                 // an unowned pair: exact zeros
+    long long beg = 0, end = 0;           // an unowned pair: exact zeros
     if (!kMasked || owned) {
       beg = ptr[row * kappa + lo];
       end = ptr[row * kappa + hi];
@@ -416,14 +423,15 @@ split_vec_kernel(const T* __restrict__ A, float* __restrict__ Y,
     for (int j = 0; j < kV; ++j) acc[j] = 0.f;
     // kV1: the levels folded so far, acc's level and the entry it ends at
     [[maybe_unused]] float run[kV];
-    [[maybe_unused]] int lvl = 0, bnd = 0;
+    [[maybe_unused]] int lvl = 0;
+    [[maybe_unused]] long long bnd = 0;
     if constexpr (kV1) {
 #pragma unroll
       for (int j = 0; j < kV; ++j) run[j] = 0.f;
       lvl = lo;
       bnd = ptr[row * kappa + lo + 1];
     }
-    for (int e0 = beg; e0 < end; e0 += kUnrollVec) {
+    for (long long e0 = beg; e0 < end; e0 += kUnrollVec) {
       int w[kUnrollVec];
 #pragma unroll
       for (int k = 0; k < kUnrollVec; ++k)
@@ -502,7 +510,7 @@ int launch_vec(const void* A, void* Y, const void* ptr, const void* ent,
   const dim3 block(tx, groups);
   kern<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(A), static_cast<float*>(Y),
-      static_cast<const int*>(ptr), static_cast<const int*>(ent),
+      static_cast<const long long*>(ptr), static_cast<const int*>(ent),
       static_cast<const int*>(tab), M, Br, Bc, kappa, n, scale, R, vec);
   return static_cast<int>(cudaGetLastError());
 }

@@ -753,15 +753,16 @@ _CSR_CHUNK_ENTRIES = 1 << 25
 _INT32_MAX = 2**31 - 1
 
 
-def _check_int32(plan: BlockPermPlan, nnz: int, word_max: int,
-                 what: str) -> None:
-    """Raise where a CSR's int32 ``ptr`` (its last entry is ``nnz``) or its
-    words (at most ``word_max``) would wrap."""
-    if nnz > _INT32_MAX or word_max > _INT32_MAX:
+def _check_int32(plan: BlockPermPlan, word_max: int, what: str) -> None:
+    """Raise where a CSR's int32 words ((column << 1) | sign, at most
+    ``word_max``) would wrap: a plan of more than 2**30 columns (rows of
+    Sᵀ).  The ``ptr`` offsets are int64 and hold any count of nonzeros."""
+    if word_max > _INT32_MAX:
         raise ValueError(
-            f"{what} of {plan.describe()}: {nnz} nonzeros and words up to "
-            f"{word_max} do not fit the kernels' int32 ptr and words "
-            f"(limit {_INT32_MAX})")
+            f"{what} of {plan.describe()}: words up to {word_max} do not "
+            f"fit the kernels' int32 words (column << 1 | sign), limit "
+            f"{_INT32_MAX}: the CSRs take at most 2**30 columns (ROADMAP.md "
+            f"queue 1, item 8)")
 
 
 def _chunk_blocks(plan: BlockPermPlan, per_block: int) -> int:
@@ -775,7 +776,7 @@ def _device_csr(plan: BlockPermPlan, device: torch.device,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """S of ``plan`` (with ``rows_pattern``, FLASHBLOCKROW's S_row) as a CSR
     on ``device``, built once per plan from the kernels' own hashes:
-    ``ent`` int32 (column << 1) | sign bit of every nonzero; ``ptr`` int32,
+    ``ent`` int32 (column << 1) | sign bit of every nonzero; ``ptr`` int64,
     ``_csr_levels`` offsets per row (row r's level ℓ is
     ent[ptr[r·κ+ℓ]:ptr[r·κ+ℓ+1]]; a global plan's row r is
     ent[ptr[r]:ptr[r+1]]) and a final end.  A blockperm or global row's
@@ -786,13 +787,11 @@ def _device_csr(plan: BlockPermPlan, device: torch.device,
     blockperm S is built in chunks of output blocks g (a row of block g
     holds entries of g only, so each chunk sorted alone gives the global
     order, ``ptr`` stitched from the chunks' counts), so its int64
-    temporaries stay within ``_CSR_CHUNK_ENTRIES``; a plan whose ``ptr`` or
-    words would pass int32 raises."""
+    temporaries stay within ``_CSR_CHUNK_ENTRIES``; a plan whose words
+    would pass int32 (more than 2**30 columns) raises."""
     if rows_pattern:
         return _blockrow_csr(plan, device)
-    _check_int32(plan, plan.s * plan.d_pad * (1 if plan.is_global
-                                              else plan.kappa),
-                 2 * plan.d_pad - 1, "the CSR of S")
+    _check_int32(plan, 2 * plan.d_pad - 1, "the CSR of S")
     if plan.is_global:
         u = torch.arange(plan.d_pad, dtype=torch.int64, device=device)
         rows, cols, negs = [], [], []
@@ -805,14 +804,18 @@ def _device_csr(plan: BlockPermPlan, device: torch.device,
         order = torch.argsort(row * plan.d_pad + col)
         ent = ((col << 1) | neg.to(torch.int64))[order].to(torch.int32)
         counts = torch.bincount(row, minlength=plan.k_pad)
-        ptr = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
-        return ptr.to(torch.int32), ent
+        return torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)]), ent
     tab = _device_table(plan, "fwd", device).to(torch.int64)
     u = torch.arange(plan.Bc, device=device)[None, :, None]
     i = torch.arange(plan.s, device=device)[None, None, :]
     segs_per_block = plan.Br * plan.kappa
-    step = _chunk_blocks(plan, plan.kappa * plan.Bc * plan.s)
-    ents, counts = [], []
+    per_block = plan.kappa * plan.Bc * plan.s
+    step = _chunk_blocks(plan, per_block)
+    # written in place chunk by chunk: a concatenation would hold the
+    # largest plan's words twice (10.7 GB at a 335 M-column leaf)
+    ent = torch.empty(plan.M * per_block, dtype=torch.int32, device=device)
+    ptr = torch.zeros(plan.M * segs_per_block + 1, dtype=torch.int64,
+                      device=device)
     for g0 in range(0, plan.M, step):
         g1 = min(plan.M, g0 + step)
         g = torch.arange(g0, g1, device=device)[:, None, None]
@@ -826,20 +829,19 @@ def _device_csr(plan: BlockPermPlan, device: torch.device,
             segs.append(row * plan.kappa + ell - g0 * segs_per_block)
         col, neg, seg = torch.cat(cols), torch.cat(negs), torch.cat(segs)
         order = torch.argsort(seg * plan.d_pad + col)
-        ents.append(((col << 1) | neg.to(torch.int64))[order]
-                    .to(torch.int32))
-        counts.append(torch.bincount(
-            seg, minlength=(g1 - g0) * segs_per_block))
+        ent[g0 * per_block:g1 * per_block] = (
+            (col << 1) | neg.to(torch.int64))[order]
+        ptr[1 + g0 * segs_per_block:1 + g1 * segs_per_block] = \
+            torch.bincount(seg, minlength=(g1 - g0) * segs_per_block)
         del col, neg, seg, order, cols, negs, segs
-    counts = torch.cat(counts)
-    ptr = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
-    return ptr.to(torch.int32), torch.cat(ents)
+    ptr[1:].cumsum_(0)
+    return ptr, ent
 
 
 @functools.lru_cache(maxsize=16)
 def _device_csr_t(plan: BlockPermPlan, device: torch.device,
                   tile_local: bool = False
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+                  ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
     """Sᵀ of a blockperm ``plan`` as a CSR on ``device``, for the
     transposes, built once per plan from the kernels' own hashes and
     cached like ``_device_csr``: row h·Bc + u of X (column u of input block
@@ -848,23 +850,26 @@ def _device_csr_t(plan: BlockPermPlan, device: torch.device,
     u, i)) << 1) | sign bit, int32 (the v1 transpose's and the L2
     route's), or with ``tile_local`` ((ℓ·Br + row) << 1) | sign bit, the
     row of the staged transpose's (κ·Br, 128 B) tile, int16 (a stage that
-    fits shared memory has fewer than 2**14 rows); ``ptr`` κ offsets a row
-    (s apart) and a final end.  That is the order of the hashing kernels
-    they replaced.  4 (2) bytes a nonzero, κ·s·d_pad in all, built in
-    chunks of input blocks h (``_CSR_CHUNK_ENTRIES``); a plan whose ``ptr``
-    or words would pass int32 raises."""
+    fits shared memory has fewer than 2**14 rows); ``ptr`` int64, κ
+    offsets a row (s apart) and a final end, or with ``tile_local`` None:
+    every row holds κ·s words and the staged kernel derives its offsets,
+    so the cache keeps no ptr (8 bytes a row and level).  That is the
+    order of the hashing kernels they replaced.  4 (2) bytes a nonzero,
+    κ·s·d_pad in all, built in chunks of input blocks h
+    (``_CSR_CHUNK_ENTRIES``); a plan whose words would pass int32 raises."""
     if tile_local and 2 * plan.kappa * plan.Br > 2**15:
         raise ValueError(f"tile-local words of {plan.describe()} need more "
                          f"than 16 bits: its stage does not fit shared "
                          f"memory")
-    _check_int32(plan, plan.kappa * plan.s * plan.d_pad, 2 * plan.k_pad - 1,
-                 "the CSR of Sᵀ")
+    _check_int32(plan, 2 * plan.k_pad - 1, "the CSR of Sᵀ")
     inv = _device_table(plan, "inverse", device).to(torch.int64)
     u = torch.arange(plan.Bc, device=device)[None, :, None, None]
     i = torch.arange(plan.s, device=device)[None, None, None, :]
     level = torch.arange(plan.kappa, device=device)[None, None, :, None]
-    step = _chunk_blocks(plan, plan.kappa * plan.Bc * plan.s)
-    ents = []
+    per_block = plan.kappa * plan.Bc * plan.s
+    step = _chunk_blocks(plan, per_block)
+    ents = torch.empty(plan.M * per_block, device=device,
+                       dtype=torch.int16 if tile_local else torch.int32)
     for h0 in range(0, plan.M, step):
         h1 = min(plan.M, h0 + step)
         h = torch.arange(h0, h1, device=device)[:, None, None, None]
@@ -872,12 +877,13 @@ def _device_csr_t(plan: BlockPermPlan, device: torch.device,
         r, sgn = block_rows_signs(plan, g, h, u, i)            # (m, Bc, κ, s)
         block = level if tile_local else g
         ent = (((block * plan.Br + r) << 1) | (sgn < 0).to(torch.int64))
-        ents.append(ent.reshape(-1).to(torch.int16 if tile_local
-                                       else torch.int32))
+        ents[h0 * per_block:h1 * per_block] = ent.reshape(-1)
         del r, sgn, ent
-    ptr = torch.arange(plan.d_pad * plan.kappa + 1, dtype=torch.int32,
+    if tile_local:
+        return None, ents
+    ptr = torch.arange(plan.d_pad * plan.kappa + 1, dtype=torch.int64,
                        device=device) * plan.s
-    return ptr, torch.cat(ents)
+    return ptr, ents
 
 
 def _blockrow_csr(plan: BlockPermPlan,
@@ -886,9 +892,8 @@ def _blockrow_csr(plan: BlockPermPlan,
     holds κ·s entries, level ℓ's s at h_ℓ·Bc + col(g, h_ℓ, r, t) in t
     order, h_ℓ from the iid wiring (``ref.blockrow_wiring``), the hash
     hash_words(seed, 0x5EED, g, h, r, t): col = hash_mod(hash, Bc), the
-    sign bit 31.  4 bytes a nonzero, κ·s·k_pad in all."""
-    _check_int32(plan, plan.kappa * plan.s * plan.k_pad, 2 * plan.d_pad - 1,
-                 "the CSR of S_row")
+    sign bit 31.  4 bytes a nonzero, κ·s·k_pad in all; ``ptr`` int64."""
+    _check_int32(plan, 2 * plan.d_pad - 1, "the CSR of S_row")
     tab = _device_table(plan, "blockrow", device).to(torch.int64)
     h = tab.T[:, None, :, None]                                # (M, 1, κ, 1)
     g = torch.arange(plan.M, device=device)[:, None, None, None]
@@ -898,7 +903,7 @@ def _blockrow_csr(plan: BlockPermPlan,
                              t)                                # (M, Br, κ, s)
     col = h * plan.Bc + hashing.hash_mod(hsh, plan.Bc)
     ent = ((col << 1) | (hsh >> 31)).reshape(-1).to(torch.int32)
-    ptr = torch.arange(plan.k_pad * plan.kappa + 1, dtype=torch.int32,
+    ptr = torch.arange(plan.k_pad * plan.kappa + 1, dtype=torch.int64,
                        device=device) * plan.s
     return ptr, ent
 

@@ -9,6 +9,16 @@
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --steps 3 \
         --device cpu
 
+Every config of ``configs/registry.py`` builds: the dense, moe
+(qwen3-moe-30b-a3b, arctic-480b), ssm (rwkv6-7b), hybrid (zamba2-7b), vlm
+(llama-3.2-vision-11b) and encdec (seamless-m4t-large-v2) families.  The
+Trainer feeds the pipeline's tokens and labels only, as the reference's
+does, so the vlm and encdec models need their modality stubs
+(``image_embeds``, ``encoder_frames``: ``models.factory.make_train_batch``
+draws them) through ``train.train_step.build_train_step`` rather than this
+launcher.  A full-depth config trains only where its weights, optimizer
+state and compression CSRs fit the card.
+
 The mesh of the reference (data and model axes over many devices) waits
 for the sharding slice; this runs the same Trainer on ``--device``
 (``cuda`` by default, which raises without a card).

@@ -8,7 +8,10 @@ probabilities cast to v's dtype for the PV product, then scaled by the
 inverse sum.  It is not a Pallas kernel in the reference, so no kernel
 replaces it; a library attention call would change the numerics.  The
 sharding constraints of the reference are no-ops on one card and are
-dropped.  The KV cache and ``decode_attention`` belong to the decode
+dropped.  Cross-attention (``kv_src``: the vlm family's image layers,
+the encoder-decoder's memory) projects k and v from the source and ropes
+neither side; the encoder's bidirectional self-attention (``causal=False``)
+still ropes.  The KV cache and ``decode_attention`` belong to the decode
 path, not ported yet.
 """
 from __future__ import annotations
@@ -23,7 +26,10 @@ from repro_torch.models import layers
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype,
-                   stack: Sequence[int] = ()):
+                   stack: Sequence[int] = (), cross: bool = False):
+    """The projections (and qk norms); ``cross`` changes nothing in the
+    tree, as in the reference, where it only names the use."""
+    del cross
     hd = cfg.resolved_head_dim
     p = {
         "wq": layers.dense_init(gen, cfg.d_model, cfg.n_heads * hd, dtype,
@@ -41,17 +47,20 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype,
     return p
 
 
-def _project_qkv(params, cfg: ModelConfig, x, positions):
+def _project_qkv(params, cfg: ModelConfig, x, kv_src, positions,
+                 kv_positions):
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     q = (x @ params["wq"]).reshape(B, S, cfg.n_heads, hd)
-    k = (x @ params["wk"]).reshape(B, S, cfg.n_kv_heads, hd)
-    v = (x @ params["wv"]).reshape(B, S, cfg.n_kv_heads, hd)
+    Skv = kv_src.shape[1]
+    k = (kv_src @ params["wk"]).reshape(B, Skv, cfg.n_kv_heads, hd)
+    v = (kv_src @ params["wv"]).reshape(B, Skv, cfg.n_kv_heads, hd)
     if cfg.qk_norm:
         q = layers.rms_norm(q, params["q_norm"])
         k = layers.rms_norm(k, params["k_norm"])
-    q = layers.apply_rope(q, positions, cfg.rope_theta)
-    k = layers.apply_rope(k, positions, cfg.rope_theta)
+    if kv_src is x:                       # self-attention ropes; cross not
+        q = layers.apply_rope(q, positions, cfg.rope_theta)
+        k = layers.apply_rope(k, kv_positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -109,14 +118,21 @@ def _sdpa(q, k, v, causal: bool):
     return torch.cat(outs, dim=1).reshape(B, S, H, hd)
 
 
-def attention_apply(params, cfg: ModelConfig, x, *, positions=None):
-    """Causal self-attention for training and prefill. x: (B, S, D) ->
-    (B, S, D).  (The reference's cross-attention, ``kv_src``, serves the
-    VLM family and waits for it.)"""
+def attention_apply(params, cfg: ModelConfig, x, *, positions=None,
+                    causal: bool = True, kv_src=None, kv_positions=None):
+    """Training and prefill attention. x: (B, S, D) -> (B, S, D).
+
+    ``kv_src`` (B, Skv, D) given: cross-attention over it (no causal mask,
+    no rope on either side)."""
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=x.device)[None]
-    q, k, v = _project_qkv(params, cfg, x, positions)
-    out = _sdpa(q, k, v, causal=True)
+    cross = kv_src is not None
+    src = kv_src if cross else x
+    if kv_positions is None:
+        kv_positions = torch.arange(src.shape[1], dtype=torch.int32,
+                                    device=x.device)[None]
+    q, k, v = _project_qkv(params, cfg, x, src, positions, kv_positions)
+    out = _sdpa(q, k, v, causal=causal and not cross)
     hd = cfg.resolved_head_dim
     return out.reshape(B, S, cfg.n_heads * hd) @ params["wo"]

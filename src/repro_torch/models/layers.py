@@ -16,7 +16,10 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch import tree as tr
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -108,6 +111,28 @@ def ffn_apply(params, x: torch.Tensor) -> torch.Tensor:
     gate = F.silu(x @ params["wi_gate"])
     up = x @ params["wi_up"]
     return (gate * up) @ params["wo"]
+
+
+# ---------------------------------------------------------------------------
+# stacked parameter trees
+# ---------------------------------------------------------------------------
+
+def unstack(blocks, n: int):
+    """The stacked ``blocks`` tree as ``n`` trees of views along its
+    leading axis (``torch.unbind``, whose backward stacks the slices'
+    gradients once): the port's loop in place of the reference's scan."""
+    pairs = tr.leaves_with_path(blocks)
+    slices = [torch.unbind(leaf, 0) for _, leaf in pairs]
+    return [tr.unflatten((path, s[i]) for (path, _), s in zip(pairs, slices))
+            for i in range(n)]
+
+
+def parameter_dict(tree_) -> nn.ParameterDict:
+    """Nested ``nn.ParameterDict``s of ``nn.Parameter`` leaves under the
+    tree's names."""
+    return nn.ParameterDict({
+        key: parameter_dict(val) if isinstance(val, dict)
+        else nn.Parameter(val) for key, val in tree_.items()})
 
 
 # ---------------------------------------------------------------------------

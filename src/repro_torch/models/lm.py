@@ -1,21 +1,32 @@
-"""Decoder LM, the dense family (port of ``repro/models/lm.py``).
+"""Decoder LM covering the dense, moe, ssm, hybrid and vlm families (port
+of ``repro/models/lm.py``).
 
-The parameter tree is the reference's, stacked on a leading layer axis
-(``blocks.attn.wq`` of shape (L, d_model, H·hd), and so on), held as
-nested ``nn.ParameterDict``s under the same names: the sketched gradient
-compression plans one sketch per leaf, AdamW decays every leaf with two or
-more dimensions (the stacked ``ln1``/``ln2`` too), and the checkpoint
-names leaves by their path, so the layout is part of what is computed.
-The reference scans the stack with ``lax.scan``; here a loop over the
-layer index runs each layer on its slice of the stack (``torch.unbind``,
-whose backward stacks the layers' gradients once), under
-``torch.utils.checkpoint`` when ``cfg.remat`` (the reference's
-``jax.checkpoint``).  The sharding constraints of the reference are no-ops
-on one card and are dropped.
+The parameter tree is the reference's, stacked on leading layer axes
+(``blocks.attn.wq`` of shape (L, d_model, H·hd); the hybrid's Mamba2
+blocks (n_super, attn_every, …); the vlm's self blocks (n_super, per − 1,
+…)), held as nested ``nn.ParameterDict``s under the same names: the
+sketched gradient compression plans one sketch per leaf, AdamW decays
+every leaf with two or more dimensions (the stacked ``ln1``/``ln2`` too),
+and the checkpoint names leaves by their path, so the layout is part of
+what is computed.  The reference scans each stack with ``lax.scan``; here
+a loop over the layer index runs each layer on its slice of the stack
+(``layers.unstack``), under ``torch.utils.checkpoint`` when ``cfg.remat``
+(the reference's ``jax.checkpoint``, nested as the reference nests it:
+per layer, and per super-block for the hybrid and vlm stacks).  The
+sharding constraints of the reference are no-ops on one card and are
+dropped.
 
-Families: dense ([ln→GQA-attn] + [ln→SwiGLU]).  The moe, ssm, hybrid and
-vlm families wait for their slice (``ROADMAP.md`` queue 1, item 1) and
-raise ``NotImplementedError``.
+Families:
+  dense   — [ln→GQA-attn] + [ln→SwiGLU]
+  moe     — [ln→GQA-attn] + [ln→MoE (+ optional dense residual branch)]
+  ssm     — RWKV6 blocks (time-mix + channel-mix)
+  hybrid  — Mamba2 stack with a *shared* (weight-tied) attention+FFN block
+            applied after every ``attn_every`` SSM layers (zamba2)
+  vlm     — dense stack with a cross-attention image layer closing every
+            group of ``cross_attn_every`` layers
+
+The decode path (``init_decode_state``, ``decode_step``) waits for its
+slice (``ROADMAP.md`` queue 1, item 2) and raises.
 """
 from __future__ import annotations
 
@@ -27,22 +38,22 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
-from repro_torch.models import layers
+from repro_torch.models import layers, moe, ssm
 from repro_torch.solvers.sketch_precondition import resolve_device
 from repro_torch import tree as tr
 
-PORTED_FAMILIES = ("dense",)
+
+def decode_not_ported(cfg: ModelConfig):
+    return NotImplementedError(
+        f"{cfg.name}: the decode path ({cfg.family} family) is not ported "
+        f"yet (ROADMAP.md queue 1, item 2)")
 
 
-def check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet "
-            f"(ROADMAP.md queue 1, item 1); ported: {PORTED_FAMILIES}")
+# ===========================================================================
+# per-layer init (stacked on ``stack``)
+# ===========================================================================
 
-
-def _dense_blocks(gen: torch.Generator, cfg: ModelConfig, dtype):
-    stack = (cfg.n_layers,)
+def _init_dense_block(gen, cfg: ModelConfig, dtype, stack):
     return {
         "ln1": layers.ones_init(cfg.d_model, stack, gen.device),
         "attn": attn.init_attention(gen, cfg, dtype, stack),
@@ -51,7 +62,77 @@ def _dense_blocks(gen: torch.Generator, cfg: ModelConfig, dtype):
     }
 
 
+def _init_moe_block(gen, cfg: ModelConfig, dtype, stack):
+    return {
+        "ln1": layers.ones_init(cfg.d_model, stack, gen.device),
+        "attn": attn.init_attention(gen, cfg, dtype, stack),
+        "ln2": layers.ones_init(cfg.d_model, stack, gen.device),
+        "moe": moe.init_moe(gen, cfg, dtype, stack),
+    }
+
+
+def _init_rwkv_block(gen, cfg: ModelConfig, dtype, stack):
+    return {
+        "ln1": layers.ones_init(cfg.d_model, stack, gen.device),
+        "rwkv": ssm.init_rwkv6(gen, cfg, dtype, stack),
+        "ln2": layers.ones_init(cfg.d_model, stack, gen.device),
+    }
+
+
+def _init_mamba_block(gen, cfg: ModelConfig, dtype, stack):
+    return {
+        "ln1": layers.ones_init(cfg.d_model, stack, gen.device),
+        "mamba": ssm.init_mamba2(gen, cfg, dtype, stack),
+    }
+
+
+def _init_cross_block(gen, cfg: ModelConfig, dtype, stack):
+    return {
+        "ln1": layers.ones_init(cfg.d_model, stack, gen.device),
+        "xattn": attn.init_attention(gen, cfg, dtype, stack, cross=True),
+        "ln2": layers.ones_init(cfg.d_model, stack, gen.device),
+        "ffn": layers.init_ffn(gen, cfg.d_model, cfg.d_ff, dtype, stack),
+    }
+
+
+# ===========================================================================
+# block applies (train/prefill): each returns (x, aux)
+# ===========================================================================
+
+def _zero(x):
+    return torch.zeros((), dtype=torch.float32, device=x.device)
+
+
 def _dense_block_apply(p, cfg: ModelConfig, x, positions):
+    h = layers.rms_norm(x, p["ln1"])
+    h = attn.attention_apply(p["attn"], cfg, h, positions=positions)
+    x = x + h
+    h2 = layers.ffn_apply(p["ffn"], layers.rms_norm(x, p["ln2"]))
+    return x + h2, _zero(x)
+
+
+def _moe_block_apply(p, cfg: ModelConfig, x, positions):
+    h = layers.rms_norm(x, p["ln1"])
+    h = attn.attention_apply(p["attn"], cfg, h, positions=positions)
+    x = x + h
+    h2, aux = moe.moe_apply(p["moe"], cfg, layers.rms_norm(x, p["ln2"]))
+    return x + h2, aux
+
+
+def _rwkv_block_apply(p, cfg: ModelConfig, x, positions):
+    h, _ = ssm.rwkv6_time_mix(p["rwkv"], cfg, layers.rms_norm(x, p["ln1"]))
+    x = x + h
+    h2, _ = ssm.rwkv6_channel_mix(p["rwkv"], cfg,
+                                  layers.rms_norm(x, p["ln2"]))
+    return x + h2, _zero(x)
+
+
+def _mamba_block_apply(p, cfg: ModelConfig, x, positions):
+    h = ssm.mamba2_apply(p["mamba"], cfg, layers.rms_norm(x, p["ln1"]))
+    return x + h, _zero(x)
+
+
+def _shared_attn_apply(p, cfg: ModelConfig, x, positions):
     h = layers.rms_norm(x, p["ln1"])
     h = attn.attention_apply(p["attn"], cfg, h, positions=positions)
     x = x + h
@@ -59,28 +140,59 @@ def _dense_block_apply(p, cfg: ModelConfig, x, positions):
     return x + h2
 
 
-def _unstack(blocks, n: int):
-    """The stacked ``blocks`` tree as ``n`` per-layer trees of views."""
-    pairs = tr.leaves_with_path(blocks)
-    slices = [torch.unbind(leaf, 0) for _, leaf in pairs]
-    return [tr.unflatten((path, s[i]) for (path, _), s in zip(pairs, slices))
-            for i in range(n)]
+def _cross_block_apply(p, cfg: ModelConfig, x, img):
+    h = layers.rms_norm(x, p["ln1"])
+    h = attn.attention_apply(p["xattn"], cfg, h, kv_src=img, causal=False)
+    x = x + h
+    h2 = layers.ffn_apply(p["ffn"], layers.rms_norm(x, p["ln2"]))
+    return x + h2
 
 
-def _parameter_dict(tree_) -> nn.ParameterDict:
-    return nn.ParameterDict({
-        key: _parameter_dict(val) if isinstance(val, dict)
-        else nn.Parameter(val) for key, val in tree_.items()})
+_BLOCKS = {"dense": (_init_dense_block, _dense_block_apply),
+           "moe": (_init_moe_block, _moe_block_apply),
+           "ssm": (_init_rwkv_block, _rwkv_block_apply)}
 
+
+def _maybe_remat(remat: bool, fn, *args):
+    return checkpoint(fn, *args, use_reentrant=False) if remat else fn(*args)
+
+
+def _scan_blocks(cfg: ModelConfig, apply_fn, x, blocks, n: int, *args):
+    """The reference's ``scan_blocks``: ``apply_fn(p, cfg, x, *args)`` over
+    the ``n`` layers of the stack, their aux summed."""
+    aux = _zero(x)
+    for p in layers.unstack(blocks, n):
+        x, a = _maybe_remat(cfg.remat, apply_fn, p, cfg, x, *args)
+        aux = aux + a
+    return x, aux
+
+
+def _hybrid_super(p_group, cfg: ModelConfig, x, shared, positions):
+    x, aux = _scan_blocks(cfg, _mamba_block_apply, x, p_group,
+                          cfg.attn_every, positions)
+    return _shared_attn_apply(shared, cfg, x, positions), aux
+
+
+def _vlm_super(p_self, p_cross, cfg: ModelConfig, x, positions, img):
+    x, aux = _scan_blocks(cfg, _dense_block_apply, x, p_self,
+                          cfg.cross_attn_every - 1, positions)
+    return _cross_block_apply(p_cross, cfg, x, img), aux
+
+
+# ===========================================================================
+# model
+# ===========================================================================
 
 class DecoderLM(nn.Module):
-    """The reference's ``DecoderLM`` for the dense family: functions of a
-    parameter tree (``init`` fills ``self.params``; ``hidden``, ``apply``,
-    ``prefill`` and ``loss`` take the tree, as the reference's do)."""
+    """The reference's ``DecoderLM``: functions of a parameter tree
+    (``init`` fills ``self.params``; ``hidden``, ``apply``, ``prefill`` and
+    ``loss`` take the tree, as the reference's do)."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        check_family(cfg)
+        if cfg.family not in ("dense", "moe", "ssm", "hybrid", "vlm"):
+            raise ValueError(f"family {cfg.family} handled by a different "
+                             f"model class")
         self.cfg = cfg
         self.dtype = layers.dtype_of(cfg.param_dtype)
         self.params: Optional[nn.ParameterDict] = None
@@ -101,22 +213,61 @@ class DecoderLM(nn.Module):
         if not cfg.tie_embeddings:
             params["lm_head"] = layers.embed_init(gen, cfg.vocab_padded,
                                                   cfg.d_model, dtype)
-        params["blocks"] = _dense_blocks(gen, cfg, dtype)
-        self.params = _parameter_dict(params)
+        fam = cfg.family
+        if fam in _BLOCKS:
+            params["blocks"] = _BLOCKS[fam][0](gen, cfg, dtype,
+                                               (cfg.n_layers,))
+        elif fam == "hybrid":
+            n_super = cfg.n_layers // cfg.attn_every
+            tail = cfg.n_layers - n_super * cfg.attn_every
+            params["blocks"] = _init_mamba_block(
+                gen, cfg, dtype, (n_super, cfg.attn_every))
+            if tail:
+                params["tail_blocks"] = _init_mamba_block(gen, cfg, dtype,
+                                                          (tail,))
+            params["shared_attn"] = _init_dense_block(gen, cfg, dtype, ())
+        else:                                                    # vlm
+            per = cfg.cross_attn_every
+            n_super = cfg.n_layers // per
+            params["blocks"] = _init_dense_block(gen, cfg, dtype,
+                                                 (n_super, per - 1))
+            params["cross_blocks"] = _init_cross_block(gen, cfg, dtype,
+                                                       (n_super,))
+        self.params = layers.parameter_dict(params)
         return self.params
 
     # ------------------------------------------------------------- backbone
-    def _backbone(self, params, x, positions) -> Tuple[torch.Tensor,
-                                                       torch.Tensor]:
-        """(B,S,D) -> (B,S,D), aux loss (0 for the dense family)."""
+    def _backbone(self, params, x, positions,
+                  extra) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(B,S,D) -> (B,S,D), aux loss (the moe family's router loss,
+        summed over its layers; 0 for the others)."""
         cfg = self.cfg
-        for p in _unstack(params["blocks"], cfg.n_layers):
-            if cfg.remat:
-                x = checkpoint(_dense_block_apply, p, cfg, x, positions,
-                               use_reentrant=False)
-            else:
-                x = _dense_block_apply(p, cfg, x, positions)
-        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+        fam = cfg.family
+        if fam in _BLOCKS:
+            return _scan_blocks(cfg, _BLOCKS[fam][1], x, params["blocks"],
+                                cfg.n_layers, positions)
+        aux = _zero(x)
+        if fam == "hybrid":
+            n_super = cfg.n_layers // cfg.attn_every
+            for p_group in layers.unstack(params["blocks"], n_super):
+                x, a = _maybe_remat(cfg.remat, _hybrid_super, p_group, cfg,
+                                    x, params["shared_attn"], positions)
+                aux = aux + a
+            if "tail_blocks" in params:
+                tail = cfg.n_layers - n_super * cfg.attn_every
+                x, a = _scan_blocks(cfg, _mamba_block_apply, x,
+                                    params["tail_blocks"], tail, positions)
+                aux = aux + a
+            return x, aux
+        img = extra["image_embeds"].to(x.dtype)                  # vlm
+        n_super = cfg.n_layers // cfg.cross_attn_every
+        for p_self, p_cross in zip(
+                layers.unstack(params["blocks"], n_super),
+                layers.unstack(params["cross_blocks"], n_super)):
+            x, a = _maybe_remat(cfg.remat, _vlm_super, p_self, p_cross, cfg,
+                                x, positions, img)
+            aux = aux + a
+        return x, aux
 
     # ---------------------------------------------------------------- apply
     def hidden(self, params, tokens: torch.Tensor,
@@ -127,7 +278,7 @@ class DecoderLM(nn.Module):
         x = params["embed"][tokens.long()]                     # (B,S,D)
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device)[None]
-        x, aux = self._backbone(params, x, positions)
+        x, aux = self._backbone(params, x, positions, extra or {})
         return layers.rms_norm(x, params["final_norm"]), aux
 
     def _head(self, params):
@@ -157,14 +308,23 @@ class DecoderLM(nn.Module):
                                          batch["labels"])
         return ce + aux, {"ce": ce, "aux": aux}
 
+    # --------------------------------------------------------------- decode
+    def init_decode_state(self, params, batch: int, max_seq: int,
+                          extra=None):
+        raise decode_not_ported(self.cfg)
 
-def params_from_reference(cfg: ModelConfig, params_np,
-                          device="cuda") -> DecoderLM:
-    """The port's ``DecoderLM`` holding the reference's parameter tree
-    (nested dicts of numpy arrays, as ``jax.tree.map(np.asarray, params)``
-    gives them) on ``device``, so both compute the same function."""
-    model = DecoderLM(cfg)
+    def decode_step(self, params, state, tokens: torch.Tensor, pos):
+        raise decode_not_ported(self.cfg)
+
+
+def params_from_reference(cfg: ModelConfig, params_np, device="cuda"):
+    """The port's model of ``cfg`` (``DecoderLM``, or ``EncDecLM`` for the
+    encdec family) holding the reference's parameter tree (nested dicts of
+    numpy arrays, as ``jax.tree.map(np.asarray, params)`` gives them) on
+    ``device``, so both compute the same function."""
+    from repro_torch.models.factory import build_model   # imports this
+    model = build_model(cfg)
     dev = resolve_device(device)
-    model.params = _parameter_dict(tr.tree_map(
+    model.params = layers.parameter_dict(tr.tree_map(
         lambda a: tr.from_numpy(a).to(dev), params_np))
     return model

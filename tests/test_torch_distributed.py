@@ -356,7 +356,7 @@ def _masked_partial_emulated(pt, slab, tab):
     col + (local − h)·Bc; a pair another rank owns is exact zeros."""
     ptr, ent = tfsk._device_csr(pt, torch.device("cpu"), True)
     assert torch.equal(ptr, torch.arange(pt.k_pad * pt.kappa + 1,
-                                         dtype=torch.int32) * pt.s)
+                                         dtype=torch.int64) * pt.s)
     W = ent.long().reshape(pt.M, pt.Br, pt.kappa, pt.s)
     out = torch.zeros(pt.kappa, pt.M, pt.Br, slab.shape[1])
     for ell in range(pt.kappa):

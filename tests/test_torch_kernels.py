@@ -1039,7 +1039,7 @@ def test_transpose_routes_sum_order(policy, ragged):
     want = _sum_words(_hashed_transpose_words(p), y, p.scale)
     ptr, ent = tfsk._device_csr_t(p, cpu)
     assert torch.equal(ptr, torch.arange(p.d_pad * p.kappa + 1,
-                                         dtype=torch.int32) * p.s)
+                                         dtype=torch.int64) * p.s)
     assert torch.equal(_sum_words(ent.long().reshape(-1, ks), y, p.scale),
                        want)
     local = tfsk._device_csr_t(p, cpu, tile_local=True)[1].long()

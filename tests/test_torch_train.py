@@ -472,20 +472,59 @@ def test_chunked_csr_is_the_unchunked_one(kw, monkeypatch):
     monkeypatch.setattr(fsk, "_CSR_CHUNK_ENTRIES", 1000)
     assert fsk._chunk_blocks(plan, plan.kappa * plan.Bc * plan.s) < plan.M
     for (p0, e0), (p1, e1) in zip(whole, [b() for b in builds]):
-        assert p0.dtype == p1.dtype and torch.equal(p0, p1)
+        assert (p0 is None and p1 is None) or (
+            p0.dtype == p1.dtype == torch.int64 and torch.equal(p0, p1))
         assert e0.dtype == e1.dtype and torch.equal(e0, e1)
 
 
-def test_csr_int32_guard_raises_past_the_limit():
-    """A plan whose ptr would pass 2**31 - 1 raises before anything is
-    allocated (deepseek-7b's embedding at ratio 8: 3.4 G nonzeros)."""
-    cpu = torch.device("cpu")
-    big = gc.plan_for_leaf(gc.CompressConfig(ratio=8), 102_400 * 4096)
-    assert big.kappa * big.s * big.d_pad > 2**31 - 1
-    for build in (lambda: fsk._device_csr(big, cpu),
-                  lambda: fsk._device_csr_t(big, cpu),
-                  lambda: fsk._device_csr_t(big, cpu, True)):
-        with pytest.raises(ValueError, match="int32"):
+def test_csr_int32_guard_raises_past_the_limit(monkeypatch):
+    """The guard checks the int32 words only: deepseek-7b's embedding
+    (3.4 G nonzeros) and qwen3-moe-30b-a3b's (2.7 G) at ratio 8 pass it,
+    though their ptr passes 2**31 - 1; command-r-plus-104b's embedding
+    (more than 2**30 columns) raises on its words before anything is
+    built."""
+    comp = gc.CompressConfig(ratio=8)
+    # the raise comes before the first table or temporary is built
+    monkeypatch.setattr(fsk, "_device_table", None)
+    for numel in (102_400 * 4096, 151_936 * 2048):
+        plan = gc.plan_for_leaf(comp, numel)
+        assert plan.kappa * plan.s * plan.d_pad > 2**31 - 1
+        assert 2 * plan.d_pad - 1 <= 2**31 - 1
+        for what, word_max in (("S", 2 * plan.d_pad - 1),
+                               ("Sᵀ", 2 * plan.k_pad - 1)):
+            fsk._check_int32(plan, word_max, what)
+    big = gc.plan_for_leaf(comp, 256_000 * 12_288)
+    assert 2 * big.d_pad - 1 > 2**31 - 1
+    for build in (lambda: fsk._device_csr.__wrapped__(big, torch.device(
+                      "cpu")),
+                  lambda: fsk._blockrow_csr(big, torch.device("cpu"))):
+        with pytest.raises(ValueError, match=r"2\*\*30 columns.*item 8"):
             build()
-    ok = gc.plan_for_leaf(gc.CompressConfig(ratio=8), 151_936 * 1024)
-    assert ok.kappa * ok.s * ok.d_pad <= 2**31 - 1
+
+
+def test_csr_ptr_is_int64_past_the_int32_limit(monkeypatch):
+    """With the int32 limit patched below a small plan's nonzero count,
+    its CSRs still build: S's, S_row's and the CSR of Sᵀ keep their ptr
+    values and come back int64, the words unchanged; the tile-local Sᵀ
+    (the staged transpose's) holds no ptr."""
+    plan = make_plan(5000, 512, kappa=4, s=2, seed=3)
+    cpu = torch.device("cpu")
+    builds = {"S": lambda: fsk._device_csr.__wrapped__(plan, cpu),
+              "S_row": lambda: fsk._device_csr.__wrapped__(plan, cpu, True),
+              "St": lambda: fsk._device_csr_t.__wrapped__(plan, cpu),
+              "St_local": lambda: fsk._device_csr_t.__wrapped__(plan, cpu,
+                                                                True)}
+    before = {k: b() for k, b in builds.items()}
+    nnz = plan.kappa * plan.s * plan.d_pad
+    monkeypatch.setattr(fsk, "_INT32_MAX", nnz - 1)
+    assert 2 * plan.d_pad - 1 <= nnz - 1
+    after = {k: b() for k, b in builds.items()}
+    for k in ("S", "S_row", "St"):
+        (p0, e0), (p1, e1) = before[k], after[k]
+        assert p1.dtype == torch.int64 and torch.equal(p0, p1), k
+        assert e1.dtype == torch.int32 and torch.equal(e0, e1), k
+        assert int(p1[-1]) == e1.numel(), k
+    assert int(after["S"][0][-1]) == nnz
+    assert before["St_local"][0] is None and after["St_local"][0] is None
+    assert after["St_local"][1].dtype == torch.int16
+    assert torch.equal(before["St_local"][1], after["St_local"][1])

@@ -54,7 +54,7 @@ def _levels(ptr, ent, rows, kappa, s):
     """The CSR as (rows, κ, s) int64 words, after checking that every row
     holds κ segments of s words."""
     assert torch.equal(ptr, torch.arange(rows * kappa + 1,
-                                         dtype=torch.int32) * s)
+                                         dtype=torch.int64) * s)
     assert ent.numel() == rows * kappa * s
     return ent.to(torch.int64).reshape(rows, kappa, s)
 
