@@ -26,7 +26,12 @@ Phases, any failure exits non-zero and prints no result:
      ragged 1 000 and 37) on both its routes forced, the staged kernel and
      the L2 route: the same bits, also under every stage count and three
      grids of the staged kernel and every tile and row split of the L2
-     route, Sᵀ·I == Sᵀ and the adjoint pair on both;
+     route, Sᵀ·I == Sᵀ and the adjoint pair on both; the narrow kernels at
+     n = 1 (the ragged plan, κ × s ∈ {1, 2, 4}², the main plan, every
+     policy): within tolerance of their plain versions and torch.equal to
+     the forced wide route under every stage count that fits and two grids
+     and on operands off 16-byte alignment (all three copy modes), and the
+     adjoint pair on the narrow route;
   3. the main path at the paper's size (d = 65 536, n = 1 024): the
      ``default``, ``fast`` and ``precise`` solver presets on a cond-1e4
      least-squares problem in float64, each solved twice (the first solve
@@ -138,20 +143,24 @@ Phases, any failure exits non-zero and prints no result:
      128, d_ff 3 072, vocab 151 936; bf16 weights, f32 optimizer state),
      ``launch/train.py``'s defaults (batch 4, seq 128, lr 3e-3) with
      ``--grad-compress 8``, random weights from a seed, 12 steps through
-     ``Trainer.fit``: exactly 10 forward and 10 transpose launches a step
-     (the five n = 1 plans of the ten compressed leaves), no call of a
-     plain version, every loss finite and the mean of the last three below
+     ``Trainer.fit``: exactly 10 narrow forward and 10 narrow transpose
+     launches a step (the five n = 1 plans of the ten compressed leaves; no
+     wide launch), no call of a plain version, every loss finite and the mean of the last three below
      the first; the checkpoint of step 12 restored into a fresh Trainer,
      every tensor ``torch.equal`` to the live state, and its first loss
      equal to the live run's at step 12 bit for bit; the step's host wall
      split into forward+backward, compression and optimizer; the CSR bytes
-     held and the peak memory; at each of the five plans the n = 1 forward
-     and transpose within fp32's ``exactness_atol`` of their plain
-     versions, the adjoint identity in fp64 at the embedding's plan, each
-     launch's CUDA-event time beside ``engine.cost_of``'s bound and
-     ``torch.sparse.mm`` of S (Sᵀ) in CSR at n = 1; ``compress_gradients``
-     on the card held to the CPU for three steps of the roll at the smoke
-     config.  Its launches are added to rows 1 and 2.
+     held and the peak memory; at each of the five plans the narrow
+     forward and transpose within fp32's ``exactness_atol`` of their plain
+     versions and torch.equal to the forced wide route at every stage
+     count, the adjoint identity in fp64 at the embedding's plan, and side
+     by side the CUDA-event times of the narrow kernels (at every stage
+     count that fits, at most six), the forced wide route and
+     ``torch.sparse.mm`` of S (Sᵀ) in CSR at n = 1, ``engine.cost_of``'s
+     bound and the CSR floor (the bound plus the CSR read once);
+     ``compress_gradients`` on the card held to the CPU for three steps of
+     the roll at the smoke config.  Its launches are the narrow rows' of
+     the kernels line, whose times are the embedding plan's.
  11. the moe, ssm, hybrid, encdec and vlm families at every width of
      their config files, depth cut (``FAMILY_CUTS``), batch 4, seq 128,
      lr 3e-3, ratio 8, the earlier phases' CSRs cleared first:
@@ -160,13 +169,14 @@ Phases, any failure exits non-zero and prints no result:
      freed, the resumed loss ``torch.equal`` to the live one; rwkv6-7b (1
      layer), zamba2-7b (6) and seamless-m4t-large-v2 (1 + 1) compressed
      and llama-3.2-vision-11b (5) uncompressed through ``build_train_step``
-     on ``make_train_batch`` batches; each family's launches (one forward
-     and one transpose a compressed leaf and step, nothing else, no plain
-     version), losses (finite), step split, CSR bytes and peak memory; at
-     the moe embedding's plan (2.68 G nonzeros, past int32) the n = 1
-     kernels against their plain versions, ``cost_of``'s bound,
-     ``torch.sparse.mm`` and the adjoint identity.  Its launches are
-     added to rows 1 and 2.
+     on ``make_train_batch`` batches; each family's launches (one narrow
+     forward and one narrow transpose a compressed leaf and step, nothing
+     else, no plain version), losses (finite), step split, CSR bytes and
+     peak memory; at
+     the moe embedding's plan (2.68 G nonzeros, past int32) phase 10's
+     n = 1 comparisons (narrow, forced wide, ``torch.sparse.mm``,
+     ``cost_of``'s bound, the CSR floor) and the adjoint identity.  Its
+     launches are added to the narrow rows.
 
 Phase 2 also holds the three v1 kernels (ragged n with d < d_pad, κ × s ∈
 {1,2,4}², a Br = 2 048 plan, the main plan; each also under every row
@@ -267,6 +277,13 @@ KERNEL_INFO = {
     "flashsketch_fwd_gather_global": dict(
         source="src/repro_torch/kernels/csrc/row_split.cuh",
         replaces="src/repro/kernels/flashsketch.py:642"),
+    # the narrow route at n = 1 (the training path's gradient leaves)
+    "flashsketch_fwd_narrow": dict(
+        source="src/repro_torch/kernels/csrc/row_split.cuh",
+        replaces="src/repro/kernels/flashsketch.py:594"),
+    "flashsketch_transpose_narrow": dict(
+        source="src/repro_torch/kernels/csrc/flashsketch_transpose.cu",
+        replaces="src/repro/kernels/flashsketch.py:619"),
 }
 # the kernels of the main path (phase 3) and of the GraSS path (phase 5)
 MAIN_KERNELS = ("flashsketch_fwd", "flashsketch_transpose")
@@ -280,6 +297,8 @@ GLOBAL_KERNELS = ("flashsketch_fwd_global", "flashsketch_transpose_global",
                   "flashsketch_fwd_gather_global")
 # the kernels of the distributed path (phase 7)
 PARTIAL_KERNELS = ("flashsketch_fwd_partial", "blockrow_fwd_partial")
+# the kernels of the training path (phases 10 and 11: n = 1)
+NARROW_KERNELS = ("flashsketch_fwd_narrow", "flashsketch_transpose_narrow")
 # ranks of the spawned phase-7 groups; a hung rank fails the run
 SPAWN_TIMEOUT_S = 300.0
 # GraSS (paper App. E): 109 386-parameter MLP, sparse dim 4 096, κ = 4, s = 2
@@ -563,6 +582,94 @@ def phase_transpose_routes(rt, main_plan, n):
           f"and <Sx,y> == <x,Sᵀy> on both routes; L2 route fp32 max_abs_err "
           f"{err_l2:.3e}")
     return {"flashsketch_transpose_l2": err_l2}
+
+
+def phase_narrow_kernels(rt, main_plan):
+    """Phase 2 for the narrow kernels at n = 1: at the ragged plan (d <
+    d_pad), κ × s ∈ {1, 2, 4}² and the main plan, every policy, each narrow
+    kernel within the policy's tolerance of its plain version and
+    torch.equal to the forced wide route (the row-split forward, the staged
+    transpose) under every stage count that fits and two grids (one block
+    walking every output block through its ring, and the SMs'), and on
+    operands off 16-byte alignment (the 4-byte cp.async and load copy
+    modes); the adjoint pair on the narrow route at the main plan."""
+    fsk, ref, make_plan = rt["fsk"], rt["ref"], rt["blockperm"].make_plan
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    print("phase 2 (narrow kernels): n = 1, every policy, against the plain "
+          "versions and the forced wide route")
+    plans = [make_plan(1000, 96, kappa=4, s=2, seed=1)]
+    plans += [make_plan(4096, 256, kappa=k, s=s, seed=10 * k + s)
+              for k in (1, 2, 4) for s in (1, 2, 4)]
+    plans.append(main_plan)
+    worst, forced, modes = {}, 0, {}
+    for plan in plans:
+        a = torch.randn(plan.d_pad, 1, generator=gen, device="cuda") * 3
+        y = torch.randn(plan.k_pad, 1, generator=gen, device="cuda") * 3
+        for pol in POLICIES:
+            p = plan.with_dtype(pol)
+            key = f"{pol} {plan.describe()}"
+            full = dataclasses.replace(p, d=p.d_pad)
+            for op, fn, x, plain in (
+                    ("fwd", fsk.flashsketch_fwd, a,
+                     lambda x_: ref.flashsketch_ref(p, x_)),
+                    ("transpose", fsk.flashsketch_transpose, y,
+                     lambda x_: ref.flashsketch_transpose_ref(full, x_))):
+                check(fsk.narrow_fits(p, op), f"narrow {op} at {key}")
+                name = f"flashsketch_{op}_narrow"
+                before = fsk.LAUNCHES[name]
+                got = fn(p, x)
+                check(fsk.LAUNCHES[name] == before + 1,
+                      f"{op} at {key}: not the narrow route")
+                e = _err(got, plain(fsk._stream(p, x).float()), p,
+                         f"narrow {op} {key}")
+                worst[op, pol] = max(worst.get((op, pol), 0.0), e)
+                want = fn(p, x, route="wide")
+                check(torch.equal(got, want),
+                      f"narrow {op} != the wide route at {key}")
+                fit = (fsk.MAX_SMEM_BYTES - 128) // (
+                    fsk.narrow_stage_bytes(p, op) + 8)
+                for st in range(1, fit + 1):
+                    for blocks in (1, None):
+                        check(torch.equal(fn(p, x, route="narrow", stages=st,
+                                             blocks=blocks), want),
+                              f"narrow {op} stages={st} blocks={blocks} at "
+                              f"{key}")
+                        forced += 1
+        # operands off 16-byte alignment: 4-byte cp.async (fp32 or bf16 4
+        # bytes off) and plain loads (bf16 2 bytes off) fill the stages
+        for pol, off in (("float32", 1), ("bfloat16", 2), ("bfloat16", 1)):
+            p = plan.with_dtype(pol)
+            for op, fn, x in (("fwd", fsk.flashsketch_fwd, a),
+                              ("transpose", fsk.flashsketch_transpose, y)):
+                src = fsk._stream(p, x)
+                view = torch.empty(src.shape[0] + off, 1, dtype=src.dtype,
+                                   device="cuda")[off:]
+                view.copy_(src)
+                mode = 1 if view.data_ptr() % 4 == 0 else 2
+                check(view.data_ptr() % 16 != 0, "an aligned view")
+                modes[mode] = modes.get(mode, 0) + 1
+                check(torch.equal(fn(p, view), fn(p, view, route="wide")),
+                      f"narrow {op} {pol} {off} element(s) off alignment "
+                      f"(copy mode {mode}) != the wide route at "
+                      f"{plan.describe()}")
+    x = torch.randn(main_plan.d, 1, generator=gen, device="cuda")
+    y = torch.randn(main_plan.k, 1, generator=gen, device="cuda")
+    lhs = float((rt["ops"].sketch_apply(main_plan, x).double()
+                 * y.double()).sum())
+    rhs = float((x.double() * rt["ops"].sketch_apply_t(
+        main_plan, y).double()).sum())
+    check(abs(lhs - rhs) <= 1e-5 * max(abs(lhs), 1.0),
+          f"adjoint on the narrow route: {lhs} vs {rhs}")
+    check(set(modes) == {1, 2}, f"copy modes exercised: {modes}")
+    print(f"  {len(plans)} plans x {len(POLICIES)} policies: narrow == wide "
+          f"(torch.equal) under {forced} forced launches (every stage count "
+          f"that fits x grids (1, the SMs')), and on operands off 16-byte "
+          f"alignment ({modes[1]} launches by 4-byte cp.async, {modes[2]} by "
+          f"loads; the rest by bulk copies); <Sx,y> == <x,Sᵀy> at the main "
+          f"plan, n = 1 ({lhs:.9g}, {rhs:.9g})")
+    for op in ("fwd", "transpose"):
+        errs = {pol: f"{worst[op, pol]:.2e}" for pol in POLICIES}
+        print(f"  narrow {op}: worst err vs plain by policy {errs}")
 
 
 def dense_blockrow(rt, plan):
@@ -3120,11 +3227,12 @@ def train_live(rt, cfg, opt, data_cfg, comp, ckpt_dir):
     shown = {k: v for k, v in launches.items() if v}
     print(f"  launch counts over the {TRAIN_STEPS} steps of Trainer.fit: "
           f"{shown}; plain-version calls: {calls or 0}")
-    for name in MAIN_KERNELS:
+    for name in NARROW_KERNELS:
         check(launches[name] == 10 * TRAIN_STEPS,
               f"{name}: {launches[name]} launches, not 10 a step")
     check(sum(launches.values()) == 20 * TRAIN_STEPS,
-          f"launches other than the forward and transpose: {shown}")
+          f"launches other than the narrow forward and transpose (a wide "
+          f"launch at n = 1): {shown}")
     check(not calls, f"a plain version ran on the main path: {calls}")
     losses = out["losses"]
     print(f"  losses: {[round(x, 4) for x in losses]}")
@@ -3198,7 +3306,7 @@ def train_profile(rt, trainer, out):
                and e.self_device_time_total > 0]
     busy = sum(ms for _, ms, _ in kernels)
     sketch = sum(ms for k, ms, _ in kernels
-                 if "split_vec_kernel" in k or "staged_transpose" in k)
+                 if "split_narrow_kernel" in k or "narrow_transpose" in k)
     print(f"  one profiled step: host wall {wall * 1e3:.1f} ms, device busy "
           f"{busy:.1f} ms (idle share {1 - busy / (wall * 1e3):.2f}); the "
           f"sketch kernels {sketch:.1f} ms; {len(kernels)} kernel names, "
@@ -3239,14 +3347,43 @@ def library_ms(rt, plan, operand, transpose, free_csrs):
     return ms, out, bands
 
 
+def csr_floor_ms(plan, op):
+    """The least time of a kernel that reads S (Sᵀ) from the port's CSR at
+    n = 1: cost_of's bytes (the operand read once, the output written once)
+    plus the CSR read once, the forward's 4-byte words and 8-byte ptr
+    entries, the transpose's 2-byte tile-local words, at HBM_BYTES_PER_S."""
+    item, nnz = plan.stream_itemsize, plan.nnz_per_col * plan.d_pad
+    if op == "fwd":
+        nbytes = (plan.d_pad * item + plan.k_pad * 4 + 4 * nnz
+                  + 8 * (plan.k_pad * plan.kappa + 1))
+    else:
+        nbytes = plan.k_pad * item + plan.d_pad * 4 + 2 * nnz
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def n1_bound(plan, op):
+    """(bound ms, bound_by) of one n = 1 launch from this run's shapes: the
+    operand read once and the output written once over HBM_BYTES_PER_S, or
+    one add a nonzero over FP32_OPS_PER_S, whichever is longer."""
+    item = plan.stream_itemsize
+    nbytes = (plan.d_pad * item + plan.k_pad * 4 if op == "fwd"
+              else plan.k_pad * item + plan.d_pad * 4)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = plan.nnz_per_col * plan.d_pad / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def train_kernels(rt, plans, free_csrs=False):
-    """At each plan of the compressed leaves: the n = 1 forward and
-    transpose against their plain versions (fp32 exactness_atol ×
-    max|plain|), the adjoint identity in fp64 at the largest plan, and
-    each kernel's CUDA-event time beside cost_of's bound and the library's
-    torch.sparse.mm of S (Sᵀ) at n = 1 (with ``free_csrs``, after the
-    kernels' CSRs are dropped: the library's int64 CSR of a plan past
-    int32 does not fit beside them)."""
+    """At each plan of the compressed leaves, at n = 1: the narrow forward
+    and transpose (the training path's route) against their plain versions
+    (fp32 exactness_atol × max|plain|) and torch.equal to the forced wide
+    route (the row-split forward, the staged transpose) under every stage
+    count that fits; the adjoint identity in fp64 at the largest plan; side
+    by side, the CUDA-event times of the narrow kernels (at their ring and
+    at every stage count that fits, at most six), the forced wide route,
+    ``torch.sparse.mm`` of S (Sᵀ) in CSR (with ``free_csrs``, after the
+    kernels' CSRs are dropped: the library's CSR of a plan past int32 does
+    not fit beside them), cost_of's bound and the CSR floor."""
     fsk, ref = rt["fsk"], rt["ref"]
     sm, lowering = rt["sketch_model"], rt["lowering"]
     gen = torch.Generator(device="cuda").manual_seed(10)
@@ -3261,45 +3398,76 @@ def train_kernels(rt, plans, free_csrs=False):
     for plan, leaves in plans:
         A = torch.randn(plan.d_pad, 1, generator=gen, device="cuda")
         Y = torch.randn(plan.k_pad, 1, generator=gen, device="cuda")
-        y = fsk.flashsketch_fwd(plan, A)
-        x = fsk.flashsketch_transpose(plan, Y)
-        want, p_fwd = plain_ms(ref.flashsketch_ref, plan, A)
-        e_fwd = _err(y, want, plan, f"n = 1 fwd {plan.describe()}")
         full = dataclasses.replace(plan, d=plan.d_pad)
-        want, p_t = plain_ms(ref.flashsketch_transpose_ref, full, Y)
-        e_t = _err(x, want, plan, f"n = 1 transpose {plan.describe()}")
-        del want
-        plain = {"fwd": p_fwd, "transpose": p_t}
+        work = {"fwd": (fsk.flashsketch_fwd, A,
+                        lambda: ref.flashsketch_ref(plan, A)),
+                "transpose": (fsk.flashsketch_transpose, Y,
+                              lambda: ref.flashsketch_transpose_ref(full,
+                                                                    Y))}
+        out, err, plain, ms, wide, stage_ms = {}, {}, {}, {}, {}, {}
+        for op, (fn, x, ref_fn) in work.items():
+            name = f"flashsketch_{op}_narrow"
+            count = fsk.LAUNCHES[name]
+            out[op] = fn(plan, x)
+            check(fsk.LAUNCHES[name] == count + 1,
+                  f"n = 1 {op} at {plan.describe()}: not the narrow route")
+            want, plain[op] = plain_ms(ref_fn)
+            err[op] = _err(out[op], want, plan,
+                           f"n = 1 {op} {plan.describe()}")
+            del want
+            check(torch.equal(out[op], fn(plan, x, route="wide")),
+                  f"n = 1 {op} at {plan.describe()}: narrow != wide")
+            fit = (fsk.MAX_SMEM_BYTES - 128) // (
+                fsk.narrow_stage_bytes(plan, op) + 8)
+            stage_ms[op] = {}
+            for st in range(1, min(fit, 6) + 1):
+                check(torch.equal(out[op], fn(plan, x, route="narrow",
+                                              stages=st)),
+                      f"n = 1 {op} at {plan.describe()}: stages={st}")
+                stage_ms[op][st] = cuda_ms(
+                    lambda: fn(plan, x, route="narrow", stages=st))
+            ms[op] = cuda_ms(lambda: fn(plan, x))
+            wide[op] = cuda_ms(lambda: fn(plan, x, route="wide"))
         cost = {op: sm.cost_of(lowering.lower(plan, lowering.LaunchSpec(
-            op=op, n=1, device="cuda"))) for op in ("fwd", "transpose")}
-        ms = {"fwd": cuda_ms(lambda: fsk.flashsketch_fwd(plan, A)),
-              "transpose": cuda_ms(lambda: fsk.flashsketch_transpose(plan,
-                                                                     Y))}
+            op=op, n=1, device="cuda"))) for op in work}
+        for op in work:
+            check(cost[op].bound_us > 0 and abs(
+                cost[op].bound_us / 1e3 - n1_bound(plan, op)[0])
+                <= 0.01 * n1_bound(plan, op)[0],
+                f"{op}: cost_of's bound differs from this run's")
         lib, lib_err, bands = {}, 0.0, {}
-        for op, operand, mine in (("fwd", A, y), ("transpose", Y, x)):
-            lib[op], out, bands[op] = library_ms(
+        for op, (_, operand, _) in work.items():
+            lib[op], got, bands[op] = library_ms(
                 rt, plan, operand, op == "transpose", free_csrs)
-            if out is not None:
-                lib_err = max(lib_err, float((out - mine).abs().max()))
-            del out
+            if got is not None:
+                lib_err = max(lib_err, float((got - out[op]).abs().max()))
+            del got
         print(f"  {plan.describe()} ({', '.join(leaves)}): max abs err fwd "
-              f"{e_fwd:.2e}, transpose {e_t:.2e} against the plain versions; "
-              f"|library - kernel| {lib_err:.2e}")
-        for op, name in (("fwd", "flashsketch_fwd"),
-                         ("transpose", "flashsketch_transpose")):
-            bound = cost[op].bound_us / 1e3
-            route = (f"; route {fsk.transpose_route(plan)}"
-                     if op == "transpose" else "")
+              f"{err['fwd']:.2e}, transpose {err['transpose']:.2e} against "
+              f"the plain versions; narrow == wide (torch.equal) at every "
+              f"stage count; |library - kernel| {lib_err:.2e}")
+        for op in work:
+            bound, by = n1_bound(plan, op)
+            floor = csr_floor_ms(plan, op)
+            threads, stages, _ = fsk.narrow_launch(plan, op)
             library = ("does not fit the card" if lib[op] is None else
                        f"{lib[op]:.4f} ms in {bands[op]} int32 band(s) "
-                       f"(kernel / library {ms[op] / lib[op]:.2f})")
-            print(f"    {name:22s} n = 1: kernel {ms[op]:.4f} ms, bound "
-                  f"{bound:.4f} ms ({cost[op].bound_by}, cost_of), "
-                  f"{ms[op] / bound:.1f}x bound; torch.sparse.mm "
-                  f"{library}; plain {plain[op]:.1f} ms (one call){route}")
+                       f"(narrow / library {ms[op] / lib[op]:.2f})")
+            sweep = ", ".join(f"{st}: {t:.4f}"
+                              for st, t in stage_ms[op].items())
+            print(f"    {op:9s} n = 1: narrow {ms[op]:.4f} ms ({threads} "
+                  f"threads, {stages} stage(s); by stages {sweep}), wide "
+                  f"(forced) {wide[op]:.4f} ms; bound {bound:.4f} ms ({by}; "
+                  f"cost_of), {ms[op] / bound:.1f}x; CSR floor "
+                  f"{floor:.4f} ms, {ms[op] / floor:.2f}x; torch.sparse.mm "
+                  f"{library}; plain {plain[op]:.1f} ms (one call)")
         rows[plan.d_pad] = dict(
-            ms=ms, library_ms=lib, plain_ms=plain, err=[e_fwd, e_t],
-            bound_ms={op: cost[op].bound_us / 1e3 for op in cost})
+            describe=plan.describe(), ms=ms, wide_ms=wide,
+            stage_ms=stage_ms, library_ms=lib, plain_ms=plain, err=err,
+            bound_ms={op: n1_bound(plan, op)[0] for op in work},
+            bound_by={op: n1_bound(plan, op)[1] for op in work},
+            floor_ms={op: csr_floor_ms(plan, op) for op in work})
+        del A, Y, out
     big = plans[0][0]
     g = torch.randn(big.d_pad, 1, generator=gen, device="cuda")
     y = fsk.flashsketch_fwd(big, g)
@@ -3313,6 +3481,23 @@ def train_kernels(rt, plans, free_csrs=False):
     for k in before:      # checks and timing are not main-path launches
         fsk.LAUNCHES[k] = before[k]
     return rows
+
+
+def narrow_rows(n1, launches):
+    """The kernels line's rows of the two narrow kernels, at the largest
+    plan of ``n1`` (``train_kernels``' rows: qwen3-0.6b's embedding plan),
+    with ``launches`` from the training phases."""
+    row = n1[max(n1)]
+    out = []
+    for op in ("fwd", "transpose"):
+        name = f"flashsketch_{op}_narrow"
+        out.append(dict(
+            name=name, route="cuda", **KERNEL_INFO[name],
+            launches=launches[name], max_abs_err=row["err"][op],
+            ms=row["ms"][op], plain_ms=row["plain_ms"][op],
+            bound_ms=row["bound_ms"][op], bound_by=row["bound_by"][op],
+            library_ms=row["library_ms"][op]))
+    return out
 
 
 def train_chunked_csr(rt, plans):
@@ -3384,7 +3569,7 @@ def train_compress_cpu(rt):
 def phase_training(rt):
     """qwen3-0.6b trained on the card at full width with sketched gradient
     compression (the module docstring, phase 10).  Returns the launch
-    counts of the live run."""
+    counts of the live run and ``train_kernels``' rows."""
     cfg = rt["get_arch"](TRAIN_ARCH)
     opt = rt["adamw"].AdamWConfig(
         lr=TRAIN_LR, warmup_steps=max(5, TRAIN_STEPS // 20),
@@ -3450,7 +3635,7 @@ def phase_training(rt):
         first_step_ms=clock.rows[0]["wall"] * 1e3, profiled=profiled,
         csr_bytes=csr,
         max_memory_allocated=[mem0, mem1], n1=rows)))
-    return launches
+    return launches, rows
 
 
 # ---------------------------------------------------------------------------
@@ -3504,12 +3689,12 @@ def family_report(rt, name, clock, losses, launches, plans, comp):
           f"finite: {losses}")
     if comp is not None:
         check(n_leaves > 0, f"{name}: no leaf compressed")
-        for kname in MAIN_KERNELS:
+        for kname in NARROW_KERNELS:
             check(launches[kname] == n_leaves * steps,
                   f"{name}: {kname} {launches[kname]} launches, not "
                   f"{n_leaves} a step")
     check(sum(launches.values()) == 2 * n_leaves * steps,
-          f"{name}: launches other than the n = 1 forward and transpose: "
+          f"{name}: launches other than the narrow forward and transpose: "
           f"{shown}")
     rest = clock.rows[1:] or clock.rows
     wall, comp_s, opt_s = (statistics.median(r.get(k, 0.0) for r in rest)
@@ -3787,6 +3972,7 @@ def main() -> int:
                           phase_family_kernels, rt, main_plan, n))
         errs.update(timed("phase 2, partial kernels", phase_partial_kernels,
                           rt, main_plan, n))
+        timed("phase 2, narrow kernels", phase_narrow_kernels, rt, main_plan)
         launches, _ = timed("phase 3", phase_main_path, rt, main_plan, d, n,
                             1e4)
         rows = timed("phase 4", phase_timing, rt, main_plan, n, launches,
@@ -3815,12 +4001,10 @@ def main() -> int:
         for row in rows:
             if row["name"] == "flashsketch_fwd":
                 row["launches"] += served["flashsketch_fwd"]
-        trained = timed("phase 10", phase_training, rt)
+        trained, n1 = timed("phase 10", phase_training, rt)
         families = timed("phase 11", phase_families_train, rt)
-        for row in rows:
-            if row["name"] in MAIN_KERNELS:
-                row["launches"] += trained[row["name"]] + \
-                    families[row["name"]]
+        rows += narrow_rows(n1, {k: trained[k] + families[k]
+                                     for k in NARROW_KERNELS})
         print("tuned: " + json.dumps({
             f"{v}/{dt}": dict(rule=[r["tn"], r["row_splits"],
                                     round(r["time_us"], 2),

@@ -16,7 +16,10 @@
 // _partial_masked_kernel (:422); and, where the staged transpose's tile
 // does not fit shared memory, flashsketch.py:619
 // flashsketch_transpose_pallas (fs_fwd on the CSR of Sᵀ: the transpose's L2
-// route, see flashsketch_transpose.cu).  Plain versions:
+// route, see flashsketch_transpose.cu); at n = 1, flashsketch_pallas again
+// through fs_fwd_narrow (split_narrow_kernel of row_split.cuh: the narrow
+// route of the training path's gradient leaves, see its note).  Plain
+// versions:
 // repro_torch/kernels/ref.py:flashsketch_ref, ref.blockrow_ref and
 // ref.flashsketch_transpose_ref on the streamed operand, on its
 // materialized gather (ref.gather_rows), and ref.partial_ref.
@@ -125,6 +128,31 @@ int fs_fwd(const void* A, void* Y, const void* ptr, const void* ent,
 #define FS_LAUNCH(T)                                                      \
   fs::launch_vec<T, false>(A, Y, ptr, ent, nullptr, M, Br, Bc, kappa, p[5], \
                            scale, tn, groups, R, vec, stream)
+  FS_DISPATCH(static_cast<int>(p[0]), FS_LAUNCH)
+#undef FS_LAUNCH
+}
+
+// The narrow forward at n = 1 (row_split.cuh, split_narrow_kernel): Y
+// (k_pad,) fp32 = S · a (d_pad,), both contiguous, for a blockperm plan; S
+// comes as the plan's CSR (ptr int64 of ptr_len = k_pad·κ + 1 entries, ent
+// int32) and tab is the (κ, M) int32 neighbour table, on the device.  The
+// integers come in one array, p = {dtype, M, Br, Bc, κ, s, threads, stages,
+// blocks, smem, mode, ptr_len}: blocks 0 for the SMs times the blocks
+// resident on each, mode a NarrowCopy (0 bulk copies: a 16-byte aligned,
+// 4·κ·Bc·s and Bc·itemsize multiples of 16; 1 4-byte cp.async: Bc·itemsize
+// a multiple of 4, a 4-byte aligned; 2 loads).  Launches on `stream` and
+// returns cudaGetLastError() (0 on success).
+int fs_fwd_narrow(const void* A, void* Y, const void* ptr, const void* ent,
+                  const void* tab, const long long* p, float scale,
+                  void* stream) {
+  const int M = static_cast<int>(p[1]), Br = static_cast<int>(p[2]);
+  const int Bc = static_cast<int>(p[3]), kappa = static_cast<int>(p[4]);
+  const int s = static_cast<int>(p[5]), threads = static_cast<int>(p[6]);
+  const int stages = static_cast<int>(p[7]), blocks = static_cast<int>(p[8]);
+  const int smem = static_cast<int>(p[9]), mode = static_cast<int>(p[10]);
+#define FS_LAUNCH(T)                                                       \
+  fs::launch_narrow<T>(A, Y, ptr, ent, tab, M, Br, Bc, kappa, s, scale,    \
+                       threads, stages, blocks, smem, mode, p[11], stream)
   FS_DISPATCH(static_cast<int>(p[0]), FS_LAUNCH)
 #undef FS_LAUNCH
 }

@@ -5,7 +5,8 @@
 // _inv_neighbor_table (:100), run by _run_fused (:534), here
 // staged_transpose_kernel; for the global families (CountSketch, sparse
 // graph) with Φ from _phi_global_tile (:165), here global_transpose_kernel
-// (see its note).  Plain version:
+// (see its note); at n = 1, narrow_transpose_kernel (fs_transpose_narrow,
+// see its note).  Plain version:
 // repro_torch/kernels/ref.py:flashsketch_transpose_ref on the streamed operand.
 //
 // What it computes: for input block h, X[h·Bc + u, c] = scale ·
@@ -79,39 +80,11 @@ constexpr int kUnrollT = 8;                  // nonzeros whose loads overlap
 // How a stage is filled: TMA boxes, cp.async of 4-byte words, or loads.
 enum CopyMode : int { kTma = 0, kAsync4 = 1, kPlain = 2 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done)
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-}
+using fs::mbar_arrive;
+using fs::mbar_expect_tx;
+using fs::mbar_init;
+using fs::mbar_wait;
+using fs::smem_u32;
 
 // Fill stage `dst` with item (h, j): level ℓ's Br rows of Y block g_ℓ,
 // columns [j·kTn, (j+1)·kTn), at rows ℓ·Br of the stage.  kTma: thread 0
@@ -377,21 +350,12 @@ int launch_staged_mode(const CUtensorMap& tmap, const void* Y, void* X,
   auto kern = staged_transpose_kernel<T, kCopy>;
   if (threads != kStagedThreads<T>)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  int per_sm = 0, dev = 0, sms = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
-                                                        threads, smem);
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   constexpr int kTn = kStageRow / sizeof(T);
   const long long items = static_cast<long long>(M) * ((n + kTn - 1) / kTn);
-  long long grid = blocks > 0 ? blocks : static_cast<long long>(per_sm) * sms;
-  if (grid > items) grid = items;
+  cudaError_t err;
+  const long long grid =
+      fs::persistent_grid(kern, threads, smem, blocks, items, &err);
+  if (err != cudaSuccess) return static_cast<int>(err);
   kern<<<static_cast<unsigned int>(grid), threads, smem,
          static_cast<cudaStream_t>(stream)>>>(
       tmap, static_cast<const T*>(Y), static_cast<float*>(X),
@@ -442,6 +406,182 @@ int launch_staged(const void* Y, void* X, const void* itab, const void* ent,
 #undef FS_MODE
 }
 
+
+// ---------------------------------------------------------------------------
+// The narrow transpose: n = 1, a blockperm plan.
+// ---------------------------------------------------------------------------
+//
+// Replaces, at n = 1, flashsketch_transpose_pallas (:619), body
+// _fused_transpose_kernel (:256), as staged_transpose_kernel did
+// (kernels/flashsketch.py:transpose_route picks the route): X = Sᵀ·y for
+// one column y, the decompression of the training path's gradient leaves.
+//
+// Why.  The staged kernel's stage is κ·Br rows of 128 bytes whatever n is:
+// at n = 1 each staged row carries 4 bytes of y, a stage is 128 KiB at the
+// training plans (Br = 256, κ = 4), so one stage fits and no copy overlaps
+// a sum; fill_stage walks κ·Br·32 copy slots of which 31 in 32 are past n;
+// and of the 8 threads over a staged row only the first sums (qwen3-0.6b's
+// embedding plan: 23.7 ms, 98× its bound, 3.8-4.7× a torch.sparse.mm of Sᵀ
+// on the H100).
+//
+// Bound.  cost_of's floor reads y and writes X once, 0.2404 ms at that plan;
+// a kernel that reads Sᵀ's tile-local 16-bit words once adds 2 bytes a
+// nonzero: 3.49 GB there, a floor of 1.04 ms.
+//
+// Design.  An item is an input block h.  Its stage is the κ·s·Bc tile-local
+// words of its rows (contiguous in ent, 2·κ·s·Bc bytes: 20 KiB at that plan)
+// and the κ blocks g_ℓ = itab[ℓ, h] of y (Br elements each, one after
+// another: a word's row ℓ·Br + row indexes them as they lie), 24 KiB there,
+// so several stages fit and the fills of the next items run under the sums
+// of one.  Persistent blocks walk runs of items through the ring, filled by
+// 1-D bulk copies on the stage's mbarrier (4-byte cp.async or loads where a
+// span is not 16-byte aligned).  Thread u owns row u of X's block (u,
+// u + blockDim, …): its κ·s words are one 16-byte shared load where κ·s = 8,
+// and it adds acc = fma(y[w >> 1], ±1, acc) in word order from +0, then ×
+// scale: the staged kernel's sums, so the same bits.  X's Bc outputs go out
+// as one coalesced store.
+__host__ __device__ inline long long narrow_t_spans(int Br, int Bc, int kappa,
+                                                    int s, int item,
+                                                    long long* y_at) {
+  const long long words = fs::align16(2LL * kappa * s * Bc);
+  *y_at = words;
+  return words + fs::align16(static_cast<long long>(kappa) * Br * item);
+}
+
+template <typename T, int kCopy>
+__global__ void __launch_bounds__(512)
+narrow_transpose_kernel(const T* __restrict__ Y, float* __restrict__ X,
+                        const int* __restrict__ itab,
+                        const unsigned short* __restrict__ ent, int M, int Br,
+                        int Bc, int kappa, int s, float scale, int stages) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* ring = smem_raw + ((128 - (smem_u32(smem_raw) & 127)) & 127);
+  long long y_at;
+  const long long stage_bytes = narrow_t_spans(
+      Br, Bc, kappa, s, static_cast<int>(sizeof(T)), &y_at);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + stages * stage_bytes);
+  const int ks = kappa * s;
+  const bool wvec = ks % kUnrollT == 0;        // a row's words: 16-byte loads
+  const long long per_block = static_cast<long long>(Bc) * ks;
+  const long long y_bytes = static_cast<long long>(Br) * sizeof(T);
+  const long long first = static_cast<long long>(M) * blockIdx.x / gridDim.x;
+  const int count = static_cast<int>(
+      static_cast<long long>(M) * (blockIdx.x + 1) / gridDim.x - first);
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < stages; ++st)
+      mbar_init(full + st, kCopy == fs::kCopyBulk ? 1u : blockDim.x);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  // stage t % stages <- input block h = first + t: its rows' words and the
+  // κ blocks of y they name
+  auto fill = [&](int t) {
+    const long long h = first + t;
+    unsigned char* stg = ring + (t % stages) * stage_bytes;
+    uint64_t* bar = full + t % stages;
+    if constexpr (kCopy == fs::kCopyBulk) {
+      if (threadIdx.x != 0) return;
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      mbar_expect_tx(bar, static_cast<uint32_t>(2 * per_block +
+                                                kappa * y_bytes));
+      fs::bulk_copy(stg, ent + h * per_block,
+                    static_cast<uint32_t>(2 * per_block), bar);
+      for (int ell = 0; ell < kappa; ++ell)
+        fs::bulk_copy(stg + y_at + ell * y_bytes,
+                      Y + static_cast<long long>(__ldg(itab + ell * M + h)) *
+                              Br,
+                      static_cast<uint32_t>(y_bytes), bar);
+    } else {
+      fs::share_copy<kCopy>(stg, ent + h * per_block, 2 * per_block);
+      for (int ell = 0; ell < kappa; ++ell)
+        fs::share_copy<kCopy>(
+            stg + y_at + ell * y_bytes,
+            Y + static_cast<long long>(__ldg(itab + ell * M + h)) * Br,
+            y_bytes);
+      fs::share_arrive<kCopy>(bar);
+    }
+  };
+  for (int t = 0; t < min(stages, count); ++t) fill(t);
+
+  for (int t = 0; t < count; ++t) {
+    const long long h = first + t;
+    const unsigned char* stg = ring + (t % stages) * stage_bytes;
+    const unsigned short* ws = reinterpret_cast<const unsigned short*>(stg);
+    const T* ys = reinterpret_cast<const T*>(stg + y_at);
+    mbar_wait(full + t % stages, static_cast<uint32_t>((t / stages) & 1));
+    for (int u = threadIdx.x; u < Bc; u += blockDim.x) {
+      const unsigned short* wr = ws + static_cast<long long>(u) * ks;
+      float acc = 0.f;
+      for (int e0 = 0; e0 < ks; e0 += kUnrollT) {
+        int w[kUnrollT];
+        if (wvec) {
+          const uint4 q = *reinterpret_cast<const uint4*>(wr + e0);
+#pragma unroll
+          for (int k = 0; k < kUnrollT; ++k)
+            w[k] = static_cast<int>(
+                (fs::word_of(q, k >> 1) >> (16 * (k & 1))) & 0xFFFFu);
+        } else {
+#pragma unroll
+          for (int k = 0; k < kUnrollT; ++k)
+            w[k] = e0 + k < ks ? static_cast<int>(wr[e0 + k]) : 0;
+        }
+        float v[kUnrollT];
+#pragma unroll
+        for (int k = 0; k < kUnrollT; ++k)
+          v[k] = e0 + k < ks ? fs::to_f32(ys[w[k] >> 1]) : 0.f;
+#pragma unroll
+        for (int k = 0; k < kUnrollT; ++k) {
+          if (e0 + k >= ks) break;
+          const float pm = __uint_as_float(
+              0x3F800000u | (static_cast<uint32_t>(w[k]) << 31));
+          acc = fmaf(v[k], pm, acc);
+        }
+      }
+      X[h * Bc + u] = acc * scale;
+    }
+    __syncthreads();                          // every read of the stage done
+    if (t + stages < count) fill(t + stages);
+  }
+}
+
+template <typename T, int kCopy>
+int launch_narrow_t_mode(const void* Y, void* X, const void* itab,
+                         const void* ent, int M, int Br, int Bc, int kappa,
+                         int s, float scale, int threads, int stages,
+                         int blocks, int smem, void* stream) {
+  auto kern = narrow_transpose_kernel<T, kCopy>;
+  cudaError_t err;
+  const long long grid =
+      fs::persistent_grid(kern, threads, smem, blocks, M, &err);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kern<<<static_cast<unsigned int>(grid), threads, smem,
+         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(Y), static_cast<float*>(X),
+      static_cast<const int*>(itab), static_cast<const unsigned short*>(ent),
+      M, Br, Bc, kappa, s, scale, stages);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_narrow_t(const void* Y, void* X, const void* itab, const void* ent,
+                    const long long* p, float scale, void* stream) {
+  const int M = static_cast<int>(p[1]), Br = static_cast<int>(p[2]);
+  const int Bc = static_cast<int>(p[3]), kappa = static_cast<int>(p[4]);
+  const int s = static_cast<int>(p[5]), threads = static_cast<int>(p[6]);
+  const int stages = static_cast<int>(p[7]), blocks = static_cast<int>(p[8]);
+  const int smem = static_cast<int>(p[9]), mode = static_cast<int>(p[10]);
+#define FS_MODE(K)                                                          \
+  launch_narrow_t_mode<T, K>(Y, X, itab, ent, M, Br, Bc, kappa, s, scale,    \
+                             threads, stages, blocks, smem, stream)
+  switch (mode) {
+    case fs::kCopyBulk: return FS_MODE(fs::kCopyBulk);
+    case fs::kCopyAsync4: return FS_MODE(fs::kCopyAsync4);
+    case fs::kCopyPlain: return FS_MODE(fs::kCopyPlain);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef FS_MODE
+}
 
 // Global families (CountSketch, sparse graph): no loop over the M output
 // blocks.  Column u of S has s nonzeros, at the global rows
@@ -540,6 +680,24 @@ extern "C" {
 int fs_transpose(const void* Yin, void* X, const void* itab, const void* ent,
                  const long long* p, float scale, void* stream) {
 #define FS_LAUNCH(T) launch_staged<T>(Yin, X, itab, ent, p, scale, stream)
+  FS_DISPATCH(static_cast<int>(p[0]), FS_LAUNCH)
+#undef FS_LAUNCH
+}
+
+// The narrow transpose at n = 1 (narrow_transpose_kernel): X (d_pad,) fp32
+// = Sᵀ · y (k_pad,), both contiguous, for a blockperm plan; itab is the
+// (κ, M) int32 inverse neighbour table and ent the 16-bit CSR words of Sᵀ
+// with tile-local rows (κ·s a row), both on the device.  The integers come
+// in one array, p = {dtype, M, Br, Bc, κ, s, threads, stages, blocks, smem,
+// mode}: blocks 0 for the SMs times the blocks resident on each, mode a
+// NarrowCopy (0 bulk copies: y 16-byte aligned, 2·κ·s·Bc and Br·itemsize
+// multiples of 16; 1 4-byte cp.async: κ·s·Bc even, Br·itemsize a multiple
+// of 4, y 4-byte aligned; 2 loads).  Launches on `stream` and returns
+// cudaGetLastError() (0 on success).
+int fs_transpose_narrow(const void* Yin, void* X, const void* itab,
+                        const void* ent, const long long* p, float scale,
+                        void* stream) {
+#define FS_LAUNCH(T) launch_narrow_t<T>(Yin, X, itab, ent, p, scale, stream)
   FS_DISPATCH(static_cast<int>(p[0]), FS_LAUNCH)
 #undef FS_LAUNCH
 }

@@ -25,6 +25,8 @@
 //     plan on a CSR of Sᵀ and the v1 FLASHBLOCKROW (flashsketch_v1.cu,
 //     fs_transpose_v1 and fs_blockrow_v1; replace :905 and :927): 16-byte
 //     loads of a contiguous A, 4 fp32 (8 bf16, 16 fp8) columns per thread.
+//   * split_narrow_kernel: the fused forward at n = 1 (fs_fwd_narrow;
+//     replaces flashsketch_pallas :594 there, see its note at the end).
 //
 // Why.  One block per (output block g, column tile j) left the card nearly
 // empty where M·⌈n/tn⌉ is small: the GraSS chunk (M = 4, n = 64) launched 4
@@ -109,6 +111,7 @@
 // and a warp's request covers 256-512 contiguous bytes.
 #pragma once
 
+#include "async_copy.cuh"
 #include "hash.cuh"
 
 namespace fs {
@@ -513,6 +516,235 @@ int launch_vec(const void* A, void* Y, const void* ptr, const void* ent,
       static_cast<const long long*>(ptr), static_cast<const int*>(ent),
       static_cast<const int*>(tab), M, Br, Bc, kappa, n, scale, R, vec);
   return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// The narrow forward: n = 1, a blockperm plan.
+// ---------------------------------------------------------------------------
+//
+// Replaces, at n = 1, flashsketch_pallas (src/repro/kernels/flashsketch.py
+// :594), body _fused_fwd_kernel (:231), Φ from _phi_tile (:145), as
+// split_vec_kernel did (fs_fwd; kernels/flashsketch.py:fwd_route picks the
+// route).  Y = S·a for one column a: the compressed gradient leaves of the
+// training path (optim/grad_compress.py), up to 335 M columns.
+//
+// Why.  split_vec_kernel at n = 1 runs its narrowest tile, 32 columns, of
+// which one is real: 7 of the 8 thread columns of a block return at once,
+// 4 lanes of a warp work, and each works its row's κ·s·Bc/Br words one
+// scalar load at a time, each 4-byte load of a pulling a 32-byte sector
+// (qwen3-0.6b's embedding plan: 26.4 ms, 110× its bound, 3.6-4.9× a
+// torch.sparse.mm of S on the H100).
+//
+// Bound.  cost_of's floor reads a and writes Y once: (d_pad·itemsize +
+// k_pad·4) bytes at 3.35 TB/s, 0.2404 ms at that plan (S is hashed inside
+// the TPU kernel).  A kernel that reads S from a CSR must also read its
+// words (4 bytes a nonzero) and ptr (8 bytes a row and level) once: 7.25 GB
+// there, a floor of 2.16 ms; the words set it.
+//
+// Design.  Block g's words are contiguous in ent, [g·κ·Bc·s, (g+1)·κ·Bc·s)
+// (each of its κ input blocks gives Bc·s nonzeros), and its rows' ptr
+// entries are the slice [g·Br·κ, (g+1)·Br·κ]; its κ input blocks h_ℓ =
+// tab[ℓ, g] are Bc contiguous elements of a each.  Persistent blocks walk
+// runs of output blocks g and stage those three for each in a ring of
+// `stages` stages of shared memory, filled by 1-D bulk copies completing
+// on the stage's mbarrier (4-byte cp.async or loads where a span is not
+// 16-byte aligned), the fills of the next stages in flight while one is
+// summed: every byte the floor counts is read once, in whole spans.  Thread
+// r owns row r of g (r, r + blockDim, …): it adds its row's entries from +0
+// in CSR order, level by level, acc += (w & 1) ? −a : a, a read from the
+// staged copy of level ℓ's input block at ℓ·Bc + (col − h_ℓ·Bc), then × scale
+// — the order and arithmetic of split_vec_kernel, so the same bits — and
+// the block's Br outputs go out as one coalesced store.  64-bit offsets:
+// a plan's words pass 2^31 (the qwen3-moe embedding's 2.68 G).
+//
+// Stage layout (bytes): the words, align16(4·κ·Bc·s); ptr,
+// align16(8·(Br·κ + 2)): bulk copies start at the even entry at or below the
+// slice and copy an even count, so a block may find its slice one entry in,
+// and the last block, whose even count would run one entry past ptr, loads
+// that entry itself; a, align16(κ·Bc·itemsize), level ℓ at ℓ·Bc elements.
+constexpr int kUnrollN = 8;  // words, then elements of a, in flight a row
+
+__host__ __device__ inline long long narrow_fwd_spans(int Br, int Bc,
+                                                      int kappa, int s,
+                                                      int item,
+                                                      long long* ptr_at,
+                                                      long long* a_at) {
+  const long long words = align16(4LL * kappa * Bc * s);
+  const long long ptrs =
+      align16(8LL * (static_cast<long long>(Br) * kappa + 2));
+  *ptr_at = words;
+  *a_at = words + ptrs;
+  return words + ptrs + align16(static_cast<long long>(kappa) * Bc * item);
+}
+
+template <typename T, int kCopy>
+__global__ void __launch_bounds__(512)
+split_narrow_kernel(const T* __restrict__ A, float* __restrict__ Y,
+                    const long long* __restrict__ ptr,
+                    const int* __restrict__ ent, const int* __restrict__ tab,
+                    int M, int Br, int Bc, int kappa, int s, float scale,
+                    int stages, long long ptr_len) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* ring = smem_raw + ((128 - (smem_u32(smem_raw) & 127)) & 127);
+  long long ptr_at, a_at;
+  const long long stage_bytes = narrow_fwd_spans(
+      Br, Bc, kappa, s, static_cast<int>(sizeof(T)), &ptr_at, &a_at);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + stages * stage_bytes);
+  const long long per_block = static_cast<long long>(kappa) * Bc * s;
+  const long long first = static_cast<long long>(M) * blockIdx.x / gridDim.x;
+  const int count = static_cast<int>(
+      static_cast<long long>(M) * (blockIdx.x + 1) / gridDim.x - first);
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < stages; ++st)
+      mbar_init(full + st, kCopy == kCopyBulk ? 1u : blockDim.x);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  // stage t % stages <- block g = first + t: its words, its ptr slice, its κ
+  // input blocks of a
+  auto fill = [&](int t) {
+    const long long g = first + t;
+    unsigned char* stg = ring + (t % stages) * stage_bytes;
+    uint64_t* bar = full + t % stages;
+    const long long p0 = g * Br * kappa;
+    if constexpr (kCopy == kCopyBulk) {
+      if (threadIdx.x != 0) return;
+      const long long e0 = p0 & ~1LL;
+      long long np = (p0 + static_cast<long long>(Br) * kappa + 2 - e0) & ~1LL;
+      long long* ps = reinterpret_cast<long long*>(stg + ptr_at);
+      if (e0 + np > ptr_len) {              // the last block: ptr's end
+        np -= 2;
+        ps[np] = ptr[e0 + np];
+      }
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      const uint32_t a_bytes = static_cast<uint32_t>(Bc * sizeof(T));
+      mbar_expect_tx(bar, static_cast<uint32_t>(4 * per_block + 8 * np) +
+                              kappa * a_bytes);
+      bulk_copy(stg, ent + g * per_block,
+                static_cast<uint32_t>(4 * per_block), bar);
+      if (np > 0)
+        bulk_copy(ps, ptr + e0, static_cast<uint32_t>(8 * np), bar);
+      for (int ell = 0; ell < kappa; ++ell)
+        bulk_copy(stg + a_at + static_cast<long long>(ell) * a_bytes,
+                  A + static_cast<long long>(__ldg(tab + ell * M + g)) * Bc,
+                  a_bytes, bar);
+    } else {
+      share_copy<kCopy>(stg, ent + g * per_block, 4 * per_block);
+      share_copy<kCopy>(stg + ptr_at, ptr + p0,
+                        8 * (static_cast<long long>(Br) * kappa + 1));
+      for (int ell = 0; ell < kappa; ++ell)
+        share_copy<kCopy>(
+            stg + a_at + static_cast<long long>(ell) * Bc * sizeof(T),
+            A + static_cast<long long>(__ldg(tab + ell * M + g)) * Bc,
+            static_cast<long long>(Bc) * sizeof(T));
+      share_arrive<kCopy>(bar);
+    }
+  };
+  for (int t = 0; t < min(stages, count); ++t) fill(t);
+
+  for (int t = 0; t < count; ++t) {
+    const long long g = first + t;
+    const unsigned char* stg = ring + (t % stages) * stage_bytes;
+    const int* ws = reinterpret_cast<const int*>(stg);
+    const T* as = reinterpret_cast<const T*>(stg + a_at);
+    // the row offsets; a bulk copy may have started one entry early
+    const long long* ps = reinterpret_cast<const long long*>(stg + ptr_at) +
+                          (kCopy == kCopyBulk ? (g * Br * kappa) & 1 : 0);
+    const long long w0 = g * per_block;     // block g's first word
+    mbar_wait(full + t % stages, static_cast<uint32_t>((t / stages) & 1));
+    for (int r = threadIdx.x; r < Br; r += blockDim.x) {
+      const long long* P = ps + static_cast<long long>(r) * kappa;
+      float acc = 0.f;
+      for (int ell = 0; ell < kappa; ++ell) {
+        const int beg = static_cast<int>(P[ell] - w0);
+        const int end = static_cast<int>(P[ell + 1] - w0);
+        // column word -> staged element: ℓ·Bc + (col − h_ℓ·Bc)
+        const int off = (ell - __ldg(tab + ell * M + g)) * Bc;
+        for (int e0 = beg; e0 < end; e0 += kUnrollN) {
+          int w[kUnrollN];
+          float v[kUnrollN];
+#pragma unroll
+          for (int k = 0; k < kUnrollN; ++k) w[k] = e0 + k < end ? ws[e0 + k] : 0;
+#pragma unroll
+          for (int k = 0; k < kUnrollN; ++k)
+            v[k] = e0 + k < end ? to_f32(as[(w[k] >> 1) + off]) : 0.f;
+#pragma unroll
+          for (int k = 0; k < kUnrollN; ++k) {
+            if (e0 + k >= end) break;
+            acc += (w[k] & 1) ? -v[k] : v[k];
+          }
+        }
+      }
+      Y[g * Br + r] = acc * scale;
+    }
+    __syncthreads();                        // every read of the stage done
+    if (t + stages < count) fill(t + stages);
+  }
+}
+
+// Blocks of a persistent grid of `kern`: `blocks` if given, else the SMs
+// times the blocks of `threads` and `smem` bytes resident on each, at most
+// `items`; 0 with the CUDA error in `err` where a query failed.
+template <typename K>
+long long persistent_grid(K kern, int threads, int smem, int blocks,
+                          long long items, cudaError_t* err) {
+  int per_sm = 0, dev = 0, sms = 0;
+  *err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (*err == cudaSuccess)
+    *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                         threads, smem);
+  if (*err == cudaSuccess) *err = cudaGetDevice(&dev);
+  if (*err == cudaSuccess)
+    *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (*err != cudaSuccess) return 0;
+  if (per_sm < 1) {
+    *err = cudaErrorInvalidConfiguration;
+    return 0;
+  }
+  const long long grid =
+      blocks > 0 ? blocks : static_cast<long long>(per_sm) * sms;
+  return grid < items ? grid : items;
+}
+
+template <typename T, int kCopy>
+int launch_narrow_mode(const void* A, void* Y, const void* ptr,
+                       const void* ent, const void* tab, int M, int Br,
+                       int Bc, int kappa, int s, float scale, int threads,
+                       int stages, int blocks, int smem, long long ptr_len,
+                       void* stream) {
+  auto kern = split_narrow_kernel<T, kCopy>;
+  cudaError_t err;
+  const long long grid = persistent_grid(kern, threads, smem, blocks, M, &err);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kern<<<static_cast<unsigned int>(grid), threads, smem,
+         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(A), static_cast<float*>(Y),
+      static_cast<const long long*>(ptr), static_cast<const int*>(ent),
+      static_cast<const int*>(tab), M, Br, Bc, kappa, s, scale, stages,
+      ptr_len);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The narrow forward: grid `blocks` (0: the SMs times the blocks resident
+// on each), at most M; block `threads`; `stages` stages in `smem` bytes;
+// `mode` a NarrowCopy.
+template <typename T>
+int launch_narrow(const void* A, void* Y, const void* ptr, const void* ent,
+                  const void* tab, int M, int Br, int Bc, int kappa, int s,
+                  float scale, int threads, int stages, int blocks, int smem,
+                  int mode, long long ptr_len, void* stream) {
+#define FS_MODE(K)                                                          \
+  launch_narrow_mode<T, K>(A, Y, ptr, ent, tab, M, Br, Bc, kappa, s, scale, \
+                           threads, stages, blocks, smem, ptr_len, stream)
+  switch (mode) {
+    case kCopyBulk: return FS_MODE(kCopyBulk);
+    case kCopyAsync4: return FS_MODE(kCopyAsync4);
+    case kCopyPlain: return FS_MODE(kCopyPlain);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef FS_MODE
 }
 
 }  // namespace fs

@@ -3,11 +3,13 @@
 The JAX package's fused-κ Pallas kernels become CUDA kernels written by
 hand for ``sm_90a`` (sources in ``csrc/``, built by ``build.py``):
 
-  * ``flashsketch_fwd``        — ``Y = S·A``   (replaces ``flashsketch_pallas``)
+  * ``flashsketch_fwd``        — ``Y = S·A``   (replaces ``flashsketch_pallas``);
+    at n = 1 the narrow kernel, counted as ``flashsketch_fwd_narrow``
   * ``flashsketch_transpose``  — ``X = Sᵀ·Y``  (replaces
     ``flashsketch_transpose_pallas``): the staged kernel, or where its tile
     does not fit shared memory the L2 route, counted as
-    ``flashsketch_transpose_l2``
+    ``flashsketch_transpose_l2``; at n = 1 the narrow kernel, counted as
+    ``flashsketch_transpose_narrow``
   * ``flashsketch_fwd_gather`` — ``Y = S·A[row_map]`` in one launch
     (replaces ``flashsketch_pallas_gather``)
   * ``blockrow_fwd``           — FLASHBLOCKROW ``Y = S_row·A`` (replaces
@@ -55,7 +57,13 @@ stages its κ row blocks of Y in shared memory, 128 bytes of each row at a
 time, through a ring of asynchronous copies and reads Sᵀ's CSR with
 tile-local words (``staged_launch``; ``csrc/flashsketch_transpose.cu``);
 a plan whose stage does not fit shared memory runs the L2 route,
-``split_vec_kernel`` on Sᵀ's CSR (``transpose_route``).
+``split_vec_kernel`` on Sᵀ's CSR (``transpose_route``).  At n = 1 (the
+training path's gradient leaves) a blockperm plan runs the narrow kernels
+instead (``fwd_route``, ``transpose_route``; ``narrow_launch``): persistent
+blocks stage one output block's CSR words, ``ptr`` slice and κ input
+blocks (the transpose: one input block's tile-local words and κ blocks of
+Y) through a ring of bulk copies and sum one output row a thread, in the
+wide kernels' order, so the same bits.
 
 How the kernels tile the work (``tn`` columns per block, thread groups,
 the row split R, the transpose's route and stages) is a launch choice
@@ -89,7 +97,8 @@ LAUNCHES: Dict[str, int] = {
     "flashsketch_fwd_v1": 0, "flashsketch_transpose_v1": 0,
     "blockrow_fwd_v1": 0, "flashsketch_fwd_global": 0,
     "flashsketch_transpose_global": 0, "flashsketch_fwd_gather_global": 0,
-    "flashsketch_fwd_partial": 0, "blockrow_fwd_partial": 0}
+    "flashsketch_fwd_partial": 0, "blockrow_fwd_partial": 0,
+    "flashsketch_fwd_narrow": 0, "flashsketch_transpose_narrow": 0}
 
 # Streamed-type codes of csrc/hash.cuh (fs::StreamType).
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1,
@@ -126,6 +135,15 @@ _FWD_MAX_TN = 256
 _VEC_BLOCK_THREADS = 256
 # The masked FLASHBLOCKROW partial: rows a thread sums in series.
 _MASKED_ROWS = 4
+# The narrow kernels (n = 1): the most threads of a block (their
+# __launch_bounds__; one output row a thread) and the stages of a block's
+# ring.  One stage leaves room for three forward (four transpose) blocks an
+# SM at the training plans, whose copies and sums overlap one another's: on
+# the H100 deeper rings ran slower or no faster at every plan of qwen3-0.6b
+# and at qwen3-moe's embedding plan (chip_smoke.py phase 10 times every
+# stage count; PERF.md §6).
+_NARROW_MAX_THREADS = 512
+NARROW_STAGES = 1
 
 
 def reset_launch_counts() -> None:
@@ -372,14 +390,100 @@ def _staged_smem(plan: BlockPermPlan, stages: int) -> int:
     return _STAGED_SLACK + stages * (transpose_stage_bytes(plan) + 8)
 
 
-def transpose_route(plan: BlockPermPlan, tn: Optional[int] = None) -> str:
+def transpose_route(plan: BlockPermPlan, tn: Optional[int] = None,
+                    n: Optional[int] = None) -> str:
     """Which kernel runs the fused transpose of a blockperm plan:
-    ``"staged"`` where one stage fits ``MAX_SMEM_BYTES`` (and ``tn`` is its
-    tile, or ``None``), else ``"l2"``, ``split_vec_kernel`` on the CSR of
-    Sᵀ at tile ``tn`` (the Br = 2 048 plan: a stage would be 1 MiB).  Both
-    give the same bits."""
+    ``"narrow"`` at ``n`` = 1 with no tile asked for, where the narrow
+    kernel's stage fits (``narrow_fits``); else ``"staged"`` where one
+    stage fits ``MAX_SMEM_BYTES`` (and ``tn`` is its tile, or ``None``),
+    else ``"l2"``, ``split_vec_kernel`` on the CSR of Sᵀ at tile ``tn``
+    (the Br = 2 048 plan: a stage would be 1 MiB).  ``n=None`` gives the
+    route of the wide kernels, the rule for n > 1.  Every route gives the
+    same bits."""
+    if n == 1 and tn is None and narrow_fits(plan, "transpose"):
+        return "narrow"
     fits = _staged_smem(plan, 1) <= MAX_SMEM_BYTES
     return "staged" if fits and tn in (None, staged_tn(plan)) else "l2"
+
+
+def fwd_route(plan: BlockPermPlan, n: int, tn: Optional[int] = None,
+              R: Optional[int] = None) -> str:
+    """Which kernel runs the forward of a plan over ``n`` columns:
+    ``"narrow"`` (``split_narrow_kernel``) at n = 1 for a blockperm plan
+    whose narrow stage fits (``narrow_fits``), with no tile or row split
+    asked for; else ``"wide"``, ``split_vec_kernel`` (global plans always).
+    Both give the same bits."""
+    if n == 1 and tn is None and R is None and narrow_fits(plan, "fwd"):
+        return "narrow"
+    return "wide"
+
+
+def _align16(nbytes: int) -> int:
+    return -(-nbytes // 16) * 16
+
+
+def narrow_stage_bytes(plan: BlockPermPlan, op: str = "fwd") -> int:
+    """Bytes of one stage of a narrow kernel (n = 1).  The forward's: the
+    κ·Bc·s int32 words of output block g, its Br·κ + 1 int64 ``ptr``
+    entries (room for Br·κ + 2: a bulk copy moves an even count from an
+    even entry) and its κ input blocks, Bc elements each; the transpose's:
+    the κ·s·Bc int16 tile-local words of input block h and its κ blocks of
+    Y, Br elements each; each span 16-byte aligned.  qwen3-0.6b's
+    embedding plan (Br = 256, Bc = 1 280, κ = 4, s = 2, fp32): 69 648 and
+    24 576 B."""
+    item = plan.stream_itemsize
+    if op == "transpose":
+        return (_align16(2 * plan.kappa * plan.s * plan.Bc)
+                + _align16(plan.kappa * plan.Br * item))
+    return (_align16(4 * plan.kappa * plan.Bc * plan.s)
+            + _align16(8 * (plan.Br * plan.kappa + 2))
+            + _align16(plan.kappa * plan.Bc * item))
+
+
+def _narrow_smem(plan: BlockPermPlan, op: str, stages: int) -> int:
+    return _STAGED_SLACK + stages * (narrow_stage_bytes(plan, op) + 8)
+
+
+def narrow_fits(plan: BlockPermPlan, op: str = "fwd") -> bool:
+    """Whether the narrow kernel of ``op`` (``"fwd"`` or ``"transpose"``)
+    runs ``plan``: a blockperm plan one of whose stages fits
+    ``MAX_SMEM_BYTES``, and for the transpose one whose tile-local words
+    fit 16 bits (2·κ·Br ≤ 2**15).  The Br = 2 048 plan at d = 65 536 does
+    not (its forward stage would hold 512 KiB of words)."""
+    if plan.is_global:
+        return False
+    if op == "transpose" and 2 * plan.kappa * plan.Br > 2**15:
+        return False
+    return _narrow_smem(plan, op, 1) <= MAX_SMEM_BYTES
+
+
+def narrow_threads(plan: BlockPermPlan, op: str = "fwd") -> int:
+    """Threads of a narrow block: one output row each (Br for the forward,
+    Bc for the transpose), in the fewest passes of at most
+    ``_NARROW_MAX_THREADS``, rounded up to whole warps (Br = 256: 256;
+    Bc = 1 280: three passes of 448)."""
+    rows = block_rows(plan, op)
+    per_pass = -(-rows // -(-rows // _NARROW_MAX_THREADS))
+    return 32 * -(-per_pass // 32)
+
+
+def narrow_launch(plan: BlockPermPlan, op: str = "fwd",
+                  stages: Optional[int] = None) -> Tuple[int, int, int]:
+    """(threads, stages, shared bytes) of the narrow kernel of ``op``: a
+    ring of ``NARROW_STAGES`` stages, or ``stages`` if given, at most as
+    many as fit (each check on the card: the same bits)."""
+    if not narrow_fits(plan, op):
+        raise ValueError(f"the narrow {op} does not run {plan.describe()}: "
+                         f"a global plan, or one stage needs "
+                         f"{_narrow_smem(plan, op, 1)} B of shared memory "
+                         f"(> {MAX_SMEM_BYTES} B)")
+    fit = (MAX_SMEM_BYTES - _STAGED_SLACK) // (narrow_stage_bytes(plan, op)
+                                               + 8)
+    stages = stages or min(NARROW_STAGES, fit)
+    if not 1 <= stages <= fit:
+        raise ValueError(f"stages={stages}: 1 to {fit} fit shared memory at "
+                         f"{plan.describe()}")
+    return narrow_threads(plan, op), stages, _narrow_smem(plan, op, stages)
 
 
 def staged_launch(plan: BlockPermPlan,
@@ -537,26 +641,116 @@ def _launch_global_transpose(plan: BlockPermPlan, y: torch.Tensor,
           *[(_I, v) for v in (int(per_level), tn, groups, uc, smem)])
 
 
+_FWD_ROUTES = ("narrow", "wide")
+
+
+def _check_narrow(plan: BlockPermPlan, op: str, n: int, tn: Optional[int],
+                  row_splits: Optional[int], stages: Optional[int],
+                  blocks: Optional[int], route: str) -> None:
+    """Raise where ``route`` cannot run: the narrow kernels take a
+    blockperm plan whose stage fits, n = 1 and no tile or row split; the
+    other routes have no ring (``stages``) or persistent grid
+    (``blocks``) of the narrow kernels."""
+    name = f"flashsketch_{op}"
+    if route != "narrow":
+        if op == "fwd" and (stages is not None or blocks is not None):
+            raise ValueError(f"{name}: stages and blocks are the narrow "
+                             f"route's")
+        return
+    if n != 1 or tn is not None or row_splits is not None:
+        raise ValueError(f"{name}: the narrow route runs n = 1 and has no "
+                         f"tile or row split (got n={n}, tn={tn}, "
+                         f"row_splits={row_splits})")
+    if not narrow_fits(plan, op):
+        raise ValueError(f"{name}: the narrow route does not run "
+                         f"{plan.describe()} (a global plan, or its stage "
+                         f"does not fit shared memory)")
+    if blocks is not None and blocks < 1:
+        raise ValueError(f"blocks must be >= 1, got {blocks}")
+
+
+def _narrow_copy_mode(span: int, block: int, *tensors: torch.Tensor) -> int:
+    """How a narrow kernel fills a stage: 0 bulk copies (every tensor's base
+    16-byte aligned, ``span``, the words of a stage, and ``block``, one
+    block of the operand, in bytes, multiples of 16), 1 cp.async of 4-byte
+    words (both multiples of 4, the bases 4-byte aligned), 2 loads."""
+    bases = [t.data_ptr() for t in tensors]
+    if span % 16 == 0 and block % 16 == 0 and all(b % 16 == 0 for b in bases):
+        return 0
+    if span % 4 == 0 and block % 4 == 0 and all(b % 4 == 0 for b in bases):
+        return 1
+    return 2
+
+
+def _launch_narrow(plan: BlockPermPlan, op: str, x: torch.Tensor,
+                   out: torch.Tensor, stages: Optional[int],
+                   blocks: Optional[int]) -> None:
+    """The C interface of a narrow kernel: ``fs_fwd_narrow`` on the plan's
+    CSR and neighbour table, or ``fs_transpose_narrow`` on the tile-local
+    CSR of Sᵀ and the inverse table; ``stages`` and ``blocks`` (the grid;
+    ``None``: the SMs times the blocks resident on each) force its ring
+    and its walk (checks on the card)."""
+    threads, stages, smem = narrow_launch(plan, op, stages)
+    item = plan.stream_itemsize
+    if op == "transpose":
+        _, ent = _device_csr_t(plan, x.device, tile_local=True)
+        tab = _device_table(plan, "inverse", x.device)
+        mode = _narrow_copy_mode(2 * plan.kappa * plan.s * plan.Bc,
+                                 plan.Br * item, x, ent)
+        extra, tensors, symbol, source = (), (x, out, tab, ent), \
+            "fs_transpose_narrow", "flashsketch_transpose.cu"
+    else:
+        ptr, ent = _device_csr(plan, x.device, False)
+        tab = _device_table(plan, "fwd", x.device)
+        mode = _narrow_copy_mode(4 * plan.kappa * plan.Bc * plan.s,
+                                 plan.Bc * item, x, ent, ptr)
+        extra, tensors, symbol, source = (ptr.numel(),), \
+            (x, out, ptr, ent, tab), "fs_fwd_narrow", "flashsketch_fwd.cu"
+    # arr, the integers' buffer, stays referenced through the call
+    arr, params = _int_params(
+        _DTYPE_CODES[x.dtype], plan.M, plan.Br, plan.Bc, plan.kappa, plan.s,
+        threads, stages, blocks or 0, smem, mode, *extra)
+    _call(source, symbol, x.device, *[(_P, t.data_ptr()) for t in tensors],
+          (_P, params), (_F, plan.scale))
+
+
 def flashsketch_fwd(plan: BlockPermPlan, A: torch.Tensor, *,
                     tn: Optional[int] = None,
-                    row_splits: Optional[int] = None) -> torch.Tensor:
+                    row_splits: Optional[int] = None,
+                    route: Optional[str] = None,
+                    stages: Optional[int] = None,
+                    blocks: Optional[int] = None) -> torch.Tensor:
     """Y = S A.  A must be (d_pad, n); returns (k_pad, n) fp32 on A's
-    device.  CUDA tensors run the row-split kernel on the plan's CSR (a
-    global plan's counts as ``flashsketch_fwd_global``), CPU tensors its
-    plain version; ragged n is handled in the kernel.  ``tn=None`` takes
-    ``default_tn``; ``row_splits`` forces the split R (checks on the card:
-    the result is the same bits for every R)."""
+    device.  CUDA tensors run a CUDA kernel, CPU tensors its plain version;
+    ragged n is handled in the kernel.  ``route`` (``None``:
+    ``fwd_route(plan, n, tn, row_splits)``): ``"narrow"``, at n = 1 for a
+    blockperm plan, ``split_narrow_kernel`` (``stages`` forces its ring,
+    ``blocks`` its grid), counted as ``flashsketch_fwd_narrow``; or
+    ``"wide"``, the row-split kernel on the plan's CSR at tile ``tn``
+    (``None`` takes ``default_tn``; ``row_splits`` forces the split R),
+    counted as ``flashsketch_fwd`` (a global plan's as
+    ``flashsketch_fwd_global``).  Every route, tile and split gives the
+    same bits (checks on the card)."""
     if A.shape[0] != plan.d_pad:
         raise ValueError(f"A must have d_pad={plan.d_pad} rows, got "
                          f"{A.shape[0]}")
+    if route not in (None,) + _FWD_ROUTES:
+        raise ValueError(f"route must be one of {_FWD_ROUTES}, got "
+                         f"{route!r}")
+    n = A.shape[1]
+    route = route or fwd_route(plan, n, tn, row_splits)
+    _check_narrow(plan, "fwd", n, tn, row_splits, stages, blocks, route)
     x = _stream(plan, A)
     if A.device.type == "cpu":
         return kref.flashsketch_ref(plan, x.to(torch.float32))
     if A.device.type != "cuda":
         raise ValueError(f"no FlashSketch kernel for device {A.device}")
-    n = x.shape[1]
-    tn = tn or default_tn(plan, "fwd", n)
     Y = torch.empty((plan.k_pad, n), dtype=torch.float32, device=x.device)
+    if route == "narrow":
+        _launch_narrow(plan, "fwd", x.contiguous(), Y, stages, blocks)
+        LAUNCHES["flashsketch_fwd_narrow"] += 1
+        return Y
+    tn = tn or default_tn(plan, "fwd", n)
     name = "flashsketch_fwd_global" if plan.is_global else "flashsketch_fwd"
     _launch_vec(plan, x, Y, None, tn, row_splits, name)
     LAUNCHES[name] += 1
@@ -653,7 +847,7 @@ def _launch_staged(plan: BlockPermPlan, y: torch.Tensor, X: torch.Tensor,
           (_P, ent.data_ptr()), (_P, params), (_F, plan.scale))
 
 
-_TRANSPOSE_ROUTES = ("staged", "l2")
+_TRANSPOSE_ROUTES = ("narrow", "staged", "l2", "wide")
 
 
 def flashsketch_transpose(plan: BlockPermPlan, Y: torch.Tensor, *,
@@ -666,18 +860,32 @@ def flashsketch_transpose(plan: BlockPermPlan, Y: torch.Tensor, *,
     device.  CUDA tensors run a CUDA kernel, CPU tensors its plain version;
     ragged n is handled in the kernel.  A global plan runs the global
     kernel.  A blockperm plan runs ``route`` (``None``:
-    ``transpose_route(plan, tn)``): ``"staged"``, its κ row blocks of Y
+    ``transpose_route(plan, tn, n)``, without ``n`` where a row split is
+    given): ``"narrow"``, at n = 1, ``narrow_transpose_kernel`` (``stages``
+    forces its ring, ``blocks`` its grid), counted as
+    ``flashsketch_transpose_narrow``; ``"staged"``, its κ row blocks of Y
     staged in shared memory at tile ``staged_tn`` (``stages`` forces its
-    ring, ``blocks`` its grid), counted as ``flashsketch_transpose``, or
+    ring, ``blocks`` its grid), counted as ``flashsketch_transpose``;
     ``"l2"``, ``split_vec_kernel`` on the CSR of Sᵀ at tile ``tn``
     (``row_splits`` forces its split R), counted as
-    ``flashsketch_transpose_l2``.  Both routes give the same bits."""
+    ``flashsketch_transpose_l2``; ``"wide"``, the staged or L2 route as
+    ``transpose_route(plan, tn)`` picks it.  Every route gives the same
+    bits."""
     if Y.shape[0] != plan.k_pad:
         raise ValueError(f"Y must have k_pad={plan.k_pad} rows, got "
                          f"{Y.shape[0]}")
     if route not in (None,) + _TRANSPOSE_ROUTES:
         raise ValueError(f"route must be one of {_TRANSPOSE_ROUTES}, got "
                          f"{route!r}")
+    n = Y.shape[1]
+    if route is None and not plan.is_global:
+        route = transpose_route(plan, tn,
+                                n if row_splits is None else None)
+    elif route == "wide":
+        route = transpose_route(plan, tn)
+    if route == "narrow":
+        _check_narrow(plan, "transpose", n, tn, row_splits, stages, blocks,
+                      route)
     y = _stream(plan, Y)
     if Y.device.type == "cpu":
         # the plain version strips the padding rows; ask it for all d_pad
@@ -685,7 +893,6 @@ def flashsketch_transpose(plan: BlockPermPlan, Y: torch.Tensor, *,
         return kref.flashsketch_transpose_ref(full, y.to(torch.float32))
     if Y.device.type != "cuda":
         raise ValueError(f"no FlashSketch kernel for device {Y.device}")
-    n = y.shape[1]
     X = torch.empty((plan.d_pad, n), dtype=torch.float32, device=y.device)
     if plan.is_global:
         if route is not None:
@@ -698,7 +905,10 @@ def flashsketch_transpose(plan: BlockPermPlan, Y: torch.Tensor, *,
                                  uc, smem)
         LAUNCHES["flashsketch_transpose_global"] += 1
         return X
-    route = route or transpose_route(plan, tn)
+    if route == "narrow":
+        _launch_narrow(plan, "transpose", y.contiguous(), X, stages, blocks)
+        LAUNCHES["flashsketch_transpose_narrow"] += 1
+        return X
     if route == "staged":
         if tn not in (None, staged_tn(plan)) or row_splits is not None:
             raise ValueError(f"flashsketch_transpose: the staged route's "
@@ -710,7 +920,7 @@ def flashsketch_transpose(plan: BlockPermPlan, Y: torch.Tensor, *,
         return X
     if stages is not None or blocks is not None:
         raise ValueError("flashsketch_transpose: stages and blocks are the "
-                         "staged route's")
+                         "staged and narrow routes'")
     _launch_vec(plan, y, X, None, tn or fwd_tn(plan, n), row_splits,
                 "flashsketch_transpose", "transpose")
     LAUNCHES["flashsketch_transpose_l2"] += 1

@@ -44,7 +44,11 @@ Y in shared memory, 128 bytes of each row at a time) where one stage
 fits, else ``"l2"`` (the row-split kernel on the CSR of Sᵀ, R recorded);
 an explicit ``tn`` other than the staged tile runs the L2 route at that
 tile.  Both give the same bits, so the transpose goes to ``cuda_v1`` only
-when asked too.
+when asked too.  At n·batch = 1 on the card, the fused forward and
+transpose of a blockperm plan run the narrow kernels (``"narrow"``:
+persistent blocks, one output row a thread, no tile and no row split)
+where their stage fits and no tile is explicit, tuned or loaded; the
+forward's route is otherwise ``"wide"`` (the row-split kernel).
 
 ``shard`` (``"none" | "row" | "col" | "batch"``, over ``devices`` ranks)
 records a sharded launch and rejects what the reference rejects.
@@ -136,8 +140,10 @@ class Lowering:
     partials, the v1 forward, the v1 transpose of a blockperm plan and the
     fused transpose's L2 route: each output block's rows (Br; Bc for the
     transpose) in R sub-ranges, one block each; ``None`` for the staged and
-    global transposes); ``route`` the fused transpose's kernel for a
-    blockperm plan on the card (``"staged"`` or ``"l2"``, else ``None``);
+    global transposes); ``route`` the kernel of the fused forward
+    (``"narrow"`` or ``"wide"``) or transpose (``"narrow"``, ``"staged"``
+    or ``"l2"``) for a blockperm plan on the card, else ``None`` (a narrow
+    launch has no ``tn``, ``groups`` its threads);
     ``pad_rows`` the zero
     rows added to the operand (none with a fused gather: the kernel zeroes
     the padding rows itself).  Columns are never padded: the kernels mask
@@ -376,6 +382,13 @@ def _lower(plan: BlockPermPlan, spec: LaunchSpec,
         t("torch: plain version (no tiling, no shared memory)")
         tn = groups = smem = grid_cols = None
         tn_source = "n/a"
+    elif _narrow(eff, spec, impl, n_loc * batch_loc, gather_fused):
+        groups, stages, smem = fsk.narrow_launch(eff, spec.op)
+        tn, tn_source, grid_cols, route = None, "default", None, "narrow"
+        t(f"route: narrow (n = 1: persistent blocks of {groups} threads, "
+          f"one output row each, a ring of {stages} stage(s) of "
+          f"{fsk.narrow_stage_bytes(eff, spec.op)} B, {smem} B shared "
+          f"memory; no column tile, no row split)")
     else:
         tn, tn_source, groups, smem, grid_cols, splits, forced = _fit_tile(
             eff, spec, n_loc, batch_loc, gather_fused, impl == "cuda_v1",
@@ -384,6 +397,11 @@ def _lower(plan: BlockPermPlan, spec: LaunchSpec,
             route = ("l2" if forced is not None
                      else fsk.transpose_route(eff, tn))
             t(_route_line(eff, route, tn, forced is not None))
+        elif impl == "cuda" and spec.op == "fwd" and not gather_fused \
+                and not eff.is_global:
+            route = "wide"
+            t(f"route: wide (the row-split kernel at tn={tn}; the narrow "
+              f"route takes n = 1 at the rule's tile)")
     if spec.batch > 1:
         t(f"batch: {spec.batch} matrices folded into the column axis")
     t(f"pad: rows +{pad_rows}, cols +0 (the ragged column edge is masked "
@@ -399,6 +417,23 @@ def _lower(plan: BlockPermPlan, spec: LaunchSpec,
         batch=spec.batch, downgrade=downgrade, shard=spec.shard,
         devices=spec.devices if spec.shard != "none" else 1,
         row_splits=splits, route=route)
+
+
+def _narrow(eff: BlockPermPlan, spec: LaunchSpec, impl: str, n_eff: int,
+            gather_fused: bool) -> bool:
+    """Whether the launch runs a narrow kernel: the fused forward or
+    transpose on the card at n·batch = 1 at the rule's tile (no explicit,
+    tuned or loaded one), where ``fsk.fwd_route`` /
+    ``fsk.transpose_route`` take it."""
+    if impl != "cuda" or spec.op not in ("fwd", "transpose") or \
+            gather_fused or n_eff != 1:
+        return False
+    if _resolve_tile(eff, spec, n_eff, 1, False, False, False)[1] != \
+            "default":
+        return False
+    if spec.op == "fwd":
+        return fsk.fwd_route(eff, n_eff) == "narrow"
+    return fsk.transpose_route(eff, None, n_eff) == "narrow"
 
 
 def _route_line(eff: BlockPermPlan, route: str, tn: int,
@@ -618,9 +653,11 @@ def execute(lw: Lowering, operand: torch.Tensor,
         return fsk.flashsketch_transpose(
             plan, Y, tn=lw.tn, route=lw.route,
             row_splits=lw.row_splits)[: plan.d, :n]
+    # the wide forward at its tile is the wrapper's own route there
+    narrow = {"route": "narrow"} if lw.route == "narrow" else {}
     kernel = {("fwd", False): fsk.flashsketch_fwd,
               ("fwd", True): fsk.flashsketch_fwd_v1,
               ("blockrow", False): fsk.blockrow_fwd,
               ("blockrow", True): fsk.blockrow_fwd_v1}[lw.op, v1]
     return kernel(plan, kref.pad_input(plan, operand), tn=lw.tn,
-                  row_splits=lw.row_splits)[: plan.k, :n]
+                  row_splits=lw.row_splits, **narrow)[: plan.k, :n]

@@ -23,6 +23,9 @@ Two times per launch, both in µs:
     per nonzero, from L2 where those sectors fit it, else from HBM; the
     staged transpose reads Y from HBM once and its κ·s terms from shared
     memory (not modeled), its 2-byte words once per column tile; the
+    narrow kernels (n = 1) read their CSR once from HBM beside the floor
+    (the forward's 4-byte words and 8-byte ``ptr``, the transpose's 2-byte
+    tile-local words) and sum from shared memory (not modeled); the
     global transpose reads s rows of Y per output row through L2; v1 folds
     its levels in registers, with no read-modify-write of the output.  The
     time is the longest of the HBM, L2 and add terms, plus a trailing
@@ -157,9 +160,9 @@ def kernel_cost(plan: BlockPermPlan, n: int, *, version: str = "v2",
 
     ``version`` ``"v1"`` is the κ-revisiting kernel (fp32 operand);
     ``gather`` the fused gather (``fwd`` / ``blockrow``); ``tn`` the tile
-    (``None``: the kernel's default) and ``route`` the fused transpose's
-    (``None``: ``transpose_route``).  Only ``modeled_us`` reads tn,
-    version and route.
+    (``None``: the kernel's default) and ``route`` the fused forward's or
+    transpose's (``None``: ``transpose_route``, the wide forward).  Only
+    ``modeled_us`` reads tn, version and route.
     """
     if version not in ("v1", "v2"):
         raise ValueError(f"version must be 'v1' or 'v2', got {version!r}")
@@ -192,6 +195,11 @@ def kernel_cost(plan: BlockPermPlan, n: int, *, version: str = "v2",
     if variant == "transpose" and p.is_global:
         # the global transpose: s rows of Y per output row through L2
         l2 = float(p.s) * p.d_pad * n_eff * op_item
+    elif route == "narrow":
+        # n = 1: the CSR from HBM once beside the floor, staged whole
+        csr = (2.0 * nnz if variant == "transpose"
+               else 4.0 * nnz + 8.0 * (p.k_pad * p.kappa + 1))
+        launch, l2 = floor + csr, 0.0
     elif variant == "transpose" and not v1 and \
             (route or fsk.transpose_route(p, tn)) == "staged":
         # Y from HBM once; the κ·s terms from shared memory; 2-byte words

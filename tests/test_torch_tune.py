@@ -68,7 +68,9 @@ def test_cache_key_matches_reference(kw):
 @pytest.mark.parametrize("kw", PLANS)
 def test_heuristic_tn_is_the_rule(kw):
     """An empty cache changes nothing: the heuristic is default_tn, and
-    the lowering's tile is the rule's."""
+    the lowering's tile is the rule's (at n·batch = 1 the fused forward
+    and transpose of a blockperm plan take the narrow route, which has no
+    tile)."""
     plan = tb.make_plan(**kw)
     for variant in ttune.VARIANTS:
         if plan.is_global and variant.startswith("blockrow"):
@@ -81,7 +83,12 @@ def test_heuristic_tn_is_the_rule(kw):
             assert ttune.resolve_tn(plan, n, variant, batch) == want
             lw = tlow.lower(plan, tlow.LaunchSpec(
                 op=op, n=n, batch=batch, gather=gather, device="cuda"))
-            assert lw.tn_source == "default" and lw.tn == want
+            narrow = lw.route == "narrow"
+            assert narrow == (n * batch == 1 and not gather
+                              and op in ("fwd", "transpose")
+                              and tfsk.narrow_fits(plan, op))
+            assert lw.tn_source == "default"
+            assert lw.tn == (None if narrow else want)
 
 
 def test_candidates_rule_first_and_bounded():

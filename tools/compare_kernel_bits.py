@@ -10,7 +10,7 @@ FLASHBLOCKROW) of one tree on the GPU, and time them.
         --against _checkout/bits
 
 Run from the root of a checkout, DIR inside it (``_checkout/`` is
-gitignored; the outputs take about 9 GB); ``PYTHONPATH`` picks the tree
+gitignored; the outputs take about 11 GB); ``PYTHONPATH`` picks the tree
 whose ``repro_torch`` runs, so a change to these kernels is held to its
 parent (unpacked beside it) bit for bit on one card. The inputs are made
 on the card from seeded generators, every precision policy, at the
@@ -36,7 +36,12 @@ wrappers' defaults:
     Br = 2 048 plan (n = 1 024) and ``make_plan(8192, 2048, kappa=8, s=2)``
     (n = 64), and the masked FLASHBLOCKROW ``flashsketch_partial`` (each
     rank of P = 4, and P = 1) at the main plan and the Br = 32 plan,
-    n = 1 024.
+    n = 1 024;
+  * n = 1 (the training path's shape): ``flashsketch_fwd`` and
+    ``flashsketch_transpose`` at the ragged plan (d = 1 000, k = 96),
+    κ × s ∈ {1, 2, 4}² (d = 4 096, k = 256) and the main plan, every
+    policy, and at qwen3-0.6b's five compression plans (ratio 8; the
+    embedding's d_pad = 167 772 160), fp32.
 
 ``--save`` writes them to DIR;
 ``--against`` holds each to the saved one with ``torch.equal``, prints the
@@ -89,6 +94,22 @@ def device_ms(fn, reps=20):
     return sum(e.self_device_time_total for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA) \
         / reps / 1e3
+
+
+def training_plans():
+    """The distinct compression plans of qwen3-0.6b's gradient leaves at
+    ``launch/train.py``'s ratio 8 (``grad_compress.plan_for_leaf``), largest
+    first, from the model's parameter shapes."""
+    from repro_torch import tree
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.lm import DecoderLM
+    from repro_torch.optim import grad_compress as gc
+    params = DecoderLM(get_arch("qwen3-0.6b")).init(seed=0, device="cuda")
+    comp = gc.CompressConfig(ratio=8)
+    plans = {gc.plan_for_leaf(comp, p.numel()) for p in tree.leaves(params)}
+    del params
+    torch.cuda.empty_cache()
+    return sorted(plans - {None}, key=lambda p: -p.d_pad)
 
 
 def outputs(fsk, tables, make_plan, row_map_for):
@@ -183,6 +204,28 @@ def outputs(fsk, tables, make_plan, row_map_for):
             add(f"{label} {pol} n={n} transpose",
                 lambda p=p, Y=Y: fsk.flashsketch_transpose(p, Y), pol,
                 label == "main" and n == N)
+    # n = 1 at the wrappers' defaults (the training path's shape): phase 2's
+    # n = 1 plans at every policy, then qwen3-0.6b's compression plans
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    small = [make_plan(1000, 96, kappa=4, s=2, seed=1)]
+    small += [make_plan(4096, 256, kappa=k, s=s, seed=10 * k + s)
+              for k in (1, 2, 4) for s in (1, 2, 4)]
+    for plan in small + [base]:
+        a = torch.randn(plan.d_pad, 1, generator=gen, device="cuda") * 3
+        y = torch.randn(plan.k_pad, 1, generator=gen, device="cuda") * 3
+        for pol in POLICIES:
+            p = plan.with_dtype(pol)
+            add(f"n=1 {p.describe()} fwd",
+                lambda p=p, a=a: fsk.flashsketch_fwd(p, a), pol, False)
+            add(f"n=1 {p.describe()} transpose",
+                lambda p=p, y=y: fsk.flashsketch_transpose(p, y), pol, False)
+    for plan in training_plans():
+        a = torch.randn(plan.d_pad, 1, generator=gen, device="cuda")
+        y = torch.randn(plan.k_pad, 1, generator=gen, device="cuda")
+        add(f"n=1 {plan.describe()} fwd",
+            lambda p=plan, a=a: fsk.flashsketch_fwd(p, a), "float32")
+        add(f"n=1 {plan.describe()} transpose",
+            lambda p=plan, y=y: fsk.flashsketch_transpose(p, y), "float32")
     # the masked FLASHBLOCKROW partial, each rank of P = 4 and P = 1
     gen = torch.Generator(device="cuda").manual_seed(22)
     for label, (d, k) in PLANS.items():
