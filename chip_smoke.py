@@ -177,6 +177,24 @@ Phases, any failure exits non-zero and prints no result:
      n = 1 comparisons (narrow, forced wide, ``torch.sparse.mm``,
      ``cost_of``'s bound, the CSR floor) and the adjoint identity.  Its
      launches are added to the narrow rows.
+ 12. decode and generation (``launch/generate.py``), phase 11's CSRs
+     cleared first: (a) qwen3-0.6b at full width and depth (bf16, random
+     weights from a seed) generating at the launcher's defaults (batch 4,
+     a prompt of 16 teacher-forced tokens, 32 greedy ones) twice, the
+     tokens ``torch.equal`` across the runs and every logit finite; tok/s,
+     the median warm ms a step (each step between two synchronisations),
+     the weight and KV bytes, the peak memory, one decode step under
+     ``torch.profiler`` (device busy, idle share, device operations a
+     step); (b) decode == prefill in fp32 (TF32 off) at full width,
+     B = 2, S = 8, teacher-forced, for qwen3-0.6b at full depth and each
+     family at phase 11's depth cut (``FAMILY_CUTS``), within the
+     reference test's tolerance (atol 2e-3, rtol 1e-2; atol 5e-2 for
+     rwkv6), zamba2-7b recorded but not gated (its prefill rounds the SSD
+     operands to bf16 and misses on the CPU too, ``DECODE_VIA_CPU``); (c)
+     qwen3-0.6b's and zamba2-7b's fp32 decode on the card against the same
+     code and weights on the CPU, four teacher-forced steps, within (b)'s
+     tolerance.  No sketch kernel launches and no plain version runs in
+     this phase (decode reaches no TPU kernel in the reference).
 
 Phase 2 also holds the three v1 kernels (ragged n with d < d_pad, κ × s ∈
 {1,2,4}², a Br = 2 048 plan, the main plan; each also under every row
@@ -3868,6 +3886,301 @@ def phase_families_train(rt):
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: decode and generation.
+# ---------------------------------------------------------------------------
+
+# launch/generate.py's defaults: batch 4, a prompt of 16, 32 new tokens,
+# greedy; then decode == prefill (teacher-forced, fp32) at B = 2, S = 8,
+# and the card against the CPU for DECODE_CPU_STEPS steps.
+GEN_ARCH, GEN_BATCH, GEN_PROMPT, GEN_NEW = "qwen3-0.6b", 4, 16, 32
+DECODE_B, DECODE_S, DECODE_CPU_STEPS, DECODE_TIMED_STEPS = 2, 8, 4, 24
+# qwen3-0.6b at full depth, then each family at phase 11's depth cut
+DECODE_CUTS = ((GEN_ARCH, {}),) + tuple(
+    (name, cut) for name, cut, _, _ in FAMILY_CUTS)
+# families whose decode == prefill misses the tolerance on the CPU too
+# (``decode_prefill_check(rt, "cpu")``: zamba2's prefill rounds the SSD
+# operands to bf16 by the reference's design, its decode does not): their
+# (b) is recorded and they are gated by (c), the card against the CPU
+DECODE_VIA_CPU = ("zamba2-7b",)
+
+
+def decode_tolerance(cfg):
+    """(atol, rtol) of decode against prefill: the reference test's
+    (``tests/test_models_smoke.py``), atol 5e-2 for rwkv6."""
+    return (5e-2 if cfg.ssm_kind == "rwkv6" else 2e-3), 1e-2
+
+
+def _state_bytes(state):
+    if isinstance(state, dict):
+        return sum(_state_bytes(v) for v in state.values())
+    if isinstance(state, tuple):
+        return sum(_state_bytes(v) for v in state)
+    return state.numel() * state.element_size()
+
+
+def _fp32(rt, name, cut):
+    return dataclasses.replace(rt["get_arch"](name), param_dtype="float32",
+                               **cut)
+
+
+def decode_inputs(rt, cfg, device, seed=1):
+    """Tokens (B, S) int32 and the family's modality stub, from a
+    ``torch.Generator(seed)`` on ``device``."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    tok = torch.randint(0, cfg.vocab_size, (DECODE_B, DECODE_S),
+                        generator=gen, device=device, dtype=torch.int32)
+    return tok, rt["factory"].extra_inputs_concrete(cfg, DECODE_B, DECODE_S,
+                                                    gen)
+
+
+def decode_errors(model, tok, extra):
+    """Teacher-forced decode of every token against ``apply`` over the
+    same tokens: (decode logits (B, S, V), prefill logits), both over the
+    vocabulary, f32."""
+    V = model.cfg.vocab_size
+    with torch.inference_mode():
+        full, _ = model.apply(model.params, tok, extra)
+        state = model.init_decode_state(model.params, tok.shape[0],
+                                        tok.shape[1], extra)
+        dec = [model.decode_step(model.params, state, tok[:, t:t + 1], t)[0]
+               for t in range(tok.shape[1])]
+    return torch.cat(dec, dim=1)[..., :V], full[..., :V]
+
+
+def decode_prefill_check(rt, device="cuda"):
+    """Decode == prefill in fp32 at full width (the module docstring,
+    phase 12 (b)) on ``device``: each config's worst |decode − prefill|
+    beside its tolerance.  Returns {name: summary}."""
+    out = {}
+    for name, cut in DECODE_CUTS:
+        t = time.perf_counter()
+        cfg = _fp32(rt, name, cut)
+        model = rt["factory"].build_model(cfg)
+        model.init(seed=0, device=device)
+        tok, extra = decode_inputs(rt, cfg, device)
+        dec, full = decode_errors(model, tok, extra)
+        atol, rtol = decode_tolerance(cfg)
+        err = (dec - full).abs()
+        excess = float((err - (atol + rtol * full.abs())).max())
+        finite = bool(torch.isfinite(dec).all() and torch.isfinite(full).all())
+        del model, dec, full, extra
+        pygc.collect()
+        if device != "cpu":
+            torch.cuda.empty_cache()
+        out[name] = dict(layers=cfg.n_layers, max_abs_err=float(err.max()),
+                         atol=atol, rtol=rtol, excess=excess, finite=finite,
+                         ok=finite and excess <= 0.0,
+                         s=time.perf_counter() - t)
+        depth = (f"{cfg.encoder_layers} + {cfg.n_layers}"
+                 if cfg.encoder_layers else str(cfg.n_layers))
+        print(f"    {name} ({cfg.family}, depth {depth}, fp32) on {device}: "
+              f"max |decode - prefill| "
+              f"{out[name]['max_abs_err']:.3e}, worst excess over atol "
+              f"{atol:g} + rtol {rtol:g}·|prefill| {excess:.3e} "
+              f"({'within' if out[name]['ok'] else 'OUTSIDE'}; "
+              f"{out[name]['s']:.1f} s)")
+    return out
+
+
+def decode_profile(model, params, state, cur, pos):
+    """One warm decode step under ``torch.profiler``: host wall, device
+    busy, idle share, device operations."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]):     # a throwaway
+        torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        model.decode_step(params, state, cur, pos)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    busy = sum(ms for _, ms, _ in kernels)
+    launches = sum(c for _, _, c in kernels)
+    host_ops = [(e.key, e.self_cpu_time_total / 1e3, e.count)
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CPU]
+    print(f"  one profiled decode step (pos {pos}): host wall "
+          f"{wall * 1e3:.2f} ms, device busy {busy:.3f} ms (idle share "
+          f"{1 - busy / (wall * 1e3):.3f}); {launches} device operations "
+          f"of {len(kernels)} names; largest:")
+    for key, ms, count in sorted(kernels, key=lambda r: -r[1])[:6]:
+        print(f"    {ms:8.3f} ms  {count:5d}x  {key[:90]}")
+    print(f"  its host side: {sum(c for _, _, c in host_ops)} profiled "
+          f"operator calls; largest self time:")
+    for key, ms, count in sorted(host_ops, key=lambda r: -r[1])[:6]:
+        print(f"    {ms:8.3f} ms  {count:5d}x  {key[:90]}")
+    return dict(wall_ms=wall * 1e3, busy_ms=busy,
+                idle_share=1 - busy / (wall * 1e3), launches=launches,
+                host_ops=sum(c for _, _, c in host_ops))
+
+
+def decode_generate(rt):
+    """(a): qwen3-0.6b at full width and depth, bf16, generating through
+    ``launch/generate.py``'s ``generate`` twice (greedy); the tokens of the
+    two runs equal, every logit finite; tok/s, the warm ms a step, KV
+    bytes, peak memory, one profiled step."""
+    cfg = rt["get_arch"](GEN_ARCH)
+    gen_mod = rt["generate"]
+    torch.cuda.reset_peak_memory_stats()
+    model = rt["factory"].build_model(cfg)
+    params = model.init(seed=0, device="cuda")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    prompts = torch.randint(0, cfg.vocab_size, (GEN_BATCH, GEN_PROMPT),
+                            generator=g, device="cuda", dtype=torch.int32)
+    print(f"  (a) {cfg.name} at full width ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads, kv {cfg.n_kv_heads}, "
+          f"head_dim {cfg.resolved_head_dim}, vocab {cfg.vocab_size}, "
+          f"{cfg.param_dtype}), batch {GEN_BATCH}, prompt {GEN_PROMPT} "
+          f"teacher-forced + {GEN_NEW} greedy tokens, twice")
+    toks1, tps1 = gen_mod.generate(model, params, prompts, GEN_NEW, {})
+    finite = []
+    step = model.decode_step
+
+    def checked(*args):
+        logits, state = step(*args)
+        finite.append(torch.isfinite(logits).all())
+        return logits, state
+    model.decode_step = checked
+    try:
+        toks2, tps2 = gen_mod.generate(model, params, prompts, GEN_NEW, {})
+    finally:
+        del model.decode_step
+    n_steps = GEN_PROMPT + GEN_NEW - 1
+    check(toks1.shape == (GEN_BATCH, GEN_PROMPT + GEN_NEW),
+          f"generate gave {tuple(toks1.shape)}")
+    check(torch.equal(toks1, toks2), "two greedy runs gave other tokens")
+    check(len(finite) == n_steps and bool(torch.stack(finite).all()),
+          "a decode logit is not finite")
+    check(torch.equal(toks1[:, :GEN_PROMPT], prompts),
+          "the prompt is not the tokens' start")
+    # warm steps, each between two synchronisations, on a fresh state
+    state = model.init_decode_state(params, GEN_BATCH, GEN_PROMPT + GEN_NEW)
+    kv_bytes = _state_bytes(state)
+    times = []
+    with torch.inference_mode():
+        for pos in range(DECODE_TIMED_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            model.decode_step(params, state, toks1[:, pos:pos + 1], pos)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        prof = decode_profile(model, params, state,
+                              toks1[:, DECODE_TIMED_STEPS:
+                                    DECODE_TIMED_STEPS + 1],
+                              DECODE_TIMED_STEPS)
+    step_ms = statistics.median(times[1:]) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in rt["tree"].leaves(params))
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in rt["tree"].leaves(params))
+    print(f"  (a) tokens equal across the two runs; {n_steps} steps a run, "
+          f"every logit finite; {tps1:.1f} and {tps2:.1f} tok/s (B·gen over "
+          f"the loop's wall, synchronised); warm step median "
+          f"{step_ms:.2f} ms (min {min(times[1:]) * 1e3:.2f}, max "
+          f"{max(times[1:]) * 1e3:.2f}; steps 1-{DECODE_TIMED_STEPS - 1}); "
+          f"{n_params:,} parameters, {weight_bytes:,} weight bytes (bound "
+          f"{weight_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms a step at 3.35 "
+          f"TB/s); KV {kv_bytes:,} bytes; max_memory_allocated {peak:,} "
+          f"({peak / 2**30:.2f} GiB)")
+    print(f"  (a) sample: {toks1[0, :GEN_PROMPT + 8].tolist()}")
+    summary = dict(tok_s=[tps1, tps2], step_ms=step_ms,
+                   step_ms_range=[min(times[1:]) * 1e3,
+                                  max(times[1:]) * 1e3],
+                   kv_bytes=kv_bytes, peak_bytes=peak,
+                   weight_bytes=weight_bytes,
+                   bound_ms=weight_bytes / HBM_BYTES_PER_S * 1e3,
+                   profiled=prof)
+    del model, params, state
+    return summary
+
+
+def decode_card_vs_cpu(rt, name, cut):
+    """(c): one config's fp32 decode on the card and the same code and
+    weights on the CPU, DECODE_CPU_STEPS teacher-forced steps."""
+    cfg = _fp32(rt, name, cut)
+    tree, layers = rt["tree"], rt["lm"].layers
+    card = rt["factory"].build_model(cfg)
+    card.init(seed=0, device="cuda")
+    cpu = rt["factory"].build_model(cfg)
+    cpu.params = layers.parameter_dict(tree.tree_map(
+        lambda p: p.detach().cpu(), card.params))
+    tok, extra = decode_inputs(rt, cfg, "cuda")
+    with torch.inference_mode():
+        sc = card.init_decode_state(card.params, DECODE_B, DECODE_S, extra)
+        sh = cpu.init_decode_state(cpu.params, DECODE_B, DECODE_S,
+                                   {k: v.cpu() for k, v in extra.items()})
+        got, want = [], []
+        for t in range(DECODE_CPU_STEPS):
+            got.append(card.decode_step(card.params, sc, tok[:, t:t + 1],
+                                        t)[0].cpu())
+            want.append(cpu.decode_step(cpu.params, sh,
+                                        tok[:, t:t + 1].cpu(), t)[0])
+    V = cfg.vocab_size
+    got, want = (torch.cat(x, 1)[..., :V] for x in (got, want))
+    atol, rtol = decode_tolerance(cfg)
+    err = (got - want).abs()
+    excess = float((err - (atol + rtol * want.abs())).max())
+    print(f"  (c) {cfg.name} fp32, depth {cfg.n_layers}, "
+          f"{DECODE_CPU_STEPS} teacher-forced steps: card against the CPU "
+          f"(torch {torch.get_num_threads()} threads), max |diff| "
+          f"{float(err.max()):.3e}, worst excess over atol {atol:g} + rtol "
+          f"{rtol:g}·|cpu| {excess:.3e}")
+    check(excess <= 0.0, f"{name}: the card's decode is outside tolerance "
+          f"of the CPU's")
+    del card, cpu, sc, sh
+    return dict(max_abs_err=float(err.max()), excess=excess)
+
+
+def phase_decode(rt):
+    """Decode and generation on the card (the module docstring, phase
+    12): no sketch launch and no plain-version call over the phase."""
+    fsk = rt["fsk"]
+    pygc.collect()
+    clear_csr_caches(rt)              # the earlier phases' plans
+    before = dict(fsk.LAUNCHES)
+    calls = {}
+    restore_plain = spy_plain(rt, calls)
+    print(f"phase 12: decode and generation; "
+          f"{torch.cuda.memory_allocated():,} bytes allocated before it")
+    try:
+        gen = decode_generate(rt)
+        pygc.collect()
+        torch.cuda.empty_cache()
+        print("  (b) decode == prefill, fp32 (TF32 off), B = "
+              f"{DECODE_B}, S = {DECODE_S}, teacher-forced, at full width:")
+        parity = decode_prefill_check(rt, "cuda")
+        card_cpu = {name: decode_card_vs_cpu(rt, name, cut)
+                    for name, cut in DECODE_CUTS
+                    if name == GEN_ARCH or name in DECODE_VIA_CPU}
+    finally:
+        restore_plain()
+    for name, row in parity.items():
+        if name in DECODE_VIA_CPU:
+            print(f"  (b) {name}: recorded, not gated (it misses on the CPU "
+                  f"too); gated by (c)")
+            continue
+        check(row["ok"], f"{name}: decode is outside tolerance of prefill "
+              f"(excess {row['excess']:.3e})")
+    launched = {k: v - before[k] for k, v in fsk.LAUNCHES.items()
+                if v != before[k]}
+    print(f"  sketch launches over phase 12: {launched or 'none'}; plain "
+          f"versions called: {calls or 'none'}")
+    check(not launched, f"phase 12 launched sketch kernels: {launched}")
+    check(not calls, f"phase 12 called plain versions: {calls}")
+    pygc.collect()
+    torch.cuda.empty_cache()
+    print("decode: " + json.dumps(dict(generate=gen, parity=parity,
+                                       card_vs_cpu=card_cpu)))
+
+
 class PortMissing(Exception):
     pass
 
@@ -3906,6 +4219,7 @@ def load_runtime():
         from repro_torch.optim import adamw
         from repro_torch.optim import grad_compress as gc
         from repro_torch.train import train_step, trainer
+        from repro_torch.launch import generate
     except ImportError as exc:
         raise PortMissing(str(exc)) from exc
     return dict(solvers=solvers, presets=SOLVER_PRESETS, blockperm=blockperm,
@@ -3920,7 +4234,8 @@ def load_runtime():
                 tree=tree_mod, smoke_config=smoke_config, get_arch=get_arch,
                 precision=precision, pipeline=pipeline, lm=lm, adamw=adamw,
                 gc=gc, train_step=train_step, trainer=trainer,
-                factory=factory, build=build, paper_config=CONFIG)
+                factory=factory, build=build, paper_config=CONFIG,
+                generate=generate)
 
 
 def main() -> int:
@@ -4003,6 +4318,7 @@ def main() -> int:
                 row["launches"] += served["flashsketch_fwd"]
         trained, n1 = timed("phase 10", phase_training, rt)
         families = timed("phase 11", phase_families_train, rt)
+        timed("phase 12", phase_decode, rt)
         rows += narrow_rows(n1, {k: trained[k] + families[k]
                                      for k in NARROW_KERNELS})
         print("tuned: " + json.dumps({

@@ -1,5 +1,5 @@
-"""GQA attention, the training and prefill half (port of
-``repro/models/attention.py``).
+"""GQA attention: training and prefill, and the cached decode path (port
+of ``repro/models/attention.py``).
 
 Written in torch ops as the reference writes it in jnp, with its casts:
 scores in f32 (the bf16 products summed in f32, the reference's
@@ -11,18 +11,32 @@ sharding constraints of the reference are no-ops on one card and are
 dropped.  Cross-attention (``kv_src``: the vlm family's image layers,
 the encoder-decoder's memory) projects k and v from the source and ropes
 neither side; the encoder's bidirectional self-attention (``causal=False``)
-still ropes.  The KV cache and ``decode_attention`` belong to the decode
-path, not ported yet.
+still ropes.
+
+Decode keeps the reference's own order, not the prefill's: the score
+product in the operands' dtype, cast to f32, divided by √hd after the
+product, a normalized f32 softmax cast to v's dtype, then the PV product.
+The KV cache is (B, kv_heads, S_max, head_dim) per layer, and
+``decode_attention`` writes the new row into it in place at ``pos`` (the
+reference returns a functional copy; copying the cache every token would
+cost O(cache) bytes a token) and attends over ``cache[..., :pos+1, :]``:
+the reference masks the rest to -1e30, whose probabilities are exact
+zeros after the f32 exp, so the function is the same.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor   # (B, kv_heads, S_max, head_dim)
+    v: torch.Tensor   # (B, kv_heads, S_max, head_dim)
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype,
@@ -136,3 +150,72 @@ def attention_apply(params, cfg: ModelConfig, x, *, positions=None,
     out = _sdpa(q, k, v, causal=causal and not cross)
     hd = cfg.resolved_head_dim
     return out.reshape(B, S, cfg.n_heads * hd) @ params["wo"]
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype,
+                  device=None) -> KVCache:
+    hd = cfg.resolved_head_dim
+    shape = (batch, cfg.n_kv_heads, max_seq, hd)
+    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device))
+
+
+def _decode_sdpa(cfg: ModelConfig, q, k, v):
+    """One query token over cached keys and values, in decode's order.
+
+    q: (B, 1, H, hd); k/v: (B, Hkv, T, hd) -> (B, 1, H·hd)."""
+    B = q.shape[0]
+    hd = cfg.resolved_head_dim
+    Hkv = cfg.n_kv_heads
+    qh = q.reshape(B, 1, Hkv, cfg.n_heads // Hkv, hd)
+    scores = torch.einsum("bshgd,bhtd->bhgst", qh, k).to(torch.float32)
+    scores = scores / float(np.sqrt(np.float32(hd)))
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bhgst,bhtd->bshgd", probs, v)
+    return out.reshape(B, 1, cfg.n_heads * hd)
+
+
+def decode_attention(params, cfg: ModelConfig, x, cache: KVCache, pos: int):
+    """One-token decode. x: (B, 1, D); pos: the current position (a
+    Python int).
+
+    Writes the token's k and v into ``cache`` at ``pos`` in place and
+    returns (out (B, 1, D), cache)."""
+    B, S1, _ = x.shape
+    assert S1 == 1
+    hd = cfg.resolved_head_dim
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q = (x @ params["wq"]).reshape(B, 1, cfg.n_heads, hd)
+    k_new = (x @ params["wk"]).reshape(B, 1, cfg.n_kv_heads, hd)
+    v_new = (x @ params["wv"]).reshape(B, 1, cfg.n_kv_heads, hd)
+    if cfg.qk_norm:
+        q = layers.rms_norm(q, params["q_norm"])
+        k_new = layers.rms_norm(k_new, params["k_norm"])
+    q = layers.apply_rope(q, positions, cfg.rope_theta)
+    k_new = layers.apply_rope(k_new, positions, cfg.rope_theta)
+    # insert at pos: cache layout (B, Hkv, S, hd)
+    cache.k[:, :, pos] = k_new[:, 0].to(cache.k.dtype)
+    cache.v[:, :, pos] = v_new[:, 0].to(cache.v.dtype)
+    out = _decode_sdpa(cfg, q, cache.k[:, :, :pos + 1],
+                       cache.v[:, :, :pos + 1])
+    return out @ params["wo"], cache
+
+
+def cross_decode_attention(params, cfg: ModelConfig, x, k, v):
+    """One-token cross-attention over fixed keys and values (the vlm's
+    image, the encoder-decoder's memory), projected once before decoding
+    starts. x: (B, 1, D); k/v: (B, Hkv, T, hd) -> (B, 1, D).  No qk norm
+    and no rope, as in the reference's decode."""
+    B = x.shape[0]
+    q = (x @ params["wq"]).reshape(B, 1, cfg.n_heads, cfg.resolved_head_dim)
+    return _decode_sdpa(cfg, q, k, v) @ params["wo"]
+
+
+def cross_kv(params, cfg: ModelConfig, src):
+    """The fixed keys and values of a cross-attention layer over ``src``
+    (B, T, D): each (B, Hkv, T, hd)."""
+    B = src.shape[0]
+    hd = cfg.resolved_head_dim
+    k = (src @ params["wk"]).reshape(B, -1, cfg.n_kv_heads, hd)
+    v = (src @ params["wv"]).reshape(B, -1, cfg.n_kv_heads, hd)
+    return k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()

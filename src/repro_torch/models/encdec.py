@@ -1,14 +1,14 @@
-"""Encoder-decoder model, the training and prefill half (port of
-``repro/models/encdec.py``; the seamless-m4t backbone, its audio frontend
-a stub).
+"""Encoder-decoder model (port of ``repro/models/encdec.py``; the
+seamless-m4t backbone, its audio frontend a stub).
 
 Encoder: bidirectional self-attention (roped) + SwiGLU over precomputed
 frame embeddings (the modality-frontend stub, ``encoder_frames``).
 Decoder: causal self-attention + cross-attention over the encoder's
 memory + SwiGLU.  The stacks loop over their layers as ``lm.DecoderLM``'s
-do, under ``torch.utils.checkpoint`` when ``cfg.remat``.  The decode path
-(the cached self K/V and the fixed cross K/V per layer) waits for its
-slice (``ROADMAP.md`` queue 1, item 2) and raises.
+do, under ``torch.utils.checkpoint`` when ``cfg.remat``.  Decode encodes
+the memory once (``init_decode_state``), projects each layer's fixed
+cross K/V from it, and caches the self K/V, written in place a token at a
+time as ``lm.DecoderLM``'s decode does.
 """
 from __future__ import annotations
 
@@ -21,7 +21,6 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers
-from repro_torch.models.lm import decode_not_ported
 from repro_torch.solvers.sketch_precondition import resolve_device
 
 
@@ -60,6 +59,16 @@ def _dec_block_apply(p, cfg: ModelConfig, x, positions, memory):
     h = attn.attention_apply(p["xattn"], cfg, h, kv_src=memory,
                              causal=False)
     x = x + h
+    return x + layers.ffn_apply(p["ffn"], layers.rms_norm(x, p["ln2"]))
+
+
+def _dec_block_decode(p, cfg: ModelConfig, x, kv: attn.KVCache, pos: int,
+                      ck, cv):
+    h, _ = attn.decode_attention(p["self_attn"], cfg,
+                                 layers.rms_norm(x, p["ln1"]), kv, pos)
+    x = x + h
+    x = x + attn.cross_decode_attention(p["xattn"], cfg,
+                                        layers.rms_norm(x, p["ln_x"]), ck, cv)
     return x + layers.ffn_apply(p["ffn"], layers.rms_norm(x, p["ln2"]))
 
 
@@ -143,9 +152,33 @@ class EncDecLM(nn.Module):
         return ce, {"ce": ce, "aux": aux}
 
     # --------------------------------------------------------------- decode
+    @torch.inference_mode()
     def init_decode_state(self, params, batch: int, max_seq: int,
                           extra=None):
-        raise decode_not_ported(self.cfg)
+        """The encoder's memory of ``extra["encoder_frames"]``, each
+        decoder layer's cross K/V from it (``cross_kv``, (L, B, Hkv,
+        T_enc, hd) each), and zero self caches (``kv``, (L, B, Hkv,
+        max_seq, hd))."""
+        cfg = self.cfg
+        memory = self.encode(params, extra["encoder_frames"])
+        kvs = [attn.cross_kv(p["xattn"], cfg, memory)
+               for p in layers.unstack(params["dec_blocks"], cfg.n_layers)]
+        cache = attn.init_kv_cache(cfg, batch, max_seq, self.dtype,
+                                   memory.device)
+        return {"kv": layers.stack_state(cache, (cfg.n_layers,)),
+                "cross_kv": (torch.stack([k for k, _ in kvs]),
+                             torch.stack([v for _, v in kvs]))}
 
-    def decode_step(self, params, state, tokens: torch.Tensor, pos):
-        raise decode_not_ported(self.cfg)
+    @torch.inference_mode()
+    def decode_step(self, params, state, tokens: torch.Tensor, pos: int):
+        """tokens (B,1) int; pos a Python int -> (logits (B,1,V_pad) f32,
+        state), the self caches written in place."""
+        cfg = self.cfg
+        x = params["embed"][tokens.long()]
+        ck, cv = state["cross_kv"]
+        for i, p in enumerate(layers.unstack(params["dec_blocks"],
+                                             cfg.n_layers)):
+            kv = layers.state_at(state["kv"], i)
+            x = _dec_block_decode(p, cfg, x, kv, pos, ck[i], cv[i])
+        x = layers.rms_norm(x, params["final_norm"])
+        return layers.unembed_logits(x, params["lm_head"]), state

@@ -127,6 +127,18 @@ def unstack(blocks, n: int):
             for i in range(n)]
 
 
+def stack_state(state, stack: Sequence[int]):
+    """A zero decode state (a NamedTuple of tensors: a KV cache, a
+    recurrent state) stacked on leading layer axes ``stack``."""
+    return type(state)(*(t.expand(*stack, *t.shape).clone() for t in state))
+
+
+def state_at(stacked, *idx):
+    """One layer's slice of a stacked decode state: views, so writing
+    into them writes the stack."""
+    return type(stacked)(*(t[idx] for t in stacked))
+
+
 def parameter_dict(tree_) -> nn.ParameterDict:
     """Nested ``nn.ParameterDict``s of ``nn.Parameter`` leaves under the
     tree's names."""

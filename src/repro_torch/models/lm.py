@@ -25,8 +25,13 @@ Families:
   vlm     — dense stack with a cross-attention image layer closing every
             group of ``cross_attn_every`` layers
 
-The decode path (``init_decode_state``, ``decode_step``) waits for its
-slice (``ROADMAP.md`` queue 1, item 2) and raises.
+Decode (``init_decode_state``, ``decode_step``) keeps the reference's
+stacked state layout: the KV caches (L, B, Hkv, S, hd), the hybrid's
+(n_super, attn_every, …) Mamba2 states, the vlm's (n_super, per − 1, …)
+caches.  A step loops over the layers as the training path does, under
+``torch.inference_mode()``, writes each layer's new K/V row and recurrent
+state into the stacked state in place, and returns that same state (the
+reference returns a new one).
 """
 from __future__ import annotations
 
@@ -41,12 +46,6 @@ from repro_torch.models import attention as attn
 from repro_torch.models import layers, moe, ssm
 from repro_torch.solvers.sketch_precondition import resolve_device
 from repro_torch import tree as tr
-
-
-def decode_not_ported(cfg: ModelConfig):
-    return NotImplementedError(
-        f"{cfg.name}: the decode path ({cfg.family} family) is not ported "
-        f"yet (ROADMAP.md queue 1, item 2)")
 
 
 # ===========================================================================
@@ -180,6 +179,55 @@ def _vlm_super(p_self, p_cross, cfg: ModelConfig, x, positions, img):
 
 
 # ===========================================================================
+# block decodes (one token; caches written in place, new recurrent states
+# returned)
+# ===========================================================================
+
+def _self_block_decode(p, cfg: ModelConfig, x, kv: attn.KVCache, pos: int):
+    """[ln→GQA-attn over the cache] + [ln→SwiGLU, or the MoE where the
+    block has one]: the dense, moe and vlm self blocks and the hybrid's
+    shared block."""
+    h, _ = attn.decode_attention(p["attn"], cfg,
+                                 layers.rms_norm(x, p["ln1"]), kv, pos)
+    x = x + h
+    h2 = layers.rms_norm(x, p["ln2"])
+    if "moe" in p:
+        return x + moe.moe_decode(p["moe"], cfg, h2)
+    return x + layers.ffn_apply(p["ffn"], h2)
+
+
+def _cross_block_decode(p, cfg: ModelConfig, x, ck, cv):
+    h = attn.cross_decode_attention(p["xattn"], cfg,
+                                    layers.rms_norm(x, p["ln1"]), ck, cv)
+    x = x + h
+    return x + layers.ffn_apply(p["ffn"], layers.rms_norm(x, p["ln2"]))
+
+
+def _rwkv_block_decode(p, cfg: ModelConfig, x, st):
+    h, st = ssm.rwkv6_decode(p["rwkv"], cfg, layers.rms_norm(x, p["ln1"]),
+                             st)
+    x = x + h
+    h2, st = ssm.rwkv6_channel_mix_decode(p["rwkv"], cfg,
+                                          layers.rms_norm(x, p["ln2"]), st)
+    return x + h2, st
+
+
+def _mamba_block_decode(p, cfg: ModelConfig, x, st):
+    h, st = ssm.mamba2_decode(p["mamba"], cfg, layers.rms_norm(x, p["ln1"]),
+                              st)
+    return x + h, st
+
+
+def _recurrent_decode(block_fn, p, cfg: ModelConfig, x, stacked, *idx):
+    """``block_fn`` on the layer ``idx`` of a stacked recurrent state,
+    its new state written back into the stack."""
+    x, new = block_fn(p, cfg, x, layers.state_at(stacked, *idx))
+    for t, n in zip(stacked, new):
+        t[idx].copy_(n)
+    return x
+
+
+# ===========================================================================
 # model
 # ===========================================================================
 
@@ -309,12 +357,101 @@ class DecoderLM(nn.Module):
         return ce + aux, {"ce": ce, "aux": aux}
 
     # --------------------------------------------------------------- decode
+    @torch.inference_mode()
     def init_decode_state(self, params, batch: int, max_seq: int,
                           extra=None):
-        raise decode_not_ported(self.cfg)
+        """The zero decode state of ``batch`` sequences of up to
+        ``max_seq`` tokens on the parameters' device: the dense and moe
+        stacks' caches (``kv``); RWKV6's states (``rwkv``); the hybrid's
+        Mamba2 states (``mamba``, ``mamba_tail``) and its shared block's
+        caches (``attn_kv``); the vlm's caches and each cross layer's image
+        K/V (``cross_kv``, (n_super, B, Hkv, T, hd) each), projected once
+        from ``extra["image_embeds"]``."""
+        cfg, dtype = self.cfg, self.dtype
+        dev = params["embed"].device
+        fam = cfg.family
+        if fam in ("dense", "moe"):
+            return {"kv": self._stacked_kv((cfg.n_layers,), batch, max_seq,
+                                            dev)}
+        if fam == "ssm":
+            return {"rwkv": layers.stack_state(
+                ssm.init_rwkv6_state(cfg, batch, dtype, dev),
+                (cfg.n_layers,))}
+        if fam == "hybrid":
+            n_super = cfg.n_layers // cfg.attn_every
+            tail = cfg.n_layers - n_super * cfg.attn_every
+            zero = ssm.init_mamba2_state(cfg, batch, dtype, dev)
+            st = {"mamba": layers.stack_state(zero,
+                                              (n_super, cfg.attn_every)),
+                  "attn_kv": self._stacked_kv((n_super,), batch, max_seq,
+                                              dev)}
+            if tail:
+                st["mamba_tail"] = layers.stack_state(zero, (tail,))
+            return st
+        per = cfg.cross_attn_every                               # vlm
+        n_super = cfg.n_layers // per
+        img = extra["image_embeds"].to(dtype)
+        kvs = [attn.cross_kv(p["xattn"], cfg, img)
+               for p in layers.unstack(params["cross_blocks"], n_super)]
+        return {"kv": self._stacked_kv((n_super, per - 1), batch, max_seq,
+                                       dev),
+                "cross_kv": (torch.stack([k for k, _ in kvs]),
+                             torch.stack([v for _, v in kvs]))}
 
-    def decode_step(self, params, state, tokens: torch.Tensor, pos):
-        raise decode_not_ported(self.cfg)
+    def _stacked_kv(self, stack, batch: int, max_seq: int,
+                    device) -> attn.KVCache:
+        """Zero caches (*stack, B, Hkv, max_seq, hd)."""
+        return layers.stack_state(attn.init_kv_cache(
+            self.cfg, batch, max_seq, self.dtype, device), stack)
+
+    @torch.inference_mode()
+    def decode_step(self, params, state, tokens: torch.Tensor, pos: int):
+        """tokens (B,1) int; pos the position of these tokens (a Python
+        int) -> (logits (B,1,V_pad) f32, state), the state written in
+        place."""
+        cfg = self.cfg
+        fam = cfg.family
+        x = params["embed"][tokens.long()]
+        if fam in ("dense", "moe"):
+            for i, p in enumerate(layers.unstack(params["blocks"],
+                                                 cfg.n_layers)):
+                x = _self_block_decode(p, cfg, x,
+                                       layers.state_at(state["kv"], i), pos)
+        elif fam == "ssm":
+            for i, p in enumerate(layers.unstack(params["blocks"],
+                                                 cfg.n_layers)):
+                x = _recurrent_decode(_rwkv_block_decode, p, cfg, x,
+                                      state["rwkv"], i)
+        elif fam == "hybrid":
+            n_super = cfg.n_layers // cfg.attn_every
+            for s, p_group in enumerate(layers.unstack(params["blocks"],
+                                                       n_super)):
+                for j, p in enumerate(layers.unstack(p_group,
+                                                     cfg.attn_every)):
+                    x = _recurrent_decode(_mamba_block_decode, p, cfg, x,
+                                          state["mamba"], s, j)
+                kv = layers.state_at(state["attn_kv"], s)
+                x = _self_block_decode(params["shared_attn"], cfg, x, kv,
+                                       pos)
+            if "tail_blocks" in params:
+                tail = cfg.n_layers - n_super * cfg.attn_every
+                for i, p in enumerate(layers.unstack(params["tail_blocks"],
+                                                     tail)):
+                    x = _recurrent_decode(_mamba_block_decode, p, cfg, x,
+                                          state["mamba_tail"], i)
+        else:                                                    # vlm
+            ck, cv = state["cross_kv"]
+            n_super = cfg.n_layers // cfg.cross_attn_every
+            for s, (p_self, p_cross) in enumerate(zip(
+                    layers.unstack(params["blocks"], n_super),
+                    layers.unstack(params["cross_blocks"], n_super))):
+                for j, p in enumerate(layers.unstack(
+                        p_self, cfg.cross_attn_every - 1)):
+                    kv = layers.state_at(state["kv"], s, j)
+                    x = _self_block_decode(p, cfg, x, kv, pos)
+                x = _cross_block_decode(p_cross, cfg, x, ck[s], cv[s])
+        x = layers.rms_norm(x, params["final_norm"])
+        return layers.unembed_logits(x, self._head(params)), state
 
 
 def params_from_reference(cfg: ModelConfig, params_np, device="cuda"):

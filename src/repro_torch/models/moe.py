@@ -1,5 +1,5 @@
-"""Mixture-of-Experts FFN, the training and prefill half (port of
-``repro/models/moe.py``): group-local sort-based dispatch (GShard style).
+"""Mixture-of-Experts FFN (port of ``repro/models/moe.py``): group-local
+sort-based dispatch (GShard style).
 
 Tokens are routed within their group (one batch row).  Each group sorts
 its T·k (token, choice) replicas by expert, stably, so every expert's
@@ -15,8 +15,10 @@ the same probability) may pick a different expert in the two frameworks;
 at random weights they are improbable, and the tests check there are
 none.  The expert products stay ``torch.einsum``: the reference leaves
 them to XLA, outside any Pallas kernel.  The expert-parallel sharding
-constraints of the reference are no-ops on one card and are dropped.  The
-decode path (``moe_decode``) waits for it (``ROADMAP.md`` queue 1, item 2).
+constraints of the reference are no-ops on one card and are dropped.
+Decode (``moe_decode``) routes a step's B tokens as one group through the
+same dispatch, so ``moe_capacity(cfg, B)`` applies: at B ≤ 8 its floor of
+8 slots an expert drops no token.
 """
 from __future__ import annotations
 
@@ -116,3 +118,12 @@ def moe_apply(params, cfg: ModelConfig,
     if "dense_residual" in params:                               # arctic
         out = out + layers.ffn_apply(params["dense_residual"], x)
     return out, aux * cfg.router_aux_coef
+
+
+def moe_decode(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Decode-path MoE for (B, 1, D): the B tokens routed as ONE group
+    through ``moe_apply`` (the reference's: on a mesh this moves tokens to
+    the resident experts rather than experts to the tokens)."""
+    B, S1, D = x.shape
+    out, _aux = moe_apply(params, cfg, x.reshape(1, B, D))
+    return out.reshape(B, S1, D)

@@ -1,5 +1,5 @@
-"""State-space layers, the training and prefill half (port of
-``repro/models/ssm.py``): Mamba2 (chunked SSD) and RWKV6 (Finch).
+"""State-space layers (port of ``repro/models/ssm.py``): Mamba2 (chunked
+SSD) and RWKV6 (Finch), for training and prefill and for decode.
 
 Mamba2 runs the chunked state-space-duality form: a masked quadratic
 (attention-like) product inside each chunk of 64 tokens, and the chunks'
@@ -14,13 +14,18 @@ to bf16 and contracts them in f32 (``_bf16_einsum``): a bf16
 ``torch.einsum`` would round its result to bf16 too.  On the card that
 f32 product must stay full f32 (``torch.backends.cuda.matmul.allow_tf32``
 False, PyTorch's default).  Neither layer holds a Pallas kernel in the
-reference, so no kernel replaces one here.  The recurrent decode paths
-(``mamba2_decode``, ``rwkv6_decode``) wait for the decode slice
-(``ROADMAP.md`` queue 1, item 2).
+reference, so no kernel replaces one here.
+
+The decode paths carry a recurrent state from token to token: Mamba2's
+f32 SSM state and the causal conv's last K − 1 inputs
+(``mamba2_decode``), RWKV6's f32 wkv state and the two token shifts
+(``rwkv6_decode``, ``rwkv6_channel_mix_decode``).  They run in f32 with
+no bf16 operand, as the reference's do, and return new states as the
+reference's do; the model writes them into its stacked state.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -42,6 +47,11 @@ def _bf16_einsum(spec: str, *operands: torch.Tensor) -> torch.Tensor:
 # ===========================================================================
 # Mamba2
 # ===========================================================================
+
+class Mamba2State(NamedTuple):
+    h: torch.Tensor         # (B, H, P, N) SSM state, f32
+    conv: torch.Tensor      # (B, K-1, conv_dim) causal-conv tail
+
 
 def mamba2_dims(cfg: ModelConfig) -> Tuple[int, int, int, int]:
     d_inner = cfg.ssm_expand * cfg.d_model
@@ -155,9 +165,60 @@ def mamba2_apply(params, cfg: ModelConfig, x: torch.Tensor,
     return y @ params["out_proj"]
 
 
+def init_mamba2_state(cfg: ModelConfig, batch: int, dtype,
+                      device=None) -> Mamba2State:
+    d_inner, H, P, N = mamba2_dims(cfg)
+    conv_dim = d_inner + 2 * N
+    return Mamba2State(
+        h=torch.zeros((batch, H, P, N), dtype=torch.float32, device=device),
+        conv=torch.zeros((batch, cfg.conv_kernel - 1, conv_dim),
+                         dtype=dtype, device=device))
+
+
+def mamba2_decode(params, cfg: ModelConfig, x: torch.Tensor,
+                  state: Mamba2State):
+    """One-token decode. x: (B,1,D) -> (B,1,D), new state."""
+    B = x.shape[0]
+    d_inner, H, P, N = mamba2_dims(cfg)
+    f32 = torch.float32
+    proj = x @ params["in_proj"]
+    z, xBC, dt_raw = _split_proj(cfg, proj)
+    # conv over [tail, new]
+    window = torch.cat([state.conv, xBC], dim=1)              # (B, K, conv)
+    conv_out = torch.einsum("bkc,kc->bc", window.to(f32),
+                            params["conv_w"].to(f32))[:, None, :]
+    xBC = F.silu(conv_out).to(x.dtype)
+    new_conv = window[:, 1:, :]
+    xs = xBC[..., :d_inner]
+    Bm = xBC[..., d_inner:d_inner + N]
+    Cm = xBC[..., d_inner + N:]
+
+    dt = F.softplus(dt_raw[:, 0].to(f32) + params["dt_bias"])  # (B,H)
+    A = -torch.exp(params["A_log"])
+    a = torch.exp(dt * A)                                      # (B,H)
+    xs = xs.reshape(B, H, P).to(f32)
+    Bv = Bm[:, 0].to(f32)                                      # (B,N)
+    Cv = Cm[:, 0].to(f32)
+    xw = xs * dt[..., None]
+    h_new = (state.h * a[..., None, None]
+             + torch.einsum("bhp,bk->bhpk", xw, Bv))
+    y = (torch.einsum("bhpk,bk->bhp", h_new, Cv)
+         + params["D"][None, :, None] * xs)
+    y = y.reshape(B, 1, d_inner)
+    y = layers.rms_norm(y.to(x.dtype), params["norm_w"])
+    y = y * F.silu(z)
+    return y @ params["out_proj"], Mamba2State(h=h_new, conv=new_conv)
+
+
 # ===========================================================================
 # RWKV6 (Finch)
 # ===========================================================================
+
+class RWKV6State(NamedTuple):
+    wkv: torch.Tensor        # (B, H, C, C) per-head state, f32
+    shift: torch.Tensor      # (B, D) previous token (time-mix shift)
+    ffn_shift: torch.Tensor  # (B, D) previous token (channel-mix shift)
+
 
 LORA_DIM = 64
 
@@ -198,10 +259,11 @@ def init_rwkv6(gen: torch.Generator, cfg: ModelConfig, dtype,
     }
 
 
-def _token_shift(x: torch.Tensor) -> torch.Tensor:
-    """x shifted one token later along S from a zero row: x_prev of the
-    token shift at the start of a sequence."""
-    return torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1, :]], dim=1)
+def _token_shift(x: torch.Tensor, shift0=None) -> torch.Tensor:
+    """x shifted one token later along S, from ``shift0`` (B, D), or a zero
+    row at the start of a sequence: x_prev of the token shift."""
+    first = torch.zeros_like(x[:, :1]) if shift0 is None else shift0[:, None]
+    return torch.cat([first, x[:, :-1, :]], dim=1)
 
 
 def _rwkv_proj(params, cfg: ModelConfig, x, x_prev):
@@ -274,7 +336,7 @@ def _wkv_chunks(u, s, chunks):
 def rwkv6_time_mix(params, cfg: ModelConfig, x: torch.Tensor,
                    chunk: int = RWKV_CHUNK):
     """Training/prefill time-mixing from the start of a sequence (zero
-    token shift and state; the decode slice continues one).  x: (B,S,D) ->
+    token shift and state; ``rwkv6_decode`` continues one).  x: (B,S,D) ->
     (out (B,S,D), (final wkv state, last token)).  Chunked-parallel wkv:
     the closed-form chunk touches the (C, C) state once per chunk."""
     B, S, D = x.shape
@@ -316,12 +378,57 @@ def rwkv6_time_mix(params, cfg: ModelConfig, x: torch.Tensor,
     return out, (s_fin, x[:, -1, :])
 
 
-def rwkv6_channel_mix(params, cfg: ModelConfig, x: torch.Tensor):
-    """Channel mixing from the start of a sequence: (out, last token)."""
-    xx = _token_shift(x) - x
+def rwkv6_channel_mix(params, cfg: ModelConfig, x: torch.Tensor,
+                      shift0=None):
+    """Channel mixing after ``shift0`` (B, D), the token before x (zeros
+    at the start of a sequence): (out, last token)."""
+    xx = _token_shift(x, shift0) - x
     mu = params["mu_ffn"].to(x.dtype)
     xk = x + xx * mu[0]
     xr = x + xx * mu[1]
     kk = torch.square(torch.relu(xk @ params["ck"]))
     out = torch.sigmoid(xr @ params["cr"]) * (kk @ params["cv"])
     return out, x[:, -1, :]
+
+
+def init_rwkv6_state(cfg: ModelConfig, batch: int, dtype,
+                     device=None) -> RWKV6State:
+    d = cfg.d_model
+    C = cfg.ssm_head_dim
+    H = d // C
+    return RWKV6State(
+        wkv=torch.zeros((batch, H, C, C), dtype=torch.float32, device=device),
+        shift=torch.zeros((batch, d), dtype=dtype, device=device),
+        ffn_shift=torch.zeros((batch, d), dtype=dtype, device=device))
+
+
+def rwkv6_decode(params, cfg: ModelConfig, x: torch.Tensor,
+                 state: RWKV6State):
+    """One-token time-mix. x: (B,1,D), the block's normed input -> (out
+    (B,1,D), new state); the model owns the residual adds and norms."""
+    B, _, D = x.shape
+    C = cfg.ssm_head_dim
+    H = D // C
+    f32 = torch.float32
+    r, k, v, g, logw = _rwkv_proj(params, cfg, x, state.shift[:, None, :])
+    r = r.reshape(B, H, C).to(f32)
+    k = k.reshape(B, H, C).to(f32)
+    v = v.reshape(B, H, C).to(f32)
+    w = torch.exp(logw.reshape(B, H, C))
+    u = params["u"]
+    kv = torch.einsum("bhc,bhd->bhcd", k, v)
+    out = torch.einsum("bhc,bhcd->bhd", r,
+                       state.wkv + u[None, :, :, None] * kv)
+    wkv_new = state.wkv * w[..., None] + kv
+    out = out.reshape(B, 1, D)
+    out = layers.rms_norm(out.to(x.dtype), params["ln_w"])
+    out = (out * g) @ params["wo"]
+    return out, RWKV6State(wkv=wkv_new, shift=x[:, -1, :],
+                           ffn_shift=state.ffn_shift)
+
+
+def rwkv6_channel_mix_decode(params, cfg: ModelConfig, x: torch.Tensor,
+                             state: RWKV6State):
+    out, new_shift = rwkv6_channel_mix(params, cfg, x, state.ffn_shift)
+    return out, RWKV6State(wkv=state.wkv, shift=state.shift,
+                           ffn_shift=new_shift)

@@ -1,10 +1,11 @@
-"""Train step builder (port of ``build_train_step`` in
-``repro/train/train_step.py``).
+"""Train and serve step builders (port of ``build_train_step`` and
+``build_serve_step`` in ``repro/train/train_step.py``).
 
 ``loss.backward()`` takes the place of ``jax.value_and_grad``; then the
 sketched compression of the gradients (when configured) and the AdamW
-update, in the reference's order.  The sharded state specs and the serve
-step wait for the sharding and decode slices.
+update, in the reference's order.  The serve step is the model's decode
+step.  The sharded state specs (``train_state_specs``,
+``decode_state_specs``) wait for the sharding slice.
 """
 from __future__ import annotations
 
@@ -43,3 +44,14 @@ def build_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
         return params, opt_state, err_state, metrics
 
     return train_step, model
+
+
+def build_serve_step(cfg: ModelConfig):
+    """Returns (serve_step, model).  serve_step(params, state, tokens, pos)
+    -> (logits, state), the state written in place."""
+    model = build_model(cfg)
+
+    def serve_step(params, state, tokens, pos: int):
+        return model.decode_step(params, state, tokens, pos)
+
+    return serve_step, model
