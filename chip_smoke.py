@@ -195,6 +195,31 @@ Phases, any failure exits non-zero and prints no result:
      code and weights on the CPU, four teacher-forced steps, within (b)'s
      tolerance.  No sketch kernel launches and no plain version runs in
      this phase (decode reaches no TPU kernel in the reference).
+ 13. the sharding slice (``repro_torch.sharding``, ``launch/mesh.py``,
+     the pod-axis mean of ``optim/grad_compress.py``,
+     ``train/fault_tolerance.py``): (c) ``train_state_specs`` (compressed)
+     and ``decode_state_specs`` (each decode cell) of all ten archs of
+     ``configs/registry.py`` on both production meshes, in fake mode:
+     leaves and bytes a device holds, the card's memory (allocated and
+     peak) unchanged; (a) qwen3-0.6b at full width and depth (bf16) on two
+     ranks of a gloo group sharing the card, each the gradient of its half
+     of phase 10's batch (2 × 128, ``make_batch(host_id=rank)``),
+     compressed at ratio 8 with the mean over the pod axis of a (2,) mesh
+     (``pod_axis="pod"``) at step 1, the roll on: ĝ ``torch.equal`` across
+     the ranks, the dense leaves the f32 mean, each rank's error state its
+     own g′ − ĝ, both within fp32's ``exactness_atol`` of
+     γ·Sᵀ((S g′₀ + S g′₁)/2) composed from the same wrappers; one narrow
+     forward and one narrow transpose a compressed leaf a rank, no plain
+     version, the all-reduced bytes ``wire_bytes``'; each rank's peak
+     memory, each leaf's all-reduce ms beside its narrow kernels' ms; (b)
+     ``TrainSupervisor`` around the ``Trainer``: qwen3-0.6b at full width
+     cut to 2 layers, ratio 8, 6 steps in segments of up to 4 with a
+     checkpoint every 2 steps, the second segment raising after its first
+     step: 6 steps done, 1 restart, the final parameters, AdamW and error state and every loss
+     ``torch.equal`` to an uninterrupted run, the restore times.  The
+     launches of (a) and (b) (one narrow forward and one narrow transpose
+     a compressed leaf and step, no plain version) are added to the narrow
+     rows.
 
 Phase 2 also holds the three v1 kernels (ragged n with d < d_pad, κ × s ∈
 {1,2,4}², a Br = 2 048 plan, the main plan; each also under every row
@@ -3504,7 +3529,8 @@ def train_kernels(rt, plans, free_csrs=False):
 def narrow_rows(n1, launches):
     """The kernels line's rows of the two narrow kernels, at the largest
     plan of ``n1`` (``train_kernels``' rows: qwen3-0.6b's embedding plan),
-    with ``launches`` from the training phases."""
+    with ``launches`` from the training phases and phase 13's compression
+    (both pods' and the supervised runs')."""
     row = n1[max(n1)]
     out = []
     for op in ("fwd", "transpose"):
@@ -4181,6 +4207,407 @@ def phase_decode(rt):
                                        card_vs_cpu=card_cpu)))
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the sharding specs, the pod-axis mean of compressed gradients on
+# ranks sharing the card, and the supervisor around the Trainer.
+# ---------------------------------------------------------------------------
+
+# (a): two pods on the card, each with half of phase 10's batch at step 1
+# (the roll is on); (b): qwen3-0.6b at full width cut to 2 layers, 6 steps
+# in segments of up to 4 with a checkpoint every 2 steps (the first
+# segment's first save is in flight while it trains on), the second
+# segment failing after its first step.
+POD_RANKS, POD_STEP = 2, 1
+SUPERVISED_LAYERS, SUPERVISED_STEPS = 2, 6
+SUPERVISED_SEGMENT, SUPERVISED_CKPT_EVERY = 4, 2
+
+
+def spec_device_bytes(rt, shapes, specs, mesh):
+    """(leaves, bytes a device holds) of a tree of fake tensors under its
+    specs on ``mesh``: each sharded dimension divided by the product of
+    its axes' sizes, rounded up."""
+    tree, pt = rt["tree"], rt["partition"]
+    flat_shapes, flat_specs = [], []
+    tree.map_structure(flat_shapes.append, shapes)
+    tree.map_structure(flat_specs.append, specs,
+                       is_leaf=lambda s: isinstance(s, pt.PartitionSpec))
+    check(len(flat_shapes) == len(flat_specs), "specs and shapes differ")
+    total = 0
+    for t, spec in zip(flat_shapes, flat_specs):
+        n = t.element_size()
+        for d, size in enumerate(t.shape):
+            e = spec[d] if d < len(spec) else None
+            axes = () if e is None else (e if isinstance(e, tuple) else (e,))
+            n *= -(-size // math.prod(mesh.shape[a] for a in axes))
+        total += n
+    return len(flat_shapes), total
+
+
+def pod_specs(rt):
+    """(c): ``train_state_specs`` (compressed) and ``decode_state_specs``
+    (each decode cell of the arch) of every architecture on both
+    production meshes, in fake mode, the card's memory unchanged."""
+    ts, gc, base = rt["train_step"], rt["gc"], rt["config_base"]
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    rows = {}
+    for multi in (False, True):
+        mesh = rt["mesh"].make_production_mesh(multi_pod=multi)
+        for name, cfg in rt["archs"].items():
+            model = rt["factory"].build_model(cfg)
+            (_, params, pspecs, opt, ospecs, err,
+             especs) = ts.train_state_specs(cfg, mesh, model,
+                                            gc.CompressConfig())
+            row = {"train": spec_device_bytes(
+                rt, {"p": params, "o": opt, "e": err},
+                {"p": pspecs, "o": ospecs, "e": especs}, mesh)}
+            for shape in base.SHAPES:
+                if shape.is_decode and base.shape_applicable(cfg, shape)[0]:
+                    out = ts.decode_state_specs(cfg, mesh, model, shape)
+                    row[shape.name] = spec_device_bytes(rt, out[3], out[4],
+                                                        mesh)
+            check(model.params is None, f"{name}: abstract init kept params")
+            rows[f"{rt['mesh'].describe(mesh)} {name}"] = row
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  (c) the train and decode state specs of {len(rt['archs'])} "
+          f"archs on both production meshes, in fake mode, "
+          f"{time.perf_counter() - t:.1f} s; card memory {before:,} -> "
+          f"{after:,} bytes, peak {peak:,}; leaves and GiB a device holds "
+          f"(train: parameters, AdamW state, error state; a decode cell: its "
+          f"state):")
+    for key, row in rows.items():
+        print(f"    {key}: " + "; ".join(
+            f"{k} {n} leaves {b / 2**30:.3f} GiB"
+            for k, (n, b) in row.items()))
+    check(after == before and peak == before,
+          f"(c) allocated on the card: {before} -> {after}, peak {peak}")
+    return rows
+
+
+def phase13_rank(rank, world, cfg):
+    """One pod of (a): qwen3-0.6b's gradient of this rank's half of phase
+    10's batch, compressed with the mean over the pod axis of a (world,)
+    mesh; then ĝ and the error state against the mean composed here from
+    the same wrappers, every all-reduce's bytes and ms, the narrow kernels'
+    ms at each leaf's plan.  Returns what the parent checks and prints."""
+    import torch.distributed as dist
+    from repro_torch import tree as tr
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data import pipeline as dp
+    from repro_torch.kernels import flashsketch as fsk
+    from repro_torch.kernels import lowering, ops, ref
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models.factory import build_model
+    from repro_torch.optim import grad_compress as gc
+    torch.backends.cuda.matmul.allow_tf32 = False
+    start = time.time() - cfg["t_spawn"]
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(get_arch(TRAIN_ARCH))
+    params = model.init(0, "cuda")
+    data_cfg = dp.DataConfig(vocab_size=TRAIN_DATA_VOCAB,
+                             global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                             seed=0)
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in dp.make_batch(
+        data_cfg, POD_STEP, host_id=rank, n_hosts=world).items()}
+    loss, _ = model.loss(params, batch)
+    loss.backward()
+    grads = tr.tree_map(lambda p: p.grad, params)
+    comp = gc.CompressConfig(ratio=TRAIN_RATIO)
+    err = gc.init_error_state(params)
+    sent = []
+    all_reduce = dist.all_reduce
+
+    def timed_all_reduce(t, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = all_reduce(t, *args, **kwargs)
+        torch.cuda.synchronize()
+        sent.append((t.numel() * t.element_size(),
+                     (time.perf_counter() - t0) * 1e3))
+        return out
+
+    plain = {}
+    restore_plain = spy_plain({"ref": ref, "lowering": lowering}, plain)
+    dist.all_reduce = timed_all_reduce
+    fsk.reset_launch_counts()
+    t = time.perf_counter()
+    try:
+        with mesh_lib.make_mesh((world,), ("pod",)):
+            g_hat, new_err = gc.compress_gradients(
+                comp, grads, err, pod_axis="pod", step=POD_STEP)
+        torch.cuda.synchronize()
+    finally:
+        dist.all_reduce = all_reduce
+        restore_plain()
+    out = dict(start=start, loss=float(loss.detach()),
+               compress_s=time.perf_counter() - t,
+               launches=dict(fsk.LAUNCHES), plain=plain,
+               wire=gc.wire_bytes(comp, params)["sketched_bytes"],
+               leaves=[], equal={}, g_hat_err=0.0, error_err=0.0,
+               peak=torch.cuda.max_memory_allocated())
+
+    def gathered_mean(x):
+        parts = [torch.empty_like(x) for _ in range(world)]
+        dist.all_gather(parts, x)
+        return sum(parts[1:], parts[0]) / world
+
+    for (path, g), gh, ne, (nbytes, ms) in zip(
+            tr.leaves_with_path(grads), tr.leaves(g_hat),
+            tr.leaves(new_err), sent):
+        key = ".".join(path)
+        plan = gc.plan_for_leaf(comp, g.numel())
+        out["equal"][f"g_hat {key} across ranks"] = _all_equal(gh)
+        row = dict(leaf=key, bytes=nbytes, ms=ms)
+        out["leaves"].append(row)
+        if plan is None:            # dense: the f32 mean, the error kept
+            want = gathered_mean(g.to(torch.float32)).to(g.dtype)
+            out["equal"][f"dense {key} == the mean"] = torch.equal(gh, want)
+            out["equal"][f"error {key} unchanged"] = torch.equal(
+                ne, tr.get(err, path))
+            continue
+        g_eff = g.to(torch.float32).reshape(-1)     # the error state is 0
+        shift = gc.roll_shift(POD_STEP, g.numel())
+        g_in = torch.roll(g_eff, shift)
+        y_mean = gathered_mean(ops.sketch_apply(plan, g_in[:, None],
+                                                comp.impl))
+        x = torch.roll(comp.gamma(plan) * ops.sketch_apply_t(
+            plan, y_mean, comp.impl)[:, 0], -shift)
+        out["g_hat_err"] = max(out["g_hat_err"], float(
+            (gh.reshape(-1).float() - x.to(g.dtype).float()).abs().max())
+            / max(float(x.abs().max()), 1e-30))
+        e_want = g_eff - x
+        out["error_err"] = max(out["error_err"], float(
+            (ne.reshape(-1) - e_want).abs().max())
+            / max(float(e_want.abs().max()), 1e-30))
+        # the wrappers as ops calls them, on operands padded to the plan,
+        # one rank at a time (the card is shared)
+        a_pad = torch.nn.functional.pad(g_in, (0, plan.d_pad - g.numel()))
+        y_pad = torch.nn.functional.pad(y_mean[:, 0],
+                                        (0, plan.k_pad - plan.k))
+        row.update(k=plan.k, d=g.numel())
+        for r in range(world):
+            if r == rank:
+                row.update(fwd_ms=cuda_ms(
+                    lambda: fsk.flashsketch_fwd(plan, a_pad[:, None])),
+                    transpose_ms=cuda_ms(lambda: fsk.flashsketch_transpose(
+                        plan, y_pad[:, None])))
+            dist.barrier()
+        del a_pad, y_pad
+    torch.cuda.synchronize()
+    out["t_end"] = time.time()
+    return out
+
+
+def pod_mean(rt):
+    """(a): qwen3-0.6b at full width, two pods sharing the card; every
+    check of the module docstring's phase 13 (a).  Returns the narrow
+    kernels' launches of both ranks' compression."""
+    atol = rt["precision"].POLICIES["float32"].exactness_atol
+    cfg = {"t_spawn": time.time()}
+    t = time.perf_counter()
+    ranks = rt["run_ranks"](phase13_rank, POD_RANKS, cfg,
+                            timeout=SPAWN_TIMEOUT_S)
+    print(f"  (a) {POD_RANKS} ranks in {time.perf_counter() - t:.1f} s: "
+          f"each started its work {min(o['start'] for o in ranks):.1f}-"
+          f"{max(o['start'] for o in ranks):.1f} s after the call; losses "
+          f"of the halves {[round(o['loss'], 4) for o in ranks]}; "
+          f"compress_gradients (the CSRs built) "
+          f"{[round(o['compress_s'], 2) for o in ranks]} s; peak memory "
+          f"{[round(o['peak'] / 2**30, 2) for o in ranks]} GiB")
+    n_comp = sum("k" in row for row in ranks[0]["leaves"])
+    for r, o in enumerate(ranks):
+        for what, ok in o["equal"].items():
+            check(ok, f"(a) rank {r}: {what}")
+        shown = {k: v for k, v in o["launches"].items() if v}
+        check(all(o["launches"][k] == n_comp for k in NARROW_KERNELS)
+              and sum(o["launches"].values()) == 2 * n_comp,
+              f"(a) rank {r}: launches {shown}, not one narrow forward and "
+              f"one narrow transpose a compressed leaf ({n_comp})")
+        check(not o["plain"], f"(a) rank {r}: plain versions {o['plain']}")
+        sent = sum(row["bytes"] for row in o["leaves"])
+        check(sent == o["wire"], f"(a) rank {r}: all-reduced {sent} bytes, "
+              f"wire_bytes says {o['wire']}")
+        check(o["g_hat_err"] <= atol and o["error_err"] <= atol,
+              f"(a) rank {r}: g_hat {o['g_hat_err']:.3e}, error state "
+              f"{o['error_err']:.3e} from the composed mean")
+    print(f"  (a) g_hat torch.equal across the ranks at all "
+          f"{len(ranks[0]['leaves'])} leaves, the dense ones the f32 mean; "
+          f"each rank's error state its own g' - g_hat; one narrow forward "
+          f"and one narrow transpose a compressed leaf ({n_comp}) a rank, "
+          f"no plain version; all-reduced {ranks[0]['wire']:,.0f} bytes a "
+          f"rank = wire_bytes; against gamma S^T((S g'_0 + S g'_1)/2) "
+          f"composed from the same wrappers: g_hat within "
+          f"{max(o['g_hat_err'] for o in ranks):.2e}, error state "
+          f"{max(o['error_err'] for o in ranks):.2e} x max| | (tolerance "
+          f"{atol})")
+    print("  (a) by leaf: the all-reduce's bytes and ms on ranks 0 / 1 "
+          "(gloo, host-staged), the narrow forward and transpose ms (CUDA "
+          "events, one rank at a time) at its plan:")
+    for row0, row1 in zip(ranks[0]["leaves"], ranks[1]["leaves"]):
+        kern = (f"; d {row0['d']:,} -> k {row0['k']:,}: forward "
+                f"{row0['fwd_ms']:.4f} / {row1['fwd_ms']:.4f}, transpose "
+                f"{row0['transpose_ms']:.4f} / {row1['transpose_ms']:.4f}"
+                if "k" in row0 else " (dense)")
+        print(f"    {row0['leaf']}: {row0['bytes']:,} B, {row0['ms']:.3f} / "
+              f"{row1['ms']:.3f} ms{kern}")
+    return ranks
+
+
+def supervised_trainer(rt, total, ckpt_dir):
+    """A Trainer of qwen3-0.6b at full width cut to SUPERVISED_LAYERS
+    layers, phase 10's batch, lr and ratio, a checkpoint every
+    SUPERVISED_CKPT_EVERY steps in ``ckpt_dir``, running to ``total``."""
+    cfg = dataclasses.replace(rt["get_arch"](TRAIN_ARCH),
+                              n_layers=SUPERVISED_LAYERS)
+    opt = rt["adamw"].AdamWConfig(
+        lr=TRAIN_LR, warmup_steps=5, total_steps=SUPERVISED_STEPS,
+        state_dtype=cfg.optstate_dtype)
+    data_cfg = rt["pipeline"].DataConfig(
+        vocab_size=TRAIN_DATA_VOCAB, global_batch=TRAIN_BATCH,
+        seq_len=TRAIN_SEQ, seed=0)
+    tcfg = rt["trainer"].TrainerConfig(
+        total_steps=total, ckpt_every=SUPERVISED_CKPT_EVERY,
+        ckpt_dir=ckpt_dir, log_every=1000)
+    return rt["trainer"].Trainer(
+        cfg, opt, tcfg, data_cfg,
+        compress=rt["gc"].CompressConfig(ratio=TRAIN_RATIO),
+        log_fn=lambda s: None, device="cuda")
+
+
+def pod_supervised(rt):
+    """(b): TrainSupervisor around the Trainer on the card, a failure in
+    the middle of its second segment, against one uninterrupted run.
+    Returns the narrow kernels' launches of both runs."""
+    ft, ckpt, fsk = rt["fault_tolerance"], rt["checkpoint"], rt["fsk"]
+    live, losses, last = [], {}, {}
+    times = {"restore": [], "wait": [], "fit": []}
+    before = dict(fsk.LAUNCHES)
+    plain = {}
+    restore_plain = spy_plain(rt, plain)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ft_") as d:
+        def restore_latest():
+            t = time.perf_counter()
+            for trainer in live:          # a save in flight finishes first
+                trainer.async_ckpt.wait()
+            times["wait"].append(time.perf_counter() - t)
+            return ckpt.latest_step(d) or 0
+
+        def run_segment(plan, start):
+            end = min(start + SUPERVISED_SEGMENT, SUPERVISED_STEPS)
+            trainer = supervised_trainer(rt, end, d)
+            live.append(trainer)
+            if len(live) == 2:            # node loss after one step
+                step_fn, done = trainer.step_fn, []
+
+                def failing(*args):
+                    if done:
+                        raise RuntimeError("simulated node loss")
+                    done.append(1)
+                    return step_fn(*args)
+                trainer.step_fn = failing
+            maybe_restore = trainer.maybe_restore
+
+            def timed_restore(*args):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                got = maybe_restore(*args)
+                torch.cuda.synchronize()
+                times["restore"].append(time.perf_counter() - t)
+                return got
+            trainer.maybe_restore = timed_restore
+            t = time.perf_counter()
+            out = trainer.fit()
+            times["fit"].append(time.perf_counter() - t)
+            losses.update(zip(range(start, end), out["losses"]))
+            last.clear()
+            last.update(out)
+            return end
+
+        sup = ft.TrainSupervisor(
+            ft.ElasticPlanner(model_parallel=1, chips_per_host=1,
+                              global_batch=TRAIN_BATCH),
+            ft.HeartbeatMonitor(["host0"], timeout_s=1e9),
+            restore_latest=restore_latest, run_segment=run_segment)
+        t = time.perf_counter()
+        try:
+            rep = sup.run(total_steps=SUPERVISED_STEPS)
+            supervised_s = time.perf_counter() - t
+            latest = ckpt.latest_step(d)
+            t = time.perf_counter()
+            whole = supervised_trainer(rt, SUPERVISED_STEPS, None).fit()
+            whole_s = time.perf_counter() - t
+        finally:
+            restore_plain()
+    launches = {k: fsk.LAUNCHES[k] - before[k] for k in before}
+    n_comp = sum(rt["gc"].plan_for_leaf(rt["gc"].CompressConfig(
+        ratio=TRAIN_RATIO), p.numel()) is not None
+        for p in rt["tree"].leaves(whole["final_params"]))
+    steps = SUPERVISED_STEPS + 1 + SUPERVISED_STEPS   # one step rerun
+    print(f"  (b) TrainSupervisor over the Trainer ({TRAIN_ARCH}, "
+          f"{SUPERVISED_LAYERS} layers, {n_comp} compressed leaves, "
+          f"segments of up to {SUPERVISED_SEGMENT} steps, a checkpoint every "
+          f"{SUPERVISED_CKPT_EVERY}; the second segment raises after its "
+          f"first step): "
+          f"steps_done {rep.steps_done}, restarts {rep.restarts}, meshes "
+          f"{[(p.data, p.model) for p in rep.mesh_history]}, latest "
+          f"checkpoint {latest}; {supervised_s:.1f} s supervised, "
+          f"{whole_s:.1f} s uninterrupted; fit by segment "
+          f"{[round(s, 2) for s in times['fit']]} s, restores "
+          f"{[round(s, 2) for s in times['restore']]} s, waits on the "
+          f"checkpointer {[round(s, 3) for s in times['wait']]} s; "
+          f"losses {[round(losses[s], 4) for s in range(SUPERVISED_STEPS)]}")
+    check((rep.steps_done, rep.restarts) == (SUPERVISED_STEPS, 1),
+          f"(b) report {rep}")
+    check(latest == SUPERVISED_STEPS, f"(b) latest checkpoint {latest}")
+    check([losses[s] for s in range(SUPERVISED_STEPS)] == whole["losses"],
+          f"(b) losses {losses} against {whole['losses']}")
+    for name in ("final_params", "final_opt", "final_err"):
+        for (pa, a), (pb, b) in zip(rt["tree"].leaves_with_path(last[name]),
+                                    rt["tree"].leaves_with_path(whole[name])):
+            check(pa == pb and torch.equal(a, b),
+                  f"(b) {name} {pa} differs from the uninterrupted run")
+    check(all(launches[k] == n_comp * steps for k in NARROW_KERNELS)
+          and sum(launches.values()) == 2 * n_comp * steps,
+          f"(b) launches {({k: v for k, v in launches.items() if v})}, not "
+          f"one narrow forward and transpose a compressed leaf and step")
+    check(not plain, f"(b) plain versions ran: {plain}")
+    print(f"  (b) final parameters, AdamW and error state torch.equal to "
+          f"the uninterrupted run, every loss equal; {steps} steps of "
+          f"{n_comp} narrow forward and transpose launches each, no plain "
+          f"version")
+    del live, last, whole
+    return launches, dict(times, supervised_s=supervised_s, whole_s=whole_s)
+
+
+def phase_pod(rt):
+    """Phase 13 (the module docstring): (c) the specs, (a) the pod mean,
+    (b) the supervisor.  Returns the narrow kernels' launches of (a) and
+    (b)."""
+    pygc.collect()
+    clear_csr_caches(rt)              # each rank builds its own CSRs
+    print(f"phase 13: sharding specs, the pod-axis mean of compressed "
+          f"gradients on {POD_RANKS} gloo ranks sharing the card, the "
+          f"supervisor around the Trainer; "
+          f"{torch.cuda.memory_allocated():,} bytes allocated before it")
+    specs = pod_specs(rt)
+    ranks = pod_mean(rt)
+    sup_launches, sup_times = pod_supervised(rt)
+    pygc.collect()
+    clear_csr_caches(rt)
+    launches = {k: sum(o["launches"][k] for o in ranks) + sup_launches[k]
+                for k in NARROW_KERNELS}
+    print("pod: " + json.dumps(dict(
+        specs=specs, ranks=[{k: o[k] for k in (
+            "loss", "compress_s", "peak", "g_hat_err", "error_err",
+            "leaves")} for o in ranks], supervised=sup_times,
+        launches=launches)))
+    return launches
+
+
 class PortMissing(Exception):
     pass
 
@@ -4220,6 +4647,11 @@ def load_runtime():
         from repro_torch.optim import grad_compress as gc
         from repro_torch.train import train_step, trainer
         from repro_torch.launch import generate
+        from repro_torch.configs import base as config_base
+        from repro_torch.configs.registry import ARCHS
+        from repro_torch.launch import mesh
+        from repro_torch.sharding import partition
+        from repro_torch.train import checkpoint, fault_tolerance
     except ImportError as exc:
         raise PortMissing(str(exc)) from exc
     return dict(solvers=solvers, presets=SOLVER_PRESETS, blockperm=blockperm,
@@ -4235,7 +4667,9 @@ def load_runtime():
                 precision=precision, pipeline=pipeline, lm=lm, adamw=adamw,
                 gc=gc, train_step=train_step, trainer=trainer,
                 factory=factory, build=build, paper_config=CONFIG,
-                generate=generate)
+                generate=generate, config_base=config_base, archs=ARCHS,
+                mesh=mesh, partition=partition, checkpoint=checkpoint,
+                fault_tolerance=fault_tolerance)
 
 
 def main() -> int:
@@ -4319,7 +4753,8 @@ def main() -> int:
         trained, n1 = timed("phase 10", phase_training, rt)
         families = timed("phase 11", phase_families_train, rt)
         timed("phase 12", phase_decode, rt)
-        rows += narrow_rows(n1, {k: trained[k] + families[k]
+        pod = timed("phase 13", phase_pod, rt)
+        rows += narrow_rows(n1, {k: trained[k] + families[k] + pod[k]
                                      for k in NARROW_KERNELS})
         print("tuned: " + json.dumps({
             f"{v}/{dt}": dict(rule=[r["tn"], r["row_splits"],

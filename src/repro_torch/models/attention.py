@@ -7,11 +7,12 @@ scores in f32 (the bf16 products summed in f32, the reference's
 probabilities cast to v's dtype for the PV product, then scaled by the
 inverse sum.  It is not a Pallas kernel in the reference, so no kernel
 replaces it; a library attention call would change the numerics.  The
-sharding constraints of the reference are no-ops on one card and are
-dropped.  Cross-attention (``kv_src``: the vlm family's image layers,
-the encoder-decoder's memory) projects k and v from the source and ropes
-neither side; the encoder's bidirectional self-attention (``causal=False``)
-still ropes.
+projections call the reference's sharding constraints (``gather_seq`` on
+the inputs, ``shard_heads`` on q, k and v; ``repro_torch.sharding``),
+which return their tensor unchanged.  Cross-attention (``kv_src``: the
+vlm family's image layers, the encoder-decoder's memory) projects k and v
+from the source and ropes neither side; the encoder's bidirectional
+self-attention (``causal=False``) still ropes.
 
 Decode keeps the reference's own order, not the prefill's: the score
 product in the operands' dtype, cast to f32, divided by √hd after the
@@ -32,6 +33,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers
+from repro_torch.sharding import partition as pt
 
 
 class KVCache(NamedTuple):
@@ -65,14 +67,21 @@ def _project_qkv(params, cfg: ModelConfig, x, kv_src, positions,
                  kv_positions):
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
+    self_attn = kv_src is x               # self-attention ropes; cross not
+    x = pt.gather_seq(x)                  # SP→TP gather on the bf16 tensor
+    kv_src = x if self_attn else pt.gather_seq(kv_src)
     q = (x @ params["wq"]).reshape(B, S, cfg.n_heads, hd)
     Skv = kv_src.shape[1]
     k = (kv_src @ params["wk"]).reshape(B, Skv, cfg.n_kv_heads, hd)
     v = (kv_src @ params["wv"]).reshape(B, Skv, cfg.n_kv_heads, hd)
+    # SP→TP transition: heads sharded, seq gathered (see pt.shard_heads)
+    q = pt.shard_heads(q)
+    k = pt.shard_heads(k)
+    v = pt.shard_heads(v)
     if cfg.qk_norm:
         q = layers.rms_norm(q, params["q_norm"])
         k = layers.rms_norm(k, params["k_norm"])
-    if kv_src is x:                       # self-attention ropes; cross not
+    if self_attn:
         q = layers.apply_rope(q, positions, cfg.rope_theta)
         k = layers.apply_rope(k, kv_positions, cfg.rope_theta)
     return q, k, v

@@ -5,10 +5,12 @@ Encoder: bidirectional self-attention (roped) + SwiGLU over precomputed
 frame embeddings (the modality-frontend stub, ``encoder_frames``).
 Decoder: causal self-attention + cross-attention over the encoder's
 memory + SwiGLU.  The stacks loop over their layers as ``lm.DecoderLM``'s
-do, under ``torch.utils.checkpoint`` when ``cfg.remat``.  Decode encodes
-the memory once (``init_decode_state``), projects each layer's fixed
-cross K/V from it, and caches the self K/V, written in place a token at a
-time as ``lm.DecoderLM``'s decode does.
+do, under ``torch.utils.checkpoint`` when ``cfg.remat``, and call the
+reference's sharding constraints at its sites (``shard_residual``,
+``shard_logits``, ``shard_kv``), which return their tensor unchanged.
+Decode encodes the memory once (``init_decode_state``), projects each
+layer's fixed cross K/V from it, and caches the self K/V, written in place
+a token at a time as ``lm.DecoderLM``'s decode does.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers
+from repro_torch.sharding import partition as pt
 from repro_torch.solvers.sketch_precondition import resolve_device
 
 
@@ -47,19 +50,21 @@ def _init_dec_block(gen, cfg: ModelConfig, dtype, stack):
 def _enc_block_apply(p, cfg: ModelConfig, x):
     h = layers.rms_norm(x, p["ln1"])
     h = attn.attention_apply(p["attn"], cfg, h, causal=False)
-    x = x + h
-    return x + layers.ffn_apply(p["ffn"], layers.rms_norm(x, p["ln2"]))
+    x = pt.shard_residual(x + h)
+    h2 = layers.ffn_apply(p["ffn"], layers.rms_norm(x, p["ln2"]))
+    return pt.shard_residual(x + h2)
 
 
 def _dec_block_apply(p, cfg: ModelConfig, x, positions, memory):
     h = layers.rms_norm(x, p["ln1"])
     h = attn.attention_apply(p["self_attn"], cfg, h, positions=positions)
-    x = x + h
+    x = pt.shard_residual(x + h)
     h = layers.rms_norm(x, p["ln_x"])
     h = attn.attention_apply(p["xattn"], cfg, h, kv_src=memory,
                              causal=False)
-    x = x + h
-    return x + layers.ffn_apply(p["ffn"], layers.rms_norm(x, p["ln2"]))
+    x = pt.shard_residual(x + h)
+    h2 = layers.ffn_apply(p["ffn"], layers.rms_norm(x, p["ln2"]))
+    return pt.shard_residual(x + h2)
 
 
 def _dec_block_decode(p, cfg: ModelConfig, x, kv: attn.KVCache, pos: int,
@@ -112,7 +117,7 @@ class EncDecLM(nn.Module):
     def encode(self, params, frames: torch.Tensor) -> torch.Tensor:
         """frames: (B, T_enc, D) stub embeddings -> encoder memory."""
         cfg = self.cfg
-        x = frames.to(self.dtype)
+        x = pt.shard_residual(frames.to(self.dtype))
         for p in layers.unstack(params["enc_blocks"], cfg.encoder_layers):
             x = self._layer(_enc_block_apply, p, cfg, x)
         return layers.rms_norm(x, params["enc_norm"])
@@ -124,7 +129,7 @@ class EncDecLM(nn.Module):
         cfg = self.cfg
         memory = self.encode(params, extra["encoder_frames"])
         _, S = tokens.shape
-        x = params["embed"][tokens.long()]
+        x = pt.shard_residual(params["embed"][tokens.long()])
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device)[None]
         for p in layers.unstack(params["dec_blocks"], cfg.n_layers):
@@ -136,7 +141,8 @@ class EncDecLM(nn.Module):
               extra: Optional[Dict[str, torch.Tensor]] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
         x, aux = self.hidden(params, tokens, extra)
-        return layers.unembed_logits(x, params["lm_head"]), aux
+        logits = layers.unembed_logits(x, params["lm_head"])
+        return pt.shard_logits(logits), aux
 
     def prefill(self, params, tokens: torch.Tensor,
                 extra: Optional[Dict[str, torch.Tensor]] = None):
@@ -163,9 +169,10 @@ class EncDecLM(nn.Module):
         memory = self.encode(params, extra["encoder_frames"])
         kvs = [attn.cross_kv(p["xattn"], cfg, memory)
                for p in layers.unstack(params["dec_blocks"], cfg.n_layers)]
-        cache = attn.init_kv_cache(cfg, batch, max_seq, self.dtype,
-                                   memory.device)
-        return {"kv": layers.stack_state(cache, (cfg.n_layers,)),
+        cache = layers.stack_state(attn.init_kv_cache(
+            cfg, batch, max_seq, self.dtype, memory.device), (cfg.n_layers,))
+        return {"kv": attn.KVCache(k=pt.shard_kv(cache.k),
+                                   v=pt.shard_kv(cache.v)),
                 "cross_kv": (torch.stack([k for k, _ in kvs]),
                              torch.stack([v for _, v in kvs]))}
 

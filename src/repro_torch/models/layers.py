@@ -17,6 +17,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch._subclasses.fake_tensor import FakeTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree as tr
@@ -34,9 +35,13 @@ def dtype_of(name: str) -> torch.dtype:
 def truncated_normal(gen: torch.Generator, shape: Sequence[int],
                      scale: float, dtype: torch.dtype) -> torch.Tensor:
     """N(0, 1) truncated to [-2, 2] in f32, times ``scale``, cast to
-    ``dtype`` (``jax.random.truncated_normal(key, -2, 2)`` · scale)."""
+    ``dtype`` (``jax.random.truncated_normal(key, -2, 2)`` · scale).  A
+    fake tensor (the abstract shapes of ``train_step.abstract``) has
+    no values to draw: the draw, whose rejection loop reads values, is
+    skipped."""
     w = torch.empty(tuple(shape), dtype=torch.float32, device=gen.device)
-    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    if not isinstance(w, FakeTensor):
+        torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return (w * scale).to(dtype)
 
 

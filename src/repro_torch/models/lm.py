@@ -13,8 +13,9 @@ a loop over the layer index runs each layer on its slice of the stack
 (``layers.unstack``), under ``torch.utils.checkpoint`` when ``cfg.remat``
 (the reference's ``jax.checkpoint``, nested as the reference nests it:
 per layer, and per super-block for the hybrid and vlm stacks).  The
-sharding constraints of the reference are no-ops on one card and are
-dropped.
+residual stream, the logits and the decode caches pass through the
+reference's sharding constraints (``repro_torch.sharding.partition``) at
+the reference's sites; they return their tensor unchanged.
 
 Families:
   dense   — [ln→GQA-attn] + [ln→SwiGLU]
@@ -44,6 +45,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers, moe, ssm
+from repro_torch.sharding import partition as pt
 from repro_torch.solvers.sketch_precondition import resolve_device
 from repro_torch import tree as tr
 
@@ -105,46 +107,46 @@ def _zero(x):
 def _dense_block_apply(p, cfg: ModelConfig, x, positions):
     h = layers.rms_norm(x, p["ln1"])
     h = attn.attention_apply(p["attn"], cfg, h, positions=positions)
-    x = x + h
+    x = pt.shard_residual(x + h)
     h2 = layers.ffn_apply(p["ffn"], layers.rms_norm(x, p["ln2"]))
-    return x + h2, _zero(x)
+    return pt.shard_residual(x + h2), _zero(x)
 
 
 def _moe_block_apply(p, cfg: ModelConfig, x, positions):
     h = layers.rms_norm(x, p["ln1"])
     h = attn.attention_apply(p["attn"], cfg, h, positions=positions)
-    x = x + h
+    x = pt.shard_residual(x + h)
     h2, aux = moe.moe_apply(p["moe"], cfg, layers.rms_norm(x, p["ln2"]))
-    return x + h2, aux
+    return pt.shard_residual(x + h2), aux
 
 
 def _rwkv_block_apply(p, cfg: ModelConfig, x, positions):
     h, _ = ssm.rwkv6_time_mix(p["rwkv"], cfg, layers.rms_norm(x, p["ln1"]))
-    x = x + h
+    x = pt.shard_residual(x + h)
     h2, _ = ssm.rwkv6_channel_mix(p["rwkv"], cfg,
                                   layers.rms_norm(x, p["ln2"]))
-    return x + h2, _zero(x)
+    return pt.shard_residual(x + h2), _zero(x)
 
 
 def _mamba_block_apply(p, cfg: ModelConfig, x, positions):
     h = ssm.mamba2_apply(p["mamba"], cfg, layers.rms_norm(x, p["ln1"]))
-    return x + h, _zero(x)
+    return pt.shard_residual(x + h), _zero(x)
 
 
 def _shared_attn_apply(p, cfg: ModelConfig, x, positions):
     h = layers.rms_norm(x, p["ln1"])
     h = attn.attention_apply(p["attn"], cfg, h, positions=positions)
-    x = x + h
+    x = pt.shard_residual(x + h)
     h2 = layers.ffn_apply(p["ffn"], layers.rms_norm(x, p["ln2"]))
-    return x + h2
+    return pt.shard_residual(x + h2)
 
 
 def _cross_block_apply(p, cfg: ModelConfig, x, img):
     h = layers.rms_norm(x, p["ln1"])
     h = attn.attention_apply(p["xattn"], cfg, h, kv_src=img, causal=False)
-    x = x + h
+    x = pt.shard_residual(x + h)
     h2 = layers.ffn_apply(p["ffn"], layers.rms_norm(x, p["ln2"]))
-    return x + h2
+    return pt.shard_residual(x + h2)
 
 
 _BLOCKS = {"dense": (_init_dense_block, _dense_block_apply),
@@ -324,6 +326,7 @@ class DecoderLM(nn.Module):
         """tokens (B,S) -> final-norm hidden (B,S,D), aux loss."""
         _, S = tokens.shape
         x = params["embed"][tokens.long()]                     # (B,S,D)
+        x = pt.shard_residual(x)
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device)[None]
         x, aux = self._backbone(params, x, positions, extra or {})
@@ -339,7 +342,8 @@ class DecoderLM(nn.Module):
         """tokens (B,S) -> logits (B,S,V_pad) f32, aux loss.  (Tests and
         small shapes only: training uses the chunked CE.)"""
         x, aux = self.hidden(params, tokens, extra)
-        return layers.unembed_logits(x, self._head(params)), aux
+        logits = layers.unembed_logits(x, self._head(params))
+        return pt.shard_logits(logits), aux
 
     def prefill(self, params, tokens: torch.Tensor,
                 extra: Optional[Dict[str, torch.Tensor]] = None):
@@ -401,8 +405,9 @@ class DecoderLM(nn.Module):
     def _stacked_kv(self, stack, batch: int, max_seq: int,
                     device) -> attn.KVCache:
         """Zero caches (*stack, B, Hkv, max_seq, hd)."""
-        return layers.stack_state(attn.init_kv_cache(
+        kv = layers.stack_state(attn.init_kv_cache(
             self.cfg, batch, max_seq, self.dtype, device), stack)
+        return attn.KVCache(k=pt.shard_kv(kv.k), v=pt.shard_kv(kv.v))
 
     @torch.inference_mode()
     def decode_step(self, params, state, tokens: torch.Tensor, pos: int):

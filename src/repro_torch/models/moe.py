@@ -14,8 +14,10 @@ for ``take_along_axis``.  Ties in ``top_k`` (two experts of one token with
 the same probability) may pick a different expert in the two frameworks;
 at random weights they are improbable, and the tests check there are
 none.  The expert products stay ``torch.einsum``: the reference leaves
-them to XLA, outside any Pallas kernel.  The expert-parallel sharding
-constraints of the reference are no-ops on one card and are dropped.
+them to XLA, outside any Pallas kernel.  The dispatch buffer and the
+expert outputs pass through the reference's expert-parallel constraints
+(``shard_moe_buf``, ``gather_experts``) where there is more than one
+group; they return their tensor unchanged.
 Decode (``moe_decode``) routes a step's B tokens as one group through the
 same dispatch, so ``moe_capacity(cfg, B)`` applies: at B ≤ 8 its floor of
 8 slots an expert drops no token.
@@ -29,6 +31,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers
+from repro_torch.sharding import partition as pt
 
 
 def moe_capacity(cfg: ModelConfig, tokens_per_group: int) -> int:
@@ -97,11 +100,17 @@ def moe_apply(params, cfg: ModelConfig,
     buf = torch.gather(x, 1, tok_idx[..., None].expand(G, E * C, D))
     buf = torch.where(valid.reshape(G, E * C, 1), buf, 0.0)
     buf = buf.reshape(G, E, C, D)
+    if G > 1:                        # train/prefill: groups carry 'data'
+        buf = pt.shard_moe_buf(buf)  # EP all-to-all: data -> expert shards
 
     # expert SwiGLU: (G,E,C,D) x (E,D,F)
     gate = F.silu(torch.einsum("gecd,edf->gecf", buf, params["wi_gate"]))
     up = torch.einsum("gecd,edf->gecf", buf, params["wi_up"])
     eout = torch.einsum("gecf,efd->gecd", gate * up, params["wo"])
+    # combine-path all-to-all: expert shards -> group-local before the
+    # un-dispatch gather
+    if G > 1:
+        eout = pt.gather_experts(eout)
 
     # un-dispatch: the rank of each replica within its expert's segment
     inv = torch.argsort(order, dim=-1)                           # pos sorted

@@ -16,19 +16,29 @@ contraction (see ``CompressConfig.gamma``).  The sketch runs through
 ``impl="auto"`` (the default) the CUDA kernels for a leaf on the card, the
 plain versions for a leaf on the CPU.  The reference defaults to its plain
 path (``"xla"``); the port's, ``"torch"``, is there to compare with, not
-for the card.  The inter-pod mean of sketch-space gradients (``pod_axis``)
-waits for the sharding slice and raises.
+for the card.
+
+Across pods (``pod_axis``) each rank holds its own gradient, and the mean
+over the pod group is taken in sketch space, between the forward and the
+transpose: ĝ = γ·Sᵀ·mean_pods(S g'), so each compressed leaf puts its k
+floats on the wire, not its d (``wire_bytes``).  S is the same on every
+rank (same seed, same plan, same roll), so sketch-space vectors add
+across pods.  A leaf below ``min_bucket`` is averaged dense, as f32.  The
+mean is the reference's ``pmean``: ``all_reduce(SUM)`` over the group,
+then a division by its size, so every rank ends with the same bits.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import tree as tr
 from repro_torch.core.blockperm import BlockPermPlan, make_plan
 from repro_torch.kernels import ops as kops
+from repro_torch.launch import mesh as mesh_lib
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,10 +84,29 @@ def roll_shift(step: int, d: int) -> int:
     return prod % d
 
 
+def _pod_group(pod_axis):
+    """The process group of ``pod_axis``: the group itself, or the name of
+    an axis of the current mesh (``with mesh:``, ``launch/mesh.py``)."""
+    if not isinstance(pod_axis, str):
+        return pod_axis
+    mesh = mesh_lib.current()
+    if mesh is None or pod_axis not in mesh.axis_names:
+        raise ValueError(f"pod_axis {pod_axis!r} is not an axis of the "
+                         f"current mesh ({mesh and mesh.axis_names})")
+    return mesh.group(pod_axis)
+
+
+def _pmean(x: torch.Tensor, group) -> torch.Tensor:
+    """The reference's ``lax.pmean`` over ``group``, in place."""
+    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    return x.div_(dist.get_world_size(group))
+
+
 def _leaf_compress(cfg: CompressConfig, plan: Optional[BlockPermPlan],
-                   g: torch.Tensor, e: torch.Tensor,
+                   g: torch.Tensor, e: torch.Tensor, group,
                    step: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Compress one leaf. Returns (ĝ, new_error).
+    """Compress one leaf. Returns (ĝ, new_error).  With a pod ``group``
+    the mean over it is taken in sketch space (k floats on the wire).
 
     Re-randomization: one static plan, but the gradient is circularly
     shifted by a step-dependent offset before sketching and unshifted
@@ -85,12 +114,17 @@ def _leaf_compress(cfg: CompressConfig, plan: Optional[BlockPermPlan],
     jointly cover ℝ^d over a rotation cycle.
     """
     if plan is None:
-        return g.to(torch.float32).to(g.dtype), e
+        if group is None:
+            return g.to(torch.float32).to(g.dtype), e
+        gd = _pmean(g.to(torch.float32, copy=True), group)
+        return gd.to(g.dtype), e
     d = g.numel()
     g_eff = g.to(torch.float32).reshape(-1) + e.reshape(-1)
     shift = roll_shift(step, d) if cfg.n_rotations > 1 else 0
     g_in = torch.roll(g_eff, shift) if shift else g_eff
     y = kops.sketch_apply(plan, g_in[:, None], cfg.impl)           # (k, 1)
+    if group is not None:
+        y = _pmean(y, group)                        # k ≪ d on the wire
     xhat = cfg.gamma(plan) * kops.sketch_apply_t(plan, y, cfg.impl)[:, 0]
     g_hat = torch.roll(xhat, -shift) if shift else xhat
     new_e = g_eff - g_hat
@@ -99,21 +133,24 @@ def _leaf_compress(cfg: CompressConfig, plan: Optional[BlockPermPlan],
 
 @torch.no_grad()
 def compress_gradients(cfg: CompressConfig, grads, err_state,
-                       pod_axis: Optional[str] = None, step=0):
+                       pod_axis: Union[str, "dist.ProcessGroup", None] = None,
+                       step=0):
     """Apply sketch-compress + error feedback to a gradient tree.
 
-    ``step`` (an int or an integer scalar tensor on the host) rotates the
-    sketch draw.  ``pod_axis``, the inter-pod mean, is not ported yet.
+    ``pod_axis``: the inter-pod mean's group, a
+    ``torch.distributed.ProcessGroup`` or the name of an axis of the
+    current mesh (None = single pod: a pure EF-sketch round-trip).  Every
+    rank of the group calls it with its own gradients and the same
+    ``cfg``, tree and ``step``.  ``step`` (an int or an integer scalar
+    tensor on the host) rotates the sketch draw.
     """
-    if pod_axis is not None:
-        raise NotImplementedError(
-            "compress_gradients: the inter-pod mean (pod_axis) waits for "
-            "the sharding slice (ROADMAP.md queue 1)")
+    group = None if pod_axis is None else _pod_group(pod_axis)
     step = int(step)
     out_g, out_e = [], []
     for path, g in tr.leaves_with_path(grads):
         plan = plan_for_leaf(cfg, g.numel())
-        gh, ne = _leaf_compress(cfg, plan, g, tr.get(err_state, path), step)
+        gh, ne = _leaf_compress(cfg, plan, g, tr.get(err_state, path), group,
+                                step)
         out_g.append((path, gh))
         out_e.append((path, ne))
     return tr.unflatten(out_g), tr.unflatten(out_e)

@@ -63,6 +63,22 @@ def tree_map(fn: Callable, tree, *rest):
     return fn(tree, *rest)
 
 
+def map_structure(fn: Callable, tree, is_leaf: Callable = lambda x: False):
+    """``fn`` over the leaves of a tree of dicts (keys sorted), tuples and
+    NamedTuples (in their order, their type kept): the pytree walk of
+    decode states (``attention.KVCache``, the cross K/V pairs) and of spec
+    trees, whose ``PartitionSpec`` leaves are tuples (``is_leaf``)."""
+    if is_leaf(tree):
+        return fn(tree)
+    if _is_node(tree):
+        return {key: map_structure(fn, tree[key], is_leaf)
+                for key in sorted(tree.keys())}
+    if isinstance(tree, tuple):
+        out = [map_structure(fn, t, is_leaf) for t in tree]
+        return type(tree)(*out) if hasattr(tree, "_fields") else tuple(out)
+    return fn(tree)
+
+
 def from_numpy(arr) -> torch.Tensor:
     """A numpy leaf of the reference as a tensor of its own (a copy: the
     reference's arrays may be read-only views of JAX's buffers); bfloat16
