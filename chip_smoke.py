@@ -112,7 +112,8 @@ Phases, any failure exits non-zero and prints no result:
      launch count, the rule's bits); ``roofline.hw`` against the card's
      properties and ``engine.cost_of``'s bound and modeled time beside
      every kernel of the kernels line (its bound within 1 % of the
-     line's); the ``default`` preset with ``guard=True`` at the main size
+     line's), ``hw.HBM_PER_CHIP`` within 2 % of the card's
+     ``total_memory``; the ``default`` preset with ``guard=True`` at the main size
      (healthy in one attempt, x the unguarded solve's bits, its extra wall
      time), once with ``probe=True``, an adversarial input on the card
      recovered in ≥ 2 attempts, and the injector suite on the card.
@@ -220,6 +221,23 @@ Phases, any failure exits non-zero and prints no result:
      launches of (a) and (b) (one narrow forward and one narrow transpose
      a compressed leaf and step, no plain version) are added to the narrow
      rows.
+ 14. the dry-run and the roofline (``launch/dryrun.py``,
+     ``roofline/{hlo_parse,analysis}.py``): (a) ``python -m
+     repro_torch.launch.dryrun --arch qwen3-0.6b --shape train_4k
+     --multi-pod single --no-skip-existing --also 1x1:4x128`` in a child
+     process (the CPU only, ``DRYRUN_OUT`` a temporary directory): exit 0,
+     ``"status": "ok"`` for the (16, 16) cell, CUDA never initialised in
+     the child, its ``format_row`` printed, this process's
+     ``torch.__version__`` printed; (b) meanwhile, in this process,
+     qwen3-0.6b (bf16, 28 layers, random weights from a seed) through
+     ``build_train_step`` uncompressed at phase 10's batch (4 × 128): two
+     warm steps, one under ``torch.profiler`` (device busy, host wall),
+     one under ``FlopCounterMode``; the child's ``--also`` record (the same
+     step on a one-device mesh) gives the roofline floor, modeled from the
+     H100 SXM's published figures, which must not exceed the measured
+     device busy time; the walker's flops beside ``FlopCounterMode``'s.
+     The model and its state are freed before the phase ends.  No sketch
+     kernel launches in this phase (the dry-run compresses nothing).
 
 Phase 2 also holds the three v1 kernels (ragged n with d < d_pad, κ × s ∈
 {1,2,4}², a Br = 2 048 plan, the main plan; each also under every row
@@ -257,6 +275,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc as pygc
+import gzip
 import json
 import math
 import os
@@ -2468,6 +2487,11 @@ def phase_cost_model(rt, main_plan, n, rows):
     check(props.multi_processor_count == hw.SMS, "SM count")
     check(l2 in (None, hw.L2_BYTES), "L2 size")
     check(smem in (None, hw.MAX_SMEM_BYTES), "shared memory a block")
+    total = props.total_memory
+    print(f"  HBM_PER_CHIP {hw.HBM_PER_CHIP} / card total_memory {total} B "
+          f"({total / hw.HBM_PER_CHIP:.4f}; within 2 %)")
+    check(abs(total - hw.HBM_PER_CHIP) <= 0.02 * hw.HBM_PER_CHIP,
+          "HBM_PER_CHIP")
     gplan = make_plan(GRASS_D, GRASS_K, kappa=4, s=2, seed=0)
     cs = make_plan(main_plan.d, main_plan.k_req, family="countsketch", s=1,
                    seed=0)
@@ -4608,6 +4632,163 @@ def phase_pod(rt):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the dry-run and the roofline.
+# ---------------------------------------------------------------------------
+
+DRYRUN_ARCH, DRYRUN_SHAPE = "qwen3-0.6b", "train_4k"
+# (b)'s mesh and batch × sequence: one device, phase 10's batch
+DRYRUN_FLOOR = f"1x1:{TRAIN_BATCH}x{TRAIN_SEQ}"
+
+
+def dryrun_child():
+    """Start ``python -m repro_torch.launch.dryrun`` for (a) and (b) in a
+    child process (CPU only) writing to a temporary ``DRYRUN_OUT``;
+    returns (process, its output directory, start time)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    env = dict(os.environ, DRYRUN_OUT=out,
+               PYTHONPATH=os.pathsep.join(
+                   [os.path.join(root, "src")]
+                   + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+           DRYRUN_ARCH, "--shape", DRYRUN_SHAPE, "--multi-pod", "single",
+           "--no-skip-existing", "--also", DRYRUN_FLOOR]
+    print("  child: " + " ".join(cmd[1:]))
+    proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, cwd=root)
+    return proc, out, time.perf_counter()
+
+
+def dryrun_measured_step(rt):
+    """(b)'s step on the card: qwen3-0.6b (bf16, 28 layers) through
+    ``build_train_step`` with no compression at phase 10's batch, two warm
+    steps, then one under ``torch.profiler`` and one under
+    ``FlopCounterMode``.  Everything is freed before it returns."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils.flop_counter import FlopCounterMode
+    cfg = rt["get_arch"](DRYRUN_ARCH)
+    opt = rt["adamw"].AdamWConfig(state_dtype=cfg.optstate_dtype)
+    step, model = rt["train_step"].build_train_step(cfg, opt)
+    params = model.init(0, "cuda")
+    state = rt["adamw"].init_state(params, opt)
+    batch = rt["factory"].make_train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ,
+                                           seed=0, device="cuda")
+    try:
+        for _ in range(2):
+            params, state, _, metrics = step(params, state, {}, batch)
+        check(bool(torch.isfinite(metrics["loss"])), "(b) loss not finite")
+        with profile(activities=[ProfilerActivity.CUDA]):   # a throwaway
+            torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            params, state, _, _ = step(params, state, {}, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        counter = FlopCounterMode(display=False)
+        with counter:
+            params, state, _, _ = step(params, state, {}, batch)
+        torch.cuda.synchronize()
+        return dict(wall_ms=wall * 1e3, busy_ms=busy,
+                    flop_counter=float(counter.get_total_flops()),
+                    peak=torch.cuda.max_memory_allocated())
+    finally:
+        del params, state, batch, model, step
+        pygc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_dryrun(rt):
+    """Phase 14 (the module docstring): the dry-run's child process, (a)
+    its pod256 record, (b) its floor under the measured step."""
+    import shutil
+    dr, analysis, hp = rt["dryrun"], rt["analysis"], rt["hlo_parse"]
+    print(f"phase 14: the dry-run of {DRYRUN_ARCH} x {DRYRUN_SHAPE} on the "
+          f"(16, 16) mesh and at {DRYRUN_FLOOR} in a child process (CPU "
+          f"only), the step measured on the card meanwhile; torch "
+          f"{torch.__version__}")
+    proc, out, t0 = dryrun_child()
+    try:
+        measured = dryrun_measured_step(rt)
+        try:
+            stdout, stderr = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            raise SmokeFailure("phase 14: the dry-run's child timed out")
+        child_s = time.perf_counter() - t0
+        for line in stdout.splitlines():
+            if line.startswith("[dryrun]") or line.lstrip().startswith("|"):
+                print("  " + line.strip())
+        check(proc.returncode == 0,
+              f"phase 14: the dry-run exited {proc.returncode}: "
+              f"{stderr[-1500:]}")
+        check("cuda initialised: False" in stdout,
+              "phase 14: the dry-run's process initialised CUDA")
+        recs = {}
+        for name in os.listdir(out):
+            if name.endswith(".json"):
+                with open(os.path.join(out, name)) as f:
+                    rec = json.load(f)
+                recs[rec["mesh"]] = rec
+        floor_mesh = "mesh" + DRYRUN_FLOOR.split(":")[0]
+        check(set(recs) == {"pod256", floor_mesh}, f"phase 14: records "
+              f"{sorted(recs)}")
+        for rec in recs.values():
+            check(rec["status"] == "ok", f"phase 14: {rec['mesh']} "
+                  f"{rec['status']}: {rec.get('error', '')[:300]}")
+        pod = recs["pod256"]
+        print(f"  (a) {DRYRUN_ARCH} x {DRYRUN_SHAPE} x pod256: ok, traced "
+              f"in {pod['compile_s']:.1f} s; the child took {child_s:.1f} s; "
+              f"CUDA not initialised in it")
+        print("  " + analysis.format_row(dr.report_of(pod)))
+        floor = recs[floor_mesh]
+        with gzip.open(os.path.join(out, f"{floor['arch']}_{floor['shape']}"
+                                         f"_{floor_mesh}.graphs.json.gz"),
+                       "rt") as f:
+            walker_mm = hp.matmul_flops(json.load(f)["graphs"])
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+        shutil.rmtree(out, ignore_errors=True)
+    floor_ms = floor["step_time_s"] * 1e3
+    busy, wall = measured["busy_ms"], measured["wall_ms"]
+    print("  " + analysis.format_row(dr.report_of(floor)))
+    print(f"  (b) {DRYRUN_ARCH} at {DRYRUN_FLOOR} (uncompressed; bf16, "
+          f"{rt['get_arch'](DRYRUN_ARCH).n_layers} layers): roofline floor "
+          f"{floor_ms:.3f} ms ({floor['bottleneck']}; compute "
+          f"{floor['compute_s'] * 1e3:.3f}, memory "
+          f"{floor['memory_s'] * 1e3:.3f}, collective "
+          f"{floor['collective_s'] * 1e3:.3f}) modeled from the published "
+          f"figures of the NVIDIA H100 80GB HBM3 (SXM); measured device "
+          f"busy {busy:.3f} ms, host wall {wall:.3f} ms; floor / busy "
+          f"{floor_ms / busy:.3f}, floor / wall {floor_ms / wall:.3f}, "
+          f"busy / wall {busy / wall:.3f}; flops: walker "
+          f"{floor['device_flops']:.4e} (matrix products {walker_mm:.4e}), "
+          f"FlopCounterMode {measured['flop_counter']:.4e} (products "
+          f"{walker_mm / measured['flop_counter']:.3f}x); peak "
+          f"{measured['peak'] / 2**30:.2f} GiB")
+    check(busy > 0, "phase 14: the profiler saw no device time")
+    check(floor_ms <= busy, f"phase 14: the roofline floor {floor_ms:.3f} ms "
+          f"is above the measured device busy {busy:.3f} ms: the walker "
+          f"over-counts")
+    print("dryrun: " + json.dumps(dict(
+        pod256=dict(status=pod["status"], trace_s=pod["compile_s"],
+                    step_time_ms=pod["step_time_s"] * 1e3,
+                    bottleneck=pod["bottleneck"],
+                    mem_gib=(pod["arg_bytes_per_device"]
+                             + pod["temp_bytes_per_device"]) / 2**30),
+        child_s=child_s, floor_ms=floor_ms, busy_ms=busy, wall_ms=wall,
+        walker_flops=floor["device_flops"], walker_matmul_flops=walker_mm,
+        flop_counter=measured["flop_counter"],
+        torch_version=torch.__version__)))
+
+
 class PortMissing(Exception):
     pass
 
@@ -4652,6 +4833,8 @@ def load_runtime():
         from repro_torch.launch import mesh
         from repro_torch.sharding import partition
         from repro_torch.train import checkpoint, fault_tolerance
+        from repro_torch.launch import dryrun
+        from repro_torch.roofline import analysis, hlo_parse
     except ImportError as exc:
         raise PortMissing(str(exc)) from exc
     return dict(solvers=solvers, presets=SOLVER_PRESETS, blockperm=blockperm,
@@ -4669,7 +4852,8 @@ def load_runtime():
                 factory=factory, build=build, paper_config=CONFIG,
                 generate=generate, config_base=config_base, archs=ARCHS,
                 mesh=mesh, partition=partition, checkpoint=checkpoint,
-                fault_tolerance=fault_tolerance)
+                fault_tolerance=fault_tolerance, dryrun=dryrun,
+                analysis=analysis, hlo_parse=hlo_parse)
 
 
 def main() -> int:
@@ -4754,6 +4938,7 @@ def main() -> int:
         families = timed("phase 11", phase_families_train, rt)
         timed("phase 12", phase_decode, rt)
         pod = timed("phase 13", phase_pod, rt)
+        timed("phase 14", phase_dryrun, rt)
         rows += narrow_rows(n1, {k: trained[k] + families[k] + pod[k]
                                      for k in NARROW_KERNELS})
         print("tuned: " + json.dumps({

@@ -156,7 +156,7 @@ def attention_apply(params, cfg: ModelConfig, x, *, positions=None,
         kv_positions = torch.arange(src.shape[1], dtype=torch.int32,
                                     device=x.device)[None]
     q, k, v = _project_qkv(params, cfg, x, src, positions, kv_positions)
-    out = _sdpa(q, k, v, causal=causal and not cross)
+    out = pt.local_heads(_sdpa, q, k, v, causal=causal and not cross)
     hd = cfg.resolved_head_dim
     return out.reshape(B, S, cfg.n_heads * hd) @ params["wo"]
 

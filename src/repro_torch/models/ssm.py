@@ -22,6 +22,10 @@ f32 SSM state and the causal conv's last K − 1 inputs
 (``rwkv6_decode``, ``rwkv6_channel_mix_decode``).  They run in f32 with
 no bf16 operand, as the reference's do, and return new states as the
 reference's do; the model writes them into its stacked state.
+
+The SSD and wkv scans (``_ssd``, ``_wkv_scan``) are called through
+``partition.local_rows_heads``: the call itself on ordinary tensors, each
+device's rows and heads in the dry-run's DTensor trace.
 """
 from __future__ import annotations
 
@@ -33,6 +37,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers
+from repro_torch.sharding import partition as pt
 
 _BF = torch.bfloat16
 
@@ -108,7 +113,6 @@ def mamba2_apply(params, cfg: ModelConfig, x: torch.Tensor,
     d_inner, H, P, N = mamba2_dims(cfg)
     Q = min(chunk, S)
     assert S % Q == 0, (S, Q)
-    nc = S // Q
     f32 = torch.float32
 
     proj = x @ params["in_proj"]
@@ -121,6 +125,25 @@ def mamba2_apply(params, cfg: ModelConfig, x: torch.Tensor,
     dt = F.softplus(dt_raw.to(f32) + params["dt_bias"])  # (B,S,H)
     A = -torch.exp(params["A_log"])  # (H,)
     log_a = (dt * A).to(f32)  # ≤ 0
+
+    (y,) = pt.local_rows_heads(
+        _ssd, (xs.reshape(B, S, H, P), Bm, Cm, dt, log_a, params["D"]),
+        ((0, 2), (0, None), (0, None), (0, 2), (0, 2), (None, 0)),
+        ((0, 2),), chunk=Q)
+    y = y.reshape(B, S, d_inner)
+    y = layers.rms_norm(y.to(x.dtype), params["norm_w"])
+    y = y * F.silu(z)
+    return y @ params["out_proj"]
+
+
+def _ssd(xs, Bm, Cm, dt, log_a, D, chunk: int):
+    """The chunked SSD of (B,S,H,P) inputs ``xs`` with (B,S,N) ``Bm`` and
+    ``Cm``, (B,S,H) ``dt`` and ``log_a``, (H,) ``D``: (y (B,S,H,P),)."""
+    B, S, H, P = xs.shape
+    N = Bm.shape[-1]
+    Q = chunk
+    nc = S // Q
+    f32 = torch.float32
 
     # chunked views
     xs = xs.reshape(B, nc, Q, H, P).to(f32)
@@ -138,7 +161,7 @@ def mamba2_apply(params, cfg: ModelConfig, x: torch.Tensor,
     # s > q the difference is positive, and an inf there would poison the
     # gradient through the mask
     ldiff = l_cum[:, :, :, None, :] - l_cum[:, :, None, :, :]  # (B,nc,Q,Q,H)
-    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=xs.device))
     decay = torch.exp(torch.where(mask[None, None, :, :, None], ldiff,
                                   -1e9))
     M = CB[..., None] * decay  # (B,nc,Q,Q,H)
@@ -147,7 +170,7 @@ def mamba2_apply(params, cfg: ModelConfig, x: torch.Tensor,
     # ---- chunk summaries and the inter-chunk scan ----
     w_end = torch.exp(l_tot[:, :, None, :] - l_cum)  # (B,nc,Q,H)
     S_c = _bf16_einsum("bnqh,bnqhp,bnqk->bnhpk", w_end, xw, Bm)  # (B,nc,H,P,N)
-    h = torch.zeros((B, H, P, N), dtype=f32, device=x.device)
+    h = torch.zeros((B, H, P, N), dtype=f32, device=xs.device)
     h_prevs = []
     for c in range(nc):
         h_prevs.append(h)
@@ -158,11 +181,7 @@ def mamba2_apply(params, cfg: ModelConfig, x: torch.Tensor,
                            h_prevs)
 
     y = (y_intra + y_inter).reshape(B, S, H, P)
-    y = y + params["D"][None, None, :, None] * xs.reshape(B, S, H, P)
-    y = y.reshape(B, S, d_inner)
-    y = layers.rms_norm(y.to(x.dtype), params["norm_w"])
-    y = y * F.silu(z)
-    return y @ params["out_proj"]
+    return (y + D[None, None, :, None] * xs.reshape(B, S, H, P),)
 
 
 def init_mamba2_state(cfg: ModelConfig, batch: int, dtype,
@@ -342,7 +361,6 @@ def rwkv6_time_mix(params, cfg: ModelConfig, x: torch.Tensor,
     B, S, D = x.shape
     C = cfg.ssm_head_dim
     H = D // C
-    wkv0 = torch.zeros((B, H, C, C), dtype=torch.float32, device=x.device)
     r, k, v, g, logw = _rwkv_proj(params, cfg, x, _token_shift(x))
     u = params["u"]
 
@@ -350,7 +368,21 @@ def rwkv6_time_mix(params, cfg: ModelConfig, x: torch.Tensor,
         return t.reshape(B, S, H, C).permute(0, 2, 1, 3).to(torch.float32)
 
     rh, kh, vh, lw = heads_t(r), heads_t(k), heads_t(v), heads_t(logw)
+    out, s_fin = pt.local_rows_heads(
+        _wkv_scan, (rh, u, kh, vh, lw),
+        ((0, 1), (None, 0), (0, 1), (0, 1), (0, 1)), ((0, 2), (0, 1)),
+        chunk=chunk)
+    out = out.reshape(B, S, D)
+    out = layers.rms_norm(out.to(x.dtype), params["ln_w"])
+    out = (out * g) @ params["wo"]
+    return out, (s_fin, x[:, -1, :])
 
+
+def _wkv_scan(rh, u, kh, vh, lw, chunk: int):
+    """The wkv recurrence over (B,H,S,C) f32 inputs from a zero state:
+    (out (B,S,H,C), final state (B,H,C,C))."""
+    B, H, S, C = rh.shape
+    wkv0 = torch.zeros((B, H, C, C), dtype=torch.float32, device=rh.device)
     Q = min(chunk, S)
     if S % Q == 0 and S > 1:
         nc = S // Q
@@ -372,10 +404,7 @@ def rwkv6_time_mix(params, cfg: ModelConfig, x: torch.Tensor,
     else:
         out, s_fin = _wkv_chunk(u, wkv0, rh, kh, vh, lw)
         out = out.permute(0, 2, 1, 3).reshape(B, S, H, C)
-    out = out.reshape(B, S, D)
-    out = layers.rms_norm(out.to(x.dtype), params["ln_w"])
-    out = (out * g) @ params["wo"]
-    return out, (s_fin, x[:, -1, :])
+    return out, s_fin
 
 
 def rwkv6_channel_mix(params, cfg: ModelConfig, x: torch.Tensor,

@@ -5,7 +5,9 @@ transactions have no counterpart here).
 Two kinds of number:
 
   * the SKU's published figures, NVIDIA H100 80GB HBM3 (SXM) at 700 W
-    (NVIDIA's data sheet and the Hopper white paper);
+    (NVIDIA's H100 Tensor Core GPU data sheet and the Hopper white paper),
+    among them the dry-run's roofline terms (``roofline/analysis.py``):
+    the dense bf16 rate, the memory size and NVLink 4;
   * rates measured on the card by ``tools/torch_hw_probe.py`` (NVIDIA H100
     80GB HBM3, power limit 700.00 W, as ``nvidia-smi
     --query-gpu=name,power.limit --format=csv,noheader`` read it in that
@@ -22,6 +24,21 @@ L2_BYTES = 50 * 2**20         # L2 cache
 SECTOR_BYTES = 32             # the smallest transfer of L2 and of memory
 PEAK_FLOPS_FP32 = 67e12       # fp32 outside the tensor cores (the sums)
 # MAX_SMEM_BYTES (imported above): 227 KB of shared memory a block
+# Dense bf16 tensor-core rate (the data sheet's 1 979 TFLOPS is with 2:4
+# sparsity; dense is half): the compute term of roofline/analysis.py.
+PEAK_FLOPS_BF16 = 989.4e12
+# Device memory, "80GB" on the data sheet; the card reports 79.6 GiB
+# (chip_smoke.py phase 8 holds it within 2 % of total_memory).
+HBM_PER_CHIP = 80 * 2**30
+# NVLink 4: 18 links, 50 GB/s each counting both directions (900 GB/s a
+# card, the data sheet's figure), so 25 GB/s a link in each direction.  A
+# ring collective sends its wire bytes one way while it receives them the
+# other, so the collective term reads the rate of one direction.  In an
+# HGX H100 system eight cards share one NVLink domain: a 16-wide ``model``
+# axis spans two domains, whose traffic crosses InfiniBand (400 Gb/s a
+# card), so the collective term is a floor.
+LINK_BW = 25e9                # bytes/s a link, one direction
+LINKS = 18
 
 # --- measured on the card (tools/torch_hw_probe.py) ------------------------
 # L2's read rate as the row-split kernels see it: the forward's κ·s reads

@@ -5,11 +5,17 @@ The model code calls ``shard_residual`` / ``shard_kv`` / ``shard_logits``
 at the reference's points; these are **no-ops unless a ShardingContext is
 active**.  Under an active context each builds the reference's partition
 spec for its tensor and passes ``(x, spec)`` to ``_wsc``, the port's
-``with_sharding_constraint``.  No tensor of the port is distributed (one
-card; the ranks of a process group each hold whole tensors), so ``_wsc``
-returns ``x`` itself, as the reference's does without a mesh: on one card
-the constraints compute nothing, by construction, and keep the
-reference's structure.
+``with_sharding_constraint``.  On an ordinary tensor (every run of the
+port: one card, or ranks of a process group that each hold whole tensors)
+``_wsc`` returns ``x`` itself, as the reference's does without a mesh, so
+the constraints compute nothing and keep the reference's structure.  On a
+DTensor (``launch/dryrun.py`` traces the steps over DTensors on a fake
+process group) it redistributes ``x`` to the spec's placements, which is
+what ``with_sharding_constraint`` does under a mesh.  ``local_heads``
+(attention's per-head core) and ``local_rows_heads`` (the wkv and SSD
+scans) run a core on each device's rows and heads of DTensor operands
+(the counterpart of XLA partitioning the batched head products); on
+ordinary tensors each is the call itself.
 
 Parameter partition specs come from ``param_pspecs``, which
 pattern-matches parameter tree paths (Megatron TP splits + optional
@@ -90,11 +96,181 @@ def activate(ctx: ShardingContext):
         _STATE.ctx = prev
 
 
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a DTensor (``torch.distributed.tensor`` is imported
+    only once a tensor that is not an ordinary one turns up)."""
+    if type(x) is torch.Tensor or isinstance(x, torch.nn.Parameter) \
+            or not torch.distributed.is_available():
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def spec_placements(axis_names, spec: PartitionSpec) -> tuple:
+    """``spec`` as DTensor placements on a mesh of ``axis_names``:
+    ``Shard(dim)`` for the tensor dimension whose entry names the axis,
+    else ``Replicate()``."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = []
+    for axis in axis_names:
+        dims = [d for d, e in enumerate(spec)
+                if e == axis or (isinstance(e, tuple) and axis in e)]
+        out.append(Shard(dims[0]) if dims else Replicate())
+    return tuple(out)
+
+
 def _wsc(x: torch.Tensor, spec: PartitionSpec) -> torch.Tensor:
-    """The constraint of ``x`` to ``spec``: ``x`` itself, since no tensor of
-    the port is distributed (the reference's ``_wsc`` without a mesh)."""
-    del spec
-    return x
+    """The constraint of ``x`` to ``spec``: ``x`` itself on an ordinary
+    tensor (the reference's ``_wsc`` without a mesh); a DTensor
+    redistributed to the spec's placements on its mesh."""
+    if not is_dtensor(x):
+        return x
+    mesh = x.device_mesh
+    want = spec_placements(mesh.mesh_dim_names, spec)
+    if tuple(x.placements) == want:
+        return x
+    return x.redistribute(mesh, want)
+
+
+def local_shard(shape, mesh, placements):
+    """(local shape, global offset) of this rank's shard of a DTensor of
+    global ``shape``: ``torch.chunk``'s split of each sharded dimension,
+    mesh axis after mesh axis, read with host integers only (DTensor's own
+    helper reads a tensor, which a fake tensor cannot give)."""
+    shape, off = list(shape), [0] * len(shape)
+    for m, p in enumerate(placements):
+        if p.is_shard():
+            d, n = p.dim, mesh.size(m)
+            chunk = -(-shape[d] // n)
+            start = min(mesh.get_local_rank(m) * chunk, shape[d])
+            off[d] += start
+            shape[d] = max(0, min(chunk, shape[d] - start))
+    return tuple(shape), tuple(off)
+
+
+def global_stride(local: torch.Tensor, shape) -> tuple:
+    """Strides of a dense tensor of global ``shape`` whose dimensions lie
+    in memory in the order of ``local``'s (DTensor decides view-or-copy
+    from the global strides, the local tensor must agree)."""
+    order = sorted(range(local.ndim),
+                   key=lambda d: (local.stride(d), local.shape[d]))
+    stride, acc = [0] * local.ndim, 1
+    for d in order:
+        stride[d] = acc
+        acc *= shape[d]
+    return tuple(stride)
+
+
+def local_rows_heads(fn, args, dims, out_dims, **kw):
+    """``fn(*args, **kw)``, a per-row, per-head core (the wkv and SSD
+    scans), with ``dims[i]`` = (batch dim, head dim) of ``args[i]`` (each
+    may be None) and ``out_dims`` likewise for the outputs (a tuple).
+
+    On ordinary tensors this is the call.  On DTensors each device runs
+    ``fn`` on its own rows and heads, everything else (the sequence)
+    gathered: the mesh axes that shard the first argument's batch
+    dimension keep doing so, and every other axis shards the heads, for
+    every argument that has the dimension; one that lacks it is
+    replicated there, its gradient a partial sum."""
+    if not any(is_dtensor(a) for a in args):
+        return fn(*args, **kw)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    lead = args[0]
+    mesh = lead.device_mesh
+    roles = []
+    for p in lead.placements:
+        roles.append(next((r for r, d in enumerate(dims[0])
+                           if d is not None and p.is_shard(d)), None))
+    if dims[0][1] is not None:
+        # an axis that shards neither rows nor heads (the sequence, or
+        # nothing) splits the heads, as XLA's partitioner would rather than
+        # run every head on every device of the axis
+        roles = [1 if r is None else r for r in roles]
+    sizes = [lead.shape[d] if d is not None else None for d in dims[0]]
+    local_args = []
+    for a, ad in zip(args, dims):
+        if not is_dtensor(a):
+            local_args.append(a)
+            continue
+        pl, grad = [], []
+        for r in roles:
+            if r is None:
+                pl.append(Replicate())
+                grad.append(Replicate())
+            elif ad[r] is None:
+                pl.append(Replicate())
+                grad.append(Partial())
+            else:
+                pl.append(Shard(ad[r]))
+                grad.append(Shard(ad[r]))
+        local_args.append(a.redistribute(mesh, pl).to_local(
+            grad_placements=grad))
+    outs = fn(*local_args, **kw)
+    wrapped = []
+    for o, od in zip(outs, out_dims):
+        shape = list(o.shape)
+        for r, d in enumerate(od):
+            if d is not None:
+                shape[d] = sizes[r]
+        pl = [Shard(od[r]) if r is not None and od[r] is not None
+              else Replicate() for r in roles]
+        shape = torch.Size(shape)
+        wrapped.append(DTensor.from_local(
+            o, mesh, pl, run_check=False, shape=shape,
+            stride=global_stride(o, shape)))
+    return tuple(wrapped)
+
+
+def local_heads(fn, q, k, v, **kw):
+    """``fn(q, k, v, **kw)``, attention's per-head core: q (B, S, H, hd),
+    k and v (B, T, Hkv, hd), H a multiple of Hkv, output shaped as q.
+
+    On ordinary tensors this is the call.  On DTensors each device runs
+    ``fn`` on its own rows and heads: batch stays where q has it, the
+    sequence and head_dim dimensions are gathered, and where q's heads are
+    sharded over an axis on which k and v are not (the kv heads do not
+    divide the axis), the device takes the kv heads that its q heads read
+    (their gradient is then a partial sum over that axis)."""
+    if not is_dtensor(q):
+        return fn(q, k, v, **kw)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = q.device_mesh
+    q_pl, kv_pl, grad_pl = [], [], []
+    for m in range(mesh.ndim):
+        pq, pk = q.placements[m], k.placements[m]
+        if pq.is_shard(0):
+            q_pl.append(Shard(0))
+            kv_pl.append(Shard(0))
+            grad_pl.append(Shard(0))
+        elif pq.is_shard(2):
+            q_pl.append(Shard(2))
+            heads = pk.is_shard(2) and v.placements[m].is_shard(2)
+            kv_pl.append(Shard(2) if heads else Replicate())
+            grad_pl.append(Shard(2) if heads else Partial())
+        else:
+            q_pl.append(Replicate())
+            kv_pl.append(Replicate())
+            grad_pl.append(Replicate())
+    q = q.redistribute(mesh, q_pl)
+    k = k.redistribute(mesh, kv_pl)
+    v = v.redistribute(mesh, kv_pl)
+    H, Hkv = q.shape[2], k.shape[2]
+    ql = q.to_local()
+    kl = k.to_local(grad_placements=grad_pl)
+    vl = v.to_local(grad_placements=grad_pl)
+    Hl, Hkl = ql.shape[2], kl.shape[2]
+    if Hl % Hkl or Hkl * (H // Hkv) != Hl:
+        # this device's q heads [h0, h0 + Hl) read kv heads h // G
+        _, off = local_shard(q.shape, mesh, q.placements)
+        _, koff = local_shard(k.shape, mesh, k.placements)
+        G = H // Hkv
+        lo = off[2] // G - koff[2]
+        hi = (off[2] + Hl - 1) // G + 1 - koff[2]
+        kl, vl = kl[:, :, lo:hi], vl[:, :, lo:hi]
+    out = fn(ql, kl, vl, **kw)
+    return DTensor.from_local(out, mesh, q.placements, run_check=False,
+                              shape=q.shape,
+                              stride=global_stride(out, q.shape))
 
 
 # ---------------------------------------------------------------------------
@@ -240,13 +416,7 @@ class NamedSharding:
         """The spec as DTensor placements, one for each mesh axis in the
         mesh's order: ``Shard(dim)`` for the tensor dimension whose entry
         names the axis, else ``Replicate()``."""
-        from torch.distributed.tensor import Replicate, Shard
-        out = []
-        for axis in self.mesh.axis_names:
-            dims = [d for d, e in enumerate(self.spec)
-                    if e == axis or (isinstance(e, tuple) and axis in e)]
-            out.append(Shard(dims[0]) if dims else Replicate())
-        return tuple(out)
+        return spec_placements(self.mesh.axis_names, self.spec)
 
 
 def named_sharding_tree(mesh, spec_tree):
