@@ -238,6 +238,44 @@ Phases, any failure exits non-zero and prints no result:
      device busy time; the walker's flops beside ``FlopCounterMode``'s.
      The model and its state are freed before the phase ends.  No sketch
      kernel launches in this phase (the dry-run compresses nothing).
+ 15. the train and decode steps over a (data, model) mesh
+     (``train_step.shard_*``, ``sharding/spmd.py``), qwen3-0.6b at full
+     width (bf16, f32 AdamW) on gloo ranks sharing the card, the
+     collectives that gloo lacks for CUDA tensors built by
+     ``spmd.gloo_collectives``: (a) 4 ranks on (2, 2), phase 10's batch (4
+     × 128) and lr, 3 uncompressed steps from one seed: step 1's loss
+     within 2⁻⁸ relative of one device's step on the card; step 1's
+     gradients held leaf by leaf, each rank's chunk, to one device's f32
+     step (the truth, taken on every rank): each leaf's largest error,
+     relative to its largest gradient, within twice one device's own bf16
+     error plus 2⁻⁸, and the same check shown to fail for an unchanged
+     state and for data shard 0 alone (one device's step on half the
+     batch, on rank 1); losses finite and
+     equal on every rank; per rank the step walls, the second step under
+     ``CommDebugMode``, ``FlopCounterMode`` and a log of the built
+     collectives (kind, count, bytes, ms with the device synchronised),
+     the third under ``torch.profiler`` (device busy, idle share, the
+     largest device times), the peak; (c) the same ranks, fresh weights:
+     greedy generation of 8 tokens after 8 (B = 4) over the mesh and on
+     one device, every step's logits recorded: each row compared up to
+     its first differing token, the mesh's logits within twice one
+     device's own bf16 error of the f32 decode (teacher-forced over one
+     device's tokens), a differing token only where one device's top-2
+     margin is within twice the row's difference; tok/s of both; (b) 2
+     ranks on (1, 2), compressed at ratio 8, 3 steps: one narrow forward
+     and one narrow transpose a compressed leaf a step a rank, no plain
+     version; step 1's loss within 2⁻⁸ of (a)'s one device's; in the
+     last step each leaf's ĝ the same bits on both ranks, the gathered
+     gradient and error state holding each rank's own chunks, and each
+     rank's chunk of the placed ĝ and error state ``torch.equal`` to the
+     same chunk (DTensor's rule) of one device's compression of the
+     gathered gradient and error state; its launches add to the narrow
+     rows;
+     (d) meanwhile, in a child (CPU only, at a lower priority),
+     ``python -m repro_torch.launch.dryrun --arch qwen3-0.6b --shape
+     train_4k --multi-pod none --also 2x2:4x128``: the (2, 2) floor must
+     not exceed a rank's device busy, the walker's product flops within
+     5 % of ``FlopCounterMode``'s over rank 0's step.  At most 150 s.
 
 Phase 2 also holds the three v1 kernels (ragged n with d < d_pad, κ × s ∈
 {1,2,4}², a Br = 2 048 plan, the main plan; each also under every row
@@ -273,6 +311,7 @@ last is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc as pygc
 import gzip
@@ -4789,6 +4828,730 @@ def phase_dryrun(rt):
         torch_version=torch.__version__)))
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the train and decode steps over a (data, model) mesh.
+# ---------------------------------------------------------------------------
+
+SHARD_DIMS, SHARD_COMP_DIMS, SHARD_STEPS = (2, 2), (1, 2), 3
+SHARD_PROMPT, SHARD_NEW = 8, 8
+SHARD_FLOOR = f"2x2:{TRAIN_BATCH}x{TRAIN_SEQ}"
+SHARD_BUDGET_S = 150.0
+# bf16: one rounding of a value is at most 2^-8 of it
+BF16_EPS = 2.0 ** -8
+
+
+class CollectiveLog:
+    """Count, bytes and host ms (the device synchronised around each) of
+    every collective that ``spmd.gloo_collectives`` builds, by kind: on
+    CUDA tensors over gloo, all of DTensor's.  A collective built from
+    another (a reduce-scatter's all-reduce) counts once, as the outer."""
+
+    KINDS = {"gloo_all_reduce": "all_reduce",
+             "gloo_all_gather": "all_gather",
+             "gloo_reduce_scatter": "reduce_scatter",
+             "gloo_alltoall": "all_to_all"}
+
+    def __init__(self, spmd):
+        self.spmd, self.depth, self.rows = spmd, 0, {}
+
+    def _wrap(self, kind, fn):
+        def logged(*args, **kwargs):
+            if self.depth:
+                return fn(*args, **kwargs)
+            x = args[0] if args else kwargs.get("self", kwargs.get("input"))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            self.depth += 1
+            try:
+                out = fn(*args, **kwargs)
+            finally:
+                self.depth -= 1
+            torch.cuda.synchronize()
+            row = self.rows.setdefault(kind, [0, 0, 0.0])
+            row[0] += 1
+            row[1] += x.numel() * x.element_size()
+            row[2] += (time.perf_counter() - t) * 1e3
+            return out
+        return logged
+
+    def __enter__(self):
+        self.orig = {name: getattr(self.spmd, name) for name in self.KINDS}
+        for name, kind in self.KINDS.items():
+            setattr(self.spmd, name, self._wrap(kind, self.orig[name]))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.spmd, name, fn)
+
+
+def _shard_modules():
+    from repro_torch import tree as tr
+    from repro_torch.configs.base import smoke_config
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data import pipeline as dp
+    from repro_torch.kernels import flashsketch as fsk
+    from repro_torch.kernels import lowering, ref
+    from repro_torch.launch import generate as gen_lib
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.optim import adamw
+    from repro_torch.optim import grad_compress as gc
+    from repro_torch.sharding import partition as pt
+    from repro_torch.sharding import spmd
+    from repro_torch.train import train_step as ts
+    return types.SimpleNamespace(
+        tr=tr, smoke_config=smoke_config, get_arch=get_arch, dp=dp, fsk=fsk,
+        lowering=lowering, ref=ref, gen_lib=gen_lib, mesh_lib=mesh_lib,
+        adamw=adamw, gc=gc, pt=pt, spmd=spmd, ts=ts)
+
+
+def _shard_setup(m, cfg, compress=None):
+    """The arch's config (smoke at ``cfg["smoke"]``), the step, the model,
+    AdamW's config and phase 10's first ``SHARD_STEPS`` batches."""
+    arch = m.get_arch(TRAIN_ARCH)
+    if cfg["smoke"]:
+        arch = m.smoke_config(arch)
+    opt = m.adamw.AdamWConfig(lr=TRAIN_LR, state_dtype=arch.optstate_dtype)
+    step_fn, model = m.ts.build_train_step(arch, opt, compress)
+    data = m.dp.DataConfig(vocab_size=min(TRAIN_DATA_VOCAB, arch.vocab_size),
+                           global_batch=cfg["batch"], seq_len=cfg["seq"],
+                           seed=0)
+    batches = [{k: torch.from_numpy(v).to(cfg["device"]) for k, v in
+                m.dp.make_batch(data, s).items()} for s in range(SHARD_STEPS)]
+    return arch, opt, step_fn, model, batches
+
+
+def _sync(device):
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def _profiled(fn, device):
+    """(result, wall ms, device busy ms, the five largest device times)
+    of ``fn()`` under ``torch.profiler``, the device's activity only (the
+    host's events of a step over DTensors take seconds to collect; busy:
+    the sum of the device's kernel and copy times)."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = ([ProfilerActivity.CUDA] if device == "cuda"
+            else [ProfilerActivity.CPU])
+    _sync(device)
+    with profile(activities=acts) as prof:
+        t = time.perf_counter()
+        out = fn()
+        _sync(device)
+        wall = (time.perf_counter() - t) * 1e3
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in dev) / 1e3
+    top = sorted(((e.key[:60], round(e.self_device_time_total / 1e3, 3),
+                   e.count) for e in dev), key=lambda r: -r[1])[:5]
+    return out, wall, busy, top
+
+
+def _own_chunk(x, like):
+    """The chunk of the whole tensor ``x`` that this rank holds of a
+    DTensor placed as ``like``, by DTensor's own rule."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    shape, off = compute_local_shape_and_global_offset(
+        x.shape, like.device_mesh, like.placements)
+    return x[tuple(slice(o, o + n) for n, o in zip(shape, off))]
+
+
+def _rel_errors(m, got, truth):
+    """Per leaf (by its dotted path): max|got − truth| / max|truth|, in
+    f32; where ``got`` is a DTensor, over this rank's chunk of it."""
+    out = {}
+    for (path, t), g in zip(m.tr.leaves_with_path(truth), m.tr.leaves(got)):
+        t = t.float()
+        part = t
+        if m.pt.is_dtensor(g):
+            g, part = g.to_local(), _own_chunk(t, g)
+        err = (float((g.float() - part).abs().max()) if g.numel() else 0.0)
+        out[".".join(path)] = err / max(float(t.abs().max()), 1e-30)
+    return out
+
+
+class _GradTap:
+    """``fn`` of the gradients of a step, the second argument of
+    ``owner.name`` (``adamw.apply_updates``), at its first call in the
+    context."""
+
+    def __init__(self, owner, name, fn):
+        self.owner, self.name, self.fn, self.value = owner, name, fn, None
+
+    def __enter__(self):
+        self.orig, self.done = getattr(self.owner, self.name), False
+
+        def tapped(*args, **kwargs):
+            if not self.done:
+                self.done = True
+                self.value = self.fn(args[1])
+            return self.orig(*args, **kwargs)
+        setattr(self.owner, self.name, tapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.orig)
+
+
+def _one_device_grads(m, arch, model, batch, dev):
+    """(loss, gradients) of one device's forward and backward of the
+    uncompressed step, from the seed's weights (``model``'s, cast to
+    ``arch``'s parameter dtype); no optimizer state is made."""
+    from repro_torch.models.factory import build_model
+    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    params = m.tr.tree_map(lambda p: torch.nn.Parameter(
+        p.detach().to(dt[arch.param_dtype])), model.init(0, dev))
+    loss, _ = build_model(arch).loss(params, batch)
+    loss.backward()
+    grads = m.tr.tree_map(lambda p: p.grad, params)
+    return float(loss), grads
+
+
+def shard_train_rank(rank, world, cfg):
+    """(a) and (c) on one rank of the (2, 2) mesh: on every rank one
+    device's first step in f32 (the truth), on rank 0 also in bf16 and on
+    rank 1 in bf16 on its data shard alone (half the batch: what a rank
+    holds before the data axis's reduction); 3 steps over the mesh (the
+    first's gradients held, each rank's chunk, to the truth; the second
+    under ``CommDebugMode``, ``FlopCounterMode`` and the collective log,
+    the third profiled); then greedy generation on one device and over
+    the mesh."""
+    import torch.distributed as dist
+    from torch.distributed.tensor.debug import CommDebugMode
+    from torch.utils.flop_counter import FlopCounterMode
+    m = _shard_modules()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = cfg["device"]
+    out = {"start": time.time() - cfg["t_spawn"]}
+    marks = out["marks"] = []
+
+    def mark(label):
+        _sync(dev)
+        marks.append((label, round(time.time() - cfg["t_spawn"], 1)))
+    arch, opt, step_fn, model, batches = _shard_setup(m, cfg)
+    mesh = m.mesh_lib.make_mesh(SHARD_DIMS, ("data", "model"))
+    ctx = m.ts.sharding_ctx_for(mesh, arch)
+    arch32 = dataclasses.replace(arch, param_dtype="float32")
+    _, truth = _one_device_grads(m, arch32, model, batches[0], dev)
+    if rank == 0:
+        out["single_loss"], g = _one_device_grads(m, arch, model,
+                                                  batches[0], dev)
+        out["err_single"] = _rel_errors(m, g, truth)
+        del g
+    if rank == 1:
+        half = {k: v[:v.shape[0] // SHARD_DIMS[0]]
+                for k, v in batches[0].items()}
+        _, g = _one_device_grads(m, arch, model, half, dev)
+        out["err_shard0"] = _rel_errors(m, g, truth)
+        del g
+    if dev == "cuda":
+        # four processes share the card: what each cached goes back
+        torch.cuda.empty_cache()
+    mark("one-device steps")
+    dist.barrier()
+    params = model.init(0, dev)
+    sp, so, _ = m.ts.shard_train_state(arch, mesh, params,
+                                       m.adamw.init_state(params, opt),
+                                       device_type=dev)
+    del params
+    sb = [m.ts.shard_batch(arch, mesh, b, dev) for b in batches]
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    comm, flops, log = CommDebugMode(), FlopCounterMode(display=False), \
+        CollectiveLog(m.spmd)
+    tap = _GradTap(m.adamw, "apply_updates",
+                   lambda g: _rel_errors(m, g, truth))
+    losses, walls = [], []
+    with mesh, m.pt.activate(ctx):
+        for i in range(SHARD_STEPS):
+            run = lambda: step_fn(sp, so, {}, sb[i])
+            if i == SHARD_STEPS - 1:
+                (_, so, _, met), wall, busy, top = _profiled(run, dev)
+                out.update(busy_ms=busy, profiled_wall_ms=wall, top=top)
+            else:
+                modes = tap if i == 0 else log
+                with modes, (comm if i == 1 else contextlib.nullcontext()), \
+                        (flops if i == 1 else contextlib.nullcontext()):
+                    _sync(dev)
+                    t = time.perf_counter()
+                    _, so, _, met = run()
+                    _sync(dev)
+                    wall = (time.perf_counter() - t) * 1e3
+            losses.append(float(met["loss"]))
+            walls.append(wall)
+            mark(f"step {i + 1}")
+            if i == 0:
+                out["err_sharded"] = tap.value
+                del truth
+    out.update(losses=losses, walls_ms=walls,
+               comm={str(k): int(v) for k, v in
+                     comm.get_comm_counts().items()},
+               collectives=log.rows,
+               flops=float(flops.get_total_flops()),
+               peak=(torch.cuda.max_memory_allocated() if dev == "cuda"
+                     else 0))
+    del sp, so, sb, comm, flops
+    pygc.collect()
+    out.update(shard_generate(m, cfg, model, arch, mesh, ctx, rank, mark))
+    out["t_end"] = time.time()
+    return out
+
+
+class _LogitTap:
+    """Every decode step's (B, vocab) logits, gathered, appended to a list
+    (``generate`` calls ``train_step.decode_step``, wrapped here for the
+    context's duration)."""
+
+    def __init__(self, m, into):
+        self.ts, self.spmd, self.into = m.ts, m.spmd, into
+
+    def __enter__(self):
+        self.step = step = self.ts.decode_step
+
+        def recording(model, *args):
+            logits, state = step(model, *args)
+            self.into.append(self.spmd.full_tensor(logits)[
+                :, 0, :model.cfg.vocab_size])
+            return logits, state
+        self.ts.decode_step = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.ts.decode_step = self.step
+
+
+def shard_generate(m, cfg, model, arch, mesh, ctx, rank, mark):
+    """(c): fresh weights from the seed; greedy generation of
+    ``SHARD_NEW`` tokens after ``SHARD_PROMPT`` over the mesh, every
+    step's logits recorded (``_LogitTap``); on rank 0 also on one device,
+    and the truth there: the same decode in f32, teacher-forced over the
+    one-device tokens.  Each row is compared up to its first token that
+    differs (the contexts agree until then): the largest logit difference
+    of the mesh's decode from the truth and from one device's bf16 decode,
+    bf16's own error (one device's from the truth), and at a differing
+    token one device's top-2 margin of that row."""
+    import torch.distributed as dist
+    from repro_torch.models.factory import build_model
+    dev, B = cfg["device"], cfg["batch"]
+    params = model.init(0, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    prompts = torch.randint(0, arch.vocab_size, (B, SHARD_PROMPT),
+                            generator=gen, device=dev, dtype=torch.int32)
+    max_seq = SHARD_PROMPT + SHARD_NEW
+    out = {}
+    if rank == 0:
+        want, ref32 = [], []
+        with _LogitTap(m, want):
+            one, out["gen_tps_single"] = m.gen_lib.generate(
+                model, params, prompts, SHARD_NEW, {})
+        arch32 = dataclasses.replace(arch, param_dtype="float32")
+        with _LogitTap(m, ref32):
+            m.gen_lib.generate(build_model(arch32), m.tr.tree_map(
+                lambda p: p.detach().float(), params), one, 0, {})
+        mark("one-device decodes")
+    sp = m.ts.shard_params(arch, mesh, params, dev)
+    state = m.ts.shard_decode_state(arch, mesh, model.init_decode_state(
+        params, B, max_seq, {}), dev)
+    del params
+    dist.barrier()
+    got = []
+    with mesh, m.pt.activate(ctx), _LogitTap(m, got):
+        toks, out["gen_tps"] = m.gen_lib.generate(
+            model, sp, prompts, SHARD_NEW, {}, state=state)
+    mark("sharded generation")
+    out["tokens"] = toks.cpu().tolist()
+    if rank != 0:
+        return out
+    diff = diff32 = err32 = 0.0
+    flips = []
+    for row in range(B):
+        for pos, (w, g, f) in enumerate(zip(want, got, ref32)):
+            w, g, f = w[row].float(), g[row].float(), f[row].float()
+            diff = max(diff, float((w - g).abs().max()))
+            diff32 = max(diff32, float((g - f).abs().max()))
+            err32 = max(err32, float((w - f).abs().max()))
+            if toks[row, pos + 1] != one[row, pos + 1]:
+                top = torch.topk(w, 2).values
+                flips.append((pos, row, float(top[0] - top[1]),
+                              float((w - g).abs().max())))
+                break
+    out.update(gen_equal=torch.equal(one, toks), logit_diff=diff,
+               logit_diff32=diff32, bf16_err=err32, flips=flips,
+               logit_scale=max(float(w.abs().max()) for w in want))
+    return out
+
+
+def shard_compress_rank(rank, world, cfg):
+    """(b) on one rank of the (1, 2) mesh: 3 compressed steps (ratio 8),
+    the launches of the narrow kernels and of any plain version counted.
+    In the last step, each leaf's ĝ as every rank computed it before
+    placing it (a digest, to be equal across the ranks), the gathered
+    gradient and error state holding this rank's chunks, and each rank's
+    chunk of the placed ĝ and new error state against the same chunk, by
+    DTensor's rule, of one device's compression of the gathered gradient
+    and error state, leaf by leaf on the card; the check's launches not
+    counted."""
+    import hashlib
+    m = _shard_modules()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = cfg["device"]
+    out = {"start": time.time() - cfg["t_spawn"]}
+    comp = m.gc.CompressConfig(ratio=TRAIN_RATIO)
+    arch, opt, step_fn, model, batches = _shard_setup(m, cfg, comp)
+    mesh = m.mesh_lib.make_mesh(SHARD_COMP_DIMS, ("data", "model"))
+    params = model.init(0, dev)
+    sp, so, se = m.ts.shard_train_state(arch, mesh, params,
+                                        m.adamw.init_state(params, opt),
+                                        m.gc.init_error_state(params), dev)
+    del params
+    sb = [m.ts.shard_batch(arch, mesh, b, dev) for b in batches]
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    leaf_compress, compress = m.gc._leaf_compress, m.gc.compress_gradients
+    # the last step's gathered leaves and error states, in the order that
+    # compress_gradients walks them
+    checked = {"digests": {}, "equal": {}, "gathered": [], "last": False}
+
+    def spy_leaf(c, plan, g, e, *args):
+        gh, ne = leaf_compress(c, plan, g, e, *args)
+        if checked["last"]:
+            checked["gathered"].append((g, e))
+            checked["digests"][len(checked["digests"])] = hashlib.sha256(
+                gh.contiguous().view(torch.uint8).cpu().numpy()).hexdigest()
+        return gh, ne
+
+    def spy_compress(c, grads, err, *args, **kwargs):
+        gh, ne = compress(c, grads, err, *args, **kwargs)
+        if not checked["last"]:
+            return gh, ne
+        checked["last"] = False        # the check's own compressions
+        saved = dict(m.fsk.LAUNCHES)
+        for (path, g), (g_full, e_full) in zip(
+                m.tr.leaves_with_path(grads), checked["gathered"]):
+            want_h, want_e = compress(c, {"leaf": g_full}, {"leaf": e_full},
+                                      *args, **kwargs)
+            h, e = m.tr.get(gh, path), m.tr.get(ne, path)
+            err_in = m.tr.get(err, path)
+            checked["equal"][".".join(path)] = (
+                # the gathered leaf and error state hold this rank's own
+                # chunks where DTensor's rule puts them
+                torch.equal(g.to_local(), _own_chunk(g_full, g))
+                and torch.equal(err_in.to_local(), _own_chunk(e_full, err_in))
+                and torch.equal(h.to_local(), _own_chunk(want_h["leaf"], h))
+                and torch.equal(e.to_local(), _own_chunk(want_e["leaf"], e)))
+            del want_h, want_e
+        checked["gathered"].clear()
+        m.fsk.LAUNCHES.update(saved)
+        return gh, ne
+    plain = {}
+    restore = spy_plain({"ref": m.ref, "lowering": m.lowering}, plain)
+    m.gc._leaf_compress, m.gc.compress_gradients = spy_leaf, spy_compress
+    m.fsk.reset_launch_counts()
+    losses, walls = [], []
+    try:
+        with mesh, m.pt.activate(m.ts.sharding_ctx_for(mesh, arch)):
+            for i in range(SHARD_STEPS):
+                checked["last"] = i == SHARD_STEPS - 1
+                _sync(dev)
+                t = time.perf_counter()
+                _, so, se, met = step_fn(sp, so, se, sb[i])
+                _sync(dev)
+                walls.append((time.perf_counter() - t) * 1e3)
+                losses.append(float(met["loss"]))
+                out.setdefault("marks", []).append(
+                    round(time.time() - cfg["t_spawn"], 1))
+    finally:
+        m.gc._leaf_compress, m.gc.compress_gradients = leaf_compress, \
+            compress
+        restore()
+    out.update(losses=losses, walls_ms=walls, plain=plain,
+               launches=dict(m.fsk.LAUNCHES),
+               n_comp=sum(m.gc.plan_for_leaf(comp, g.numel()) is not None
+                          for g in m.tr.leaves(sp)),
+               peak=(torch.cuda.max_memory_allocated() if dev == "cuda"
+                     else 0),
+               digests=checked["digests"], equal_single=checked["equal"])
+    out["t_end"] = time.time()
+    return out
+
+
+def dryrun_floor_child():
+    """``python -m repro_torch.launch.dryrun`` tracing qwen3-0.6b's train
+    step on the (2, 2) mesh at phase 10's batch alone (CPU only), into a
+    temporary ``DRYRUN_OUT``; returns (process, directory, start)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = tempfile.mkdtemp(prefix="chip_smoke_shard_")
+    env = dict(os.environ, DRYRUN_OUT=out,
+               PYTHONPATH=os.pathsep.join(
+                   [os.path.join(root, "src")]
+                   + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+           TRAIN_ARCH, "--shape", DRYRUN_SHAPE, "--multi-pod", "none",
+           "--no-skip-existing", "--also", SHARD_FLOOR]
+    print("  (d) child: " + " ".join(cmd[1:]))
+    # at a lower priority, one thread: the ranks' host work comes first
+    env["OMP_NUM_THREADS"] = "1"
+    proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, cwd=root,
+                            preexec_fn=lambda: os.nice(10))
+    return proc, out, time.perf_counter()
+
+
+def _dryrun_floor(rt, proc, out):
+    """The (2, 2) record of the child and its walker's product flops."""
+    import shutil
+    try:
+        stdout, stderr = proc.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise SmokeFailure("phase 15: the dry-run's child timed out")
+    try:
+        check(proc.returncode == 0, f"phase 15 (d): the dry-run exited "
+              f"{proc.returncode}: {stderr[-1500:]}")
+        name = [f for f in os.listdir(out) if f.endswith(".json")]
+        check(len(name) == 1, f"phase 15 (d): records {name}")
+        with open(os.path.join(out, name[0])) as f:
+            rec = json.load(f)
+        check(rec["status"] == "ok", f"phase 15 (d): {rec['status']}: "
+              f"{rec.get('error', '')[:300]}")
+        with gzip.open(os.path.join(out, name[0][:-5] + ".graphs.json.gz"),
+                       "rt") as f:
+            mm = rt["hlo_parse"].matmul_flops(json.load(f)["graphs"])
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    return rec, mm
+
+
+def _print_train_ranks(ranks):
+    for r, o in enumerate(ranks):
+        rows = ", ".join(f"{k} {n} x {b / 2**20:.1f} MiB {ms:.1f} ms"
+                         for k, (n, b, ms) in sorted(o["collectives"].items()))
+        print(f"    rank {r}: step walls {[round(w, 1) for w in o['walls_ms']]}"
+              f" ms (1: first, 2: under the modes and the collective log, "
+              f"3: profiled); device busy {o['busy_ms']:.3f} ms of "
+              f"{o['profiled_wall_ms']:.1f} (idle share "
+              f"{1 - o['busy_ms'] / o['profiled_wall_ms']:.3f}; the largest "
+              f"(name, ms, calls): {o['top']}); losses "
+              f"{[round(x, 4) for x in o['losses']]}; peak "
+              f"{o['peak'] / 2**30:.2f} GiB; CommDebugMode {o['comm']}; "
+              f"collectives of step 2 by kind (gloo, host-staged): {rows}; "
+              f"gloo {sum(v[2] for v in o['collectives'].values()):.1f} ms")
+
+
+def _grad_ratios(got, own):
+    """Per leaf: ``got``'s error over its tolerance, twice one device's
+    own bf16 error ``own`` (both relative to the leaf's largest truth)
+    plus one bf16 rounding of that largest element (2⁻⁸)."""
+    return {k: got[k] / (2 * own[k] + BF16_EPS) for k in own}
+
+
+def shard_check_train(ranks, base):
+    """The checks and the lines of (a) and (c); returns rank 0's results."""
+    # (a)
+    r0 = ranks[0]
+    own = r0["err_single"]
+    # each rank's chunks against the truth: the worst over the ranks
+    mesh_err = {k: max(o["err_sharded"][k] for o in ranks) for k in own}
+    ratios = _grad_ratios(mesh_err, own)
+    leaf = max(ratios, key=ratios.get)
+    # what the check makes of a state that step 1 left unchanged (each
+    # leaf's gradient zero: error 1) and of data shard 0 alone
+    unchanged = min(_grad_ratios(dict.fromkeys(own, 1.0), own).values())
+    shard0 = _grad_ratios(ranks[1]["err_shard0"], own)
+    d_loss = abs(r0["losses"][0] - r0["single_loss"])
+    print(f"  (a) {SHARD_DIMS} mesh, batch {TRAIN_BATCH} x {base['seq']}: "
+          f"step 1 loss {r0['losses'][0]:.6f} against one device's "
+          f"{r0['single_loss']:.6f} (|d| {d_loss:.3e}, tolerance "
+          f"{BF16_EPS * abs(r0['single_loss']):.3e} = 2^-8 |loss|); step 1's "
+          f"gradients, each rank's chunk, against one device's f32 step (the "
+          f"truth, on every rank), "
+          f"each leaf's max error relative to its largest gradient, within "
+          f"2 x one device's bf16 error + 2^-8: worst leaf {leaf} at "
+          f"{ratios[leaf]:.3f} of it ({mesh_err[leaf]:.3e} "
+          f"against one device's {own[leaf]:.3e}); one device's bf16 error "
+          f"{min(own.values()):.3e}-{max(own.values()):.3e}, the mesh's "
+          f"{min(mesh_err.values()):.3e}-{max(mesh_err.values()):.3e} over "
+          f"{len(own)} leaves; the same check gives an unchanged state "
+          f"(zero gradients) {unchanged:.1f} or more of the tolerance at "
+          f"every leaf, and data shard 0 alone (half the batch, no "
+          f"data-axis reduction) {min(shard0.values()):.2f}-"
+          f"{max(shard0.values()):.2f}")
+    _print_train_ranks(ranks)
+    for r, o in enumerate(ranks):
+        check(all(math.isfinite(x) for x in o["losses"]),
+              f"phase 15 (a): rank {r} losses {o['losses']}")
+        check(o["losses"] == r0["losses"],
+              f"phase 15 (a): rank {r} losses differ from rank 0's")
+    check(d_loss <= BF16_EPS * abs(r0["single_loss"]),
+          f"phase 15 (a): step 1 loss {d_loss:.3e} from one device's")
+    check(ratios[leaf] <= 1.0, f"phase 15 (a): the gradient of {leaf} at "
+          f"{ratios[leaf]:.3f} of its tolerance")
+    check(unchanged > 1.0 and max(shard0.values()) > 1.0,
+          f"phase 15 (a): the gradients' check would pass an unchanged "
+          f"state ({unchanged:.3f}) or one data shard's gradient "
+          f"({max(shard0.values()):.3f})")
+    # (c)
+    print(f"  (c) greedy {SHARD_PROMPT} + {SHARD_NEW} tokens, batch "
+          f"{TRAIN_BATCH}: tokens equal to one device's: "
+          f"{r0['gen_equal']}; tok/s {r0['gen_tps']:.2f} over the mesh, "
+          f"{r0['gen_tps_single']:.1f} on one device; each row up to its "
+          f"first differing token: max |d logit| from the f32 decode (the "
+          f"truth) {r0['logit_diff32']:.3e} over the mesh against one "
+          f"device's bf16 {r0['bf16_err']:.3e} (tolerance twice it); from "
+          f"one device's bf16 decode {r0['logit_diff']:.3e}; max |logit| "
+          f"{r0['logit_scale']:.2f}; differing tokens (position, row, one "
+          f"device's top-2 margin, the row's max |d|): {r0['flips']}")
+    for r, o in enumerate(ranks):
+        check(o["tokens"] == r0["tokens"], f"phase 15 (c): rank {r}'s "
+              f"tokens differ from rank 0's")
+    # (+ f32's sum order, for a model in f32 as at the smoke config)
+    check(r0["logit_diff32"] <= 2 * r0["bf16_err"]
+          + 1e-5 * r0["logit_scale"],
+          f"phase 15 (c): logits {r0['logit_diff32']:.3e} from the f32 "
+          f"decode, over twice one device's bf16 error {r0['bf16_err']:.3e}")
+    for pos, row, margin, d in r0["flips"]:
+        check(margin <= 2 * d, f"phase 15 (c): the token at position "
+              f"{pos + 1}, row {row} differs with one device's top-2 margin "
+              f"{margin:.3e} over twice its max |d| {d:.3e}")
+    return r0
+
+
+def shard_check_compress(comp, device, single_loss):
+    """The checks and the line of (b); ``single_loss``: (a)'s one-device
+    first step from the same weights and batch."""
+    # (b)
+    c0 = comp[0]
+    n_comp = c0["n_comp"]
+    d_loss = abs(c0["losses"][0] - single_loss)
+    for r, o in enumerate(comp):
+        shown = {k: v for k, v in o["launches"].items() if v}
+        # (on the CPU, a check of this phase's code at smoke size, the
+        # wrappers run their plain versions)
+        check(device != "cuda" or (
+            all(o["launches"][k] == SHARD_STEPS * n_comp
+                for k in NARROW_KERNELS)
+            and sum(o["launches"].values()) == 2 * SHARD_STEPS * n_comp),
+              f"phase 15 (b): rank {r} launches {shown}, not one narrow "
+              f"forward and one narrow transpose a compressed leaf "
+              f"({n_comp}) a step ({SHARD_STEPS})")
+        check(device != "cuda" or not o["plain"], f"phase 15 (b): rank {r} "
+              f"plain versions {o['plain']}")
+        check(len(o["digests"]) == len(o["equal_single"])
+              and o["digests"] == c0["digests"],
+              f"phase 15 (b): rank {r}'s g_hat differs from rank 0's")
+        bad = [k for k, ok in o["equal_single"].items() if not ok]
+        check(o["equal_single"] and not bad, f"phase 15 (b): rank {r}: the "
+              f"gathered gradient or error state, or its chunk of the placed "
+              f"g_hat or error state, of {bad} is not where DTensor puts it "
+              f"or differs from one device's compression of the gathered "
+              f"gradient")
+        check(all(math.isfinite(x) for x in o["losses"]),
+              f"phase 15 (b): rank {r} losses {o['losses']}")
+        check(o["losses"] == c0["losses"],
+              f"phase 15 (b): rank {r} losses differ from rank 0's")
+    check(d_loss <= BF16_EPS * abs(single_loss),
+          f"phase 15 (b): step 1 loss {d_loss:.3e} from one device's")
+    print(f"  (b) {SHARD_COMP_DIMS} mesh, ratio {TRAIN_RATIO}: "
+          f"{SHARD_STEPS} steps, one narrow forward and one narrow "
+          f"transpose a compressed leaf ({n_comp}) a step a rank, no plain "
+          f"version; step 1's loss {d_loss:.3e} from (a)'s one device's; "
+          f"the last step's g_hat the same bits on both ranks at all "
+          f"{len(c0['digests'])} leaves, the gathered gradient and error "
+          f"state holding each rank's own chunks, and each rank's chunk of the "
+          f"placed g_hat and error state torch.equal to the same chunk "
+          f"(DTensor's rule) of one device's compression of the gathered "
+          f"gradient and error state (step 3's wall includes that check); "
+          f"losses {[round(x, 4) for x in c0['losses']]}; step walls "
+          + "; ".join(f"rank {r} {[round(w, 1) for w in o['walls_ms']]} ms"
+                      for r, o in enumerate(comp))
+          + f"; peak {[round(o['peak'] / 2**30, 2) for o in comp]} GiB")
+
+
+def phase_sharded(rt, device="cuda", smoke=False):
+    """Phase 15 (the module docstring): (a) and (c) on 4 gloo ranks sharing
+    the card, (b) on 2, (d) the dry-run's child meanwhile.  Returns the
+    narrow kernels' launches of (b)."""
+    t0 = time.perf_counter()
+    pygc.collect()
+    clear_csr_caches(rt)
+    print(f"phase 15: qwen3-0.6b's train and decode steps over a (data, "
+          f"model) mesh of gloo ranks sharing the card (DTensor state, the "
+          f"collectives that gloo lacks on CUDA built by spmd."
+          f"gloo_collectives); torch {torch.__version__}")
+    proc, out, _ = dryrun_floor_child()
+    base = dict(device=device, smoke=smoke, batch=TRAIN_BATCH,
+                seq=TRAIN_SEQ if not smoke else 16)
+    try:
+        t = time.perf_counter()
+        ranks = rt["run_ranks"](shard_train_rank, 4, dict(
+            base, t_spawn=time.time()), timeout=SPAWN_TIMEOUT_S)
+        print(f"  (a)+(c) 4 ranks in {time.perf_counter() - t:.1f} s (work "
+              f"started {min(o['start'] for o in ranks):.1f}-"
+              f"{max(o['start'] for o in ranks):.1f} s after the call)")
+        print("  rank 0's timeline (s after the call): "
+              + ", ".join(f"{k} {v}" for k, v in ranks[0]["marks"]))
+        r0 = shard_check_train(ranks, base)
+        t = time.perf_counter()
+        comp = rt["run_ranks"](shard_compress_rank, 2, dict(
+            base, t_spawn=time.time()), timeout=SPAWN_TIMEOUT_S)
+        print(f"  (b) 2 ranks in {time.perf_counter() - t:.1f} s (work "
+              f"started {comp[0]['start']:.1f} s after the call, steps done "
+              f"at {comp[0]['marks']} s)")
+        shard_check_compress(comp, device, r0["single_loss"])
+        rec, walker_mm = _dryrun_floor(rt, proc, out)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    # (d)
+    floor_ms = rec["step_time_s"] * 1e3
+    busy = max(min(o["busy_ms"] for o in ranks), 1e-9)
+    flops0 = r0["flops"]
+    print("  " + rt["analysis"].format_row(rt["dryrun"].report_of(rec)))
+    print(f"  (d) the (2, 2) floor {floor_ms:.3f} ms ({rec['bottleneck']}; "
+          f"compute {rec['compute_s'] * 1e3:.3f}, memory "
+          f"{rec['memory_s'] * 1e3:.3f}, collective "
+          f"{rec['collective_s'] * 1e3:.3f}) modeled from the H100 SXM's "
+          f"published figures, against the least per-rank device busy "
+          f"{busy:.3f} ms: floor / busy {floor_ms / busy:.3f}; the walker's "
+          f"product flops a device {walker_mm:.4e}, FlopCounterMode over "
+          f"rank 0's step {flops0:.4e} ({walker_mm / flops0:.4f}x)")
+    check(busy > 0 or device != "cuda", "phase 15: no device time profiled")
+    if device == "cuda":
+        check(floor_ms <= busy, f"phase 15 (d): the floor {floor_ms:.3f} ms "
+              f"is above a rank's device busy {busy:.3f} ms")
+    check(smoke or abs(walker_mm / flops0 - 1) <= 0.05, f"phase 15 (d): "
+          f"walker {walker_mm:.4e} against FlopCounterMode {flops0:.4e}")
+    took = time.perf_counter() - t0
+    print(f"  phase 15 took {took:.1f} s (budget {SHARD_BUDGET_S:.0f})")
+    print("sharded: " + json.dumps(dict(
+        train=[{k: o[k] for k in ("losses", "walls_ms", "busy_ms",
+                                  "profiled_wall_ms", "peak", "comm",
+                                  "collectives", "flops")} for o in ranks],
+        step1=dict(loss=r0["losses"][0], single=r0["single_loss"],
+                   grad_err=[o["err_sharded"] for o in ranks],
+                   grad_err_single=r0["err_single"],
+                   grad_err_shard0=ranks[1]["err_shard0"]),
+        compressed=[{k: o[k] for k in ("losses", "walls_ms", "peak",
+                                       "launches")} for o in comp],
+        generate=dict(equal=r0["gen_equal"], tps=r0["gen_tps"],
+                      tps_single=r0["gen_tps_single"],
+                      logit_diff=r0["logit_diff"],
+                      logit_diff32=r0["logit_diff32"], bf16_err=r0["bf16_err"],
+                      flips=r0["flips"]),
+        floor_ms=floor_ms, busy_ms=busy, walker_matmul_flops=walker_mm,
+        flop_counter=flops0, seconds=took)))
+    if device == "cuda":
+        check(took <= SHARD_BUDGET_S, f"phase 15 took {took:.1f} s, over "
+              f"its {SHARD_BUDGET_S:.0f} s")
+    clear_csr_caches(rt)
+    return {k: sum(o["launches"][k] for o in comp) for k in NARROW_KERNELS}
+
+
 class PortMissing(Exception):
     pass
 
@@ -4835,6 +5598,7 @@ def load_runtime():
         from repro_torch.train import checkpoint, fault_tolerance
         from repro_torch.launch import dryrun
         from repro_torch.roofline import analysis, hlo_parse
+        from repro_torch.sharding import spmd
     except ImportError as exc:
         raise PortMissing(str(exc)) from exc
     return dict(solvers=solvers, presets=SOLVER_PRESETS, blockperm=blockperm,
@@ -4853,7 +5617,7 @@ def load_runtime():
                 generate=generate, config_base=config_base, archs=ARCHS,
                 mesh=mesh, partition=partition, checkpoint=checkpoint,
                 fault_tolerance=fault_tolerance, dryrun=dryrun,
-                analysis=analysis, hlo_parse=hlo_parse)
+                analysis=analysis, hlo_parse=hlo_parse, spmd=spmd)
 
 
 def main() -> int:
@@ -4939,8 +5703,9 @@ def main() -> int:
         timed("phase 12", phase_decode, rt)
         pod = timed("phase 13", phase_pod, rt)
         timed("phase 14", phase_dryrun, rt)
+        sharded = timed("phase 15", phase_sharded, rt)
         rows += narrow_rows(n1, {k: trained[k] + families[k] + pod[k]
-                                     for k in NARROW_KERNELS})
+                                 + sharded[k] for k in NARROW_KERNELS})
         print("tuned: " + json.dumps({
             f"{v}/{dt}": dict(rule=[r["tn"], r["row_splits"],
                                     round(r["time_us"], 2),
@@ -4963,5 +5728,17 @@ def main() -> int:
     return 0
 
 
+def stop_rank_servers() -> None:
+    """The fork server and the resource tracker of ``run_ranks`` stopped,
+    so that no process outlives the script."""
+    spawn = sys.modules.get("repro_torch.distributed.spawn")
+    if spawn is not None:
+        spawn.stop_servers()
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        stop_rank_servers()
+    sys.exit(code)

@@ -1,7 +1,10 @@
 """Run a function on P local ranks of a fresh process group.
 
-``run_ranks(fn, world, *args)`` starts ``world`` processes (the ``spawn``
-start method), each of which joins a process group through a ``file://``
+``run_ranks(fn, world, *args)`` starts ``world`` processes (the
+``forkserver`` start method: each is forked from a server process that
+started once, by ``spawn``, and imported torch and DTensor, so a rank
+starts in well under a second where a spawned one spends seconds
+importing; the server initialises no device), each of which joins a process group through a ``file://``
 rendezvous in a private temporary directory (so concurrent runs never
 collide), calls ``fn(rank, world, *args)``, and sends back its return
 value, which must pickle (numpy arrays and plain Python values; move
@@ -14,6 +17,8 @@ entry point sits under ``if __name__ == "__main__"``.
 Each rank takes an equal share of the host's cores for PyTorch's CPU
 threads.  A rank that raises, dies, or outlives ``timeout`` fails the run:
 every rank is stopped and the first failure is raised with its traceback.
+``stop_servers()`` stops the fork server (and multiprocessing's resource
+tracker) before the caller exits.
 """
 from __future__ import annotations
 
@@ -25,6 +30,10 @@ import tempfile
 import time
 import traceback
 from typing import Any, Callable, List
+
+
+# imported once by the fork server (a no-op once it has started)
+_PRELOAD = ["torch", "torch.distributed.tensor"]
 
 
 def _entry(rank: int, world: int, init_method: str, timeout: float, fn: Callable, args: tuple, out) -> None:
@@ -51,7 +60,8 @@ def run_ranks(fn: Callable, world: int, *args,
               timeout: float = 300.0) -> List[Any]:
     """``[fn(0, world, *args), ..., fn(world - 1, world, *args)]``, each
     run in its own process as one rank of a ``world``-rank group."""
-    ctx = mp.get_context("spawn")
+    ctx = mp.get_context("forkserver")
+    ctx.set_forkserver_preload(_PRELOAD)
     results = ctx.Queue()
     done = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -88,3 +98,13 @@ def run_ranks(fn: Callable, world: int, *args,
                     p.kill()
                     p.join()
     return [done[r] for r in range(world)]
+
+
+def stop_servers() -> None:
+    """Stop the fork server and the resource tracker that ``run_ranks``
+    started.  Each ends by itself once this process has exited; a caller
+    that must leave no process behind when it returns stops them here.
+    A later ``run_ranks`` starts them again."""
+    from multiprocessing import forkserver, resource_tracker
+    forkserver._forkserver._stop()
+    resource_tracker._resource_tracker._stop()

@@ -579,6 +579,21 @@ _SYMBOLS: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
 _SYMBOLS_LOCK = threading.Lock()
 
 
+def _plain_operands(wrapper: str, *tensors) -> None:
+    """Raise a ``TypeError`` for a DTensor operand: a wrapper takes an
+    ordinary tensor on one device (a sharded caller gathers first, as
+    ``grad_compress`` does), never a DTensor, on whose local shard a kernel
+    or its plain version would compute something else."""
+    for t in tensors:
+        if type(t) is torch.Tensor or not torch.distributed.is_available():
+            continue
+        from torch.distributed.tensor import DTensor
+        if isinstance(t, DTensor):
+            raise TypeError(f"{wrapper}: a DTensor operand (placements "
+                            f"{tuple(t.placements)}) reached a kernel "
+                            f"wrapper; pass an ordinary tensor")
+
+
 def _current_stream(device: torch.device) -> int:
     """The current CUDA stream of ``device`` as an int (PyTorch's raw
     accessor where it has one: the public one builds a Stream object)."""
@@ -731,6 +746,7 @@ def flashsketch_fwd(plan: BlockPermPlan, A: torch.Tensor, *,
     counted as ``flashsketch_fwd`` (a global plan's as
     ``flashsketch_fwd_global``).  Every route, tile and split gives the
     same bits (checks on the card)."""
+    _plain_operands("flashsketch_fwd", A)
     if A.shape[0] != plan.d_pad:
         raise ValueError(f"A must have d_pad={plan.d_pad} rows, got "
                          f"{A.shape[0]}")
@@ -871,6 +887,7 @@ def flashsketch_transpose(plan: BlockPermPlan, Y: torch.Tensor, *,
     ``flashsketch_transpose_l2``; ``"wide"``, the staged or L2 route as
     ``transpose_route(plan, tn)`` picks it.  Every route gives the same
     bits."""
+    _plain_operands("flashsketch_transpose", Y)
     if Y.shape[0] != plan.k_pad:
         raise ValueError(f"Y must have k_pad={plan.k_pad} rows, got "
                          f"{Y.shape[0]}")
@@ -1174,6 +1191,7 @@ def flashsketch_fwd_gather(plan: BlockPermPlan, A: torch.Tensor,
     counts as ``flashsketch_fwd_gather_global``).  ``row_splits`` forces
     the split R (checks on the card); ``None`` takes ``row_splits()``.
     """
+    _plain_operands("flashsketch_fwd_gather", A, row_map)
     _check_row_map(plan, A, row_map, "flashsketch_fwd_gather")
     x = _stream(plan, A)
     if A.device.type == "cpu":
@@ -1219,6 +1237,7 @@ def blockrow_fwd(plan: BlockPermPlan, A: torch.Tensor, *,
     CPU tensors its plain version; ragged n is handled in the kernel.
     ``tn=None`` takes ``default_tn``; ``row_splits`` forces the split R
     (checks on the card: the same bits for every R)."""
+    _plain_operands("blockrow_fwd", A)
     if A.shape[0] != plan.d_pad:
         raise ValueError(f"A must have d_pad={plan.d_pad} rows, got "
                          f"{A.shape[0]}")
@@ -1232,6 +1251,7 @@ def blockrow_fwd_gather(plan: BlockPermPlan, A: torch.Tensor,
     launch; arguments as ``flashsketch_fwd_gather``.  On the card equal bit
     for bit to ``blockrow_fwd`` on the zero-padded ``A[row_map[:d]]``, for
     every ``tn`` and row split."""
+    _plain_operands("blockrow_fwd_gather", A, row_map)
     _check_row_map(plan, A, row_map, "blockrow_fwd_gather")
     return _blockrow(plan, A, row_map, tn, row_splits, "blockrow_fwd_gather")
 
@@ -1259,6 +1279,7 @@ def flashsketch_partial(plan: BlockPermPlan, A_local: torch.Tensor,
     tensors its plain version ``ref.partial_ref``.  A global plan has no
     partial: every input block feeds every output block.
     """
+    _plain_operands("flashsketch_partial", A_local, tables)
     if plan.is_global:
         raise ValueError(f"flashsketch_partial: global family "
                          f"{plan.family!r} has no block-slab partial (shard "
@@ -1316,6 +1337,7 @@ def flashsketch_fwd_v1(plan: BlockPermPlan, A: torch.Tensor, *,
     tensors its plain version ``ref.flashsketch_v1_ref``.  ``row_splits``
     forces the split R (checks on the card); ``None`` takes
     ``row_splits()``."""
+    _plain_operands("flashsketch_fwd_v1", A)
     if A.shape[0] != plan.d_pad:
         raise ValueError(f"A must have d_pad={plan.d_pad} rows, got "
                          f"{A.shape[0]}")
@@ -1351,6 +1373,7 @@ def flashsketch_transpose_v1(plan: BlockPermPlan, Y: torch.Tensor, *,
     global plan's the global transpose summed per level, which has no
     split), CPU tensors its plain version
     ``ref.flashsketch_transpose_v1_ref``."""
+    _plain_operands("flashsketch_transpose_v1", Y)
     if Y.shape[0] != plan.k_pad:
         raise ValueError(f"Y must have k_pad={plan.k_pad} rows, got "
                          f"{Y.shape[0]}")
@@ -1386,6 +1409,7 @@ def blockrow_fwd_v1(plan: BlockPermPlan, A: torch.Tensor, *,
     the row-split body on S_row's CSR (``row_splits`` forces its split R;
     checks on the card: the same bits for every R), CPU tensors its plain
     version ``ref.blockrow_v1_ref``."""
+    _plain_operands("blockrow_fwd_v1", A)
     if A.shape[0] != plan.d_pad:
         raise ValueError(f"A must have d_pad={plan.d_pad} rows, got "
                          f"{A.shape[0]}")

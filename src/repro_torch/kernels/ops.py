@@ -9,7 +9,8 @@ one's kernel: the gradient of ``Y = S A`` with respect to ``A`` is
 backward keeps the requested ``impl``, as the reference's VJP does, so the
 backward of a ``cuda_v1`` forward is the v1 transpose and the reverse.
 
-Gather-fused path (the GraSS sparsify→sketch fusion): ``sketch_apply``,
+Gather-fused path (the GraSS sparsify→sketch fusion): ``sketch_apply``
+(and ``sketch_apply_indexed``, the reference's name for it),
 ``blockrow_apply``, ``sketch_apply_batched`` and ``sketch_vectors`` take
 ``row_index=``, a ``(plan.d,)`` int array of source rows, and compute
 ``S @ A[row_index, :]`` in one kernel launch with no ``A[row_index]``
@@ -128,6 +129,19 @@ def sketch_apply(plan: BlockPermPlan, A: torch.Tensor, impl: str = "auto",
         return _SketchApply.apply(A, plan, impl, tn, dtype, row_splits)
     return _SketchApplyIndexed.apply(A, row_index, plan, impl, tn, dtype,
                                      row_splits)
+
+
+def sketch_apply_indexed(plan: BlockPermPlan, A: torch.Tensor, row_index,
+                         impl: str = "auto", tn: Optional[int] = None,
+                         dtype: Optional[str] = None) -> torch.Tensor:
+    """Gather-fused sketch ``Y = S @ A[row_index, :]`` in one launch: the
+    reference's name for ``sketch_apply(plan, A, ..., row_index=)``.
+
+    ``plan.d == len(row_index)``; ``A`` is the ``(d_src, n)`` source, of
+    which only the indexed rows are read.  Returns the ``(k, n)`` fp32
+    result, differentiable in ``A`` (the gradient scattered back into
+    rows ``row_index`` of a zero ``(d_src, n)`` tensor)."""
+    return sketch_apply(plan, A, impl, tn, dtype, row_index=row_index)
 
 
 def sketch_apply_t(plan: BlockPermPlan, Y: torch.Tensor, impl: str = "auto",

@@ -39,29 +39,15 @@ The numbers model each mesh device as one NVIDIA H100 80GB HBM3 (SXM),
 from the SKU's published figures (``roofline/hw.py``); nothing runs on a
 device.  Compression is off, as in the reference's baseline dry-run.
 
-Carrying a step through DTensor's sharding propagation takes these aids,
-all inside the trace (none changes a bit of the port's results on
-ordinary tensors): ``implicit_replication`` (the models build masks and
-rope tables from ``torch.arange``: plain tensors, taken as replicated);
-``partition.local_heads``, which runs attention's per-head core on each
-device's heads; and ``_Partitioned``, a torch-function mode that
-partitions, as XLA's SPMD partitioner does, what DTensor has no strategy
-for: every ``einsum`` and ``@`` (``dt_einsum``: each mesh axis keeps the
-operands' sharding of one letter, the operand of most bytes deciding,
-the others gathered, a sharded contracted letter leaving a partial sum;
-DTensor cannot split a 3-D operand's batch dimensions that a flattened
-product folds together), a gather, softmax or logsumexp along a sharded
-dimension (masked local gathers, all-reduces of the max and the sum), an
-embedding's rows at integer indices (``dt_take_rows``), a padding
-(``dt_pad``: the padded dimensions gathered), a reshape that
-splits a sharded dimension unevenly (gathered first), the write of a KV
-cache's row (``dt_setitem``), a loop over the
-pieces of a sharded dimension (``unbind``: gathered first),
-``searchsorted`` on each device's rows, and any op whose operand's
-placement DTensor's strategy does not take (a strided shard that a view
-left behind: gathered, then the op retried).  On a ``cpu`` mesh DTensor turns
-a Shard→Shard redistribute into an all-gather and a chunk (gloo has no
-all-to-all); inside the trace ``_alltoall_as_on_the_card`` sends it to
+The step runs in ``sharding/spmd.py``'s ``propagation``: the aids that
+carry a step through DTensor's sharding propagation (implicit
+replication, the ``_Partitioned`` torch-function mode and its ``dt_*``
+partitions of what DTensor has no strategy for), which the train and
+serve steps over a live process group share; ``partition.local_heads``
+runs attention's per-head core on each device's heads.  None changes a
+bit of the port's results on ordinary tensors.  On a ``cpu`` mesh DTensor
+turns a Shard→Shard redistribute into an all-gather and a chunk (gloo has
+no all-to-all); inside the trace ``_alltoall_as_on_the_card`` sends it to
 ``_dtensor.shard_dim_alltoall``, the all-to-all that NCCL runs on the
 card, so the walker charges that.
 
@@ -79,14 +65,15 @@ one JSON a cell and mesh, beside a gzipped node list of its graphs
 (``*.graphs.json.gz``, the reference's ``.hlo.gz``) that ``--reanalyze``
 re-walks without a new trace.  ``--also 1x1:4x128`` traces the same arch
 and kind once more on that mesh at that batch and sequence length (the
-floor that ``chip_smoke.py`` phase 14 holds under a measured step).
+floor that ``chip_smoke.py`` phase 14 holds under a measured step;
+phase 15 holds ``--multi-pod none --also 2x2:4x128``, that mesh alone,
+under a rank of the real sharded step).
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
 import dataclasses
-import functools
 import gzip
 import json
 import os
@@ -107,6 +94,7 @@ from repro_torch.models.factory import train_batch_specs
 from repro_torch.optim import adamw
 from repro_torch.roofline import analysis, hlo_parse
 from repro_torch.sharding import partition as pt
+from repro_torch.sharding import spmd
 from repro_torch.train import train_step as ts
 
 OUTDIR = os.environ.get("DRYRUN_OUT", "experiments/dryrun_torch")
@@ -122,7 +110,6 @@ def fake_world(mesh: mesh_lib.Mesh):
     and a CPU ``DeviceMesh`` of the mesh's shape and axis names; the group
     is destroyed on exit, so no default group outlives the cell."""
     import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
     from torch.testing._internal.distributed.fake_pg import FakeStore
     if dist.is_initialized():
         raise RuntimeError("the dry-run brings up its own fake process "
@@ -130,9 +117,9 @@ def fake_world(mesh: mesh_lib.Mesh):
     dist.init_process_group("fake", store=FakeStore(), rank=0,
                             world_size=mesh.size)
     try:
-        yield init_device_mesh("cpu", tuple(mesh.shape.values()),
-                               mesh_dim_names=mesh.axis_names)
+        yield mesh.device_mesh_on("cpu")
     finally:
+        mesh._device_meshes.pop("cpu", None)
         dist.destroy_process_group()
 
 
@@ -158,437 +145,6 @@ def _alltoall_as_on_the_card():
     finally:
         for m in holders:
             m.shard_dim_alltoall = orig
-
-
-# ---------------------------------------------------------------------------
-# contractions over DTensors
-# ---------------------------------------------------------------------------
-
-_LETTERS = "abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ"
-
-
-def _local_bytes(x) -> int:
-    return x.to_local().numel() * x.element_size()
-
-
-def dt_einsum(eq: str, *ops):
-    """``torch.einsum(eq, *ops)`` over DTensors (ordinary tensors taken as
-    replicated), partitioned as XLA partitions a dot: on each mesh axis
-    one letter stays sharded, the one sharded in the operands of most
-    local bytes; an operand sharded on another letter along that axis is
-    gathered, one that holds the letter unsharded is sliced; the result is
-    sharded on the letter, or a partial sum where it is contracted."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-    eq = eq.replace(" ", "")
-    lhs, out = eq.split("->")
-    subs = lhs.split(",")
-    mesh = next(o.device_mesh for o in ops if isinstance(o, DTensor))
-    ops = [o if isinstance(o, DTensor) else DTensor.from_local(
-        o, mesh, [Replicate()] * mesh.ndim, run_check=False) for o in ops]
-    ops = [_plain_placements(o) for o in ops]
-    want = [list(o.placements) for o in ops]
-    grad = [list(o.placements) for o in ops]
-    out_pl = []
-    for m in range(mesh.ndim):
-        votes: Dict[str, int] = {}
-        for o, sub in zip(ops, subs):
-            p = o.placements[m]
-            if p.is_shard():
-                L = sub[p.dim]
-                votes[L] = votes.get(L, 0) + _local_bytes(o)
-        if not votes:
-            out_pl.append(Replicate())
-            continue
-        L = max(votes, key=votes.get)
-        for i, (o, sub) in enumerate(zip(ops, subs)):
-            if L in sub:
-                want[i][m] = grad[i][m] = Shard(sub.index(L))
-            else:
-                # replicated along m, read by every shard of L: its
-                # gradient is a partial sum over m
-                want[i][m], grad[i][m] = Replicate(), Partial()
-        if L in out:
-            out_pl.append(Shard(out.index(L)))
-        else:
-            out_pl.append(Partial())
-    ops = [o.redistribute(mesh, w) if tuple(w) != tuple(o.placements)
-           else o for o, w in zip(ops, want)]
-    sizes = {}
-    for o, sub in zip(ops, subs):
-        for L, n in zip(sub, o.shape):
-            sizes[L] = n
-    shape = torch.Size(sizes[L] for L in out)
-    local = torch.einsum(eq, *[o.to_local(grad_placements=g)
-                               for o, g in zip(ops, grad)])
-    return DTensor.from_local(local, mesh, out_pl, run_check=False,
-                              shape=shape,
-                              stride=pt.global_stride(local, shape))
-
-
-def dt_rowwise(func, *args, **kwargs):
-    """An op along the last dimension that DTensor has no strategy for
-    (``searchsorted``) over DTensors sharded on their leading dimensions:
-    each device runs it on its rows; every operand takes the first
-    DTensor's placements, the last dimension gathered."""
-    from torch.distributed.tensor import DTensor, Replicate
-    lead = next(a for a in args if isinstance(a, DTensor))
-    mesh = lead.device_mesh
-    pl = [p if p.is_shard() and p.dim < lead.ndim - 1 else Replicate()
-          for p in lead.placements]
-
-    def local(a):
-        if not isinstance(a, torch.Tensor):
-            return a
-        if not isinstance(a, DTensor):
-            a = DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim,
-                                   run_check=False)
-        return a.redistribute(mesh, pl).to_local()
-    out = func(*[local(a) for a in args], **kwargs)
-    shape = torch.Size((*lead.shape[:-1], out.shape[-1]))
-    return DTensor.from_local(out, mesh, pl, run_check=False, shape=shape,
-                              stride=pt.global_stride(out, shape))
-
-
-def dt_gather(x, dim: int, index):
-    """``torch.gather(x, dim, index)`` over a DTensor ``x`` sharded along
-    ``dim``, as XLA partitions the reference's one-hot contraction: each
-    device gathers the indices that fall in its shard (the others give
-    zeros), a partial sum over the axes that shard ``dim``."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate
-    mesh = x.device_mesh
-    dim = dim % x.ndim
-    if not isinstance(index, DTensor):
-        index = DTensor.from_local(index, mesh, [Replicate()] * mesh.ndim,
-                                   run_check=False)
-    idx_pl, out_pl = [], []
-    for p in x.placements:
-        if p.is_shard(dim):
-            idx_pl.append(Replicate())
-            out_pl.append(Partial())
-        elif p.is_shard():
-            idx_pl.append(p)
-            out_pl.append(p)
-        else:
-            idx_pl.append(Replicate())
-            out_pl.append(Replicate())
-    x = x.redistribute(mesh, [p if p.is_shard() else Replicate()
-                              for p in x.placements])
-    index = index.redistribute(mesh, idx_pl)
-    shape, off = pt.local_shard(x.shape, mesh, x.placements)
-    local = index.to_local() - off[dim]
-    valid = (local >= 0) & (local < shape[dim])
-    got = torch.gather(x.to_local(), dim, local.clamp(0, shape[dim] - 1))
-    got = torch.where(valid, got, torch.zeros((), dtype=got.dtype))
-    return DTensor.from_local(got, mesh, out_pl, run_check=False,
-                              shape=index.shape,
-                              stride=pt.global_stride(got, index.shape))
-
-
-def _kept_dims(src, dst) -> set:
-    """The dimensions of shape ``src`` that a reshape to ``dst`` leaves
-    whole: the same size after the same product of leading sizes."""
-    kept, pre_s = set(), 1
-    pres_d, p = {}, 1
-    for n in dst:
-        pres_d.setdefault((p, n), True)
-        p *= n
-    for d, n in enumerate(src):
-        if (pre_s, n) in pres_d:
-            kept.add(d)
-        pre_s *= n
-    return kept
-
-
-def dt_reshape(func, x, *shape):
-    """A reshape of a DTensor that DTensor refuses (a sharded dimension
-    split or merged unevenly), or that leaves a strided shard, which few
-    of DTensor's strategies take: the sharded dimensions that the reshape
-    does not leave whole are gathered first, as XLA does."""
-    from torch.distributed.tensor import Replicate, Shard
-    try:
-        out = func(x, *shape)
-        if all(type(p) in (Shard, Replicate) for p in out.placements):
-            return out
-    except (RuntimeError, ValueError):
-        pass
-    dst = shape[0] if len(shape) == 1 and isinstance(
-        shape[0], (tuple, list, torch.Size)) else shape
-    dst = list(dst)
-    if -1 in dst:
-        known = 1
-        for n in dst:
-            known *= n if n != -1 else 1
-        dst[dst.index(-1)] = x.numel() // max(known, 1)
-    kept = _kept_dims(tuple(x.shape), dst)
-    pl = [p if p.is_shard() and p.dim in kept else Replicate()
-          for p in x.placements]
-    return func(x.redistribute(x.device_mesh, pl), *shape)
-
-
-def _sharded_along(x, dim: int) -> bool:
-    return any(p.is_shard(dim) for p in x.placements)
-
-
-def _row_stats(x, dim: int):
-    """The local shard of ``x`` and the max and Σ exp(x − max) along a
-    sharded ``dim``, each a local tensor whose cross-device reduction (an
-    all-reduce of max, then of sum, over the axes that shard ``dim``) is
-    in the trace: how XLA partitions a softmax over a sharded dimension."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate
-    mesh = x.device_mesh
-    if any(p.is_partial() for p in x.placements):
-        x = x.redistribute(mesh, [Replicate() if p.is_partial() else p
-                                  for p in x.placements])
-    keep = [p if not p.is_shard(dim) else Replicate() for p in x.placements]
-
-    def reduce(t, op):
-        pl = [Partial(op) if p.is_shard(dim) else p for p in x.placements]
-        shape = list(x.shape)
-        shape[dim] = 1
-        t = DTensor.from_local(t, mesh, pl, run_check=False,
-                               shape=torch.Size(shape),
-                               stride=pt.global_stride(t, shape))
-        return t.redistribute(mesh, keep).to_local()
-    local = x.to_local()
-    m = reduce(torch.amax(local, dim=dim, keepdim=True).detach(), "max")
-    total = reduce(torch.sum(torch.exp(local - m), dim=dim, keepdim=True),
-                   "sum")
-    return local, m, total, keep
-
-
-def dt_logsumexp(x, dim: int, keepdim: bool = False):
-    """``torch.logsumexp`` over a dimension that shards ``x``."""
-    from torch.distributed.tensor import DTensor
-    dim = dim % x.ndim
-    _, m, total, keep = _row_stats(x, dim)
-    out = m + torch.log(total)
-    shape = list(x.shape)
-    shape[dim] = 1
-    if not keepdim:
-        out = out.squeeze(dim)
-        shape.pop(dim)
-        keep = [p if not p.is_shard() or p.dim < dim else
-                type(p)(p.dim - 1) for p in keep]
-    shape = torch.Size(shape)
-    return DTensor.from_local(out, x.device_mesh, keep, run_check=False,
-                              shape=shape,
-                              stride=pt.global_stride(out, shape))
-
-
-def dt_softmax(x, dim: int, **kwargs):
-    """``torch.softmax`` over a dimension that shards ``x``."""
-    from torch.distributed.tensor import DTensor, Replicate
-    dim = dim % x.ndim
-    local, m, total, _ = _row_stats(x, dim)
-    out = torch.exp(local - m) / total
-    if kwargs.get("dtype") is not None:
-        out = out.to(kwargs["dtype"])
-    pl = [p if not p.is_partial() else Replicate() for p in x.placements]
-    return DTensor.from_local(out, x.device_mesh, pl, run_check=False,
-                              shape=x.shape,
-                              stride=pt.global_stride(out, x.shape))
-
-
-def dt_setitem(x, idx, value):
-    """``x[idx] = value`` where ``idx`` picks one position of one dimension
-    (a KV cache's row): each device writes its own shard, at the position
-    clamped into it where the dimension is sharded (sequence-sharded
-    caches), as XLA's partitioned dynamic-update-slice does."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
-    d = next(i for i, e in enumerate(idx) if isinstance(e, int))
-    mesh = x.device_mesh
-    shape, off = pt.local_shard(x.shape, mesh, x.placements)
-    pos = min(max(idx[d] % x.shape[d] - off[d], 0), shape[d] - 1)
-    pl = [Replicate() if p.is_shard(d) or not p.is_shard() else
-          Shard(p.dim - (p.dim > d)) for p in x.placements]
-    if not isinstance(value, DTensor):
-        value = DTensor.from_local(value, mesh, [Replicate()] * mesh.ndim,
-                                   run_check=False)
-    local = x.to_local()
-    local[(*idx[:d], pos, *idx[d + 1:])] = \
-        value.redistribute(mesh, pl).to_local()
-
-
-def dt_pad(x, pad, mode: str = "constant", value=None):
-    """``F.pad`` of a DTensor: the padded dimensions gathered, then each
-    device pads its shard (the causal conv's left padding of a
-    sequence-sharded input)."""
-    from torch.distributed.tensor import DTensor, Replicate
-    padded = {x.ndim - 1 - i // 2 for i, n in enumerate(pad) if n}
-    pl = [Replicate() if p.is_partial() or any(p.is_shard(d) for d in padded)
-          else p for p in x.placements]
-    x = x.redistribute(x.device_mesh, pl)
-    local = torch.nn.functional.pad(x.to_local(), pad, mode=mode,
-                                    value=value)
-    shape = list(x.shape)
-    for i, n in enumerate(pad):
-        shape[x.ndim - 1 - i // 2] += n
-    shape = torch.Size(shape)
-    return DTensor.from_local(local, x.device_mesh, pl, run_check=False,
-                              shape=shape,
-                              stride=pt.global_stride(local, shape))
-
-
-def _one_int_index(idx) -> bool:
-    """Whether ``idx`` picks one position of one dimension (an int; every
-    other entry ``:``)."""
-    idx = idx if isinstance(idx, tuple) else (idx,)
-    ints = [i for i, e in enumerate(idx) if isinstance(e, int)]
-    return len(ints) == 1 and all(e == slice(None) for i, e in
-                                  enumerate(idx) if i != ints[0])
-
-
-def dt_take_rows(w, idx):
-    """``w[idx]``: the rows of a 2-D DTensor (an embedding) at integer
-    indices, as XLA partitions the gather.  Along a mesh axis that shards
-    ``idx`` the table is gathered; along one that shards the rows each
-    device takes the indices that fall in its shard (zeros elsewhere), a
-    partial sum; a sharded column dimension stays sharded."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-    mesh = w.device_mesh
-    if not isinstance(idx, DTensor):
-        idx = DTensor.from_local(idx, mesh, [Replicate()] * mesh.ndim,
-                                 run_check=False)
-    idx = idx.redistribute(mesh, [p if p.is_shard() else Replicate()
-                                  for p in idx.placements])
-    w_pl, grad, out_pl = [], [], []
-    for pw, pi in zip(w.placements, idx.placements):
-        if pi.is_shard():
-            w_pl.append(Replicate())
-            grad.append(Partial())
-            out_pl.append(Shard(pi.dim))
-        elif pw.is_shard(0):
-            w_pl.append(Shard(0))
-            grad.append(Shard(0))
-            out_pl.append(Partial())
-        elif pw.is_shard(1):
-            w_pl.append(Shard(1))
-            grad.append(Shard(1))
-            out_pl.append(Shard(idx.ndim))
-        else:
-            w_pl.append(Replicate())
-            grad.append(Replicate())
-            out_pl.append(Replicate())
-    w = w.redistribute(mesh, w_pl)
-    shape, off = pt.local_shard(w.shape, mesh, w.placements)
-    local = idx.to_local() - off[0]
-    valid = (local >= 0) & (local < shape[0])
-    got = w.to_local(grad_placements=grad)[local.clamp(0, shape[0] - 1)]
-    if any(p.is_shard(0) for p in w.placements):
-        got = torch.where(valid[..., None], got,
-                          torch.zeros((), dtype=got.dtype))
-    out_shape = torch.Size((*idx.shape, w.shape[1]))
-    return DTensor.from_local(got, mesh, out_pl, run_check=False,
-                              shape=out_shape,
-                              stride=pt.global_stride(got, out_shape))
-
-
-def _matmul_eq(a_nd: int, b_nd: int) -> Optional[str]:
-    """The einsum of ``a @ b`` where it has one (no broadcast of batch
-    dimensions between the operands)."""
-    if a_nd >= 2 and b_nd == 2:
-        lead = _LETTERS[:a_nd - 2]
-        return f"{lead}xk,ky->{lead}xy"
-    if a_nd == b_nd and a_nd >= 3:
-        lead = _LETTERS[:a_nd - 2]
-        return f"{lead}xk,{lead}ky->{lead}xy"
-    return None
-
-
-@functools.lru_cache(maxsize=None)
-def _dtensor_type():
-    from torch.distributed.tensor import DTensor
-    return DTensor
-
-
-class _Partitioned(torch.overrides.TorchFunctionMode):
-    """The ops over DTensors that DTensor has no strategy for, partitioned
-    by the ``dt_*`` functions above; everything else passes through."""
-
-    def __torch_function__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        DTensor = _dtensor_type()
-        if func is torch.einsum:
-            eq, ops = args[0], args[1:]
-            if len(ops) == 1 and isinstance(ops[0], (list, tuple)):
-                ops = tuple(ops[0])
-            if any(isinstance(o, DTensor) for o in ops) and "..." not in eq:
-                return dt_einsum(eq, *ops)
-        elif func is torch.gather and isinstance(args[0], DTensor) \
-                and any(p.is_shard(args[1] % args[0].ndim)
-                        for p in args[0].placements):
-            return dt_gather(*args, **kwargs)
-        elif func in (torch.logsumexp, torch.softmax, torch.Tensor.softmax,
-                      torch.nn.functional.softmax) \
-                and isinstance(args[0], DTensor):
-            dim = args[1] if len(args) > 1 else kwargs["dim"]
-            if _sharded_along(args[0], dim % args[0].ndim):
-                fn = dt_logsumexp if func is torch.logsumexp else dt_softmax
-                rest = {k: v for k, v in kwargs.items() if k != "dim"}
-                return fn(args[0], dim, *args[2:], **rest)
-        elif func is torch.nn.functional.pad and isinstance(args[0],
-                                                             DTensor):
-            return dt_pad(*args, **kwargs)
-        elif getattr(func, "__name__", "") == "__getitem__" \
-                and isinstance(args[0], DTensor) and args[0].ndim == 2 \
-                and isinstance(args[1], torch.Tensor) \
-                and not args[1].is_floating_point() \
-                and args[1].dtype != torch.bool:
-            return dt_take_rows(args[0], args[1])
-        elif getattr(func, "__name__", "") == "__setitem__" \
-                and isinstance(args[0], DTensor) and _one_int_index(args[1]):
-            idx = args[1] if isinstance(args[1], tuple) else (args[1],)
-            return dt_setitem(args[0], idx, args[2])
-        elif getattr(func, "__name__", "") == "unbind" and args \
-                and isinstance(args[0], DTensor):
-            # a loop over the pieces of a sharded dimension (the wkv's
-            # chunks of a sequence-sharded input) gathers it first
-            x, dim = args[0], (args[1] if len(args) > 1
-                               else kwargs.get("dim", 0)) % args[0].ndim
-            if _sharded_along(x, dim):
-                from torch.distributed.tensor import Replicate
-                x = x.redistribute(x.device_mesh, [
-                    Replicate() if p.is_shard(dim) else p
-                    for p in x.placements])
-            return func(x, dim)
-        elif func is torch.searchsorted and any(
-                isinstance(a, DTensor) for a in args):
-            return dt_rowwise(func, *args, **kwargs)
-        elif getattr(func, "__name__", "") in ("reshape", "view") \
-                and args and isinstance(args[0], DTensor):
-            return dt_reshape(func, *args, **kwargs)
-        elif getattr(func, "__name__", "") in ("matmul", "__matmul__"):
-            a, b = args[0], args[1]
-            if isinstance(a, DTensor) or isinstance(b, DTensor):
-                eq = _matmul_eq(a.ndim, b.ndim)
-                if eq is not None and (b.ndim == 2
-                                       or a.shape[:-2] == b.shape[:-2]):
-                    return dt_einsum(eq, a, b)
-        try:
-            return func(*args, **kwargs)
-        except RuntimeError:
-            # an operand whose placement DTensor's strategy does not take
-            # (a strided shard that a view left, a partial sum): gathered,
-            # then the op again
-            plain = torch.utils._pytree.tree_map(_plain_placements,
-                                                 (args, kwargs))
-            if all(a is b for a, b in zip(
-                    torch.utils._pytree.tree_leaves((args, kwargs)),
-                    torch.utils._pytree.tree_leaves(plain))):
-                raise
-        return func(*plain[0], **plain[1])
-
-
-def _plain_placements(x):
-    """``x`` with each placement that is neither a shard nor a replica
-    made a replica (DTensors only)."""
-    if not isinstance(x, _dtensor_type()):
-        return x
-    from torch.distributed.tensor import Replicate, Shard
-    pl = [p if type(p) in (Shard, Replicate) else Replicate()
-          for p in x.placements]
-    return x if tuple(pl) == tuple(x.placements) else x.redistribute(
-        x.device_mesh, pl)
 
 
 # ---------------------------------------------------------------------------
@@ -739,51 +295,27 @@ def local_bytes(shape, dtype, spec, mesh: mesh_lib.Mesh) -> int:
     return n * hlo_parse.dtype_bytes(str(dtype).split(".")[-1])
 
 
-def _zip(fn, shapes, specs):
-    """``fn(leaf, spec)`` over a tree of dicts, tuples and NamedTuples
-    (the parameters, the optimizer's and the decode states) and its spec
-    tree, the structure kept."""
-    if isinstance(specs, pt.PartitionSpec):
-        return fn(shapes, specs)
-    if isinstance(shapes, tuple):
-        out = [_zip(fn, a, b) for a, b in zip(shapes, specs)]
-        return type(shapes)(*out) if hasattr(shapes, "_fields") \
-            else tuple(out)
-    return {k: _zip(fn, shapes[k], specs[k]) for k in sorted(shapes.keys())}
-
-
 def _flat(tree) -> List:
     out = []
-    _zip(lambda t, _: out.append(t), tree,
-         tr.map_structure(lambda _: pt.P(), tree))
+    pt.map_with_specs(lambda t, _: out.append(t), tree,
+                      tr.map_structure(lambda _: pt.P(), tree))
     return out
 
 
 def _tree_bytes(shapes, specs, mesh) -> int:
     total = []
-    _zip(lambda t, sp: total.append(local_bytes(t.shape, t.dtype, sp, mesh)),
-         shapes, specs)
+    pt.map_with_specs(
+        lambda t, sp: total.append(local_bytes(t.shape, t.dtype, sp, mesh)),
+        shapes, specs)
     return sum(total)
 
 
 @contextlib.contextmanager
 def _propagation(ctx):
-    """The aids that carry a step through DTensor's sharding propagation
-    (see the module's docstring), with the port's sharding context."""
-    from torch.distributed.tensor.experimental import implicit_replication
-    with pt.activate(ctx), implicit_replication(), _Partitioned(), \
-            _alltoall_as_on_the_card():
+    """``spmd.propagation`` with DTensor's Shard→Shard redistribute
+    charged as the card's all-to-all."""
+    with spmd.propagation(ctx), _alltoall_as_on_the_card():
         yield
-
-
-def _backward(loss):
-    """``loss.backward()`` through the autograd engine itself, so that the
-    torch-function mode stays on for what the backward recomputes (a
-    checkpointed layer; ``Tensor.backward`` is a torch function, inside
-    which the mode is off)."""
-    from torch.autograd.graph import _engine_run_backward
-    _engine_run_backward((loss,), (torch.ones_like(loss),), False, False,
-                         (), allow_unreachable=True, accumulate_grad=True)
 
 
 @dataclasses.dataclass
@@ -811,7 +343,7 @@ def _state(rec, dm, shapes, specs, mesh, grad=False):
     def one(t, spec):
         x = _dtensor(rec, dm, t.shape, t.dtype, spec, mesh.axis_names)
         return x.requires_grad_() if grad else x
-    return _zip(one, shapes, specs)
+    return pt.map_with_specs(one, shapes, specs)
 
 
 # ---------------------------------------------------------------------------
@@ -904,7 +436,7 @@ def lower_train_cell(cfg, shape: ShapeConfig, mesh, ctx) -> Lowered:
             rec.start("forward")
             loss, _ = model.loss(params, batch)
             rec.start("backward")
-            _backward(loss)
+            spmd.backward(loss)
             grads = tr.tree_map(
                 lambda p: p.grad.redistribute(p.device_mesh, p.placements),
                 params)
@@ -1194,8 +726,10 @@ def main(argv=None):
     ap.add_argument("--shape", default=None,
                     help="train_4k|prefill_32k|decode_32k|long_500k")
     ap.add_argument("--all", action="store_true")
-    ap.add_argument("--multi-pod", choices=["single", "multi", "both"],
-                    default="single")
+    ap.add_argument("--multi-pod", choices=["single", "multi", "both",
+                                            "none"], default="single",
+                    help="the production meshes to trace --shape on "
+                         "(none: only --also's)")
     ap.add_argument("--no-skip-existing", action="store_true")
     ap.add_argument("--reanalyze", action="store_true",
                     help="recompute records from the archived node lists, "
@@ -1213,8 +747,8 @@ def main(argv=None):
         print("\n".join(table()))
         return 0
 
-    meshes = {"single": [False], "multi": [True], "both": [False, True]}[
-        args.multi_pod]
+    meshes = {"single": [False], "multi": [True], "both": [False, True],
+              "none": []}[args.multi_pod]
     results = []
     if args.all:
         for cfg, shape, ok, reason in all_cells():

@@ -19,18 +19,28 @@ vocabulary (``--temperature 0``) or a sample from
 draws with ``jax.random.categorical``: another stream).  The loop runs
 eagerly, where the reference jits the step.  ``--device`` is ``cuda`` by
 default, which raises without a card.
+
+``generate`` also runs over a mesh: given DTensor parameters (placed by
+``train_step.shard_train_state``'s specs) and the decode state that
+``train_step.shard_decode_state`` placed, each step is
+``train_step.decode_step`` over DTensors, called under the
+caller's ``with mesh, pt.activate(ctx):``, and the vocabulary-sharded
+logits are gathered before the argmax or the sample that the host reads.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
-
 import torch
 
 from repro_torch.configs.base import smoke_config
 from repro_torch.configs.registry import ARCHS, get_arch
 from repro_torch.models.factory import build_model, extra_inputs_concrete
+from repro_torch.sharding import partition as pt
+from repro_torch.sharding import spmd
 from repro_torch.solvers.sketch_precondition import resolve_device
+from repro_torch.train import train_step as ts
 
 
 def _sync(device: torch.device) -> None:
@@ -38,16 +48,29 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-@torch.inference_mode()
 def generate(model, params, prompts: torch.Tensor, gen: int, extra,
-             temperature: float = 0.0, seed: int = 0):
+             temperature: float = 0.0, seed: int = 0, state=None):
     """prompts: (B, P) int32 on the parameters' device.  Returns the
     (B, P+gen) tokens and tok/s = B·gen over the loop's wall, read after
-    the device finished."""
+    the device finished.  ``state``: the decode state of B sequences of up
+    to P + gen tokens (``None``: a zero state from ``init_decode_state``);
+    DTensor parameters take their sharded state here."""
+    sharded = pt.is_dtensor(params["embed"])
+    if sharded and state is None:
+        raise ValueError("generate over a mesh takes its decode state, "
+                         "placed by train_step.shard_decode_state")
+    ctx = contextlib.nullcontext() if sharded else torch.inference_mode()
+    with ctx:
+        return _loop(model, params, prompts, gen, extra, temperature, seed,
+                     state)
+
+
+def _loop(model, params, prompts, gen, extra, temperature, seed, state):
     B, P = prompts.shape
     max_seq = P + gen
     dev = prompts.device
-    state = model.init_decode_state(params, B, max_seq, extra)
+    if state is None:
+        state = model.init_decode_state(params, B, max_seq, extra)
     sampler = torch.Generator(device=dev)
     sampler.manual_seed(seed)
     vocab = model.cfg.vocab_size
@@ -56,11 +79,11 @@ def generate(model, params, prompts: torch.Tensor, gen: int, extra,
     _sync(dev)
     t0 = time.perf_counter()
     for pos in range(max_seq - 1):
-        logits, state = model.decode_step(params, state, cur, pos)
+        logits, state = ts.decode_step(model, params, state, cur, pos)
         if pos + 1 < P:
             cur = prompts[:, pos + 1:pos + 2]       # teacher-forced prompt
             continue
-        lg = logits[:, 0, :vocab]
+        lg = spmd.full_tensor(logits)[:, 0, :vocab]
         if temperature > 0:
             probs = torch.softmax(lg / temperature, dim=-1)
             cur = torch.multinomial(probs, 1, generator=sampler)

@@ -14,6 +14,12 @@ mesh:`` makes it the current mesh of the thread (``current()``), as ``with
 mesh:`` does in JAX, so a collective can name an axis
 (``grad_compress.compress_gradients(..., pod_axis="pod")``).
 
+``mesh.device_mesh_on(device_type)`` is the ``DeviceMesh`` of the mesh's
+shape and axis names over the live process group, the mesh that DTensors
+live on: the sharded train and decode steps' (``cpu`` for gloo ranks on
+the CPU, ``cuda`` for gloo ranks sharing the card) and the dry-run's on
+its fake group.
+
 ``make_production_mesh`` is a function, so importing this module touches
 no process group.
 """
@@ -38,6 +44,7 @@ class Mesh:
         self.devices = np.arange(math.prod(self.shape.values())).reshape(
             tuple(self.shape.values()))
         self._groups: Dict[str, object] = {}
+        self._device_meshes: Dict[str, object] = {}
 
     @property
     def size(self) -> int:
@@ -66,6 +73,22 @@ class Mesh:
                 if me in ranks:
                     self._groups[axis] = g
         return self._groups[axis]
+
+    def device_mesh_on(self, device_type: str = "cpu"):
+        """The ``DeviceMesh`` of this mesh's shape and axis names over the
+        live default process group of ``size`` ranks, for ``device_type``;
+        kept, like the groups (``init_device_mesh`` is collective)."""
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import init_device_mesh
+        if device_type not in self._device_meshes:
+            if not dist.is_initialized() or dist.get_world_size() != self.size:
+                raise RuntimeError(
+                    f"{describe(self)}: a DeviceMesh needs a process group "
+                    f"of {self.size} ranks")
+            self._device_meshes[device_type] = init_device_mesh(
+                device_type, tuple(self.shape.values()),
+                mesh_dim_names=self.axis_names)
+        return self._device_meshes[device_type]
 
     def __enter__(self) -> "Mesh":
         _stack().append(self)

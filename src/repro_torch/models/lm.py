@@ -222,10 +222,12 @@ def _mamba_block_decode(p, cfg: ModelConfig, x, st):
 
 def _recurrent_decode(block_fn, p, cfg: ModelConfig, x, stacked, *idx):
     """``block_fn`` on the layer ``idx`` of a stacked recurrent state,
-    its new state written back into the stack."""
+    its new state written back into the stack (an indexed write, not a
+    copy into ``t[idx]``: a DTensor's ``t[idx]`` over a sharded stack
+    axis is a new tensor, which would take the write)."""
     x, new = block_fn(p, cfg, x, layers.state_at(stacked, *idx))
     for t, n in zip(stacked, new):
-        t[idx].copy_(n)
+        t[idx] = n
     return x
 
 

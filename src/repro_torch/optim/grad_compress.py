@@ -26,6 +26,15 @@ rank (same seed, same plan, same roll), so sketch-space vectors add
 across pods.  A leaf below ``min_bucket`` is averaged dense, as f32.  The
 mean is the reference's ``pmean``: ``all_reduce(SUM)`` over the group,
 then a division by its size, so every rank ends with the same bits.
+
+A DTensor leaf (the sharded train step's gradients, placed as their
+parameters) is sketched whole, with the same plan and the same S as on
+one device, as XLA runs a custom call it cannot partition: the leaf and
+its error state are gathered (``full_tensor``), the kernels run on the
+gathered ordinary tensors on every rank, and ĝ and the new error go back
+on the leaf's placements, each rank keeping its own chunk
+(``partition.place``: no collective beyond the gather).  A pod mean of
+DTensor leaves is not built.
 """
 from __future__ import annotations
 
@@ -39,6 +48,8 @@ from repro_torch import tree as tr
 from repro_torch.core.blockperm import BlockPermPlan, make_plan
 from repro_torch.kernels import ops as kops
 from repro_torch.launch import mesh as mesh_lib
+from repro_torch.sharding import partition as pt
+from repro_torch.sharding import spmd
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,11 +160,29 @@ def compress_gradients(cfg: CompressConfig, grads, err_state,
     out_g, out_e = [], []
     for path, g in tr.leaves_with_path(grads):
         plan = plan_for_leaf(cfg, g.numel())
-        gh, ne = _leaf_compress(cfg, plan, g, tr.get(err_state, path), group,
-                                step)
+        e = tr.get(err_state, path)
+        if pt.is_dtensor(g):
+            if group is not None:
+                raise ValueError("compress_gradients: a pod mean of DTensor "
+                                 "leaves is not built")
+            gh, ne = _sharded_leaf_compress(cfg, plan, g, e, step)
+        else:
+            gh, ne = _leaf_compress(cfg, plan, g, e, group, step)
         out_g.append((path, gh))
         out_e.append((path, ne))
     return tr.unflatten(out_g), tr.unflatten(out_e)
+
+
+def _sharded_leaf_compress(cfg: CompressConfig,
+                           plan: Optional[BlockPermPlan], g, e, step: int):
+    """One DTensor leaf, sketched whole: gathered with its error state,
+    compressed on every rank as on one device, ĝ and the new error put
+    back on the leaf's and the error's placements from each rank's own
+    chunk."""
+    g_full, e_full = spmd.full_tensor(g), spmd.full_tensor(e)
+    gh, ne = _leaf_compress(cfg, plan, g_full, e_full, None, step)
+    return (pt.place(gh, g.device_mesh, g.placements),
+            pt.place(ne, e.device_mesh, e.placements))
 
 
 def wire_bytes(cfg: CompressConfig, params) -> Dict[str, float]:

@@ -148,6 +148,36 @@ def local_shard(shape, mesh, placements):
     return tuple(shape), tuple(off)
 
 
+def place(x: torch.Tensor, device_mesh, placements) -> torch.Tensor:
+    """The DTensor of ``placements`` whose global value is ``x``, which
+    every rank holds whole: each rank keeps a copy of its own chunk
+    (``local_shard``; a view would keep all of ``x``'s storage alive), no
+    collective is issued."""
+    from torch.distributed.tensor import DTensor
+    shape, off = local_shard(x.shape, device_mesh, placements)
+    local = x
+    for d, (n, o) in enumerate(zip(shape, off)):
+        if n != x.shape[d]:
+            local = local.narrow(d, o, n)
+    local = local.clone(memory_format=torch.contiguous_format)
+    return DTensor.from_local(local, device_mesh,
+                              tuple(placements), run_check=False,
+                              shape=x.shape, stride=x.contiguous().stride())
+
+
+def map_with_specs(fn, tree, specs):
+    """``fn(leaf, spec)`` over a tree of dicts, tuples and NamedTuples (the
+    parameters, the optimizer's and the decode states) and its spec tree,
+    the structure kept (dicts in sorted key order)."""
+    if isinstance(specs, PartitionSpec):
+        return fn(tree, specs)
+    if isinstance(tree, tuple):
+        out = [map_with_specs(fn, a, b) for a, b in zip(tree, specs)]
+        return type(tree)(*out) if hasattr(tree, "_fields") else tuple(out)
+    return {k: map_with_specs(fn, tree[k], specs[k])
+            for k in sorted(tree.keys())}
+
+
 def global_stride(local: torch.Tensor, shape) -> tuple:
     """Strides of a dense tensor of global ``shape`` whose dimensions lie
     in memory in the order of ``local``'s (DTensor decides view-or-copy
