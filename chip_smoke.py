@@ -276,6 +276,29 @@ Phases, any failure exits non-zero and prints no result:
      train_4k --multi-pod none --also 2x2:4x128``: the (2, 2) floor must
      not exceed a rank's device busy, the walker's product flops within
      5 % of ``FlopCounterMode``'s over rank 0's step.  At most 150 s.
+ 16. checkpoints of sharded state and the elastic re-mesh
+     (``train/checkpoint.py``'s group save of DTensor leaves and
+     ``restore(shardings=)``, ``Trainer(mesh=)``,
+     ``launch.mesh.mesh_for_plan``, ``train/fault_tolerance.py``):
+     qwen3-0.6b at full width cut to 2 layers (bf16, f32 AdamW), phase
+     10's batch (4 × 128) and lr, 4 steps, a checkpoint every 2 (two kept,
+     in a temporary directory deleted at the end), ``TrainSupervisor``
+     over segments that are each a fresh gloo group of its plan's size:
+     (a) uncompressed, ``ElasticPlanner(model_parallel=2)`` over four
+     hosts: 4 ranks on (2, 2) to step 3, then the last host's heartbeat
+     stops and the segment raises; 2 ranks on (1, 2) restore step 2 and run
+     to the end: the report (4 steps, 1 restart, meshes (2, 2), (1, 2)),
+     the state restored on (1, 2), gathered, bit-equal (sha256 of every
+     leaf) to the state (2, 2) gathered when it saved (parameters, m, v,
+     step), the losses equal on every rank of a segment and within 2⁻⁸
+     relative of one device's uninterrupted run of the same cut model, no
+     sketch kernel launched; (b) compressed at ratio 8 over two hosts:
+     (2, 1), then (1, 1): the restored state, error-feedback state
+     included, bit-equal to the saved one, one narrow forward and one
+     narrow transpose a compressed leaf a step a rank, no plain version.
+     Each save's gather, write and publish wait, the bytes each rank
+     writes, each restore's seconds, each segment's step walls, the peak
+     per rank.  At most 180 s.  Its launches add to the narrow rows.
 
 Phase 2 also holds the three v1 kernels (ragged n with d < d_pad, κ × s ∈
 {1,2,4}², a Br = 2 048 plan, the main plan; each also under every row
@@ -5552,6 +5575,333 @@ def phase_sharded(rt, device="cuda", smoke=False):
     return {k: sum(o["launches"][k] for o in comp) for k in NARROW_KERNELS}
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: checkpoints of sharded state and the elastic re-mesh.
+# ---------------------------------------------------------------------------
+
+# 4 steps, a checkpoint every 2 (at most two kept); the first segment ends
+# after step 3 (index 2), the last host's heartbeat stops, and the step
+# after the checkpoint is run again on the smaller mesh
+ELASTIC_STEPS, ELASTIC_FIRST_END = 4, 3
+ELASTIC_CKPT_EVERY, ELASTIC_KEEP = 2, 2
+# (a) uncompressed, 4 hosts of one chip, the model axis pinned at 2: (2, 2)
+# then (1, 2); (b) ratio 8, 2 hosts: (2, 1) then (1, 1)
+ELASTIC_HOSTS, ELASTIC_MODEL = 4, 2
+ELASTIC_COMP_HOSTS, ELASTIC_COMP_MODEL = 2, 1
+ELASTIC_BUDGET_S = 180.0
+
+
+def _elastic_modules():
+    m = _shard_modules()
+    from repro_torch.train import checkpoint, trainer
+    m.ckpt, m.trainer = checkpoint, trainer
+    return m
+
+
+def elastic_trainer(m, cfg, end, ckpt_dir, mesh=None):
+    """A Trainer of qwen3-0.6b at full width cut to SUPERVISED_LAYERS
+    layers (the smoke config at ``cfg["smoke"]``), phase 10's batch and
+    lr, ratio 8 where ``cfg["compress"]``, a checkpoint every
+    ELASTIC_CKPT_EVERY steps in ``ckpt_dir`` (ELASTIC_KEEP kept), on
+    ``mesh``, running to ``end``."""
+    arch = m.get_arch(TRAIN_ARCH)
+    arch = (m.smoke_config(arch) if cfg["smoke"] else
+            dataclasses.replace(arch, n_layers=SUPERVISED_LAYERS))
+    opt = m.adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=5,
+                              total_steps=ELASTIC_STEPS,
+                              state_dtype=arch.optstate_dtype)
+    data = m.dp.DataConfig(vocab_size=min(TRAIN_DATA_VOCAB, arch.vocab_size),
+                           global_batch=cfg["batch"], seq_len=cfg["seq"],
+                           seed=0)
+    tcfg = m.trainer.TrainerConfig(
+        total_steps=end, ckpt_every=ELASTIC_CKPT_EVERY, ckpt_dir=ckpt_dir,
+        ckpt_keep=ELASTIC_KEEP, log_every=1000)
+    comp = (m.gc.CompressConfig(ratio=TRAIN_RATIO) if cfg["compress"]
+            else None)
+    return m.trainer.Trainer(arch, opt, tcfg, data, compress=comp,
+                             log_fn=lambda s: None, device=cfg["device"],
+                             mesh=mesh)
+
+
+def _digest(arr) -> str:
+    """sha256 of an array's dtype, shape and bytes."""
+    import hashlib
+    import numpy as np
+    h = hashlib.sha256(f"{arr.dtype.str}{arr.shape}".encode())
+    h.update(memoryview(np.ascontiguousarray(arr)).cast("B"))
+    return h.hexdigest()
+
+
+def elastic_rank(rank, world, cfg):
+    """One rank of a segment: ``Trainer(mesh=)`` on the mesh of
+    ``cfg["plan"]`` (``launch.mesh.mesh_for_plan``), ``fit()`` to
+    ``cfg["end"]`` from the latest checkpoint of ``cfg["ckpt_dir"]``.  Each
+    leaf's digest as its owner wrote it (what the mesh gathered when it
+    saved) and, after a restore, as it gathers it on this mesh
+    (``checkpoint.gather_to_owners``); the save, restore and step times,
+    the launches of the narrow kernels and of any plain version, the
+    peak."""
+    m = _elastic_modules()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = cfg["device"]
+    out = {"start": time.time() - cfg["t_spawn"], "saved": {},
+           "walls_ms": [], "restored": {}, "restored_step": None}
+    trainer = elastic_trainer(m, cfg, cfg["end"], cfg["ckpt_dir"],
+                              m.mesh_lib.mesh_for_plan(cfg["plan"]))
+    write, maybe_restore, step_fn = (m.ckpt._write, trainer.maybe_restore,
+                                     trainer.step_fn)
+
+    def digesting(pending):
+        # on the writer thread, after this rank's files are written
+        write(pending)
+        out["saved"].setdefault(pending.meta["step"], {}).update(
+            {int(k[len("leaf_"):]): _digest(a)
+             for arrays in pending.files.values() for k, a in arrays.items()})
+
+    def timed_restore(*args):
+        _sync(dev)
+        t = time.perf_counter()
+        got = maybe_restore(*args)
+        _sync(dev)
+        out["restore_s"] = time.perf_counter() - t
+        params, opt, err, out["restored_step"] = got
+        tree = {"params": params, "opt": opt, "err": err}
+        out["names"] = [m.tr.keystr(p) for p, _ in
+                        m.tr.leaves_with_path(tree)]
+        if out["restored_step"]:
+            t = time.perf_counter()
+            mine = m.ckpt.gather_to_owners(m.tr.leaves(tree))
+            out["restored"] = {i: _digest(m.tr.to_numpy(x)[0])
+                               for i, x in mine.items()}
+            out["restored_gather_s"] = time.perf_counter() - t
+        return got
+
+    def timed_step(*args):
+        _sync(dev)
+        t = time.perf_counter()
+        got = step_fn(*args)
+        _sync(dev)
+        out["walls_ms"].append((time.perf_counter() - t) * 1e3)
+        return got
+
+    plain = {}
+    restore_plain = spy_plain({"ref": m.ref, "lowering": m.lowering}, plain)
+    m.ckpt._write = digesting
+    trainer.maybe_restore, trainer.step_fn = timed_restore, timed_step
+    m.fsk.reset_launch_counts()
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    try:
+        res = trainer.fit()
+    finally:
+        m.ckpt._write = write
+        restore_plain()
+    out.update(
+        losses=res["losses"], plain=plain, launches=dict(m.fsk.LAUNCHES),
+        saves=[vars(s) for s in trainer.async_ckpt.history],
+        n_comp=(sum(m.gc.plan_for_leaf(trainer.compress, p.numel())
+                    is not None for p in m.tr.leaves(res["final_params"]))
+                if trainer.compress else 0),
+        peak=torch.cuda.max_memory_allocated() if dev == "cuda" else 0,
+        t_end=time.time() - cfg["t_spawn"])
+    return out
+
+
+def elastic_supervised(rt, base, hosts, model, compress, ckpt_dir):
+    """TrainSupervisor over segments of ``elastic_rank`` ranks, each
+    segment a fresh ``run_ranks`` group of its plan's size (a DeviceMesh
+    needs a group of its size, and DTensor keeps sharding decisions in a
+    process): the first ends after ELASTIC_FIRST_END steps, the last
+    host's heartbeat stops and the segment raises; the planner shrinks
+    the data axis.  Returns the report and the segments."""
+    ft, ckpt = rt["fault_tolerance"], rt["checkpoint"]
+    clock = [0.0]
+    names = [f"host{i}" for i in range(hosts)]
+    monitor = ft.HeartbeatMonitor(names, timeout_s=60.0,
+                                  clock=lambda: clock[0])
+    segments = []
+
+    def run_segment(plan, start):
+        end = ELASTIC_FIRST_END if not segments else ELASTIC_STEPS
+        dims = (plan.data, plan.model)
+        t = time.perf_counter()
+        ranks = rt["run_ranks"](elastic_rank, plan.chips, dict(
+            base, plan=plan, end=end, ckpt_dir=ckpt_dir, compress=compress,
+            t_spawn=time.time()), timeout=SPAWN_TIMEOUT_S)
+        segments.append(dict(dims=dims, start=start, end=end, ranks=ranks,
+                             wall_s=time.perf_counter() - t))
+        if len(segments) == 1:
+            clock[0] += 2 * monitor.timeout_s   # the last host stops beating
+            for h in names[:-1]:
+                monitor.beat(h)
+            raise RuntimeError(f"{names[-1]} lost after step {end}")
+        return end
+
+    sup = ft.TrainSupervisor(
+        ft.ElasticPlanner(model_parallel=model, chips_per_host=1,
+                          global_batch=base["batch"]), monitor,
+        restore_latest=lambda: ckpt.latest_step(ckpt_dir) or 0,
+        run_segment=run_segment)
+    return sup.run(total_steps=ELASTIC_STEPS), segments
+
+
+def _elastic_lines(label, segments):
+    """Print each segment's ranks: saves (gather, write, publish, bytes),
+    restores, step walls, peaks."""
+    for seg in segments:
+        print(f"  {label} segment {seg['dims']}, steps {seg['start']}-"
+              f"{seg['end'] - 1}: {len(seg['ranks'])} ranks in "
+              f"{seg['wall_s']:.1f} s")
+        for r, o in enumerate(seg["ranks"]):
+            saves = "; ".join(
+                f"step {s['step']}: gather {s['snapshot_s']:.3f} s, write "
+                f"{s['write_s']:.3f} s, {s['bytes_written'] / 2**20:.1f} MiB"
+                f", publish wait {s['publish_s']:.3f} s" for s in o["saves"])
+            restore = (f"restore of step {o['restored_step']} "
+                       f"{o['restore_s']:.3f} s (gather to check "
+                       f"{o['restored_gather_s']:.3f} s); "
+                       if o["restored_step"] else "")
+            print(f"    rank {r}: {restore}saves: {saves or 'none'}; step "
+                  f"walls {[round(w, 1) for w in o['walls_ms']]} ms; losses "
+                  f"{[round(x, 5) for x in o['losses']]}; peak "
+                  f"{o['peak'] / 2**30:.2f} GiB")
+
+
+def _elastic_check(label, rep, segments, want_dims):
+    """The report, the restored state's digests against the saved ones,
+    the losses equal across each segment's ranks.  Returns the leaves'
+    names (rank 0 of the last segment)."""
+    first, last = segments
+    check((rep.steps_done, rep.restarts) == (ELASTIC_STEPS, 1)
+          and [(p.data, p.model) for p in rep.mesh_history] == want_dims,
+          f"{label}: report {rep}")
+    at = ELASTIC_CKPT_EVERY
+    saved, restored = {}, {}
+    for o in first["ranks"]:
+        saved.update(o["saved"].get(at, {}))
+    for o in last["ranks"]:
+        check(o["restored_step"] == at, f"{label}: rank restored step "
+              f"{o['restored_step']}, not {at}")
+        restored.update(o["restored"])
+    names = last["ranks"][0]["names"]
+    check(len(saved) == len(names) and restored == saved,
+          f"{label}: the state restored on {last['dims']} differs from the "
+          f"state {first['dims']} saved at step {at} at leaves "
+          f"{sorted(names[i] for i in saved if restored.get(i) != saved[i])}"
+          f" ({len(saved)} saved, {len(restored)} restored, {len(names)} "
+          f"leaves)")
+    for seg in segments:
+        for r, o in enumerate(seg["ranks"]):
+            check(all(math.isfinite(x) for x in o["losses"])
+                  and o["losses"] == seg["ranks"][0]["losses"],
+                  f"{label}: rank {r} of {seg['dims']} losses {o['losses']}")
+    return names
+
+
+def phase_elastic(rt, device="cuda", smoke=False):
+    """Phase 16 (the module docstring): (a) the elastic restart from
+    (2, 2) onto (1, 2), uncompressed, against one device's run; (b)
+    compressed, (2, 1) onto (1, 1).  Returns the narrow kernels' launches
+    of (b), all ranks."""
+    t0 = time.perf_counter()
+    pygc.collect()
+    clear_csr_caches(rt)
+    print(f"phase 16: checkpoints of sharded state and the elastic re-mesh: "
+          f"TrainSupervisor restarting {TRAIN_ARCH} (full width, "
+          f"{SUPERVISED_LAYERS} layers) from (2, 2) onto (1, 2) and, "
+          f"compressed, from (2, 1) onto (1, 1), on gloo ranks sharing the "
+          f"card")
+    base = dict(device=device, smoke=smoke, batch=TRAIN_BATCH,
+                seq=TRAIN_SEQ if not smoke else 16)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_elastic_") as d:
+        rep, segs = elastic_supervised(rt, base, ELASTIC_HOSTS,
+                                       ELASTIC_MODEL, False,
+                                       os.path.join(d, "a"))
+        m = _elastic_modules()
+        t = time.perf_counter()
+        one = elastic_trainer(m, dict(base, compress=False), ELASTIC_STEPS,
+                              None).fit()["losses"]
+        one_s = time.perf_counter() - t
+        crep, csegs = elastic_supervised(rt, base, ELASTIC_COMP_HOSTS,
+                                         ELASTIC_COMP_MODEL, True,
+                                         os.path.join(d, "b"))
+        kept = {k: sorted(os.listdir(os.path.join(d, k))) for k in "ab"}
+    # (a)
+    _elastic_lines("(a)", segs)
+    names = _elastic_check("phase 16 (a)", rep, segs, [(2, 2), (1, 2)])
+    first, last = segs
+    mesh_losses = (first["ranks"][0]["losses"][:ELASTIC_CKPT_EVERY]
+                   + last["ranks"][0]["losses"])
+    rel = [abs(a - b) / abs(b) for a, b in zip(mesh_losses, one)]
+    print(f"  (a) steps_done {rep.steps_done}, restarts {rep.restarts}, "
+          f"meshes {[(p.data, p.model) for p in rep.mesh_history]}; the "
+          f"state restored on (1, 2), gathered, bit-equal (sha256) to the "
+          f"state (2, 2) gathered when it saved step {ELASTIC_CKPT_EVERY}, "
+          f"all {len(names)} leaves (parameters, m, v, step); losses "
+          f"{[round(x, 5) for x in mesh_losses]} against one device's "
+          f"uninterrupted {[round(x, 5) for x in one]} ({one_s:.1f} s): "
+          f"relative |d| {[f'{x:.2e}' for x in rel]} (tolerance 2^-8); "
+          f"checkpoints kept {kept['a']}")
+    check(len(rel) == ELASTIC_STEPS and max(rel) <= BF16_EPS,
+          f"phase 16 (a): losses {mesh_losses} against one device's {one}")
+    if device == "cuda":
+        launched = {k: v for seg in segs for o in seg["ranks"]
+                    for k, v in o["launches"].items() if v}
+        check(not launched, f"phase 16 (a): uncompressed, yet {launched}")
+    # (b)
+    _elastic_lines("(b)", csegs)
+    cnames = _elastic_check("phase 16 (b)", crep, csegs, [(2, 1), (1, 1)])
+    n_comp = csegs[0]["ranks"][0]["n_comp"]
+    n_err = sum(n.startswith("['err']") for n in cnames)
+    check(n_err > 0, "phase 16 (b): no error-feedback state in the "
+          "checkpoint")
+    launches = dict.fromkeys(NARROW_KERNELS, 0)
+    for seg in csegs:
+        steps = seg["end"] - seg["start"]
+        for r, o in enumerate(seg["ranks"]):
+            for k in NARROW_KERNELS:
+                launches[k] += o["launches"][k]
+            check(device != "cuda" or (
+                all(o["launches"][k] == n_comp * steps
+                    for k in NARROW_KERNELS)
+                and sum(o["launches"].values()) == 2 * n_comp * steps),
+                  f"phase 16 (b): rank {r} of {seg['dims']} launches "
+                  f"{({k: v for k, v in o['launches'].items() if v})}, not "
+                  f"one narrow forward and transpose a compressed leaf "
+                  f"({n_comp}) a step ({steps})")
+            check(device != "cuda" or not o["plain"],
+                  f"phase 16 (b): rank {r} plain versions {o['plain']}")
+    print(f"  (b) steps_done {crep.steps_done}, restarts {crep.restarts}, "
+          f"meshes {[(p.data, p.model) for p in crep.mesh_history]}; the "
+          f"restored state bit-equal to the saved one at all {len(cnames)} "
+          f"leaves, {n_err} of them the error-feedback state; one narrow "
+          f"forward and one narrow transpose a compressed leaf ({n_comp}) a "
+          f"step a rank, no plain version: {launches}; losses "
+          f"{[round(x, 5) for x in csegs[0]['ranks'][0]['losses']]} then "
+          f"{[round(x, 5) for x in csegs[1]['ranks'][0]['losses']]}; "
+          f"checkpoints kept {kept['b']}")
+    took = time.perf_counter() - t0
+    print(f"  phase 16 took {took:.1f} s (budget {ELASTIC_BUDGET_S:.0f})")
+
+    def seg_json(seg):
+        return dict(dims=seg["dims"], start=seg["start"], end=seg["end"],
+                    wall_s=seg["wall_s"], ranks=[dict(
+                        {k: o[k] for k in ("losses", "walls_ms", "saves",
+                                           "peak")},
+                        restore_s=o["restore_s"] if o["restored_step"]
+                        else None,
+                        launches={k: v for k, v in o["launches"].items()
+                                  if v}) for o in seg["ranks"]])
+    print("elastic: " + json.dumps(dict(
+        a=[seg_json(s) for s in segs], one_device=one, loss_rel=rel,
+        b=[seg_json(s) for s in csegs], launches=launches, seconds=took)))
+    if device == "cuda":
+        check(took <= ELASTIC_BUDGET_S, f"phase 16 took {took:.1f} s, over "
+              f"its {ELASTIC_BUDGET_S:.0f} s")
+    clear_csr_caches(rt)
+    return launches
+
+
 class PortMissing(Exception):
     pass
 
@@ -5704,8 +6054,10 @@ def main() -> int:
         pod = timed("phase 13", phase_pod, rt)
         timed("phase 14", phase_dryrun, rt)
         sharded = timed("phase 15", phase_sharded, rt)
+        elastic = timed("phase 16", phase_elastic, rt)
         rows += narrow_rows(n1, {k: trained[k] + families[k] + pod[k]
-                                 + sharded[k] for k in NARROW_KERNELS})
+                                 + sharded[k] + elastic[k]
+                                 for k in NARROW_KERNELS})
         print("tuned: " + json.dumps({
             f"{v}/{dt}": dict(rule=[r["tn"], r["row_splits"],
                                     round(r["time_us"], 2),

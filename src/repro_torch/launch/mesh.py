@@ -127,6 +127,14 @@ def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...]) -> Mesh:
     return Mesh(shape, axes)
 
 
+def mesh_for_plan(plan) -> Mesh:
+    """The (data, model) mesh of an ``ElasticPlanner`` plan
+    (``train/fault_tolerance.py``'s ``MeshPlan``): ``(plan.data,
+    plan.model)`` over ``("data", "model")``, the mesh of a supervisor's
+    segment."""
+    return Mesh((plan.data, plan.model), ("data", "model"))
+
+
 def batch_axes_of(mesh) -> Tuple[str, ...]:
     """All non-'model' axes carry the batch (pod composes with data)."""
     return tuple(a for a in mesh.axis_names if a != "model")

@@ -96,14 +96,7 @@ def activate(ctx: ShardingContext):
         _STATE.ctx = prev
 
 
-def is_dtensor(x) -> bool:
-    """Whether ``x`` is a DTensor (``torch.distributed.tensor`` is imported
-    only once a tensor that is not an ordinary one turns up)."""
-    if type(x) is torch.Tensor or isinstance(x, torch.nn.Parameter) \
-            or not torch.distributed.is_available():
-        return False
-    from torch.distributed.tensor import DTensor
-    return isinstance(x, DTensor)
+is_dtensor = tr.is_dtensor
 
 
 def spec_placements(axis_names, spec: PartitionSpec) -> tuple:
@@ -132,17 +125,20 @@ def _wsc(x: torch.Tensor, spec: PartitionSpec) -> torch.Tensor:
     return x.redistribute(mesh, want)
 
 
-def local_shard(shape, mesh, placements):
+def local_shard(shape, mesh, placements, coord=None):
     """(local shape, global offset) of this rank's shard of a DTensor of
-    global ``shape``: ``torch.chunk``'s split of each sharded dimension,
-    mesh axis after mesh axis, read with host integers only (DTensor's own
-    helper reads a tensor, which a fake tensor cannot give)."""
+    global ``shape`` (of the rank at mesh coordinates ``coord``, one index
+    a mesh axis, where given): ``torch.chunk``'s split of each sharded
+    dimension, mesh axis after mesh axis, read with host integers only
+    (DTensor's own helper reads a tensor, which a fake tensor cannot
+    give)."""
     shape, off = list(shape), [0] * len(shape)
     for m, p in enumerate(placements):
         if p.is_shard():
             d, n = p.dim, mesh.size(m)
             chunk = -(-shape[d] // n)
-            start = min(mesh.get_local_rank(m) * chunk, shape[d])
+            at = mesh.get_local_rank(m) if coord is None else coord[m]
+            start = min(at * chunk, shape[d])
             off[d] += start
             shape[d] = max(0, min(chunk, shape[d] - start))
     return tuple(shape), tuple(off)

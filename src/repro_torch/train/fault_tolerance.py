@@ -5,8 +5,12 @@ Host logic with no tensors, copied so that the port never imports the
 reference; the decisions, the clock injection and the exceptions are the
 reference's.  On a fleet these hooks bind to the cluster runtime's health
 signals; here the *policies* are implemented and tested against a
-simulated cluster, and ``chip_smoke.py`` phase 13 drives the supervisor
-around the port's ``Trainer`` on the card:
+simulated cluster.  ``chip_smoke.py`` drives the supervisor around the
+port's ``Trainer`` on the card: phase 13 on one device, phase 16 over
+real ranks, re-meshing them: each segment a fresh gloo group of its
+plan's size (``launch.mesh.mesh_for_plan``), a (2, 2) mesh's checkpoint
+of DTensor state restored onto (1, 2) after a host's heartbeat stops
+(``Trainer(mesh=)``, ``checkpoint.restore(shardings=)``):
 
   * HeartbeatMonitor      — per-host deadline tracking, failure detection
   * StragglerDetector     — per-step time EWMA + k·σ outlier rule

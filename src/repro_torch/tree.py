@@ -90,14 +90,37 @@ def from_numpy(arr) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def to_numpy(t: torch.Tensor) -> Tuple[np.ndarray, str]:
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a DTensor (imported only once a tensor that is not
+    an ordinary one turns up)."""
+    if type(x) is torch.Tensor or isinstance(x, torch.nn.Parameter) \
+            or not torch.distributed.is_available():
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def to_numpy(t: torch.Tensor, name: str = "") -> Tuple[np.ndarray, str]:
     """A leaf as a host numpy array and its dtype's name; bfloat16 as its
-    uint16 view, as the reference stores it."""
+    uint16 view, as the reference stores it.  A DTensor is refused (each
+    rank holds a chunk of it: ``train.checkpoint`` gathers it first);
+    ``name`` names the leaf in the error."""
+    if is_dtensor(t):
+        raise TypeError(f"leaf {name or '?'} is a DTensor: each rank holds "
+                        f"a chunk of it, gather it first (checkpoint.save "
+                        f"gathers DTensor leaves to their owner ranks)")
     t = t.detach().to("cpu")
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
     arr = t.numpy()
     return arr, str(arr.dtype)
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    """The name ``to_numpy`` gives a leaf of ``dtype`` (numpy's)."""
+    if dtype == torch.bfloat16:
+        return "bfloat16"
+    return str(torch.empty((), dtype=dtype).numpy().dtype)
 
 
 def get(tree, path: Path):
