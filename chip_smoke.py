@@ -299,6 +299,33 @@ Phases, any failure exits non-zero and prints no result:
      Each save's gather, write and publish wait, the bytes each rank
      writes, each restore's seconds, each segment's step walls, the peak
      per rank.  At most 180 s.  Its launches add to the narrow rows.
+ 17. the example twins (``examples/torch_*.py``), each ``main(argv)``
+     called in this process at the example's own full size, the earlier
+     phases' CSRs cleared first: quickstart (d = 8 192, n = 256,
+     k = 1 024), least_squares (d = 4 096, n = 64, cond 1e4),
+     randnla_tasks (d = 8 192, n = 128, k = 1 024), grass_attribution
+     ``--full`` (784 → 256 → 256, 1 024 train examples, m = 50, k = 1 024)
+     and train_lm ``--preset 100m --grad-compress 8 --steps 300`` (12
+     layers, d_model 768, vocab 32 000, f32; the reference docstring's
+     300 steps: the compressed loss stays flat for about 140 steps, so at
+     100 the last ten steps' mean sat 0.004 below the first ten's, within
+     a step's noise, and at 300 it falls by about 1.05).
+     For each: the launch counts from zero (``EXAMPLE_KERNELS``: the
+     forward, transpose and FLASHBLOCKROW for quickstart, the forward for
+     least_squares and randnla_tasks, both gathers for grass, the narrow
+     forward and transpose for train_lm, each at least once), no call of a
+     plain version, every kernel it launched held element by element to
+     its plain version (``PlainHold``: the inputs and output of the first
+     launch of each (kernel, plan, n) kept, the plain version run on them
+     after the twin, within the plan's exactness_atol x max|plain| as in
+     phases 2 and 4), its lines and seconds, and the example's own checks:
+     least_squares' asserts; every Gram error and residual of quickstart
+     and randnla_tasks finite, their blockperm lines within 1e-4 relative
+     of the same twin's ``--device cpu`` run (run first, not counted);
+     grass's LDS finite and blockperm's above 0; train_lm's losses finite
+     and the last ten steps' mean below the first ten's, and whether the
+     reference's drop > 0.5 held.  At most ``EXAMPLES_BUDGET_S``.  Its
+     launches add to the kernels line's rows.
 
 Phase 2 also holds the three v1 kernels (ragged n with d < d_pad, κ × s ∈
 {1,2,4}², a Br = 2 048 plan, the main plan; each also under every row
@@ -338,6 +365,8 @@ import contextlib
 import dataclasses
 import gc as pygc
 import gzip
+import importlib.util
+import io
 import json
 import math
 import os
@@ -3615,8 +3644,9 @@ def train_kernels(rt, plans, free_csrs=False):
 def narrow_rows(n1, launches):
     """The kernels line's rows of the two narrow kernels, at the largest
     plan of ``n1`` (``train_kernels``' rows: qwen3-0.6b's embedding plan),
-    with ``launches`` from the training phases and phase 13's compression
-    (both pods' and the supervised runs')."""
+    with ``launches`` from the training phases, phase 13's compression
+    (both pods' and the supervised runs'), phases 15-16 (b) and phase 17's
+    train_lm and sketches of n = 1."""
     row = n1[max(n1)]
     out = []
     for op in ("fwd", "transpose"):
@@ -5902,6 +5932,271 @@ def phase_elastic(rt, device="cuda", smoke=False):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the example twins (examples/torch_*.py) on the card.
+# ---------------------------------------------------------------------------
+
+# each twin's flags: its own full size; train_lm's 100m preset for
+# EXAMPLE_LM_STEPS steps (the reference docstring's; see the module
+# docstring), compressed at ratio 8
+EXAMPLE_LM_STEPS = 300
+EXAMPLES = (
+    ("torch_quickstart", []),
+    ("torch_least_squares", []),
+    ("torch_randnla_tasks", []),
+    ("torch_grass_attribution", ["--full"]),
+    ("torch_train_lm", ["--preset", "100m", "--grad-compress", "8",
+                        "--steps", str(EXAMPLE_LM_STEPS)]),
+)
+# the kernels each twin must launch (rows 1, 2, 4; 1; 1; 3, 5; 1n, 2n)
+EXAMPLE_KERNELS = {
+    "torch_quickstart": ("flashsketch_fwd", "flashsketch_transpose",
+                         "blockrow_fwd"),
+    "torch_least_squares": ("flashsketch_fwd",),
+    "torch_randnla_tasks": ("flashsketch_fwd",),
+    "torch_grass_attribution": ("flashsketch_fwd_gather",
+                                "blockrow_fwd_gather"),
+    "torch_train_lm": NARROW_KERNELS,
+}
+# the blockperm numbers each twin returns (``example_values``' labels),
+# held on the card to the same twin's --device cpu run (relative):
+# quickstart's plan and blockperm family's Gram errors, randnla_tasks'
+# blockperm residual of each dataset
+EXAMPLE_BLOCKPERM = {"torch_quickstart": ("plan", "blockperm"),
+                     "torch_randnla_tasks": ("gaussian blockperm",
+                                             "lowrank_noise blockperm",
+                                             "llm_weights blockperm")}
+EXAMPLE_REL_TOL = 1e-4
+# at least twice the phase's slowest run: 77.7 s with 300 LM steps on an
+# H100 80GB HBM3 at 700 W (71.0-92.6 ms a step)
+EXAMPLES_BUDGET_S = 200.0
+# the wrappers whose launches phase 17 holds to their plain versions
+HELD_WRAPPERS = ("flashsketch_fwd", "flashsketch_transpose",
+                 "flashsketch_fwd_gather", "blockrow_fwd",
+                 "blockrow_fwd_gather")
+
+
+def load_example(name):
+    """``examples/<name>.py`` beside this script, as a fresh module."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", os.path.join(root, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def example_main(mod, argv):
+    """``mod.main(argv)`` with its lines captured: (its return, lines)."""
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = mod.main(argv)
+    finally:
+        lines = buf.getvalue().splitlines()
+    return out, lines
+
+
+def example_values(name, out):
+    """The numbers a twin's ``main`` returns, flat by label: quickstart's
+    Gram errors, randnla_tasks' residuals as "<dataset> <direct|family>"."""
+    if name == "torch_randnla_tasks":
+        return {f"{ds} {key}": v for ds, row in out.items()
+                for key, v in row.items()}
+    return dict(out)
+
+
+def held_plain(rt, name, plan, A, row_map=None):
+    """The plain version of wrapper ``name`` on the inputs of one of its
+    launches: the wrapper's CPU branch, run on the card's tensors."""
+    fsk, ref = rt["fsk"], rt["ref"]
+    x = fsk._stream(plan, A)
+    if name == "flashsketch_fwd":
+        return ref.flashsketch_ref(plan, x.to(torch.float32))
+    if name == "flashsketch_transpose":
+        full = dataclasses.replace(plan, d=plan.d_pad)
+        return ref.flashsketch_transpose_ref(full, x.to(torch.float32))
+    if name == "flashsketch_fwd_gather":
+        return ref.flashsketch_ref(plan, ref.gather_rows(plan, x, row_map))
+    if name == "blockrow_fwd_gather":
+        x = ref.gather_rows(plan, x, row_map)
+    return ref.blockrow_ref(plan, x.to(torch.float32))
+
+
+class PlainHold:
+    """While a twin runs, each ``HELD_WRAPPERS`` wrapper keeps its first
+    launch of each (kernel, plan, n): its inputs and its output, cloned
+    where they lie.  ``check`` then holds every kept output to its plain
+    version on the same inputs (``_err``, phases 2 and 4's tolerance: the
+    plan's exactness_atol x max|plain|).  ``close`` puts the wrappers back,
+    the lowering's table of gathers too."""
+
+    def __init__(self, rt):
+        self.rt, self.kept = rt, {}
+        fsk, table = rt["fsk"], rt["lowering"]._GATHER_KERNELS
+        self._orig = {name: getattr(fsk, name) for name in HELD_WRAPPERS}
+        self._table = dict(table)
+        for name, fn in self._orig.items():
+            setattr(fsk, name, self._wrap(name, fn))
+        table.update(fwd=fsk.flashsketch_fwd_gather,
+                     blockrow=fsk.blockrow_fwd_gather)
+
+    def _wrap(self, name, fn):
+        launches = self.rt["fsk"].LAUNCHES
+
+        def held(plan, A, *args, **kwargs):
+            before = dict(launches)
+            out = fn(plan, A, *args, **kwargs)
+            kernels = tuple(k for k, v in launches.items()
+                            if v != before.get(k, 0))
+            key = (name, kernels, plan, A.shape[1])
+            if key not in self.kept:
+                self.kept[key] = (A.clone(), [a.clone() for a in args],
+                                  out.clone())
+            return out
+        return held
+
+    def close(self):
+        fsk = self.rt["fsk"]
+        for name, fn in self._orig.items():
+            setattr(fsk, name, fn)
+        self.rt["lowering"]._GATHER_KERNELS.update(self._table)
+
+    def check(self, twin):
+        """Every kept launch against its plain version; fails the phase
+        on a miss.  Returns {kernel: [cases, max_abs_err, worst
+        err / max|plain|]} (the wrapper's name where the CPU launched
+        none)."""
+        out = {}
+        for (name, kernels, plan, n), (A, args, got) in self.kept.items():
+            want = held_plain(self.rt, name, plan, A, *args)
+            err = _err(got, want, plan, f"phase 17 {twin}: {name} "
+                       f"({'/'.join(kernels) or 'plain'}) at "
+                       f"{plan.describe()}, n = {n}")
+            scale = max(float(want.abs().max()), 1e-30)
+            row = out.setdefault("/".join(kernels) or name, [0, 0.0, 0.0])
+            row[0] += 1
+            row[1], row[2] = max(row[1], err), max(row[2], err / scale)
+        self.kept.clear()
+        return out
+
+
+def example_checks(name, out, cpu_out, lm_steps):
+    """Each twin's own checks (least_squares' asserts ran in its main)."""
+    if name in EXAMPLE_BLOCKPERM:
+        values, cpu = example_values(name, out), example_values(name, cpu_out)
+        check(values.keys() == cpu.keys() and all(
+            math.isfinite(v) for v in values.values()),
+              f"phase 17 {name}: values {values}, CPU {cpu}")
+        rel = {k: abs(values[k] - cpu[k]) / abs(cpu[k])
+               for k in EXAMPLE_BLOCKPERM[name]}
+        print(f"  card against --device cpu, relative (the blockperm "
+              f"lines, within {EXAMPLE_REL_TOL:g}): "
+              f"{ {k: f'{v:.2e}' for k, v in rel.items()} }")
+        for k, r in rel.items():
+            check(r <= EXAMPLE_REL_TOL,
+                  f"phase 17 {name}: {k}: {values[k]} on the card, "
+                  f"{cpu[k]} on the CPU")
+    elif name == "torch_grass_attribution":
+        lds = {fam: r["lds"] for fam, r in out.items()}
+        us = {fam: round(r["per_sample_us"], 3) for fam, r in out.items()}
+        print(f"  LDS {lds}; per_sample_us on the card {us}")
+        check(len(lds) == 4 and all(math.isfinite(v) for v in lds.values())
+              and lds["blockperm"] > 0, f"phase 17 {name}: LDS {lds}")
+    elif name == "torch_train_lm":
+        losses = out["losses"]
+        check(len(losses) == lm_steps
+              and all(math.isfinite(x) for x in losses),
+              f"phase 17 {name}: losses {losses}")
+        l0, l1 = statistics.fmean(losses[:10]), statistics.fmean(losses[-10:])
+        print(f"  losses: first ten {l0:.4f}, last ten {l1:.4f} (drop "
+              f"{l0 - l1:.4f}); the reference's 'structure learned' (a drop "
+              f"> 0.5) at {lm_steps} steps: {l1 < l0 - 0.5}; fit "
+              f"{out['wall_s']:.1f} s, {1e3 * out['wall_s'] / len(losses):.1f}"
+              f" ms a step")
+        check(l1 < l0, f"phase 17 {name}: the last ten steps' mean loss "
+              f"{l1} not below the first ten's {l0}")
+
+
+def phase_examples(rt, device="cuda", smoke=False):
+    """Phase 17 (the module docstring): each example twin's ``main`` at its
+    own full size on the card.  Returns the launches of all five.  With
+    ``smoke`` (the code on the CPU: ``device="cpu"``) grass_attribution
+    runs at its default size and train_lm's tiny preset for 12 steps, and
+    the launch checks are skipped."""
+    t0 = time.perf_counter()
+    pygc.collect()
+    clear_csr_caches(rt)
+    fsk = rt["fsk"]
+    print("phase 17: the example twins (examples/torch_*.py) on the card, "
+          "each main() at its own full size")
+    mods = {name: load_example(name) for name, _ in EXAMPLES}
+    cpu = {}
+    for name in EXAMPLE_BLOCKPERM:
+        t = time.perf_counter()
+        cpu[name], _ = example_main(mods[name], ["--device", "cpu"])
+        print(f"  {name} --device cpu (the checks' reference): "
+              f"{time.perf_counter() - t:.1f} s")
+    total, seconds, held = {}, {}, {}
+    for name, argv in EXAMPLES:
+        if smoke:
+            argv = {"torch_grass_attribution": [],
+                    "torch_train_lm": ["--steps", "12"]}.get(name, argv)
+        argv = argv + ["--device", device]
+        calls = {}
+        restore_plain = spy_plain(rt, calls)
+        hold = PlainHold(rt)
+        fsk.reset_launch_counts()
+        t = time.perf_counter()
+        try:
+            out, lines = example_main(mods[name], argv)
+            _sync(device)
+        except AssertionError as exc:
+            raise SmokeFailure(f"phase 17 {name}: the example's own assert "
+                               f"failed: {exc}") from exc
+        finally:
+            hold.close()
+            restore_plain()
+        seconds[name] = time.perf_counter() - t
+        launches = {k: v for k, v in fsk.LAUNCHES.items() if v}
+        print(f"  {name} {' '.join(argv)}: {seconds[name]:.1f} s")
+        for ln in lines:
+            print(f"    {ln}")
+        print(f"  launch counts: {launches}; plain-version calls: "
+              f"{calls or 0}")
+        if device == "cuda":
+            for k in EXAMPLE_KERNELS[name]:
+                check(launches.get(k, 0) >= 1,
+                      f"phase 17 {name}: {k} never launched ({launches})")
+            check(not calls, f"phase 17 {name}: a plain version ran: "
+                  f"{calls}")
+        kept = {k for key in hold.kept for k in key[1]}
+        held[name] = hold.check(name)
+        print(f"  held to the plain versions on the same inputs, the first "
+              f"launch of each (kernel, plan, n): {held[name]} (kernel: "
+              f"[cases, max_abs_err, worst err / max|plain|])")
+        for k in launches:
+            check(k in kept, f"phase 17 {name}: no launch of {k} held to "
+                  f"its plain version (held: {sorted(kept)})")
+        example_checks(name, out, cpu.get(name),
+                       12 if smoke else EXAMPLE_LM_STEPS)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        del out
+        pygc.collect()
+        clear_csr_caches(rt)
+    took = time.perf_counter() - t0
+    print(f"  phase 17 took {took:.1f} s (budget {EXAMPLES_BUDGET_S:.0f})")
+    print("examples: " + json.dumps(dict(
+        seconds={k: round(v, 3) for k, v in seconds.items()},
+        launches=total, held=held, lm_steps=EXAMPLE_LM_STEPS,
+        total_s=round(took, 3))))
+    if device == "cuda":
+        check(took <= EXAMPLES_BUDGET_S, f"phase 17 took {took:.1f} s, over "
+              f"its {EXAMPLES_BUDGET_S:.0f} s")
+    return total
+
+
 class PortMissing(Exception):
     pass
 
@@ -6055,8 +6350,12 @@ def main() -> int:
         timed("phase 14", phase_dryrun, rt)
         sharded = timed("phase 15", phase_sharded, rt)
         elastic = timed("phase 16", phase_elastic, rt)
+        examples = timed("phase 17", phase_examples, rt)
+        for row in rows:
+            row["launches"] += examples.get(row["name"], 0)
         rows += narrow_rows(n1, {k: trained[k] + families[k] + pod[k]
                                  + sharded[k] + elastic[k]
+                                 + examples.get(k, 0)
                                  for k in NARROW_KERNELS})
         print("tuned: " + json.dumps({
             f"{v}/{dt}": dict(rule=[r["tn"], r["row_splits"],

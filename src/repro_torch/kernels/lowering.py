@@ -200,6 +200,42 @@ class Lowering:
         """The tuner's shape-class name of the kernel that runs."""
         return self.op + ("_gather" if self.gather_fused else "")
 
+    def to_json(self) -> Dict:
+        """Stable JSON form (the golden-snapshot serialization of
+        ``tests/data/torch_lowering_snapshot.json``)."""
+        p = self.plan
+        return {
+            "op": self.op,
+            "impl": self.impl,
+            "impl_requested": self.impl_requested,
+            "device": self.device,
+            "downgrade": self.downgrade,
+            "tn": self.tn,
+            "tn_source": self.tn_source,
+            "row_splits": self.row_splits,
+            "route": self.route,
+            "dtype": self.dtype,
+            "gather": self.gather,
+            "gather_fused": self.gather_fused,
+            "batch": self.batch,
+            "shard": self.shard,
+            "devices": self.devices,
+            "n": self.n,
+            "n_loc": self.n_loc,
+            "batch_loc": self.batch_loc,
+            "n_eff": self.n_eff,
+            "grid_cols": self.grid_cols,
+            "groups": self.groups,
+            "smem_bytes": self.smem_bytes,
+            "pad_rows": self.pad_rows,
+            "variant": self.variant,
+            "version": self.version,
+            "plan": {"d": p.d, "d_pad": p.d_pad, "k_pad": p.k_pad,
+                     "M": p.M, "Br": p.Br, "Bc": p.Bc,
+                     "kappa": p.kappa, "s": p.s, "dtype": p.dtype,
+                     "family": p.family},
+        }
+
     def describe(self) -> str:
         bits = [self.op, f"impl={self.impl}"]
         if self.impl != self.impl_requested:
